@@ -1,0 +1,181 @@
+"""Weight bridge: the JAX package's variables -> the port's modules.
+
+Input trees are nested dicts of numpy arrays in the JAX package's
+layout (the `{"params": ..., "batch_stats": ...}` variables of its
+Text2Token, SeqVQAutoencoder and DAE). Conversions:
+  flax Dense kernel (in, out)       -> Linear weight (out, in)
+  GRU l{n}_w_ih / w_hh / b_ih / b_hh -> copied, already torch layout
+  pre_bn scale/bias + batch_stats    -> BatchNorm1d (eps 1e-5)
+  TCN Conv_0.kernel (k, in, out) + WeightNorm scale
+      -> w = kernel * rsqrt(sum_{k,in} kernel^2 + 1e-12) * scale,
+         permuted to (out, in, k)
+  downsample kernel (1, in, out)     -> (out, in, 1)
+Shapes (widths, layers, vocabulary) are read from the arrays; what
+the arrays cannot say (steps, teacher prefix) is passed in. Reading the
+JAX package's msgpack checkpoint files is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
+from gesture2vec_tpu_torch.models.dae import DAE
+from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
+from gesture2vec_tpu_torch.models.text2token import Text2Token
+from gesture2vec_tpu_torch.text.vocab import Vocab
+
+Tree = Mapping[str, object]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+@torch.no_grad()
+def _set(param: torch.Tensor, value: torch.Tensor) -> None:
+    if tuple(param.shape) != tuple(value.shape):
+        raise ValueError(f"shape {tuple(value.shape)} does not fit "
+                         f"{tuple(param.shape)}")
+    param.copy_(value)
+
+
+def _dense(mod: nn.Linear, p: Tree) -> None:
+    _set(mod.weight, _t(p["kernel"]).t())
+    _set(mod.bias, _t(p["bias"]))
+
+
+def _bn(mod: nn.BatchNorm1d, p: Tree, stats: Tree) -> None:
+    _set(mod.weight, _t(p["scale"]))
+    _set(mod.bias, _t(p["bias"]))
+    _set(mod.running_mean, _t(stats["mean"]))
+    _set(mod.running_var, _t(stats["var"]))
+
+
+def _gru(mod: nn.Module, p: Tree) -> None:
+    for name, param in mod.named_parameters():
+        _set(param, _t(p[name]))
+
+
+def _n_layers(gru: Tree) -> int:
+    return sum(1 for k in gru if k.endswith("_w_hh"))
+
+
+def _weight_norm_conv(conv: Tree, wn: Tree) -> torch.Tensor:
+    k = np.asarray(conv["kernel"], np.float32)               # (k, in, out)
+    scale = np.asarray(wn["Conv_0/kernel/scale"], np.float32)
+    norm = (k * k).sum(axis=(0, 1), keepdims=True) + 1e-12
+    w = k / np.sqrt(norm) * scale[None, None, :]
+    return torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)))
+
+
+def text2token_from_jax(variables: Tree, *, n_steps: int,
+                        n_pre_poses: int = 2) -> Text2Token:
+    """A Text2Token (TCN encoder, greedy decode) from JAX variables."""
+    p = variables["params"]
+    enc, dec = p["encoder"], p["decoder_step"]
+    n_words, embed = np.shape(enc["embedding_table"])
+    n_tokens, hidden = np.shape(dec["token_embedding"]["embedding"])
+    blocks = sorted(enc["tcn"], key=lambda b: int(b[len("block"):]))
+    kernel_size = np.shape(enc["tcn"]["block0"]["conv1"]["Conv_0"]
+                           ["kernel"])[0]
+    model = Text2Token(
+        n_words=n_words, n_tokens=n_tokens, hidden_size=hidden,
+        n_layers=_n_layers(dec["gru"]), n_steps=n_steps,
+        n_pre_poses=n_pre_poses, word_embed_size=embed,
+        use_attention="attn" in dec, kernel_size=kernel_size)
+    if len(blocks) != model.n_layers:
+        raise ValueError(f"{len(blocks)} TCN blocks for "
+                         f"{model.n_layers} decoder layers")
+
+    e = model.encoder
+    _set(e.embedding_table.weight, _t(enc["embedding_table"]))
+    for block, name in zip(e.tcn.blocks, blocks):
+        src = enc["tcn"][name]
+        for conv in ("conv1", "conv2"):
+            _set(getattr(block, conv).weight,
+                 _weight_norm_conv(src[conv]["Conv_0"], src[conv]["wn"]))
+            _set(getattr(block, conv).bias, _t(src[conv]["Conv_0"]["bias"]))
+        if block.downsample is not None:
+            _set(block.downsample.weight,
+                 _t(src["downsample"]["kernel"]).permute(2, 1, 0))
+            _set(block.downsample.bias, _t(src["downsample"]["bias"]))
+    _dense(e.decoder, enc["decoder"])
+    _dense(e.hidden_proj, enc["hidden_proj"])
+
+    d = model.decoder_step
+    _set(d.token_embedding.weight, _t(dec["token_embedding"]["embedding"]))
+    if d.attn is not None:
+        _dense(d.attn.attn, dec["attn"]["attn"])
+        _set(d.attn.v, _t(dec["attn"]["v"]))
+    _dense(d.pre_linear, dec["pre_linear"])
+    _bn(d.pre_bn, dec["pre_bn"],
+        variables["batch_stats"]["decoder_step"]["pre_bn"])
+    _gru(d.gru, dec["gru"])
+    _dense(d.out_layer, dec["out_layer"])
+    return model.eval()
+
+
+def seq_decoder_from_jax(variables: Tree, *, n_frames: int,
+                         n_pre_poses: int = 1,
+                         conditioned: bool = True) -> SeqDecoder:
+    """The decoder half (codebook + decoder step) of a JAX
+    SeqVQAutoencoder."""
+    p = variables["params"]
+    dec = p["decoder_step"]
+    codebook = p["vq_layer"]["codebook"]
+    rep_dim, hidden = np.shape(dec["pre_linear"]["kernel"])
+    model = SeqDecoder(rep_dim=rep_dim, hidden_size=hidden,
+                       n_layers=_n_layers(dec["gru"]), n_frames=n_frames,
+                       n_codes=np.shape(codebook)[0],
+                       n_pre_poses=n_pre_poses, conditioned=conditioned)
+    _set(model.codebook, _t(codebook))
+    s = model.decoder_step
+    _dense(s.pre_linear, dec["pre_linear"])
+    _bn(s.pre_bn, dec["pre_bn"],
+        variables["batch_stats"]["decoder_step"]["pre_bn"])
+    _gru(s.gru, dec["gru"])
+    _dense(s.out_layer, dec["out_layer"])
+    return model.eval()
+
+
+def dae_from_jax(variables: Tree, *, motion_dim: int,
+                 latent_dim: int) -> DAE:
+    """A DAE from JAX variables (latent_dim -1 / -2 are the sentinels)."""
+    model = DAE(motion_dim, latent_dim)
+    if latent_dim != -1:
+        p = variables["params"]
+        _dense(model.encoder, p["encoder"])
+        _dense(model.decoder, p["decoder"])
+    return model.eval()
+
+
+def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
+                       dae_variables: Tree, vocab: Vocab,
+                       pose_mean: np.ndarray, pose_std: np.ndarray, *,
+                       n_frames: int = 20, sentence_frame_length: int = 120,
+                       fps: int = 20, max_words: int = 48,
+                       t2t_n_pre_poses: int = 2,
+                       dae_latent_dim: Optional[int] = None,
+                       device: Optional[Union[str, torch.device]] = None,
+                       **gen_kwargs) -> GestureGenerator:
+    """A decode-mode GestureGenerator from the three JAX variable trees,
+    with the same settings as the JAX package's GestureGenerator.
+    dae_latent_dim None reads the latent width from the DAE weights."""
+    motion_dim = np.shape(pose_mean)[0]
+    if dae_latent_dim is None:
+        dae_latent_dim = np.shape(dae_variables["params"]["decoder"]
+                                  ["kernel"])[0]
+    return GestureGenerator(
+        t2t_model=text2token_from_jax(
+            t2t_variables, n_steps=sentence_frame_length // n_frames,
+            n_pre_poses=t2t_n_pre_poses),
+        seq_decoder=seq_decoder_from_jax(seq_variables, n_frames=n_frames),
+        dae_model=dae_from_jax(dae_variables, motion_dim=motion_dim,
+                               latent_dim=dae_latent_dim),
+        vocab=vocab, pose_mean=pose_mean, pose_std=pose_std,
+        n_frames=n_frames, sentence_frame_length=sentence_frame_length,
+        fps=fps, max_words=max_words, device=device, **gen_kwargs)

@@ -1,0 +1,106 @@
+"""Temporal Convolutional Network text encoder (inference).
+
+Port of the JAX package's `models/tcn.py`: causal dilated convolutions
+(left pad (k-1)*dilation, dilation 2**i per block), a 1x1 downsample
+only where the width changes, and a decoder-initial hidden projected
+from each sequence's last valid TCN state. Weight normalisation is
+folded into plain conv weights when the weights are converted
+(compat/from_jax.py), so inference runs ordinary convolutions.
+
+Layouts follow the JAX package at the public functions: token ids are
+batch-major (B, S); outputs are time-major (S, B, H) and the hidden is
+(n_layers, B, H).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class CausalConv1d(nn.Module):
+    """1D causal convolution over (B, C, T); weight (out, in, k)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, dilation: int):
+        super().__init__()
+        self.dilation = dilation
+        self.pad = (kernel_size - 1) * dilation
+        self.weight = nn.Parameter(
+            torch.zeros(out_channels, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(F.pad(x, (self.pad, 0)), self.weight, self.bias,
+                        dilation=self.dilation)
+
+
+class TemporalBlock(nn.Module):
+    """conv -> relu, twice, plus a residual (1x1 downsample where the
+    width changes), then relu. Dropout is a no-op at inference."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, dilation: int):
+        super().__init__()
+        self.conv1 = CausalConv1d(in_channels, out_channels, kernel_size,
+                                  dilation)
+        self.conv2 = CausalConv1d(out_channels, out_channels, kernel_size,
+                                  dilation)
+        self.downsample = (nn.Conv1d(in_channels, out_channels, 1)
+                           if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.conv1(x))
+        h = torch.relu(self.conv2(h))
+        res = x if self.downsample is None else self.downsample(x)
+        return torch.relu(h + res)
+
+
+class TemporalConvNet(nn.Module):
+    """Stacked blocks with dilation 2**i, over (B, C, T)."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 kernel_size: int = 2):
+        super().__init__()
+        blocks = []
+        for i, ch in enumerate(channels):
+            blocks.append(TemporalBlock(in_channels, ch, kernel_size, 2 ** i))
+            in_channels = ch
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
+class TextEncoderTCN(nn.Module):
+    """Embedding -> TCN -> per-step projection, plus decoder-init hidden
+    hidden_proj(tanh(y[last valid])) reshaped to (n_layers, B, H)."""
+
+    def __init__(self, n_words: int, embed_size: int, hidden_size: int,
+                 n_layers: int, kernel_size: int = 2):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.n_layers = n_layers
+        self.embedding_table = nn.Embedding(n_words, embed_size)
+        self.tcn = TemporalConvNet(embed_size, [hidden_size] * n_layers,
+                                   kernel_size)
+        self.decoder = nn.Linear(hidden_size, hidden_size)
+        self.hidden_proj = nn.Linear(hidden_size, n_layers * hidden_size)
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) ids, lengths (B,) -> (outputs (S, B, H),
+        hidden (n_layers, B, H))."""
+        B, S = tokens.shape
+        emb = self.embedding_table(tokens)                  # (B, S, E)
+        y = self.tcn(emb.transpose(1, 2)).transpose(1, 2)   # (B, S, H)
+        outputs = self.decoder(y)
+        idx = (lengths.long() - 1).clamp(0, S - 1)
+        last = y[torch.arange(B, device=y.device), idx]     # (B, H)
+        hidden = self.hidden_proj(torch.tanh(last))
+        hidden = hidden.reshape(B, self.n_layers, self.hidden_size)
+        return outputs.transpose(0, 1), hidden.transpose(0, 1)

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under `gesture2vec_tpu_torch/csrc/` is compiled by `nvcc`
+into a shared library with a plain C interface and loaded with ctypes
+(no PyTorch headers, so a build takes seconds). Libraries go into
+`build/kernels/` at the repo root, named by a hash of the source and the
+flags, so a changed source is rebuilt and an unchanged one is reused.
+Nothing is built or loaded at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = {"chunk_decoder": "chunk_decoder.cu"}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+             shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found; the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name])]
+
+
+def build_all() -> Dict[str, Tuple[Path, str]]:
+    """Compile every kernel source that has no library yet, one nvcc
+    process per source, all started together. Returns
+    {name: (library path, compiler log)}; the log holds ptxas's register,
+    shared-memory and spill lines (read from the saved .log when the
+    library was already built). Raises if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        lib = library_path(name)
+        if not lib.exists():
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        lib = library_path(name)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    out = {}
+    for name in SOURCES:
+        lib = library_path(name)
+        log_file = lib.with_suffix(".log")
+        out[name] = (lib, log_file.read_text() if log_file.exists() else "")
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source, built on first use."""
+    if name not in _loaded:
+        lib = library_path(name)
+        if not lib.exists():
+            build_all()
+        _loaded[name] = ctypes.CDLL(str(lib))
+    return _loaded[name]

@@ -3,23 +3,44 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+It drives two paths of the port, each with every kernel launch counter
+set to 0 just before and read just after. Phases, each printing one
+JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    nvcc builds every kernel from the sources in the checkout,
-           with the ptxas register / shared-memory / spill lines;
-  kernel   each kernel against its plain PyTorch version on the card,
-           at the main path's shapes, with times from CUDA events;
+  build    nvcc builds every kernel from the sources in the checkout (one
+           process per source, all at once), with the ptxas register /
+           shared-memory / spill lines;
+The decode path (text -> gesture generation):
+  kernel   the chunk decoder against its plain PyTorch version on the
+           card, at the path's shapes, with times from CUDA events;
   main     decode-mode generation at the bench widths (hidden 200,
            2 layers, 512 codes, DAE latent 40, pose 135, 20-frame
            chunks, 120-frame windows, 48 words, 5000-word table of
            300-dim embeddings), weights random from a seed and carried
            in through the JAX-layout weight bridge; three requests
-           (6 s, 60 s and 1800 s transcripts) with every kernel launch
-           counter set to 0 just before and read just after;
+           (6 s, 60 s and 1800 s transcripts);
   check    the frames' shape and finiteness, the fused path against the
            module rollout on the card, and the card against the CPU
            path on the 6 s request;
-  timing   frames/s of the 1800 s request and its stages;
+  timing   frames/s of each request and its stages;
+The Part-c path (corpus tokenizer sweep and K-Means):
+  kernel   the GRU-sequence kernel (T=20, H=200, B 300 and 512, forward
+           and reverse, both row tiles) and the VQ-argmin kernel (D=400,
+           (N, K) = (300, 300), (58,488, 300), (2^20, 512)) against their
+           plain versions, with cuDNN's GRU as the GRU's yardstick;
+  main     a synthetic store the size of the Trinity/GENEA 2020 corpus
+           (24 clips x 12,200 frames x 135, 244 minutes at 20 fps) and a
+           2-clip validation store, random checkpoints in the JAX
+           package's file format (configs/DAE.yml, configs/VQ-VAE.yml),
+           then `python -m gesture2vec_tpu_torch.cli.cluster dae.bin
+           vq.bin --store ... --val-store ... --kmeans 300` (run
+           in-process through its main()), then the residual-VQ sweep of
+           configs/VQ-VAE_rvq.yml with all stage tokens;
+  timing   windows/s of the sweep and its stages, K-Means, metrics, and
+           the device's idle share;
+  check    kernel path against plain path on the card (tokens, latents,
+           K-Means from the same initial centers), and the card against
+           the CPU path on the first 2,048 windows;
 then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
 a CUDA device, or without the package beside it, it exits non-zero
@@ -28,8 +49,11 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -45,6 +69,36 @@ REQUESTS_S = (6.0, 60.0, 1800.0)
 KERNEL_BATCHES = (6, 96, 293, 1824)   # 6 s, 60 s, ragged, 1800 s
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+
+# Part c: the Trinity Speech-Gesture corpus as GENEA 2020 used it, 244
+# minutes at 20 fps, as 24 clips; 2 more clips validate
+PC_CLIPS, PC_FRAMES, PC_VAL_CLIPS, PC_KMEANS = 24, 12200, 2, 300
+GRU_T, GRU_BATCHES = 20, (300, 512)
+VQ_D, VQ_SHAPES = 400, ((300, 300), (58488, 300), (1 << 20, 512))
+# near-ties: kernel and plain may pick different codes only where the
+# plain distances of the two differ by at most NEAR_TIE (GS-Soft: where
+# the plain log-assignments differ by at most GSSOFT_TIE); dmin and the
+# VQ distances carry fp32 sums over 400 terms in another order
+NEAR_TIE, GSSOFT_TIE, DMIN_TOL = 1e-3, 1e-4, 1e-3
+CPU_WINDOWS = 2048
+# the checkpoints' configs, as the JAX trainer saves them (the fields of
+# configs/DAE.yml, configs/VQ-VAE.yml and configs/VQ-VAE_rvq.yml that
+# the loaders read)
+DAE_ARGS = {"name": "Frame_Level", "model": "DAE", "hidden_size": REP,
+            "n_layers": 2, "input_motion_dim": DIM, "autoencoder_vq": False,
+            "autoencoder_vae": False, "n_poses": 20, "subdivision_stride": 5,
+            "extras": {}}
+VQ_ARGS = {"name": "VQVAE", "model": "seq2seq", "hidden_size": HID,
+           "n_layers": L, "input_motion_dim": DIM, "rep_learning_dim": REP,
+           "autoencoder_att": False, "autoencoder_conditioned": True,
+           "autoencoder_vae": False, "autoencoder_vq": True,
+           "autoencoder_vq_components": K,
+           "autoencoder_vq_commitment_cost": 0.25, "use_derivative": False,
+           "autoencoder_vq_variant": "gssoft", "rvq_stages": 2,
+           "n_poses": 20, "n_pre_poses": 1, "subdivision_stride": 5,
+           "extras": {}}
+RVQ_ARGS = {**VQ_ARGS, "name": "VQVAE_rvq", "autoencoder_vq_variant": "rvq",
+            "rvq_stages": 4, "subdivision_stride": 10}
 
 
 def emit(obj) -> None:
@@ -171,38 +225,68 @@ def chunk_decoder_bound_ms(B: int, D: int, H: int, T: int) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def main() -> int:
+def best_s(fn, reps=3):
+    """Best host time of reps synchronised calls."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels run only on "
-              "the card", file=sys.stderr)
-        return 1
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t)
+    return best
+
+
+def launch_counters() -> dict:
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    return {"chunk_decoder": dk.fused_chunk_decode,
+            "gru_sequence": gk.gru_sequence, "vq_argmin": vk.vq_argmin}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """Least time for the work: operations at the fp32 peak against bytes
+    (inputs read once, outputs written once) at the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def gru_bound_ms(T: int, B: int, H: int) -> dict:
+    """The recurrent products 2*T*B*H*3H; x_proj, h0, w_hh, b_hh in,
+    outputs and last hidden out."""
+    return bound(2.0 * T * B * H * 3 * H,
+                 4.0 * (T * B * 3 * H + B * H + 3 * H * H + 3 * H
+                        + T * B * H + B * H))
+
+
+def vq_bound_ms(N: int, K: int, D: int) -> dict:
+    """The dot products 2*N*K*D; x, codebook in, int64 indices and fp32
+    minima out."""
+    return bound(2.0 * N * K * D, 4.0 * (N * D + K * D) + 12.0 * N)
+
+
+# -- the decode path ----------------------------------------------------
+def decode_path(smi: str) -> dict:
+    import torch
+
     from gesture2vec_tpu_torch.compat.from_jax import generator_from_jax
-    from gesture2vec_tpu_torch.ops import build
     from gesture2vec_tpu_torch.ops import decoder_kernel as dk
     from gesture2vec_tpu_torch.text.vocab import Vocab
-
-    # -- device -------------------------------------------------------
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-
-    # -- build --------------------------------------------------------
-    t0 = time.perf_counter()
-    built = build.build_all()
-    secs = time.perf_counter() - t0
-    for name, (lib, log) in built.items():
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if any(w in ln for w in ("registers", "spill", "smem",
-                                          "Compiling entry"))]
-        emit({"phase": "build", "kernel": name, "library": lib.name,
-              "seconds": secs, "ptxas": ptxas})
 
     # -- the bench-width generator (weights through the bridge) ---------
     vocab = Vocab("bench")
@@ -247,15 +331,15 @@ def main() -> int:
                                  f"{err} > {TOL}")
 
     # -- main path ----------------------------------------------------
-    dk.fused_chunk_decode.launches = 0
+    reset_launches()
     outs, per_request = {}, []
     for d in REQUESTS_S:
         outs[d] = gen.generate(words(d), d)
         per_request.append(dk.fused_chunk_decode.launches)
-    launches = dk.fused_chunk_decode.launches
-    emit({"phase": "main", "requests_s": list(REQUESTS_S),
-          "launches": {"chunk_decoder": launches},
-          "launches_after_each_request": per_request})
+    counts = read_launches()
+    launches = counts["chunk_decoder"]
+    emit({"phase": "main", "path": "decode", "requests_s": list(REQUESTS_S),
+          "launches": counts, "launches_after_each_request": per_request})
     if per_request != list(range(1, len(REQUESTS_S) + 1)):
         raise AssertionError(f"chunk_decoder launches after each request: "
                              f"{per_request}, want one per request")
@@ -290,16 +374,6 @@ def main() -> int:
           "distinct_tokens_1800s": int(len(np.unique(outs[1800.0][1])))})
 
     # -- timing -------------------------------------------------------
-    def best_s(fn, reps=3):
-        best = float("inf")
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            best = min(best, time.perf_counter() - t)
-        return best
-
     for d in REQUESTS_S:
         w = words(d)
         n_frames = outs[d][0].shape[0]
@@ -325,15 +399,544 @@ def main() -> int:
               "card": smi})
 
     k = kernel_rows[KERNEL_BATCHES[-1]]
-    emit({"kernels": [{
-        "name": "chunk_decoder", "route": "cuda",
-        "source": "gesture2vec_tpu_torch/csrc/chunk_decoder.cu",
-        "replaces": "gesture2vec_tpu/ops/decoder_pallas.py:144",
-        "launches": launches, "max_abs_err": max(
-            r["max_abs_err"] for r in kernel_rows.values()),
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None, "B": k["B"]}]})
+    return {"name": "chunk_decoder", "route": "cuda",
+            "source": "gesture2vec_tpu_torch/csrc/chunk_decoder.cu",
+            "replaces": "gesture2vec_tpu/ops/decoder_pallas.py:144",
+            "launches": launches, "max_abs_err": max(
+                r["max_abs_err"] for r in kernel_rows.values()),
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "B": k["B"]}
+
+
+# -- Part c: corpus tokenizer sweep and K-Means -------------------------
+def part_c_trees(rng: np.random.Generator):
+    """Random variables in the JAX package's layout: the Part-a DAE, a
+    GS-Soft tokenizer and a 4-stage residual-VQ tokenizer (numpy)."""
+    def u(shape, fan_in):
+        b = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-b, b, size=shape).astype(np.float32)
+
+    def dense(i, o):
+        return {"kernel": u((i, o), i), "bias": u((o,), i)}
+
+    def bigru():
+        out = {}
+        for layer in range(L):
+            d = HID if layer == 0 else 2 * HID
+            for sfx in ("", "_reverse"):
+                out.update({f"l{layer}_w_ih{sfx}": u((3 * HID, d), HID),
+                            f"l{layer}_w_hh{sfx}": u((3 * HID, HID), HID),
+                            f"l{layer}_b_ih{sfx}": u((3 * HID,), HID),
+                            f"l{layer}_b_hh{sfx}": u((3 * HID,), HID)})
+        return out
+
+    def seq(vq_layer):
+        gru = {}
+        for layer in range(L):
+            gru.update({f"l{layer}_w_ih": u((3 * HID, HID), HID),
+                        f"l{layer}_w_hh": u((3 * HID, HID), HID),
+                        f"l{layer}_b_ih": u((3 * HID,), HID),
+                        f"l{layer}_b_hh": u((3 * HID,), HID)})
+        params = {"encoder": {"in_layer": dense(REP, HID), "gru": bigru()},
+                  "vq_layer": vq_layer,
+                  "decoder_step": {
+                      "pre_linear": dense(REP, HID),
+                      "pre_bn": {"scale": np.ones(HID, np.float32),
+                                 "bias": np.zeros(HID, np.float32)},
+                      "gru": gru, "out_layer": dense(HID, REP)}}
+        stats = {"decoder_step": {"pre_bn": {
+            "mean": np.zeros(HID, np.float32),
+            "var": np.ones(HID, np.float32)}}}
+        return params, stats
+
+    D = L * HID
+    dae = {"encoder": dense(DIM, REP), "decoder": dense(REP, DIM)}
+    gssoft = seq({"codebook": rng.normal(size=(K, D)).astype(np.float32),
+                  "mean_layer": dense(D, D), "logvar_layer": dense(D, K)})
+    # residual codebooks at the scale of the tanh-bounded hidden, so the
+    # hard argmin does not pick the shortest code every time
+    rvq = seq({("codebook" if s == 0 else f"codebook_r{s}"):
+               (0.1 * rng.normal(size=(K, D))).astype(np.float32)
+               for s in range(RVQ_ARGS["rvq_stages"])})
+    return dae, gssoft, rvq
+
+
+def write_checkpoint(path: str, args: dict, params, stats, kind: str,
+                     pose_dim: int) -> None:
+    """A checkpoint file as the JAX package's save_checkpoint writes it
+    (a flax msgpack tree), through the port's own codec."""
+    from gesture2vec_tpu_torch.utils import mpack
+
+    extra = {"batch_stats": stats, "parity": False} if stats else {}
+    payload = {"args": args, "epoch": 1, "pose_dim": pose_dim,
+               "lang_model": None, "kind": kind, "params": params,
+               "extra": extra}
+    with open(path, "wb") as f:
+        f.write(mpack.packb(payload))
+
+
+def write_corpus(root: str, rng: np.random.Generator):
+    """The 244-minute train store and the 2-clip validation store."""
+    from gesture2vec_tpu_torch.data.store import ClipStoreWriter
+
+    paths = []
+    for name, n_clips in (("train", PC_CLIPS), ("val", PC_VAL_CLIPS)):
+        w = ClipStoreWriter(os.path.join(root, name))
+        clips = [rng.normal(size=(PC_FRAMES, DIM)).astype(np.float32)
+                 for _ in range(n_clips)]
+        for i, poses in enumerate(clips):
+            w.add_clip(f"{name}{i:02d}", poses)
+        frames = np.concatenate(clips)
+        w.set_stats(frames.mean(0), frames.std(0))
+        w.finish()
+        paths.append(w.root)
+    return paths
+
+
+def gru_kernel_rows(w_ih, w_hh, b_ih, b_hh) -> list:
+    """The GRU-sequence kernel against its plain version and against one
+    cuDNN GRU layer, at the sweep's shapes."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cudnn = torch.nn.GRU(HID, HID, 1).cuda()
+    with torch.no_grad():
+        for p, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                     (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            p.copy_(v)
+    rows = []
+    with torch.inference_mode():
+        for B in GRU_BATCHES:
+            xs = torch.randn(GRU_T, B, HID, device="cuda", generator=g)
+            h0 = 0.5 * torch.randn(B, HID, device="cuda", generator=g)
+            x_proj = (xs.reshape(-1, HID) @ w_ih.t() + b_ih).reshape(
+                GRU_T, B, -1)
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(x_proj, h0, w_hh, b_hh, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(x_proj, h0, w_hh, b_hh,
+                                                  reverse)
+                torch.cuda.synchronize()
+                err = max((ys - ys_p).abs().max().item(),
+                          (h - h_p).abs().max().item())
+                row = {"phase": "kernel", "kernel": "gru_sequence", "B": B,
+                       "T": GRU_T, "H": HID, "reverse": reverse,
+                       "max_abs_err": err, "tol": TOL,
+                       "ms": cuda_ms(lambda: gk.gru_sequence(
+                           x_proj, h0, w_hh, b_hh, reverse), 20),
+                       "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                           x_proj, h0, w_hh, b_hh, reverse), 10),
+                       **gru_bound_ms(GRU_T, B, HID)}
+                if not reverse:
+                    # cuDNN computes the input product too: its yardstick
+                    # is the matmul plus the kernel
+                    y_c, h_c = cudnn(xs, h0[None])
+                    y_k, h_k = gru_layer(xs, h0, w_ih, w_hh, b_ih, b_hh)
+                    row.update({
+                        "library_ms": cuda_ms(lambda: cudnn(xs, h0[None]),
+                                              20),
+                        "matmul_plus_kernel_ms": cuda_ms(
+                            lambda: gru_layer(xs, h0, w_ih, w_hh, b_ih,
+                                              b_hh), 20),
+                        "cudnn_max_abs_err": max(
+                            (y_c - y_k).abs().max().item(),
+                            (h_c[0] - h_k).abs().max().item())})
+                emit(row)
+                rows.append(row)
+                if not np.isfinite(err) or err > TOL:
+                    raise AssertionError(f"gru_sequence B={B} reverse="
+                                         f"{reverse}: max abs error {err}")
+    return rows
+
+
+def near_ties(d: "torch.Tensor", a: "torch.Tensor", b: "torch.Tensor"):
+    """(rows where a and b differ, how many of them are near-ties):
+    d (N, K) holds the plain version's distances."""
+    diff = (a != b).nonzero()[:, 0]
+    rows = diff.numel()
+    if rows == 0:
+        return 0, 0
+    gap = (d[diff, a[diff]] - d[diff, b[diff]]).abs()
+    return rows, int((gap <= NEAR_TIE).sum().item())
+
+
+def vq_kernel_rows() -> list:
+    import torch
+
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for N, Kc in VQ_SHAPES:
+        x = torch.randn(N, VQ_D, device="cuda", generator=g)
+        cb = torch.randn(Kc, VQ_D, device="cuda", generator=g)
+        idx, dmin = vk.vq_argmin(x, cb)
+        d = vk.codebook_distances(x, cb)
+        dmin_p, idx_p = d.min(dim=1)
+        torch.cuda.synchronize()
+        differ, ties = near_ties(d, idx, idx_p)
+        err = (dmin - dmin_p).abs().max().item()
+        del d
+        row = {"phase": "kernel", "kernel": "vq_argmin", "N": N, "K": Kc,
+               "D": VQ_D, "rows_differing": differ, "near_ties": ties,
+               "near_tie_gap": NEAR_TIE, "max_abs_err": err,
+               "tol": DMIN_TOL,
+               "ms": cuda_ms(lambda: vk.vq_argmin(x, cb), 20),
+               "plain_ms": cuda_ms(lambda: vk.vq_argmin_plain(x, cb), 10),
+               "library_ms": None, **vq_bound_ms(N, Kc, VQ_D)}
+        emit(row)
+        rows.append(row)
+        if differ != ties or not np.isfinite(err) or err > DMIN_TOL:
+            raise AssertionError(f"vq_argmin N={N} K={Kc}: {differ} rows "
+                                 f"differ, {ties} near-ties; dmin error "
+                                 f"{err}")
+    return rows
+
+
+def gssoft_near_ties(seq, hidden_plain, tok_a, tok_b) -> tuple:
+    """(rows whose GS-Soft tokens differ, how many of them are near-ties
+    of the plain log-assignment)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.seq_ae import _flatten_hidden
+
+    diff = np.nonzero(tok_a != tok_b)[0]
+    if diff.size == 0:
+        return 0, 0
+    with torch.inference_mode():
+        flat = _flatten_hidden(hidden_plain, seq.vq_flatten)[diff]
+        logp = seq.vq_layer.logp(flat).cpu().numpy()
+    r = np.arange(diff.size)
+    gap = np.abs(logp[r, tok_a[diff]] - logp[r, tok_b[diff]])
+    return int(diff.size), int((gap <= GSSOFT_TIE).sum())
+
+
+def part_c_path(smi: str) -> list:
+    import torch
+
+    from gesture2vec_tpu_torch.cli import cluster as cli
+    from gesture2vec_tpu_torch.cluster import kmeans as km
+    from gesture2vec_tpu_torch.cluster.latent_dataset import \
+        build_latent_dataset
+    from gesture2vec_tpu_torch.cluster.metrics import (
+        frechet_distance, hellinger, representation_neighbor_distance,
+        token_histogram, token_perplexity, wasserstein_distance)
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+    from gesture2vec_tpu_torch.data.datasets import pose_windows
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.data.teacher import (encode_windows_with_dae,
+                                                    tokenize_windows)
+    from gesture2vec_tpu_torch.models.seq_ae import _flatten_hidden
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    rng = np.random.default_rng(0)
+    dae_p, (vq_p, vq_s), (rvq_p, rvq_s) = part_c_trees(rng)
+    enc = vq_p["encoder"]["gru"]
+    gru_rows = gru_kernel_rows(*(
+        torch.from_numpy(enc[f"l0_{n}"]).cuda()
+        for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
+    vq_rows = vq_kernel_rows()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- main: the cluster CLI over the 244-minute corpus ------------
+        t0 = time.perf_counter()
+        train, val = write_corpus(tmp, rng)
+        ckpt = {n: os.path.join(tmp, f"{n}.bin")
+                for n in ("dae", "vq", "rvq")}
+        write_checkpoint(ckpt["dae"], DAE_ARGS, dae_p, None, "DAE", DIM)
+        write_checkpoint(ckpt["vq"], VQ_ARGS, vq_p, vq_s, "autoencoder_vq",
+                         REP)
+        write_checkpoint(ckpt["rvq"], RVQ_ARGS, rvq_p, rvq_s,
+                         "autoencoder_vq", REP)
+        setup_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "clusters")
+        argv = [ckpt["dae"], ckpt["vq"], "--store", train, "--val-store",
+                val, "--kmeans", str(PC_KMEANS), "--out", out]
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        counts = cli_counts = read_launches()
+        n_win, n_val = summary["windows"], summary["val_windows"]
+        want_gru = 2 * (math.ceil(n_win / 512) + math.ceil(n_val / 512))
+        want_vq = sum(summary["kmeans_n_iter"]) + len(summary["kmeans_n_iter"])
+        emit({"phase": "main", "path": "part_c",
+              "command": "python -m gesture2vec_tpu_torch.cli.cluster "
+                         + " ".join(os.path.basename(a) if a.startswith(tmp)
+                                    else a for a in argv),
+              "launches": counts, "want": {"gru_sequence": want_gru,
+                                           "vq_argmin": want_vq},
+              "windows": n_win, "val_windows": n_val,
+              "kmeans_lloyd_steps": summary["kmeans_n_iter"],
+              "kmeans_inertia": summary["kmeans_inertia"],
+              "seconds": cli_s, "setup_s": setup_s})
+        if n_win != PC_CLIPS * ((PC_FRAMES - 20) // 5 + 1):
+            raise AssertionError(f"{n_win} windows")
+        if counts["gru_sequence"] != want_gru or \
+                counts["vq_argmin"] != want_vq or counts["chunk_decoder"]:
+            raise AssertionError(f"Part-c launches {counts}, want "
+                                 f"gru {want_gru}, vq {want_vq}")
+        files = {f: os.path.getsize(os.path.join(out, f)) for f in (
+            "org_latent_clustering_data.npz", "kmeans_model.npz",
+            "Metrics.txt", "Metrics.tex", "Rep_distance.txt")}
+        with np.load(os.path.join(out, "org_latent_clustering_data.npz")) \
+                as z:
+            cli_tokens, cli_lat = z["tokens"], z["seq_latents"]
+        with np.load(os.path.join(out, "kmeans_model.npz")) as z:
+            centers = z["centers"]
+        metrics = open(os.path.join(out, "Metrics.txt")).read().split("\n")
+        if cli_tokens.shape != (n_win,) or cli_lat.shape != (n_win, L * HID) \
+                or not np.isfinite(cli_lat).all() \
+                or centers.shape != (PC_KMEANS, L * HID) \
+                or not np.isfinite(centers).all():
+            raise AssertionError("Part-c outputs: bad shapes or values")
+        n_codes = int(len(np.unique(cli_tokens)))
+        if n_codes < 2:
+            raise AssertionError("the sweep's tokens cover one code")
+
+        # -- main: the residual-VQ sweep with all stage tokens -----------
+        dae, _ = load_checkpoint_and_model(ckpt["dae"], "DAE")
+        rvq, rvq_payload = load_checkpoint_and_model(ckpt["rvq"],
+                                                     "autoencoder_vq")
+        store = ClipStore(train)
+        stride = int(rvq_payload["config"]["subdivision_stride"])
+        reset_launches()
+        t0 = time.perf_counter()
+        rdata = build_latent_dataset(store, dae_model=dae, seq_model=rvq,
+                                     n_poses=20, stride=stride,
+                                     all_stages=True)
+        rvq_s = time.perf_counter() - t0
+        counts = read_launches()
+        n_r = rdata["tokens"].shape[0]
+        stages = RVQ_ARGS["rvq_stages"]
+        want = {"gru_sequence": 2 * math.ceil(n_r / 512),
+                "vq_argmin": stages * math.ceil(n_r / 512)}
+        emit({"phase": "main", "path": "part_c_rvq_all_stages",
+              "launches": counts, "want": want, "windows": n_r,
+              "tokens_shape": list(rdata["tokens"].shape),
+              "distinct_codes_per_stage": [
+                  int(len(np.unique(rdata["tokens"][:, s])))
+                  for s in range(stages)], "seconds": rvq_s})
+        if rdata["tokens"].shape != (n_r, stages) or any(
+                counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"RVQ sweep launches {counts}, want {want}")
+        emit({"phase": "check", "path": "part_c", "files": files,
+              "distinct_tokens": n_codes, "metrics": metrics[:-1],
+              "note": "outputs present, finite, of the expected shapes"})
+
+        # -- timing: the sweep stage by stage ----------------------------
+        seq, _ = load_checkpoint_and_model(ckpt["vq"], "autoencoder_vq")
+        stage = {}
+        stage["store_read_and_windows"] = best_s(
+            lambda: pose_windows(ClipStore(train), 20, 5))
+        wins = pose_windows(store, 20, 5)
+        stage["dae_encode"] = best_s(lambda: encode_windows_with_dae(dae,
+                                                                     wins))
+        lat_w = encode_windows_with_dae(dae, wins)
+        stage["tokenize"] = best_s(lambda: tokenize_windows(seq, lat_w))
+        toks, lats = tokenize_windows(seq, lat_w)
+        sweep_s = best_s(lambda: build_latent_dataset(
+            ClipStore(train), dae_model=dae, seq_model=seq, n_poses=20,
+            stride=5))
+        t0 = time.perf_counter()
+        res = km.kmeans_fit(lats, PC_KMEANS, seed=0)
+        stage["kmeans"] = time.perf_counter() - t0
+        vdata = build_latent_dataset(ClipStore(val), dae_model=dae,
+                                     seq_model=seq, n_poses=20, stride=5,
+                                     mean=store.pose_mean,
+                                     std=store.pose_std)
+        t0 = time.perf_counter()
+        hellinger(token_histogram(toks, K),
+                  token_histogram(vdata["tokens"], K))
+        frechet_distance(lats, vdata["seq_latents"])
+        token_perplexity(toks, K)
+        wasserstein_distance(toks, vdata["tokens"])
+        representation_neighbor_distance(lats)
+        stage["metrics"] = time.perf_counter() - t0
+        emit({"phase": "timing", "path": "part_c", "windows": len(toks),
+              "sweep_s": sweep_s, "sweep_windows_per_s": len(toks) / sweep_s,
+              "stages_s": stage, "kmeans_lloyd_steps": res.n_iter,
+              "kmeans_s_per_lloyd_step": stage["kmeans"] / sum(res.n_iter),
+              "cluster_cli_s": cli_s,
+              "device_busy": device_busy(lambda: build_latent_dataset(
+                  ClipStore(train), dae_model=dae, seq_model=seq,
+                  n_poses=20, stride=5), sweep_s),
+              "card": smi})
+
+        # -- check: kernel path against plain path, card against CPU ----
+        if not np.array_equal(toks, cli_tokens) or \
+                np.abs(lats - cli_lat).max() > 0:
+            raise AssertionError("the sweep is not deterministic")
+        x = torch.from_numpy(lat_w).cuda()
+        with torch.inference_mode():
+            seq.set_use_kernels(False)
+            toks_p, lats_p = tokenize_windows(seq, lat_w)
+            hid_p = torch.cat([seq.encode_hidden(x[s:s + 4096])
+                               for s in range(0, len(x), 4096)], dim=1)
+            seq.set_use_kernels(True)
+        differ, ties = gssoft_near_ties(seq, hid_p, toks, toks_p)
+        lat_err = float(np.abs(lats - lats_p).max())
+        # RVQ stage tokens, kernel against plain
+        rvq.set_use_kernels(False)
+        rt_p, _ = tokenize_windows(rvq, rdata["dae_latents"],
+                                   all_stages=True)
+        rvq.set_use_kernels(True)
+        r_rows = np.nonzero((rt_p != rdata["tokens"]).any(axis=1))[0]
+        r_ties = 0
+        if r_rows.size:
+            with torch.inference_mode():
+                h = rvq.encode_hidden(torch.from_numpy(
+                    rdata["dae_latents"][r_rows]).cuda())
+                resid = _flatten_hidden(h, rvq.vq_flatten)
+                for s, cb in enumerate(rvq.vq_layer.codebooks()):
+                    a = torch.from_numpy(rdata["tokens"][r_rows, s]).cuda()
+                    b = torch.from_numpy(rt_p[r_rows, s]).cuda()
+                    d = vk.codebook_distances(resid, cb)
+                    gap = (d.gather(1, a[:, None].long())
+                           - d.gather(1, b[:, None].long())).abs()[:, 0]
+                    first = (a != b) & (torch.as_tensor(
+                        (rdata["tokens"][r_rows, :s] == rt_p[r_rows, :s])
+                        .all(axis=1)).cuda())
+                    r_ties += int(((gap <= NEAR_TIE) & first).sum().item())
+                    resid = resid - cb[b.long()]
+        # K-Means from the same initial centers: at every Lloyd step of
+        # the kernel run, the kernel's assignment against the plain one
+        # on the same centers; then the two whole runs, kernel and plain
+        # (deterministic center sums keep them together until a near-tie
+        # flips a label, which K-Means would amplify)
+        xl = torch.from_numpy(lats).cuda()
+        c0 = km.plusplus_init(xl, PC_KMEANS,
+                              torch.Generator(device="cuda").manual_seed(3))
+        c, steps, shift = c0, 0, float("inf")
+        km_differ = km_ties = 0
+        inertia_rel = 0.0
+        while True:
+            lk, dmin_k = vk.vq_argmin(xl, c)
+            d = vk.codebook_distances(xl, c)
+            dmin_p, lp = d.min(dim=1)
+            differ_i, ties_i = near_ties(d, lk, lp)
+            km_differ, km_ties = km_differ + differ_i, km_ties + ties_i
+            inertia_rel = max(inertia_rel, abs(
+                dmin_k.sum().item() - dmin_p.sum().item())
+                / dmin_p.sum().item())
+            if steps == 300 or not shift > 1e-4:   # lloyd's defaults
+                break
+            new = km.lloyd_step(xl, c)
+            shift = torch.sum((new - c) ** 2).item()
+            c, steps = new, steps + 1
+        del d
+        ck, lk, ik, nk = km.lloyd(xl, c0, use_kernel=True)
+        km_deterministic = nk == steps and torch.equal(ck, c)
+        cp, lp, ip, np_ = km.lloyd(xl, c0, use_kernel=False)
+        run_differ, run_ties = near_ties(vk.codebook_distances(xl, cp),
+                                         lk, lp)
+        runs = {"lloyd_steps": [nk, np_], "labels_differing": run_differ,
+                "near_ties": run_ties,
+                "inertia_rel_err": abs(ik.item() - ip.item()) / ip.item()}
+        # the card against the CPU path on the first windows
+        dae_c, _ = load_checkpoint_and_model(ckpt["dae"], "DAE", "cpu")
+        seq_c, _ = load_checkpoint_and_model(ckpt["vq"], "autoencoder_vq",
+                                             "cpu")
+        lat_c = encode_windows_with_dae(dae_c, wins[:CPU_WINDOWS])
+        toks_c, lats_c = tokenize_windows(seq_c, lat_c)
+        with torch.inference_mode():
+            hid_c = seq_c.encode_hidden(torch.from_numpy(lat_c))
+        c_differ, c_ties = gssoft_near_ties(seq_c, hid_c,
+                                            toks[:CPU_WINDOWS], toks_c)
+        cpu_err = max(float(np.abs(lat_w[:CPU_WINDOWS] - lat_c).max()),
+                      float(np.abs(lats[:CPU_WINDOWS] - lats_c).max()))
+        result = {
+            "phase": "check", "path": "part_c_kernels_vs_plain",
+            "gssoft_tokens_differing": differ, "gssoft_near_ties": ties,
+            "gssoft_tie_margin": GSSOFT_TIE, "seq_latents_max_abs_err":
+                lat_err, "tol": TOL,
+            "rvq_rows_differing": int(r_rows.size), "rvq_near_ties": r_ties,
+            "kmeans_lloyd_steps": steps,
+            "kmeans_labels_differing": km_differ,
+            "kmeans_near_ties": km_ties, "kmeans_inertia_rel_err":
+                inertia_rel, "kmeans_deterministic": km_deterministic,
+            "kmeans_same_seed_fits": [summary["kmeans_n_iter"], res.n_iter],
+            "kmeans_kernel_vs_plain_runs": runs,
+            "card_vs_cpu_windows": CPU_WINDOWS,
+            "card_vs_cpu_tokens_differing": c_differ,
+            "card_vs_cpu_near_ties": c_ties,
+            "card_vs_cpu_max_abs_err": cpu_err}
+        emit(result)
+        if differ != ties or lat_err > TOL or r_rows.size != r_ties \
+                or km_differ != km_ties or inertia_rel > 1e-5 \
+                or not km_deterministic or run_differ != run_ties \
+                or runs["inertia_rel_err"] > 1e-5 \
+                or summary["kmeans_n_iter"] != res.n_iter \
+                or c_differ != c_ties or cpu_err > TOL:
+            raise AssertionError(f"Part-c check failed: {result}")
+
+    def entry(name, rows, main_row, launches, library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"gesture2vec_tpu_torch/csrc/{name}.cu",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"],
+                "bound_by": main_row["bound_by"], "library_ms": library_ms}
+
+    g512 = next(r for r in gru_rows if r["B"] == 512 and not r["reverse"])
+    v_main = next(r for r in vq_rows if r["N"] == 58488)
+    return [
+        {**entry("gru_sequence", gru_rows, g512,
+                 cli_counts["gru_sequence"], g512["library_ms"]),
+         "replaces": "gesture2vec_tpu/ops/gru_pallas.py:60", "B": 512,
+         "T": GRU_T,
+         # cuDNN's library_ms includes the input product: its like for
+         # like is the matmul plus this kernel
+         "matmul_plus_kernel_ms": g512["matmul_plus_kernel_ms"]},
+        {**entry("vq_argmin", vq_rows, v_main, cli_counts["vq_argmin"],
+                 None),
+         "replaces": "gesture2vec_tpu/ops/vq_pallas.py:54", "N": 58488,
+         "K": PC_KMEANS}]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the card", file=sys.stderr)
+        return 1
+    from gesture2vec_tpu_torch.ops import build
+
+    # -- device -------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # -- build --------------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build_all()
+    secs = time.perf_counter() - t0
+    for name, (lib, log) in built.items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if any(w in ln for w in ("registers", "spill", "smem",
+                                          "Compiling entry"))]
+        emit({"phase": "build", "kernel": name, "library": lib.name,
+              "seconds": secs, "ptxas": ptxas})
+
+    t0 = time.perf_counter()
+    kernels = [decode_path(smi)]
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels += part_c_path(smi)
+    emit({"phase": "paths", "decode_s": decode_s,
+          "part_c_s": time.perf_counter() - t0})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

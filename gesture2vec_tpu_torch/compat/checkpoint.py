@@ -1,0 +1,107 @@
+"""The JAX package's checkpoint files -> the port's models.
+
+A checkpoint (`train/checkpoints.save_checkpoint` in the JAX package) is
+one flax msgpack tree:
+    {"args": <config dict, with "extras">, "epoch": int, "pose_dim": int,
+     "lang_model": ..., "kind": str, "params": <flax params>,
+     "extra": {"batch_stats": ..., "parity": ..., ...}}
+`load_checkpoint` reads it with `utils/mpack` (no flax, msgpack or yaml)
+and merges `extras` into the config, as the JAX loader does. The
+constructors mirror the JAX registry for the kinds the Part-c path loads:
+  DAE             `dae_trainer.make_frame_model`: a plain DAE
+                  (motion_dim = input_motion_dim, latent = hidden_size);
+  autoencoder_vq  `seq_ae_trainer.make_seq_ae`: the gesture tokenizer,
+  (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from gesture2vec_tpu_torch.compat.from_jax import (dae_from_jax,
+                                                   seq_ae_from_jax)
+from gesture2vec_tpu_torch.device import resolve_device
+from gesture2vec_tpu_torch.utils import mpack
+
+_LATER = "not ported yet ({} of the PyTorch port)"
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The payload, with payload["config"] the run's config as a dict
+    (the args with their extras merged in)."""
+    with open(path, "rb") as f:
+        payload = mpack.unpackb(f.read())
+    args = dict(payload["args"])
+    extras = args.pop("extras", {}) or {}
+    payload["config"] = {**args, **extras}
+    return payload
+
+
+def dae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
+    cfg = payload["config"]
+    if cfg.get("autoencoder_vq", False) or cfg.get("autoencoder_vae", False):
+        raise NotImplementedError(
+            "VQFrame / VAEFrame Part-a models are "
+            + _LATER.format("the training slice"))
+    return dae_from_jax({"params": payload["params"]},
+                        motion_dim=int(cfg["input_motion_dim"]),
+                        latent_dim=int(cfg["hidden_size"]))
+
+
+def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
+    cfg = payload["config"]
+    if cfg.get("use_derivative", False):
+        raise NotImplementedError(
+            "use_derivative is " + _LATER.format("the training slice"))
+    if cfg.get("seq_arch", "bigru") != "bigru":
+        raise NotImplementedError(
+            f"seq_arch: {cfg['seq_arch']} is "
+            + _LATER.format("the transformer-encoder slice"))
+    if cfg.get("autoencoder_vae", False):
+        raise NotImplementedError(
+            "autoencoder_vae is " + _LATER.format("the training slice"))
+    if cfg.get("autoencoder_att", False):
+        raise NotImplementedError(
+            "autoencoder_att (decoder attention) is "
+            + _LATER.format("the reconstruction slice"))
+    if not cfg.get("autoencoder_vq", False):
+        raise ValueError("the checkpoint has no quantizer "
+                         "(autoencoder_vq is false): it gives no tokens")
+    parity = bool(payload["extra"].get("parity", False))
+    variables = {"params": payload["params"],
+                 "batch_stats": payload["extra"].get("batch_stats", {})}
+    return seq_ae_from_jax(
+        variables, n_frames=int(cfg["n_poses"]),
+        n_pre_poses=int(cfg["n_pre_poses"]),
+        conditioned=cfg.get("autoencoder_conditioned", True),
+        vq_flatten="torch_view" if parity else "per_sample",
+        commitment_cost=float(cfg["autoencoder_vq_commitment_cost"]))
+
+
+_MAKERS = {"DAE": dae_from_checkpoint,
+           "autoencoder_vq": seq_ae_from_checkpoint,
+           "autoencoder": seq_ae_from_checkpoint}
+
+
+def load_checkpoint_and_model(path: str, what: str,
+                              device: Optional[Union[str, torch.device]]
+                              = None) -> Tuple[nn.Module, Dict[str, Any]]:
+    """(model in eval mode on the device, payload). `what` is the JAX
+    registry kind; a checkpoint saved as another kind is loaded with a
+    warning, as the JAX loader does. Runs on CUDA unless device says
+    otherwise."""
+    dev = resolve_device(device)
+    if what not in _MAKERS:
+        raise KeyError(f"unknown checkpoint kind {what!r}; known: "
+                       f"{sorted(_MAKERS)}")
+    payload = load_checkpoint(path)
+    stored = payload.get("kind", "")
+    alias = {"autoencoder": "autoencoder_vq"}
+    if stored and alias.get(stored, stored) != alias.get(what, what):
+        logging.warning("%s was saved as kind=%r but is being loaded as "
+                        "%r - wrong checkpoint passed?", path, stored, what)
+    model = _MAKERS[what](payload)
+    return model.to(dev).eval(), payload

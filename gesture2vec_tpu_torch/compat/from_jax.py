@@ -10,9 +10,13 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
       -> w = kernel * rsqrt(sum_{k,in} kernel^2 + 1e-12) * scale,
          permuted to (out, in, k)
   downsample kernel (1, in, out)     -> (out, in, 1)
-Shapes (widths, layers, vocabulary) are read from the arrays; what
-the arrays cannot say (steps, teacher prefix) is passed in. Reading the
-JAX package's msgpack checkpoint files is not ported yet.
+  BiGRU l{n}_w_ih[_reverse] ...       -> copied, already torch layout
+  vq_layer codebook / codebook_r{s} / mean_layer / logvar_layer
+                                     -> the quantizer, same names
+Shapes (widths, layers, vocabulary, codes, stages) are read from the
+arrays; what the arrays cannot say (steps, teacher prefix, flatten mode)
+is passed in. `compat/checkpoint.py` reads the JAX package's checkpoint
+files into these trees.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from torch import nn
 
 from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
 from gesture2vec_tpu_torch.models.dae import DAE
-from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
+from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder, SeqVQAutoencoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token
 from gesture2vec_tpu_torch.text.vocab import Vocab
 
@@ -62,6 +66,10 @@ def _gru(mod: nn.Module, p: Tree) -> None:
 
 def _n_layers(gru: Tree) -> int:
     return sum(1 for k in gru if k.endswith("_w_hh"))
+
+
+def _n_stages(vq: Tree) -> int:
+    return 1 + sum(1 for k in vq if k.startswith("codebook_r"))
 
 
 def _weight_norm_conv(conv: Tree, wn: Tree) -> torch.Tensor:
@@ -119,6 +127,18 @@ def text2token_from_jax(variables: Tree, *, n_steps: int,
     return model.eval()
 
 
+def _fill_seq_decoder(model: SeqDecoder, variables: Tree) -> None:
+    p = variables["params"]
+    dec = p["decoder_step"]
+    _set(model.codebook, _t(p["vq_layer"]["codebook"]))
+    s = model.decoder_step
+    _dense(s.pre_linear, dec["pre_linear"])
+    _bn(s.pre_bn, dec["pre_bn"],
+        variables["batch_stats"]["decoder_step"]["pre_bn"])
+    _gru(s.gru, dec["gru"])
+    _dense(s.out_layer, dec["out_layer"])
+
+
 def seq_decoder_from_jax(variables: Tree, *, n_frames: int,
                          n_pre_poses: int = 1,
                          conditioned: bool = True) -> SeqDecoder:
@@ -126,19 +146,44 @@ def seq_decoder_from_jax(variables: Tree, *, n_frames: int,
     SeqVQAutoencoder."""
     p = variables["params"]
     dec = p["decoder_step"]
-    codebook = p["vq_layer"]["codebook"]
     rep_dim, hidden = np.shape(dec["pre_linear"]["kernel"])
     model = SeqDecoder(rep_dim=rep_dim, hidden_size=hidden,
                        n_layers=_n_layers(dec["gru"]), n_frames=n_frames,
-                       n_codes=np.shape(codebook)[0],
+                       n_codes=np.shape(p["vq_layer"]["codebook"])[0],
                        n_pre_poses=n_pre_poses, conditioned=conditioned)
-    _set(model.codebook, _t(codebook))
-    s = model.decoder_step
-    _dense(s.pre_linear, dec["pre_linear"])
-    _bn(s.pre_bn, dec["pre_bn"],
-        variables["batch_stats"]["decoder_step"]["pre_bn"])
-    _gru(s.gru, dec["gru"])
-    _dense(s.out_layer, dec["out_layer"])
+    _fill_seq_decoder(model, variables)
+    return model.eval()
+
+
+def seq_ae_from_jax(variables: Tree, *, n_frames: int,
+                    n_pre_poses: int = 1, conditioned: bool = True,
+                    vq_flatten: str = "per_sample",
+                    commitment_cost: float = 0.25) -> SeqVQAutoencoder:
+    """A whole JAX SeqVQAutoencoder (BiGRU encoder, GS-Soft or residual
+    quantizer, decoder). The variant and the stage count come from the
+    vq_layer's variables."""
+    p = variables["params"]
+    enc, vq = p["encoder"], p["vq_layer"]
+    rep_dim, hidden = np.shape(enc["in_layer"]["kernel"])
+    n_layers = _n_layers(enc["gru"])
+    rvq = "mean_layer" not in vq
+    model = SeqVQAutoencoder(
+        rep_dim=rep_dim, hidden_size=hidden, n_layers=n_layers,
+        n_frames=n_frames, vq_components=np.shape(vq["codebook"])[0],
+        n_pre_poses=n_pre_poses, vq_variant="rvq" if rvq else "gssoft",
+        rvq_stages=_n_stages(vq), commitment_cost=commitment_cost,
+        conditioned=conditioned, vq_flatten=vq_flatten)
+    _dense(model.encoder.in_layer, enc["in_layer"])
+    _gru(model.encoder.gru, enc["gru"])
+    q = model.vq_layer
+    if rvq:
+        for name, param in q.named_parameters():
+            _set(param, _t(vq[name]))
+    else:
+        _set(q.codebook, _t(vq["codebook"]))
+        _dense(q.mean_layer, vq["mean_layer"])
+        _dense(q.logvar_layer, vq["logvar_layer"])
+    _fill_seq_decoder(model.decoder, variables)
     return model.eval()
 
 

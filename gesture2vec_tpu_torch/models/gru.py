@@ -1,4 +1,5 @@
-"""GRU cells for the autoregressive decoders.
+"""GRUs: cells for the autoregressive decoders, and the sequence layer
+and bidirectional stack of the tokenizer's encoder.
 
 Gate math matches torch.nn.GRU and the JAX package's `models/gru.py`
 (gate order r, z, n; separate input and hidden biases; weights in
@@ -7,15 +8,20 @@ torch layout (3H, in)):
     z = sigmoid(x W_iz^T + b_iz + h W_hz^T + b_hz)
     n = tanh(x W_in^T + b_in + r * (h W_hn^T + b_hn))
     h' = (1 - z) * n + z * h
-The masked bidirectional GRU (the tokenizer's encoder) is not ported
-yet.
+`gru_layer` hoists the input projections of every step into one matmul
+and runs the recurrence through `ops/gru_kernel.gru_sequence` (the
+Hopper kernel on CUDA, its plain version on the CPU). The masked
+bidirectional GRU (the text encoder's) is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from gesture2vec_tpu_torch.ops.gru_kernel import (gru_sequence,
+                                                  gru_sequence_plain)
 
 
 def gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor,
@@ -65,3 +71,74 @@ class GRUCellStack(nn.Module):
             outs = gru_cell(outs, h[layer], *self.layer_weights(layer))
             new_h.append(outs)
         return outs, torch.stack(new_h, dim=0)
+
+
+def _input_projection(xs: torch.Tensor, w_ih: torch.Tensor,
+                      b_ih: torch.Tensor) -> torch.Tensor:
+    """xs (T, B, in) -> x_proj = xs @ w_ih^T + b_ih (T, B, 3H)."""
+    T, B, _ = xs.shape
+    return torch.addmm(b_ih, xs.reshape(T * B, -1), w_ih.t()).reshape(
+        T, B, -1)
+
+
+def gru_layer(xs: torch.Tensor, h0: torch.Tensor, w_ih: torch.Tensor,
+              w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
+              reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One GRU layer over a sequence: xs (T, B, in) time-major, h0 (B, H)
+    -> (outputs (T, B, H), last hidden (B, H)). reverse walks the last
+    step first; outputs stay at their time positions and the last hidden
+    is the state after t = 0."""
+    return gru_sequence(_input_projection(xs, w_ih, b_ih), h0.contiguous(),
+                        w_hh, b_hh, reverse)
+
+
+class BiGRU(nn.Module):
+    """Multi-layer bidirectional GRU (torch.nn.GRU bidirectional=True
+    semantics). Parameters are named l{n}_w_ih[_reverse] etc., as in the
+    JAX package. Each layer's two directions read the concatenated (2H)
+    outputs of the layer below. The returned hidden is (2 * layers, B, H)
+    ordered [l0_fwd, l0_bwd, l1_fwd, l1_bwd, ...]; outputs are (T, B, 2H).
+    use_kernel=False runs the plain recurrence on any device.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.n_layers = n_layers
+        self.use_kernel = True
+        H = hidden_size
+        for layer in range(n_layers):
+            in_dim = input_size if layer == 0 else 2 * H
+            for sfx in ("", "_reverse"):
+                for name, shape in ((f"w_ih{sfx}", (3 * H, in_dim)),
+                                    (f"w_hh{sfx}", (3 * H, H)),
+                                    (f"b_ih{sfx}", (3 * H,)),
+                                    (f"b_hh{sfx}", (3 * H,))):
+                    self.register_parameter(
+                        f"l{layer}_{name}", nn.Parameter(torch.zeros(shape)))
+
+    def layer_weights(self, layer: int, reverse: bool
+                      ) -> Tuple[torch.Tensor, ...]:
+        sfx = "_reverse" if reverse else ""
+        return tuple(getattr(self, f"l{layer}_{n}{sfx}")
+                     for n in ("w_ih", "w_hh", "b_ih", "b_hh"))
+
+    def forward(self, xs: torch.Tensor, n_run: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xs (T, B, in), every state starting from zeros. n_run runs only
+        the first n_run layers (the hidden of the rest is not computed and
+        not returned)."""
+        n_run = self.n_layers if n_run is None else n_run
+        recurrence = gru_sequence if self.use_kernel else gru_sequence_plain
+        h0 = xs.new_zeros((xs.shape[1], self.hidden_size))
+        outs, h_finals = xs, []
+        for layer in range(n_run):
+            ys = []
+            for reverse in (False, True):
+                w_ih, w_hh, b_ih, b_hh = self.layer_weights(layer, reverse)
+                y, h_last = recurrence(_input_projection(outs, w_ih, b_ih),
+                                       h0, w_hh, b_hh, reverse)
+                ys.append(y)
+                h_finals.append(h_last)
+            outs = torch.cat(ys, dim=-1)
+        return outs, torch.stack(h_finals, dim=0)

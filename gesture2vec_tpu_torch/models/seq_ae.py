@@ -1,11 +1,16 @@
-"""Part b - the decoder side of the sequence VQ autoencoder (inference).
+"""Part b - the sequence VQ autoencoder (the gesture tokenizer), inference.
 
-Port of the JAX package's `models/seq_ae.py` pieces that token -> motion
-synthesis runs: Bahdanau attention (shared with the text->token
-decoder), one decoder step (pre_linear -> BatchNorm (running stats) ->
-ReLU -> GRU stack -> out_layer) and the generative rollout, plus the
-token codebook. The encoder and the quantizer (the tokenizer sweep)
-are not ported yet.
+Port of the JAX package's `models/seq_ae.py`: Bahdanau attention
+(shared with the text->token decoder), one decoder step (pre_linear ->
+BatchNorm (running stats) -> ReLU -> GRU stack -> out_layer), the
+generative rollout and the token codebook (`SeqDecoder`); the encoder
+(in_layer -> bidirectional GRU, directions summed) and the quantizer
+(`SeqVQAutoencoder.encode` / `quantize` / `tokens_from_hidden` /
+`stage_tokens`), with `_flatten_hidden` in both `vq_flatten` modes.
+
+The decoder-initial hidden is the encoder hidden sliced to its first
+n_layers entries, which for the bidirectional GRU is [l0_fwd, l0_bwd]
+at 2 layers: a reference quirk the JAX package keeps.
 
 Every module here is inference-only: BatchNorm reads its running
 statistics and no dropout is applied, which is the JAX package's eval
@@ -18,7 +23,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from gesture2vec_tpu_torch.models.gru import GRUCellStack
+from gesture2vec_tpu_torch.models.gru import BiGRU, GRUCellStack
+from gesture2vec_tpu_torch.models.vq import VQGSSoft, VQOutput, VQResidual
+
+# the later slices that port each option (ROADMAP.md queue A)
+_LATER = "not ported yet ({} of the PyTorch port)"
 
 
 class Attn(nn.Module):
@@ -103,3 +112,123 @@ class SeqDecoder(nn.Module):
             x, hidden = self.decoder_step(x, hidden)
             outs.append(x)
         return torch.stack(outs, dim=1)
+
+
+class SeqEncoder(nn.Module):
+    """Linear-in + bidirectional GRU, directions summed."""
+
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.in_layer = nn.Linear(input_size, hidden_size)
+        self.gru = BiGRU(hidden_size, hidden_size, n_layers)
+
+    def forward(self, xs: torch.Tensor, n_run: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xs (T, B, D) -> (outputs (T, B, H), hidden (2 * n_run, B, H));
+        n_run (default all) is the number of GRU layers run."""
+        outs, hidden = self.gru(self.in_layer(xs), n_run=n_run)
+        H = self.hidden_size
+        return outs[..., :H] + outs[..., H:], hidden
+
+
+def _flatten_hidden(hidden: torch.Tensor, mode: str) -> torch.Tensor:
+    """(L, B, H) -> (N, L*H) rows for the VQ layer. per_sample: one row
+    per window; torch_view: the reference's (L, B, H).view(-1, L*H),
+    which interleaves pairs of windows."""
+    L, B, H = hidden.shape
+    if mode == "per_sample":
+        return hidden.transpose(0, 1).reshape(B, L * H)
+    if mode == "torch_view":
+        return hidden.contiguous().reshape(-1, L * H)
+    raise ValueError(f"unknown vq_flatten mode {mode!r}")
+
+
+def _unflatten_hidden(flat: torch.Tensor, shape: Tuple[int, int, int],
+                      mode: str) -> torch.Tensor:
+    L, B, H = shape
+    if mode == "per_sample":
+        return flat.reshape(B, L, H).transpose(0, 1)
+    return flat.reshape(L, B, H)
+
+
+class SeqVQAutoencoder(nn.Module):
+    """The gesture tokenizer at inference: encoder, quantizer and the
+    token decoder (`SeqDecoder`, whose codebook is the quantizer's stage-0
+    codebook). vq_variant "gssoft" (the reference's) or "rvq"."""
+
+    def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
+                 n_frames: int, vq_components: int = 512,
+                 n_pre_poses: int = 1, vq_variant: str = "gssoft",
+                 rvq_stages: int = 2, commitment_cost: float = 0.25,
+                 conditioned: bool = True, vq_flatten: str = "per_sample",
+                 encoder_arch: str = "bigru", use_vae: bool = False):
+        super().__init__()
+        if encoder_arch != "bigru":
+            raise NotImplementedError(
+                f"encoder_arch={encoder_arch!r} is "
+                + _LATER.format("the transformer-encoder slice"))
+        if use_vae:
+            raise NotImplementedError(
+                "use_vae is " + _LATER.format("the training slice"))
+        if vq_flatten not in ("per_sample", "torch_view"):
+            raise ValueError(f"unknown vq_flatten mode {vq_flatten!r}")
+        self.rep_dim = rep_dim
+        self.hidden_size = hidden_size
+        self.n_layers = n_layers
+        self.n_frames = n_frames
+        self.vq_flatten = vq_flatten
+        self.vq_variant = vq_variant
+        self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers)
+        d = hidden_size * n_layers
+        if vq_variant == "rvq":
+            self.vq_layer = VQResidual(vq_components, d, rvq_stages,
+                                       commitment_cost)
+        elif vq_variant == "gssoft":
+            self.vq_layer = VQGSSoft(vq_components, d, commitment_cost)
+        else:
+            raise ValueError(f"unknown vq_variant {vq_variant!r}")
+        self.decoder = SeqDecoder(rep_dim, hidden_size, n_layers, n_frames,
+                                  vq_components, n_pre_poses, conditioned)
+
+    def set_use_kernels(self, on: bool) -> "SeqVQAutoencoder":
+        """Route the GRU recurrences and the residual argmins through the
+        Hopper kernels (True, the default) or their plain versions."""
+        self.encoder.gru.use_kernel = on
+        if isinstance(self.vq_layer, VQResidual):
+            self.vq_layer.use_kernel = on
+        return self
+
+    def encode(self, in_poses: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """in_poses (B, T, D) -> (encoder outputs (T, B, H),
+        decoder-initial hidden (L, B, H)); runs every GRU layer."""
+        enc_outs, enc_hidden = self.encoder(in_poses.transpose(0, 1))
+        return enc_outs, enc_hidden[: self.n_layers]
+
+    def encode_hidden(self, in_poses: torch.Tensor) -> torch.Tensor:
+        """The decoder-initial hidden of `encode` alone, running only the
+        ceil(n_layers / 2) GRU layers whose states it holds (layer 0 at 2
+        layers): the same values, half the recurrences."""
+        n_run = (self.n_layers + 1) // 2
+        _, enc_hidden = self.encoder(in_poses.transpose(0, 1), n_run=n_run)
+        return enc_hidden[: self.n_layers]
+
+    def quantize(self, dec_hidden: torch.Tensor
+                 ) -> Tuple[VQOutput, torch.Tensor]:
+        flat = _flatten_hidden(dec_hidden.float(), self.vq_flatten)
+        vq_out = self.vq_layer(flat)
+        return vq_out, _unflatten_hidden(vq_out.quantized, dec_hidden.shape,
+                                         self.vq_flatten)
+
+    def tokens_from_hidden(self, dec_hidden: torch.Tensor) -> torch.Tensor:
+        """(L, B, H) -> (B,) gesture-token ids."""
+        vq_out, _ = self.quantize(dec_hidden)
+        return self.vq_layer.tokens(vq_out.encodings)
+
+    def stage_tokens(self, dec_hidden: torch.Tensor) -> torch.Tensor:
+        """(L, B, H) -> (B, S) per-stage code ids (residual VQ only)."""
+        if not isinstance(self.vq_layer, VQResidual):
+            raise ValueError("stage tokens need vq_variant='rvq'")
+        flat = _flatten_hidden(dec_hidden.float(), self.vq_flatten)
+        return self.vq_layer.stage_tokens(flat)

@@ -25,9 +25,13 @@ The decode path (text -> gesture generation):
   timing   frames/s of each request and its stages;
 The Part-c path (corpus tokenizer sweep and K-Means):
   kernel   the GRU-sequence kernel (T=20, H=200, B 300 and 512, forward
-           and reverse, both row tiles) and the VQ-argmin kernel (D=400,
-           (N, K) = (300, 300), (58,488, 300), (2^20, 512)) against their
-           plain versions, with cuDNN's GRU as the GRU's yardstick;
+           and reverse) and the VQ-argmin kernel (D=400, (N, K) = (300,
+           300), (58,488, 300), (2^20, 512)) against their plain versions,
+           with cuDNN's GRU as the GRU's yardstick, and each launch shape
+           as the kernel reports it, held against the wrapper's mirror;
+  kernel_edges  both kernels at the ragged edges of their tiles, at widths
+           and addresses that take their 4-byte staging copies, and on
+           exact ties between codes in two code tiles;
   main     a synthetic store the size of the Trinity/GENEA 2020 corpus
            (24 clips x 12,200 frames x 135, 244 minutes at 20 fps) and a
            2-clip validation store, random checkpoints in the JAX
@@ -74,6 +78,8 @@ PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # minutes at 20 fps, as 24 clips; 2 more clips validate
 PC_CLIPS, PC_FRAMES, PC_VAL_CLIPS, PC_KMEANS = 24, 12200, 2, 300
 GRU_T, GRU_BATCHES = 20, (300, 512)
+# batches that fill one row of a 20-row cluster, part of one, and many
+GRU_EDGE_BATCHES = (1, 17, 300, 512)
 VQ_D, VQ_SHAPES = 400, ((300, 300), (58488, 300), (1 << 20, 512))
 # near-ties: kernel and plain may pick different codes only where the
 # plain distances of the two differ by at most NEAR_TIE (GS-Soft: where
@@ -278,6 +284,57 @@ def vq_bound_ms(N: int, K: int, D: int) -> dict:
     """The dot products 2*N*K*D; x, codebook in, int64 indices and fp32
     minima out."""
     return bound(2.0 * N * K * D, 4.0 * (N * D + K * D) + 12.0 * N)
+
+
+def gru_launch(B: int, H: int) -> dict:
+    """The GRU kernel's launch shape as the kernel reports it
+    (g2v_gru_sequence_shape), held against the wrapper's mirror."""
+    import ctypes
+
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops.build import load
+
+    fn = load("gru_sequence").g2v_gru_sequence_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_longlong * 6)()
+    rc = fn(B, H, out)
+    got = dict(zip(("rows", "cluster", "threads", "smem_bytes", "clusters",
+                    "max_active_clusters"), list(out)))
+    want = gk.launch_shape(B, H, max_clusters=max(got["max_active_clusters"],
+                                                  1))
+    if rc or any(want[k] != got[k] for k in got if k in want):
+        raise AssertionError(f"GRU launch shape: kernel {got} (rc {rc}), "
+                             f"wrapper {want}")
+    return {**want, "max_active_clusters": got["max_active_clusters"]}
+
+
+def vq_launch(N: int, D: int) -> dict:
+    """The VQ kernel's launch shape for the block height the wrapper
+    picks, as the kernel reports it (g2v_vq_argmin_shape), with the
+    blocks an SM holds at once and the waves that makes."""
+    import ctypes
+
+    import torch
+
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+    from gesture2vec_tpu_torch.ops.build import load
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    want = vk.launch_shape(N, D, n_sm)
+    fn = load("vq_argmin").g2v_vq_argmin_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_longlong * 4)()
+    rc = fn(N, D, want["block_rows"], out)
+    got = dict(zip(("threads", "smem_bytes", "blocks", "blocks_per_sm"),
+                   list(out)))
+    if rc or any(want[k] != got[k] for k in ("threads", "smem_bytes",
+                                              "blocks")):
+        raise AssertionError(f"VQ launch shape: kernel {got} (rc {rc}), "
+                             f"wrapper {want}")
+    return {**want, "blocks_per_sm": got["blocks_per_sm"], "sms": n_sm,
+            "waves": got["blocks"] / (n_sm * max(got["blocks_per_sm"], 1))}
 
 
 # -- the decode path ----------------------------------------------------
@@ -524,6 +581,7 @@ def gru_kernel_rows(w_ih, w_hh, b_ih, b_hh) -> list:
                           (h - h_p).abs().max().item())
                 row = {"phase": "kernel", "kernel": "gru_sequence", "B": B,
                        "T": GRU_T, "H": HID, "reverse": reverse,
+                       "launch": gru_launch(B, HID),
                        "max_abs_err": err, "tol": TOL,
                        "ms": cuda_ms(lambda: gk.gru_sequence(
                            x_proj, h0, w_hh, b_hh, reverse), 20),
@@ -581,7 +639,8 @@ def vq_kernel_rows() -> list:
         err = (dmin - dmin_p).abs().max().item()
         del d
         row = {"phase": "kernel", "kernel": "vq_argmin", "N": N, "K": Kc,
-               "D": VQ_D, "rows_differing": differ, "near_ties": ties,
+               "D": VQ_D, "launch": vq_launch(N, VQ_D),
+               "rows_differing": differ, "near_ties": ties,
                "near_tie_gap": NEAR_TIE, "max_abs_err": err,
                "tol": DMIN_TOL,
                "ms": cuda_ms(lambda: vk.vq_argmin(x, cb), 20),
@@ -594,6 +653,70 @@ def vq_kernel_rows() -> list:
                                  f"differ, {ties} near-ties; dmin error "
                                  f"{err}")
     return rows
+
+
+def kernel_edges() -> dict:
+    """Both kernels against their plain versions at the ragged edges of
+    their tiles: GRU batches that fill no cluster or part of one, both
+    directions, at H=200 and at H=201 (staged by 4-byte copies); VQ row
+    counts that are no multiple of any block height, code counts below,
+    at and past a 64-code tile, three widths (D=401 staged by 4-byte
+    copies), rows at an address that is not 16-byte aligned; and exact
+    ties between identical codes in two code tiles, where the lower index
+    must win."""
+    import torch
+
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    gru_err = 0.0
+    for H in (HID, HID + 1):
+        bnd = 1.0 / H ** 0.5
+        w = (torch.rand(3 * H, H, device="cuda", generator=g) * 2 - 1) * bnd
+        b = (torch.rand(3 * H, device="cuda", generator=g) * 2 - 1) * bnd
+        for B in GRU_EDGE_BATCHES:
+            xp = torch.randn(GRU_T, B, 3 * H, device="cuda", generator=g)
+            h0 = torch.randn(B, H, device="cuda", generator=g)
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(xp, h0, w, b, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(xp, h0, w, b, reverse)
+                torch.cuda.synchronize()
+                gru_err = max(gru_err, (ys - ys_p).abs().max().item(),
+                              (h - h_p).abs().max().item())
+    vq = []
+    cases = [(N, Kc, D, 0) for D in (40, 400, 401) for Kc in (7, 300, 513)
+             for N in (1, 4099)] + [(4099, 300, 400, 1)]
+    for N, Kc, D, offset in cases:
+        # offset 1: the rows start 4 bytes past an aligned address
+        x = torch.randn(N * D + offset, device="cuda",
+                        generator=g)[offset:].view(N, D)
+        cb = torch.randn(Kc, D, device="cuda", generator=g)
+        idx, dmin = vk.vq_argmin(x, cb)
+        d = vk.codebook_distances(x, cb)
+        dmin_p, idx_p = d.min(dim=1)
+        torch.cuda.synchronize()
+        differ, ties = near_ties(d, idx, idx_p)
+        vq.append({"N": N, "K": Kc, "D": D, "offset": offset,
+                   "rows_differing": differ, "near_ties": ties,
+                   "max_abs_err": (dmin - dmin_p).abs().max().item()})
+    # exact ties: code 64 repeats code 63 (two code tiles), code 200
+    # repeats code 130; rows near them must take 63 and 130
+    cb = torch.randn(300, VQ_D, device="cuda", generator=g)
+    cb[64], cb[200] = cb[63], cb[130]
+    near = torch.tensor([63] * 300 + [130] * 300, device="cuda")
+    x = cb[near] + 0.01 * torch.randn(600, VQ_D, device="cuda", generator=g)
+    idx, _ = vk.vq_argmin(x, cb)
+    ties_lower = bool(torch.equal(idx, near))
+    out = {"phase": "kernel_edges", "gru_batches": list(GRU_EDGE_BATCHES),
+           "gru_widths": [HID, HID + 1], "gru_max_abs_err": gru_err, "tol": TOL, "vq": vq,
+           "vq_exact_ties_take_lower_index": ties_lower}
+    emit(out)
+    if gru_err > TOL or not ties_lower or any(
+            r["rows_differing"] != r["near_ties"]
+            or r["max_abs_err"] > DMIN_TOL for r in vq):
+        raise AssertionError(f"kernel edges: {out}")
+    return out
 
 
 def gssoft_near_ties(seq, hidden_plain, tok_a, tok_b) -> tuple:
@@ -640,6 +763,7 @@ def part_c_path(smi: str) -> list:
         torch.from_numpy(enc[f"l0_{n}"]).cuda()
         for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
     vq_rows = vq_kernel_rows()
+    kernel_edges()
 
     with tempfile.TemporaryDirectory() as tmp:
         # -- main: the cluster CLI over the 244-minute corpus ------------
@@ -892,11 +1016,12 @@ def part_c_path(smi: str) -> list:
          "T": GRU_T,
          # cuDNN's library_ms includes the input product: its like for
          # like is the matmul plus this kernel
-         "matmul_plus_kernel_ms": g512["matmul_plus_kernel_ms"]},
+         "matmul_plus_kernel_ms": g512["matmul_plus_kernel_ms"],
+         "launch": g512["launch"]},
         {**entry("vq_argmin", vq_rows, v_main, cli_counts["vq_argmin"],
                  None),
          "replaces": "gesture2vec_tpu/ops/vq_pallas.py:54", "N": 58488,
-         "K": PC_KMEANS}]
+         "K": PC_KMEANS, "launch": v_main["launch"]}]
 
 
 def main() -> int:

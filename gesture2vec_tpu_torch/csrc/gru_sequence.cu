@@ -1,5 +1,5 @@
 // Single-layer GRU recurrence over a whole sequence for Hopper (sm_90a),
-// fp32 on the CUDA cores.
+// fp32 on the CUDA cores, one thread-block cluster per tile of batch rows.
 //
 // Replaces the TPU kernel gesture2vec_tpu/ops/gru_pallas.py
 // (gru_sequence_fused -> _gru_seq_kernel). The input projections are
@@ -9,7 +9,8 @@
 //   r  = sigmoid(xp_r + gh_r),  z = sigmoid(xp_z + gh_z)
 //   n  = tanh(xp_n + r * gh_n), h' = (1 - z) * n + z * h  -> ys[t]
 // walking t = 0..T-1, or T-1..0 with `reverse` (lax.scan(reverse=True):
-// outputs stay at their time positions, h_last is the state after t = 0).
+// outputs stay at their time positions, h_last is the state after the
+// last step taken).
 //
 // Bound at the tokenizer's width (T=20, B=512, H=200): the recurrent
 // products are 2*T*B*H*3H = 2.46 GFLOP, 0.037 ms at the card's 67 TFLOP/s
@@ -17,133 +18,303 @@
 // 34 MB) take 0.010 ms at 3.35 TB/s. So it is bound by operations. TF32
 // mma is ruled out: the encoder's final hidden is the token's input.
 //
-// Design (the chunk decoder's layout):
-//  - one block per tile of R batch rows; the tile's hidden state lives in
-//    shared memory, stored transposed ([k][R]) so a thread reads all R
-//    rows of one k with R/4 broadcast float4 loads, and double-buffered,
-//    since other threads still read the old state while the new one is
-//    written;
-//  - one thread per hidden unit u: it accumulates the r, z and n
-//    recurrent pre-activations of u for all R rows in registers, so the
-//    gates need no shared-memory buffers;
-//  - w_hh comes transposed (H, 3H) so neighbouring threads read
-//    neighbouring columns; at 480 KB it does not fit one SM's shared
-//    memory, and is streamed from L2, where it stays resident; each
-//    weight read serves the tile's R rows;
-//  - ragged batches are masked here: rows past B start from zeros, read
-//    no input and are never written.
+// Design. The TPU kernel keeps w_hh (480 KB at H=200) in VMEM; one SM has
+// 227 KB, so the weights are split across a thread-block cluster of C=4
+// blocks:
+//  - a cluster owns R=20 batch rows; block `rank` owns the hidden units
+//    [rank*U, rank*U + U), U = ceil(H/C), and keeps its r, z, n rows of
+//    w_hh (3U x H, staged once by cp.async from the torch layout (3H, H))
+//    and its b_hh slice in shared memory for the whole launch: inside the
+//    step loop no weight is read from global memory;
+//  - every block holds the tile's full state h (R x H), double-buffered;
+//    after a step a block writes its U new units into the next-state
+//    buffer of every block of the cluster through distributed shared
+//    memory, and one cluster barrier per step publishes them (reads of
+//    the old buffer are finished by then, so two buffers suffice);
+//  - each thread prefetches the x_proj values its gates read for the
+//    next step with cp.async into its own slots; x_proj is read once;
+//  - the dot products are spread over the whole block: a thread owns an
+//    item (RT=4 rows x 1 unit x 3 gates), walks k in order as float4
+//    reads and finishes its rows' gates in registers; rows are padded to
+//    an odd number of float4s, so the units a warp reads fall in distinct
+//    banks. Summing k in order keeps results independent of the tile;
+//  - R=20 keeps the launch in one wave: the H100 holds 30 clusters of
+//    these blocks at once (cudaOccupancyMaxActiveClusters), B=512 needs 26;
+//  - ragged batches are masked: rows past B start from zeros, read no
+//    input and are never written.
+// What holds it back now: a step costs about 8.6 us at B=512 (PERF.md),
+// and tiles of 16 to 32 rows per cluster were no faster a step, so the
+// latency of a step's dependent chain (dot products, gate math, remote
+// stores, cluster barrier) rather than FMA throughput sets the pace.
+//
+// Eligibility: the block's shared memory, 4 * (3*U*HP + 2*R*HP + 2*R*3U +
+// 3U) bytes with HP the padded row (see smem_bytes), must fit 232,448 B:
+// H <= 232 (gru_kernel.launch_shape mirrors this formula). A block then
+// has at most 58 * R/RT = 290 items, one a thread.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-// batch rows per block; 8 beat 4 by about 8% at B = 512 on the H100
-// (PERF.md), although 4 gives twice the blocks
-constexpr int R = 8;
+constexpr int R = 20;   // batch rows per cluster
+constexpr int C = 4;    // blocks per cluster
+constexpr int RT = 4;   // rows per thread
+constexpr int kMaxThreads = 512;  // the launch bound; H <= 232 takes <= 320
+constexpr int kSmemLimit = 232448;
+static_assert(R % RT == 0, "tile");
+
+__host__ __device__ __forceinline__ int units(int H) {
+  return (H + C - 1) / C;
+}
+// row stride in floats: an odd number of float4s, so the 32 units a warp
+// reads at once fall in distinct banks
+__host__ __device__ __forceinline__ int padded(int H) {
+  const int q = (H + 3) / 4;
+  return 4 * (q % 2 ? q : q + 1);
+}
+// one thread per item (a unit and RT rows)
+int threads_for(int H) { return (units(H) * (R / RT) + 31) / 32 * 32; }
+size_t smem_bytes(int H) {
+  const size_t U = units(H), HP = padded(H);
+  return sizeof(float) * (3 * U * HP + 2 * R * HP + 2 * R * 3 * U + 3 * U);
+}
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-gru_sequence_kernel(const float* __restrict__ xp,    // (T, B, 3H)
-                    const float* __restrict__ h0,    // (B, H)
-                    const float* __restrict__ whhT,  // (H, 3H)
-                    const float* __restrict__ bhh,   // (3H)
-                    float* __restrict__ ys,          // (T, B, H)
-                    float* __restrict__ hlast,       // (B, H)
-                    int T, int B, int H, int reverse) {
-  extern __shared__ float4 smem4[];
-  float* hc = reinterpret_cast<float*>(smem4);  // H x R, current state
-  float* hn = hc + H * R;                       // H x R, next state
-  const int H3 = 3 * H;
-  const int row0 = blockIdx.x * R;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int i = threadIdx.x; i < H * R; i += blockDim.x) {
-    const int k = i / R, b = row0 + i % R;
-    hc[i] = b < B ? h0[(size_t)b * H + k] : 0.f;
+// copies n_rows x width floats from `src` (row stride ld_src) to `dst`
+// (row stride ld_dst), zero-filling rows >= valid_rows and columns >=
+// valid_cols; 16-byte copies when `vec` (widths and strides multiples of
+// 4, aligned pointers)
+__device__ __forceinline__ void stage(float* dst, int ld_dst, const float* src,
+                                      int ld_src, int n_rows, int width,
+                                      int valid_rows, int valid_cols,
+                                      const float* safe, bool vec) {
+  const int step = vec ? 4 : 1, per_row = width / step;
+  for (int i = threadIdx.x; i < n_rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, k = (i % per_row) * step;
+    const bool ok = r < valid_rows && k < valid_cols;
+    const float* from = ok ? src + (size_t)r * ld_src + k : safe;
+    if (vec)
+      cp_async16(dst + r * ld_dst + k, from, ok ? 16 : 0);
+    else
+      cp_async4(dst + r * ld_dst + k, from, ok ? 4 : 0);
   }
-  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+gru_sequence_kernel(const float* __restrict__ xp,   // (T, B, 3H)
+                    const float* __restrict__ h0,   // (B, H)
+                    const float* __restrict__ whh,  // (3H, H)
+                    const float* __restrict__ bhh,  // (3H)
+                    float* __restrict__ ys,         // (T, B, H)
+                    float* __restrict__ hlast,      // (B, H)
+                    int T, int B, int H, int reverse, int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = units(H), HP = padded(H), q4 = (H + 3) / 4;
+  const int u0 = rank * U, row0 = (blockIdx.x / C) * R;
+
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);  // [3][U][HP] w_hh slice
+  float* hc = ws + 3 * U * HP;                  // [R][HP] current state
+  float* hn = hc + R * HP;                      // [R][HP] next state
+  float* xb = hn + R * HP;                      // [2][R][3][U] x_proj
+  float* bs = xb + 2 * R * 3 * U;               // [3][U] b_hh slice
+
+  for (int g = 0; g < 3; ++g)
+    stage(ws + g * U * HP, HP, whh + ((size_t)g * H + u0) * H, H, U, HP,
+          H - u0, H, whh, vec);
+  stage(hc, HP, h0 + (size_t)row0 * H, H, R, HP, B - row0, H, h0, vec);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < R * HP; i += blockDim.x) hn[i] = 0.f;
+  for (int i = threadIdx.x; i < 3 * U; i += blockDim.x) {
+    const int g = i / U, u = u0 + i % U;
+    bs[i] = u < H ? bhh[g * H + u] : 0.f;
+  }
+
+  // this thread's item: unit u0 + j and rows grp*RT .. grp*RT + RT-1
+  const int grp = threadIdx.x / U, j = threadIdx.x % U, u = u0 + j;
+  const bool active = grp < R / RT, unit_ok = active && u < H;
+  // the x_proj values this thread's gates read, into its own slots
+  auto prefetch = [&](int t, int buf) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = grp * RT + i, b = row0 + r;
+      if (unit_ok && b < B)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          cp_async4(xb + buf * R * 3 * U + (r * 3 + g) * U + j,
+                    xp + ((size_t)t * B + b) * 3 * H + g * H + u, 4);
+    }
+  };
+  prefetch(reverse ? T - 1 : 0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // the weights and h0 have landed
+  // every block's buffers are ready before any peer writes them
+  cluster.sync();
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    for (int u = threadIdx.x; u < H; u += blockDim.x) {
-      float a_r[R], a_z[R], a_n[R];
+    if (s + 1 < T) prefetch(reverse ? t - 1 : t + 1, (s + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's x_proj slots have landed
+    const float* xcur = xb + (s & 1) * R * 3 * U;
+
+    float acc[RT][3];
 #pragma unroll
-      for (int r = 0; r < R; ++r) a_r[r] = a_z[r] = a_n[r] = 0.f;
-      const float* w = whhT + u;
-      // unrolled so that several k's weight loads are in flight at once:
-      // L2 latency is what a step waits on
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wr = __ldg(w), wz = __ldg(w + H), wn = __ldg(w + 2 * H);
-        w += H3;
-        const float4* h4 = reinterpret_cast<const float4*>(hc + k * R);
+    for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
+    if (active) {
+      const float* wr = ws + j * HP;
+      const float* hr = hc + grp * RT * HP;
+#pragma unroll 2
+      for (int q = 0; q < q4; ++q) {
+        float4 w[3];
 #pragma unroll
-        for (int q = 0; q < R / 4; ++q) {
-          const float4 hv = h4[q];
-          const float hs[4] = {hv.x, hv.y, hv.z, hv.w};
+        for (int g = 0; g < 3; ++g)
+          w[g] = *reinterpret_cast<const float4*>(wr + g * U * HP + 4 * q);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            a_r[4 * q + j] = fmaf(hs[j], wr, a_r[4 * q + j]);
-            a_z[4 * q + j] = fmaf(hs[j], wz, a_z[4 * q + j]);
-            a_n[4 * q + j] = fmaf(hs[j], wn, a_n[4 * q + j]);
+        for (int i = 0; i < RT; ++i) {
+          const float4 h = *reinterpret_cast<const float4*>(hr + i * HP + 4 * q);
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            acc[i][g] = fmaf(h.x, w[g].x, acc[i][g]);
+            acc[i][g] = fmaf(h.y, w[g].y, acc[i][g]);
+            acc[i][g] = fmaf(h.z, w[g].z, acc[i][g]);
+            acc[i][g] = fmaf(h.w, w[g].w, acc[i][g]);
           }
         }
       }
-      const float br = __ldg(bhh + u), bz = __ldg(bhh + H + u);
-      const float bn = __ldg(bhh + 2 * H + u);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int b = row0 + r;
-        float xr = 0.f, xz = 0.f, xn = 0.f;
-        if (b < B) {
-          const float* x = xp + ((size_t)t * B + b) * H3;
-          xr = __ldg(x + u);
-          xz = __ldg(x + H + u);
-          xn = __ldg(x + 2 * H + u);
-        }
-        const float rg = sigmoid_f(xr + (a_r[r] + br));
-        const float zg = sigmoid_f(xz + (a_z[r] + bz));
-        const float ng = tanhf(xn + rg * (a_n[r] + bn));
-        const float h = (1.f - zg) * ng + zg * hc[u * R + r];
-        hn[u * R + r] = h;
-        if (b < B) ys[((size_t)t * B + b) * H + u] = h;
-      }
     }
-    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = grp * RT + i, b = row0 + r;
+      if (!unit_ok || b >= B) continue;
+      const float* x = xcur + r * 3 * U + j;
+      const float rg = sigmoid_f(x[0] + (acc[i][0] + bs[j]));
+      const float zg = sigmoid_f(x[U] + (acc[i][1] + bs[U + j]));
+      const float ng = tanhf(x[2 * U] + rg * (acc[i][2] + bs[2 * U + j]));
+      const float h = (1.f - zg) * ng + zg * hc[r * HP + u];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        cluster.map_shared_rank(hn, c)[r * HP + u] = h;
+      ys[((size_t)t * B + b) * H + u] = h;
+    }
+    // publishes the new state; after it the old buffer is free again
+    cluster.sync();
     float* tmp = hc; hc = hn; hn = tmp;
   }
-  for (int i = threadIdx.x; i < H * R; i += blockDim.x) {
-    const int k = i / R, b = row0 + i % R;
-    if (b < B) hlast[(size_t)b * H + k] = hc[i];
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = grp * RT + i, b = row0 + r;
+    if (unit_ok && b < B) hlast[(size_t)b * H + u] = hc[r * HP + u];
   }
 }
+
+cudaLaunchConfig_t launch_config(int B, int H, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + R - 1) / R) * C);
+  cfg.blockDim = dim3(threads_for(H));
+  cfg.dynamicSmemBytes = smem_bytes(H);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// sets the shared-memory attribute and checks that one cluster of this
+// shape fits the card
+cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
+  *max_clusters = 0;
+  const size_t smem = smem_bytes(H);
+  if (smem > kSmemLimit || threads_for(H) > kMaxThreads)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      gru_sequence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(B, H, stream, &attr);
+  e = cudaOccupancyMaxActiveClusters(max_clusters, gru_sequence_kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// the H prepare() last succeeded for
+int checked_H = -1;
 
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays; `stream` is a cudaStream_t. Returns a
-// cudaError_t code (0 = launched).
+// contiguous fp32 arrays, w_hh in the torch layout (3H, H); `stream` is a
+// cudaStream_t. Returns a cudaError_t code (0 = launched).
 extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
-                                const float* whhT, const float* bhh,
+                                const float* whh, const float* bhh,
                                 float* ys, float* hlast, int T, int B, int H,
                                 int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * (size_t)R * H;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gru_sequence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H != checked_H) {
+    int n = 0;
+    const cudaError_t e = prepare(B, H, st, &n);
     if (e != cudaSuccess) return (int)e;
+    checked_H = H;
   }
-  int threads = ((H + 31) / 32) * 32;
-  threads = threads > kMaxThreads ? kMaxThreads : threads;
-  const dim3 grid((B + R - 1) / R);
-  gru_sequence_kernel<<<grid, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      xp, h0, whhT, bhh, ys, hlast, T, B, H, reverse);
+  const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(h0) % 16 == 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(B, H, st, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, gru_sequence_kernel, xp, h0, whh, bhh, ys, hlast, T, B, H,
+      reverse, (int)vec);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// The launch shape for (B, H), so callers can check their mirror of it:
+// out = {rows per cluster, blocks per cluster, threads per block, dynamic
+// shared bytes, clusters in the grid, clusters the card holds at once}.
+extern "C" int g2v_gru_sequence_shape(int B, int H, long long* out) {
+  if (B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t e = prepare(B, H, nullptr, &n);
+  out[0] = R;
+  out[1] = C;
+  out[2] = threads_for(H);
+  out[3] = (long long)smem_bytes(H);
+  out[4] = (B + R - 1) / R;
+  out[5] = n;
+  return (int)e;
+}

@@ -3,7 +3,9 @@ plain version.
 
 Replaces the TPU kernel `gesture2vec_tpu/ops/gru_pallas.py`
 (`gru_sequence_fused` -> `_gru_seq_kernel`). The kernel itself is
-`csrc/gru_sequence.cu`; its source note gives the bound and the design.
+`csrc/gru_sequence.cu`; its source note gives the bound and the design:
+one thread-block cluster per tile of batch rows, each block holding its
+slice of w_hh in shared memory for the whole launch.
 
 `gru_sequence(x_proj, h0, w_hh, b_hh, reverse)` takes the hoisted input
 projections x_proj = xs @ w_ih^T + b_ih (T, B, 3H), the initial state
@@ -21,9 +23,36 @@ from typing import Tuple
 
 import torch
 
-# batch rows per block: the kernel's constexpr R
-ROWS = 8
+# the kernel's tile (csrc/gru_sequence.cu's R, C and RT): batch rows per
+# cluster, blocks per cluster, rows per thread
+ROWS, CLUSTER, ROWS_PER_THREAD = 20, 4, 4
 _SMEM_LIMIT = 232448
+# clusters of 4 such blocks that an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters, reported by chip_smoke.py)
+H100_MAX_CLUSTERS = 30
+
+
+def launch_shape(B: int, H: int,
+                 max_clusters: int = H100_MAX_CLUSTERS) -> dict:
+    """The kernel's launch for a batch of B rows at hidden size H, as
+    `csrc/gru_sequence.cu` computes it (`threads_for`, `smem_bytes`), and
+    how many waves of clusters it takes. Raises ValueError when the
+    block's shared memory (its w_hh slice, the tile's state twice, x_proj
+    slots) exceeds the card's 232,448 bytes, which happens above H=232."""
+    U = -(-H // CLUSTER)                    # hidden units per block
+    q = -(-H // 4)
+    HP = 4 * (q if q % 2 else q + 1)        # padded row: odd float4s
+    threads = -(-U * (ROWS // ROWS_PER_THREAD) // 32) * 32
+    smem = 4 * (3 * U * HP + 2 * ROWS * HP + 2 * ROWS * 3 * U + 3 * U)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"H={H} needs {smem} B of shared memory per block "
+                         f"(its w_hh slice, the tile's state twice, x_proj "
+                         f"slots), more than {_SMEM_LIMIT}")
+    clusters = -(-B // ROWS)
+    return {"rows": ROWS, "cluster": CLUSTER, "threads": threads,
+            "smem_bytes": smem, "clusters": clusters,
+            "blocks": clusters * CLUSTER,
+            "waves": -(-clusters // max_clusters)}
 
 
 def gru_sequence_plain(x_proj: torch.Tensor, h0: torch.Tensor,
@@ -66,8 +95,7 @@ def _check(x_proj, h0, w_hh, b_hh) -> None:
             raise ValueError(f"{name} must be contiguous")
     if T == 0 or B == 0 or H == 0:
         raise ValueError("empty sequence, batch or hidden")
-    if 4 * 2 * ROWS * H > _SMEM_LIMIT:
-        raise ValueError(f"H={H} exceeds one block's shared memory")
+    launch_shape(B, H)
 
 
 def _launch(x_proj, h0, w_hh, b_hh, reverse):
@@ -79,11 +107,10 @@ def _launch(x_proj, h0, w_hh, b_hh, reverse):
         [ctypes.c_void_p]
     T, B, H3 = x_proj.shape
     H = H3 // 3
-    w_t = w_hh.t().contiguous()                      # (H, 3H)
     ys = torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device)
     h_last = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
     stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-    err = fn(x_proj.data_ptr(), h0.data_ptr(), w_t.data_ptr(),
+    err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
              b_hh.data_ptr(), ys.data_ptr(), h_last.data_ptr(), T, B, H,
              int(reverse), stream)
     if err != 0:

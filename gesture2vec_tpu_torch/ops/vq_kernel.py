@@ -2,7 +2,9 @@
 
 Replaces the TPU kernel `gesture2vec_tpu/ops/vq_pallas.py`
 (`_vq_argmin_padded` / `vq_argmin` -> `_vq_kernel`). The kernel itself
-is `csrc/vq_argmin.cu`; its source note gives the bound and the design.
+is `csrc/vq_argmin.cu`; its source note gives the bound and the design:
+each block stages BM rows of x once and streams the codebook through a
+ring of shared-memory slices.
 
 `vq_argmin(x, codebook)` takes rows (N, D) and a codebook (K, D) and
 returns (indices (N,) int64, minimum distances (N,) fp32) of
@@ -19,6 +21,39 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+
+# the kernel's tiles (csrc/vq_argmin.cu's BN, BK, STAGES, TM x TN): codes
+# per tile, dims per codebook slice, slices in the ring, a thread's rows
+# and codes; the block's rows BM are chosen here
+BLOCK_CODES, SLICE_DIMS, STAGES, THREAD_ROWS, THREAD_CODES = 64, 32, 2, 8, 4
+BLOCK_ROWS = (128, 64, 32)
+_SMEM_LIMIT = 232448
+# streaming multiprocessors of an H100 SXM, for callers without a card
+H100_SMS = 132
+
+
+def _smem_bytes(block_rows: int, D: int) -> int:
+    q = -(-D // 4)                          # the staged rows' stride
+    ldx = 4 * (q if q % 8 else q + 1)
+    return 4 * (block_rows * ldx
+                + STAGES * BLOCK_CODES * (SLICE_DIMS + 4) + block_rows)
+
+
+def launch_shape(N: int, D: int, n_sm: int = H100_SMS) -> dict:
+    """The kernel's launch for N rows of width D: the largest BM whose
+    rows fit shared memory beside the codebook ring and that still gives
+    every SM a block, else the smallest BM that fits. Raises ValueError
+    when 32 rows do not fit (D > 1,668)."""
+    fits = [bm for bm in BLOCK_ROWS if _smem_bytes(bm, D) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"D={D}: {BLOCK_ROWS[-1]} rows of x and the codebook "
+                         f"ring need {_smem_bytes(BLOCK_ROWS[-1], D)} B of "
+                         f"shared memory, more than {_SMEM_LIMIT}")
+    bm = next((b for b in fits if -(-N // b) >= n_sm), fits[-1])
+    threads = bm // THREAD_ROWS * (BLOCK_CODES // THREAD_CODES)
+    return {"block_rows": bm, "threads": threads,
+            "smem_bytes": _smem_bytes(bm, D), "blocks": -(-N // bm)}
 
 
 def codebook_distances(x: torch.Tensor, codebook: torch.Tensor
@@ -50,6 +85,7 @@ def _check(x: torch.Tensor, codebook: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
     if 0 in x.shape or codebook.shape[0] == 0:
         raise ValueError("empty rows or codebook")
+    launch_shape(x.shape[0], x.shape[1])
 
 
 def _launch(x: torch.Tensor, codebook: torch.Tensor):
@@ -57,16 +93,18 @@ def _launch(x: torch.Tensor, codebook: torch.Tensor):
 
     fn = load("vq_argmin").g2v_vq_argmin
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     N, D = x.shape
     K = codebook.shape[0]
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bm = launch_shape(N, D, n_sm)["block_rows"]
     e2 = torch.sum(codebook * codebook, dim=1)
     idx = torch.empty((N,), dtype=torch.int64, device=x.device)
     dmin = torch.empty((N,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), codebook.data_ptr(), e2.data_ptr(),
-             idx.data_ptr(), dmin.data_ptr(), N, K, D, stream)
+             idx.data_ptr(), dmin.data_ptr(), N, K, D, bm, stream)
     if err != 0:
         raise RuntimeError(f"vq_argmin kernel launch failed: CUDA error "
                            f"{err}")

@@ -163,7 +163,7 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
     with pytest.raises(ValueError, match="empty"):
         gk.gru_sequence(torch.zeros(0, 3, 12), h0, w_hh, b_hh)
     with pytest.raises(ValueError, match="shared memory"):
-        big = 3700               # 2 * 8 rows * 3700 * 4 B > 227 KB
+        big = 233                # the w_hh slice and state pass 227 KB
         gk.gru_sequence(torch.empty(1, 1, 3 * big), torch.empty(1, big),
                         torch.empty(3 * big, big), torch.empty(3 * big))
     x, cb = torch.zeros(5, 4), torch.zeros(3, 4)
@@ -175,10 +175,46 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
         vk.vq_argmin(torch.zeros(4, 5).t(), cb)
     with pytest.raises(ValueError, match="empty"):
         vk.vq_argmin(torch.zeros(0, 4), cb)
+    with pytest.raises(ValueError, match="shared memory"):
+        vk.vq_argmin(torch.zeros(2, 1669), torch.zeros(3, 1669))
     before = (gk.gru_sequence.launches, vk.vq_argmin.launches)
     gk.gru_sequence(x_proj, h0, w_hh, b_hh)
     vk.vq_argmin(x, cb)
     assert (gk.gru_sequence.launches, vk.vq_argmin.launches) == before
+
+
+# (kernel, rows, width, what the launch must be): the tokenizer's GRU
+# batches at H=200 and the first H past the shared-memory limit; K-Means'
+# and the residual-VQ sweep's row counts at D=400, the DAE latent width,
+# a wide D, and the first D past the limit
+LAUNCH_CASES = [("gru", 1, 200, 1), ("gru", 7, 200, 1),
+                ("gru", 512, 200, 1), ("gru", 512, 233, ValueError),
+                ("vq", 58488, 400, 128), ("vq", 512, 400, 32),
+                ("vq", 58488, 40, 128), ("vq", 58488, 1024, 32),
+                ("vq", 58488, 1669, ValueError)]
+
+
+@pytest.mark.parametrize("kind,n,width,want", LAUNCH_CASES)
+def test_launch_shapes_fit_one_h100_or_raise(kind, n, width, want):
+    """The wrappers' mirrors of the kernels' launch arithmetic: GRU
+    clusters at H=200 fit one wave at B=512 (26 clusters of 4 blocks, the
+    card holding 30); VQ takes the tallest block that still gives all 132
+    SMs a block; both raise ValueError past their shared memory."""
+    helper = gk.launch_shape if kind == "gru" else vk.launch_shape
+    if want is ValueError:
+        with pytest.raises(ValueError, match="shared memory"):
+            helper(n, width)
+        return
+    shape = helper(n, width)
+    assert shape["smem_bytes"] <= 232448 and shape["threads"] <= 512
+    assert shape["threads"] % 32 == 0
+    if kind == "gru":
+        assert shape["waves"] == want and shape["blocks"] <= 132
+        assert shape["rows"] * shape["clusters"] >= n > \
+            shape["rows"] * (shape["clusters"] - 1)
+    else:
+        assert shape["block_rows"] == want
+        assert shape["blocks"] == -(-n // want)
 
 
 def test_gssoft_probs_match_jax_including_the_clamp(rng):
@@ -274,39 +310,57 @@ def _card():
 
 @pytest.mark.gpu
 def test_gru_kernel_matches_plain_on_card():
-    """At the tokenizer width (T=20, H=200), forward and reverse, full
-    and ragged batches. Tolerance 1e-4: fp32 sums in
-    another order over 20 recurrent steps."""
+    """At the tokenizer width (T=20, H=200), forward and reverse, batches
+    that fill one row of a cluster, part of one, and many (the kernel
+    takes 20 rows per cluster); and at H=201, which the kernel stages
+    with 4-byte copies. Tolerance 1e-4: fp32 sums in another order over
+    20 recurrent steps."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    H = 200
-    w = (torch.rand(3 * H, H, device="cuda", generator=g) * 2 - 1) / H ** .5
-    b = (torch.rand(3 * H, device="cuda", generator=g) * 2 - 1) / H ** .5
-    for B in (300, 512, 37):
-        xp = torch.randn(20, B, 3 * H, device="cuda", generator=g)
-        h0 = torch.randn(B, H, device="cuda", generator=g)
-        for reverse in (False, True):
-            ys, h = gk.gru_sequence(xp, h0, w, b, reverse)
-            ys_p, h_p = gk.gru_sequence_plain(xp, h0, w, b, reverse)
-            torch.cuda.synchronize()
-            assert (ys - ys_p).abs().max().item() < 1e-4
-            assert (h - h_p).abs().max().item() < 1e-4
+    for H, batches in ((200, (1, 17, 300, 512)), (201, (17, 300))):
+        bnd = 1.0 / H ** .5
+        w = (torch.rand(3 * H, H, device="cuda", generator=g) * 2 - 1) * bnd
+        b = (torch.rand(3 * H, device="cuda", generator=g) * 2 - 1) * bnd
+        for B in batches:
+            xp = torch.randn(20, B, 3 * H, device="cuda", generator=g)
+            h0 = torch.randn(B, H, device="cuda", generator=g)
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(xp, h0, w, b, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(xp, h0, w, b, reverse)
+                torch.cuda.synchronize()
+                assert (ys - ys_p).abs().max().item() < 1e-4
+                assert (h - h_p).abs().max().item() < 1e-4
 
 
 @pytest.mark.gpu
 def test_vq_kernel_matches_plain_on_card():
     """Indices equal except at near-ties (plain distances within 1e-3),
-    minima within 1e-3, at K-Means' and the tokenizer's widths."""
+    minima within 1e-3: row counts that are no multiple of any block
+    height (32, 64, 128), code counts below, inside and past a 64-code
+    tile, the DAE latent and tokenizer widths; D=401 and rows at an
+    address that is not 16-byte aligned, which the kernel stages with
+    4-byte copies; and exact ties between identical codes in two code
+    tiles, where the lower index wins."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for n, k in ((300, 300), (58488, 300), (4097, 512), (10, 7)):
-        x = torch.randn(n, 400, device="cuda", generator=g)
-        cb = torch.randn(k, 400, device="cuda", generator=g)
+    for n, k, d, offset in ((4099, 7, 40, 0), (4099, 300, 40, 0),
+                            (4099, 513, 40, 0), (58488, 300, 400, 0),
+                            (4099, 513, 400, 0), (10, 7, 400, 0),
+                            (4099, 300, 401, 0), (4099, 300, 400, 1)):
+        x = torch.randn(n * d + offset, device="cuda",
+                        generator=g)[offset:].view(n, d)
+        cb = torch.randn(k, d, device="cuda", generator=g)
         idx, dmin = vk.vq_argmin(x, cb)
-        d = vk.codebook_distances(x, cb)
-        dmin_p, idx_p = d.min(dim=1)
+        dist = vk.codebook_distances(x, cb)
+        dmin_p, idx_p = dist.min(dim=1)
         torch.cuda.synchronize()
         diff = (idx != idx_p).nonzero()[:, 0]
-        gap = (d[diff, idx[diff]] - d[diff, idx_p[diff]]).abs()
+        gap = (dist[diff, idx[diff]] - dist[diff, idx_p[diff]]).abs()
         assert (gap <= 1e-3).all()
         assert (dmin - dmin_p).abs().max().item() < 1e-3
+    cb = torch.randn(300, 400, device="cuda", generator=g)
+    cb[64], cb[200] = cb[63], cb[130]
+    near = torch.tensor([63] * 50 + [130] * 50, device="cuda")
+    x = cb[near] + 0.01 * torch.randn(100, 400, device="cuda", generator=g)
+    idx, _ = vk.vq_argmin(x, cb)
+    assert torch.equal(idx, near)

@@ -12,7 +12,9 @@ JSON line:
            shared-memory / spill lines;
 The decode path (text -> gesture generation):
   kernel   the chunk decoder against its plain PyTorch version on the
-           card, at the path's shapes, with times from CUDA events;
+           card, at the path's shapes, with times from CUDA events (20
+           and 40 steps), and its launch shape (16-block clusters, rows per tile) as the
+           kernel reports it, held against the wrapper's mirror;
   main     decode-mode generation at the bench widths (hidden 200,
            2 layers, 512 codes, DAE latent 40, pose 135, 20-frame
            chunks, 120-frame windows, 48 words, 5000-word table of
@@ -29,7 +31,9 @@ The Part-c path (corpus tokenizer sweep and K-Means):
            300), (58,488, 300), (2^20, 512)) against their plain versions,
            with cuDNN's GRU as the GRU's yardstick, and each launch shape
            as the kernel reports it, held against the wrapper's mirror;
-  kernel_edges  both kernels at the ragged edges of their tiles, at widths
+  kernel_edges  the chunk decoder at every edge of its tiles (B 1 to
+           1824), at unaligned rows and at widths staged by plain loads;
+           both Part-c kernels at the ragged edges of their tiles, at widths
            and addresses that take their 4-byte staging copies, and on
            exact ties between codes in two code tiles;
   main     a synthetic store the size of the Trinity/GENEA 2020 corpus
@@ -71,6 +75,10 @@ N_FRAMES, SENT_LEN, FPS, N_WORDS, MAXW, WORDEMBED = 20, 120, 20, 5000, 48, 300
 VOCAB_WORDS = 300
 REQUESTS_S = (6.0, 60.0, 1800.0)
 KERNEL_BATCHES = (6, 96, 293, 1824)   # 6 s, 60 s, ragged, 1800 s
+# chunk-decoder batches at the edges of its tiles: a single row, one
+# round of 1-row tiles (the card holds 7 clusters), 2-row tiles, several
+# rounds of 8-row tiles
+DECODER_EDGE_BATCHES = (1, 6, 7, 8, 9, 96, 293, 1824)
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -286,6 +294,24 @@ def vq_bound_ms(N: int, K: int, D: int) -> dict:
     return bound(2.0 * N * K * D, 4.0 * (N * D + K * D) + 12.0 * N)
 
 
+def random_folded(H: int, D: int, g):
+    """Random folded chunk-decoder weights on the card (torch layout),
+    drawn uniformly in +-1/sqrt(H) as the decoder's layers initialise;
+    BN scale near 1."""
+    import torch
+
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+
+    def u(*shape):
+        return (torch.rand(*shape, device="cuda", generator=g) * 2 - 1) \
+            / H ** 0.5
+
+    scale = 1 + 0.1 * torch.randn(H, device="cuda", generator=g)
+    gru = [t for _ in range(2) for t in (u(3 * H, H), u(3 * H, H),
+                                         u(3 * H), u(3 * H))]
+    return dk.FoldedDecoder(u(H, D), scale, u(H), *gru, u(D, H), u(D))
+
+
 def gru_launch(B: int, H: int) -> dict:
     """The GRU kernel's launch shape as the kernel reports it
     (g2v_gru_sequence_shape), held against the wrapper's mirror."""
@@ -306,6 +332,30 @@ def gru_launch(B: int, H: int) -> dict:
     if rc or any(want[k] != got[k] for k in got if k in want):
         raise AssertionError(f"GRU launch shape: kernel {got} (rc {rc}), "
                              f"wrapper {want}")
+    return {**want, "max_active_clusters": got["max_active_clusters"]}
+
+
+def decoder_launch(B: int, H: int, D: int) -> dict:
+    """The chunk decoder's launch shape as the kernel reports it
+    (g2v_chunk_decode_shape), held against the wrapper's mirror."""
+    import ctypes
+
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops.build import load
+
+    fn = load("chunk_decoder").g2v_chunk_decode_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = (ctypes.c_longlong * 7)()
+    rc = fn(B, H, D, out)
+    got = dict(zip(("rows", "cluster", "threads", "smem_bytes", "tiles",
+                    "clusters", "max_active_clusters"), list(out)))
+    want = dk.launch_shape(B, H, D, max_clusters=max(
+        got["max_active_clusters"], 1))
+    if rc or got["max_active_clusters"] < 1 or any(
+            want[k] != got[k] for k in got if k in want):
+        raise AssertionError(f"chunk decoder launch shape: kernel {got} "
+                             f"(rc {rc}), wrapper {want}")
     return {**want, "max_active_clusters": got["max_active_clusters"]}
 
 
@@ -376,9 +426,16 @@ def decode_path(smi: str) -> dict:
                                                    N_FRAMES), 20)
         plain_ms = cuda_ms(lambda: dk.fused_chunk_decode_plain(
             x0, h0, folded, N_FRAMES), 10)
+        # twice the steps: the difference is 20 steps without the
+        # weights' staging and the launch
+        ms_40 = cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
+                                                      2 * N_FRAMES), 20)
         row = {"phase": "kernel", "kernel": "chunk_decoder", "B": B,
                "H": HID, "D": REP, "n_steps": N_FRAMES,
+               "launch": decoder_launch(B, HID, REP),
                "max_abs_err": err, "tol": TOL, "ms": ms,
+               "ms_40_steps": ms_40,
+               "us_per_step": (ms_40 - ms) / N_FRAMES * 1e3,
                "plain_ms": plain_ms,
                **chunk_decoder_bound_ms(B, REP, HID, N_FRAMES)}
         emit(row)
@@ -456,6 +513,8 @@ def decode_path(smi: str) -> dict:
               "card": smi})
 
     k = kernel_rows[KERNEL_BATCHES[-1]]
+    by_batch = {B: {key: kernel_rows[B][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by")} for B in (6, 1824)}
     return {"name": "chunk_decoder", "route": "cuda",
             "source": "gesture2vec_tpu_torch/csrc/chunk_decoder.cu",
             "replaces": "gesture2vec_tpu/ops/decoder_pallas.py:144",
@@ -463,7 +522,8 @@ def decode_path(smi: str) -> dict:
                 r["max_abs_err"] for r in kernel_rows.values()),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "B": k["B"]}
+            "library_ms": None, "B": k["B"], "by_batch": by_batch,
+            "launch": k["launch"]}
 
 
 # -- Part c: corpus tokenizer sweep and K-Means -------------------------
@@ -666,10 +726,29 @@ def kernel_edges() -> dict:
     must win."""
     import torch
 
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
     from gesture2vec_tpu_torch.ops import gru_kernel as gk
     from gesture2vec_tpu_torch.ops import vq_kernel as vk
 
     g = torch.Generator(device="cuda").manual_seed(4)
+    # the chunk decoder: every tile edge at the path's width, rows at an
+    # address that is not 16-byte aligned, and widths (H=198, D=38) whose
+    # weights are staged by plain loads instead of bulk copies
+    dec = []
+    for H, D in ((HID, REP), (198, 38)):
+        w = random_folded(H, D, g)
+        for B in DECODER_EDGE_BATCHES:
+            for offset in ((0, 1) if H == HID and B in (7, 293) else (0,)):
+                x0 = torch.randn(B * D + offset, device="cuda",
+                                 generator=g)[offset:].view(B, D)
+                h0 = torch.randn(2 * B * H + offset, device="cuda",
+                                 generator=g)[offset:].view(2, B, H)
+                ys = dk.fused_chunk_decode(x0, h0, w, N_FRAMES)
+                ref = dk.fused_chunk_decode_plain(x0, h0, w, N_FRAMES)
+                torch.cuda.synchronize()
+                dec.append({"B": B, "H": H, "D": D, "offset": offset,
+                            "rows": decoder_launch(B, H, D)["rows"],
+                            "max_abs_err": (ys - ref).abs().max().item()})
     gru_err = 0.0
     for H in (HID, HID + 1):
         bnd = 1.0 / H ** 0.5
@@ -708,11 +787,13 @@ def kernel_edges() -> dict:
     x = cb[near] + 0.01 * torch.randn(600, VQ_D, device="cuda", generator=g)
     idx, _ = vk.vq_argmin(x, cb)
     ties_lower = bool(torch.equal(idx, near))
-    out = {"phase": "kernel_edges", "gru_batches": list(GRU_EDGE_BATCHES),
+    out = {"phase": "kernel_edges", "chunk_decoder": dec,
+           "gru_batches": list(GRU_EDGE_BATCHES),
            "gru_widths": [HID, HID + 1], "gru_max_abs_err": gru_err, "tol": TOL, "vq": vq,
            "vq_exact_ties_take_lower_index": ties_lower}
     emit(out)
-    if gru_err > TOL or not ties_lower or any(
+    if any(not r["max_abs_err"] <= TOL for r in dec) or gru_err > TOL \
+            or not ties_lower or any(
             r["rows_differing"] != r["near_ties"]
             or r["max_abs_err"] > DMIN_TOL for r in vq):
         raise AssertionError(f"kernel edges: {out}")

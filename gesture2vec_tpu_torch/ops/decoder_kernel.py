@@ -2,19 +2,23 @@
 
 Replaces the TPU kernel `gesture2vec_tpu/ops/decoder_pallas.py`
 (`fused_chunk_decode` -> `_decoder_kernel`). The kernel itself is
-`csrc/chunk_decoder.cu`; its source note gives the bound and the design.
+`csrc/chunk_decoder.cu`; its source note gives the bound and the design:
+a thread-block cluster of 16 blocks holds the decoder's weights in
+shared memory for the whole launch and walks tiles of at most 8 rows.
 
 `fold_decoder_step` folds eval BatchNorm and the pre_linear bias into
-a scale/shift pair and transposes the weights to (in, out), as the JAX
-wrapper does; the generator folds once, since inference weights do not
-change. `fused_chunk_decode` then runs the whole rollout: on a CUDA
-tensor it launches the kernel (or raises), on a CPU tensor it runs
-`fused_chunk_decode_plain`, a plain PyTorch loop over the same folded
-math that the tests hold against the JAX kernel.
+a scale/shift pair, as the JAX wrapper does, and keeps every weight in
+the torch layout (out, in), so a hidden unit's GRU rows are contiguous
+for the kernel's staging copies; the generator folds once, since
+inference weights do not change. `fused_chunk_decode` then runs the
+whole rollout: on a CUDA tensor it launches the kernel (or raises), on
+a CPU tensor it runs `fused_chunk_decode_plain`, a plain PyTorch loop
+over the same folded math that the tests hold against the JAX kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -22,27 +26,76 @@ import torch
 from gesture2vec_tpu_torch.models.gru import gru_cell
 from gesture2vec_tpu_torch.models.seq_ae import DecoderStep
 
-# chunk rows per block (kRows in the kernel); a block needs
-# 4 * ROWS * (D + 5H) bytes of shared memory, at most 232,448 on an H100
-ROWS = 8
+# the kernel's launch (csrc/chunk_decoder.cu's C, RM and kThreads): blocks
+# per cluster, most rows in a tile, threads per block
+CLUSTER, MAX_ROWS, THREADS = 16, 8, 512
 _SMEM_LIMIT = 232448
+# 16-block clusters of these blocks that an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters, reported by chip_smoke.py)
+H100_MAX_CLUSTERS = 7
 
 
 class FoldedDecoder(NamedTuple):
-    """Decoder-step weights in kernel layout (all fp32, contiguous)."""
-    w_pre: torch.Tensor      # (D, H)
+    """Decoder-step weights in kernel layout: the torch layout (out, in),
+    all fp32, contiguous."""
+    w_pre: torch.Tensor      # (H, D)
     bn_scale: torch.Tensor   # (H,)
     bn_bias: torch.Tensor    # (H,) includes the pre_linear bias
-    w0_ih: torch.Tensor      # (H, 3H)
-    w0_hh: torch.Tensor      # (H, 3H)
+    w0_ih: torch.Tensor      # (3H, H)
+    w0_hh: torch.Tensor      # (3H, H)
     b0_ih: torch.Tensor      # (3H,)
     b0_hh: torch.Tensor      # (3H,)
     w1_ih: torch.Tensor
     w1_hh: torch.Tensor
     b1_ih: torch.Tensor
     b1_hh: torch.Tensor
-    w_out: torch.Tensor      # (H, D)
+    w_out: torch.Tensor      # (D, H)
     b_out: torch.Tensor      # (D,)
+
+
+def smem_bytes(H: int, D: int) -> int:
+    """A block's shared memory, as `layout` in the kernel source counts it:
+    the block's GRU rows (12 U rows of H4), w_pre with rows padded to 2
+    float4s past a multiple of 4 (DP), w_out, biases and BN, the block's new
+    units (two layers, 8 rows of 16), and the tile's x, p and both layers'
+    state twice for 8 rows."""
+    U = -(-H // CLUSTER)
+    H4 = 4 * -(-H // 4)
+    q = -(-D // 4)
+    DP = 4 * (q + (2 - q) % 4)
+    DR = 4 * q
+    floats = (4 + 12 * U * H4 + H * DP + DR * H4 + 2 * H4 + DR
+              + 4 * -(-12 * U // 4) + 2 * MAX_ROWS * 16 + MAX_ROWS * DP
+              + 5 * MAX_ROWS * H4)
+    return 4 * floats
+
+
+def rows_for(B: int, max_clusters: int) -> int:
+    """Rows per tile (the kernel's rows_for): as few rounds of tiles as the
+    card's clusters allow, then as few rows a tile as those rounds allow."""
+    rounds = -(-B // (MAX_ROWS * max_clusters))
+    return min(-(-B // (rounds * max_clusters)), MAX_ROWS)
+
+
+def launch_shape(B: int, H: int, D: int,
+                 max_clusters: int = H100_MAX_CLUSTERS) -> dict:
+    """The kernel's launch for B rows at hidden size H and frame width D,
+    as `csrc/chunk_decoder.cu` computes it (`g2v_chunk_decode_shape`):
+    rows per tile, blocks per cluster, threads, dynamic shared bytes,
+    tiles, clusters in the (persistent) grid and the rounds of tiles each
+    walks. Raises ValueError when a block's shared memory exceeds the
+    card's 232,448 bytes, which happens above H=204 at D=40."""
+    smem = smem_bytes(H, D)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"H={H}, D={D} need {smem} B of shared memory per "
+                         f"block (the block's GRU rows, w_pre, w_out and "
+                         f"the tile's state), more than {_SMEM_LIMIT}")
+    rows = rows_for(B, max_clusters)
+    tiles = -(-B // rows)
+    clusters = min(tiles, max_clusters)
+    return {"rows": rows, "cluster": CLUSTER, "threads": THREADS,
+            "smem_bytes": smem, "tiles": tiles, "clusters": clusters,
+            "rounds": -(-tiles // clusters)}
 
 
 def supported(step: DecoderStep) -> str:
@@ -52,9 +105,10 @@ def supported(step: DecoderStep) -> str:
         return f"the kernel runs 2 GRU layers, not {gru.n_layers}"
     if not step.conditioned:
         return "the kernel feeds each output back (conditioned decoders)"
-    D, H = step.pre_linear.in_features, gru.hidden_size
-    if 4 * ROWS * (D + 5 * H) > _SMEM_LIMIT:
-        return f"H={H}, D={D} exceed one block's shared memory"
+    try:
+        launch_shape(1, gru.hidden_size, step.pre_linear.in_features)
+    except ValueError as e:
+        return str(e)
     return ""
 
 
@@ -65,18 +119,15 @@ def fold_decoder_step(step: DecoderStep) -> FoldedDecoder:
     bn = step.pre_bn
     inv = bn.weight / torch.sqrt(bn.running_var + bn.eps)
     bias = bn.bias - bn.running_mean * inv + step.pre_linear.bias * inv
-    g = step.gru
-    w0_ih, w0_hh, b0_ih, b0_hh = g.layer_weights(0)
-    w1_ih, w1_hh, b1_ih, b1_hh = g.layer_weights(1)
 
     def c(t):
         return t.detach().float().contiguous()
 
     return FoldedDecoder(
-        c(step.pre_linear.weight.t()), c(inv), c(bias),
-        c(w0_ih.t()), c(w0_hh.t()), c(b0_ih), c(b0_hh),
-        c(w1_ih.t()), c(w1_hh.t()), c(b1_ih), c(b1_hh),
-        c(step.out_layer.weight.t()), c(step.out_layer.bias))
+        c(step.pre_linear.weight), c(inv), c(bias),
+        *(c(t) for t in step.gru.layer_weights(0)),
+        *(c(t) for t in step.gru.layer_weights(1)),
+        c(step.out_layer.weight), c(step.out_layer.bias))
 
 
 def fused_chunk_decode_plain(x0: torch.Tensor, h0: torch.Tensor,
@@ -86,27 +137,24 @@ def fused_chunk_decode_plain(x0: torch.Tensor, h0: torch.Tensor,
     x, h_a, h_b = x0, h0[0], h0[1]
     ys = []
     for _ in range(n_steps):
-        p = torch.relu((x @ w.w_pre) * w.bn_scale + w.bn_bias)
-        # gru_cell takes torch-layout (3H, in) weights: .t() views undo
-        # the fold's transpose
-        h_a = gru_cell(p, h_a, w.w0_ih.t(), w.w0_hh.t(), w.b0_ih, w.b0_hh)
-        h_b = gru_cell(h_a, h_b, w.w1_ih.t(), w.w1_hh.t(), w.b1_ih,
-                       w.b1_hh)
-        x = torch.addmm(w.b_out, h_b, w.w_out)
+        p = torch.relu((x @ w.w_pre.t()) * w.bn_scale + w.bn_bias)
+        h_a = gru_cell(p, h_a, w.w0_ih, w.w0_hh, w.b0_ih, w.b0_hh)
+        h_b = gru_cell(h_a, h_b, w.w1_ih, w.w1_hh, w.b1_ih, w.b1_hh)
+        x = torch.addmm(w.b_out, h_b, w.w_out.t())
         ys.append(x)
     return torch.stack(ys, dim=0)
 
 
 def _check(x0: torch.Tensor, h0: torch.Tensor, w: FoldedDecoder) -> None:
     B, D = x0.shape
-    H = w.w_pre.shape[1]
+    H = w.w_pre.shape[0]
     want = {"x0": (x0, (B, D)), "h0": (h0, (2, B, H)),
-            "w_pre": (w.w_pre, (D, H)), "bn_scale": (w.bn_scale, (H,)),
-            "bn_bias": (w.bn_bias, (H,)), "w0_ih": (w.w0_ih, (H, 3 * H)),
-            "w0_hh": (w.w0_hh, (H, 3 * H)), "b0_ih": (w.b0_ih, (3 * H,)),
-            "b0_hh": (w.b0_hh, (3 * H,)), "w1_ih": (w.w1_ih, (H, 3 * H)),
-            "w1_hh": (w.w1_hh, (H, 3 * H)), "b1_ih": (w.b1_ih, (3 * H,)),
-            "b1_hh": (w.b1_hh, (3 * H,)), "w_out": (w.w_out, (H, D)),
+            "w_pre": (w.w_pre, (H, D)), "bn_scale": (w.bn_scale, (H,)),
+            "bn_bias": (w.bn_bias, (H,)), "w0_ih": (w.w0_ih, (3 * H, H)),
+            "w0_hh": (w.w0_hh, (3 * H, H)), "b0_ih": (w.b0_ih, (3 * H,)),
+            "b0_hh": (w.b0_hh, (3 * H,)), "w1_ih": (w.w1_ih, (3 * H, H)),
+            "w1_hh": (w.w1_hh, (3 * H, H)), "b1_ih": (w.b1_ih, (3 * H,)),
+            "b1_hh": (w.b1_hh, (3 * H,)), "w_out": (w.w_out, (D, H)),
             "b_out": (w.b_out, (D,))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
@@ -121,21 +169,28 @@ def _check(x0: torch.Tensor, h0: torch.Tensor, w: FoldedDecoder) -> None:
         raise ValueError("empty batch")
 
 
-def _launch(x0: torch.Tensor, h0: torch.Tensor, w: FoldedDecoder,
-            n_steps: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The kernel's C entry point, typed once."""
     from gesture2vec_tpu_torch.ops.build import load
 
-    lib = load("chunk_decoder")
-    fn = lib.g2v_chunk_decode
+    fn = load("chunk_decoder").g2v_chunk_decode
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
+    return fn
+
+
+def _launch(x0: torch.Tensor, h0: torch.Tensor, w: FoldedDecoder,
+            n_steps: int) -> torch.Tensor:
     B, D = x0.shape
-    H = w.w_pre.shape[1]
+    H = w.w_pre.shape[0]
+    launch_shape(B, H, D)
     ys = torch.empty((n_steps, B, D), dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
-    err = fn(x0.data_ptr(), h0.data_ptr(), *(t.data_ptr() for t in w),
-             ys.data_ptr(), B, D, H, n_steps, stream)
+    err = _kernel()(x0.data_ptr(), h0.data_ptr(),
+                    *(t.data_ptr() for t in w), ys.data_ptr(), B, D, H,
+                    n_steps, stream)
     if err != 0:
         raise RuntimeError(f"chunk_decoder kernel launch failed: CUDA "
                            f"error {err}")

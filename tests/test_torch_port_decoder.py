@@ -53,8 +53,8 @@ def _seq_model(hid, rep, n_poses):
 
 
 # (hidden, rep_dim, n_poses, B): one JAX grid block, then BLOCK + 37
-# rows (two blocks and padding on the TPU side; 37 ragged rows for the
-# kernel's 8- and 16-row tiles)
+# rows (two blocks and padding on the TPU side; ragged against the CUDA
+# kernel's tiles of at most 8 rows)
 CASES = [(32, 16, 10, 6), (16, 8, 6, 256 + 37)]
 
 
@@ -129,13 +129,46 @@ def test_supported_names_the_reason():
     assert "conditioned" in dk.supported(DecoderStep(40, 200, 2,
                                                      conditioned=False))
     assert "shared memory" in dk.supported(DecoderStep(40, 2000, 2))
+    # the 16-block cluster's shared memory takes H <= 204 at D=40
+    assert "shared memory" in dk.supported(DecoderStep(40, 205, 2))
+    assert dk.supported(DecoderStep(40, 204, 2)) == ""
+
+
+# (B, H, what the launch must be): the decode path's batches and every
+# tile edge at H=200, D=40 (rows per tile when the card holds 7 clusters);
+# the first H past the shared-memory limit
+LAUNCH_CASES = [(1, 200, 1), (6, 200, 1), (7, 200, 1), (8, 200, 2),
+                (9, 200, 2), (96, 200, 7), (293, 200, 7), (1824, 200, 8),
+                (6, 204, 1), (6, 205, ValueError)]
+
+
+@pytest.mark.parametrize("B,H,rows", LAUNCH_CASES)
+def test_launch_shape_fits_one_h100_or_raises(B, H, rows):
+    """The wrapper's mirror of the kernel's launch arithmetic: 16-block
+    clusters of 512 threads whose tiles cover the batch exactly once, a
+    persistent grid of at most the clusters the card holds, shared memory
+    within one block's 232,448 bytes; past it, ValueError."""
+    if rows is ValueError:
+        with pytest.raises(ValueError, match="shared memory"):
+            dk.launch_shape(B, H, 40, max_clusters=7)
+        return
+    shape = dk.launch_shape(B, H, 40, max_clusters=7)
+    assert shape["rows"] == rows <= 8
+    assert shape["rows"] * shape["tiles"] >= B > \
+        shape["rows"] * (shape["tiles"] - 1)
+    assert shape["smem_bytes"] <= 232448
+    assert shape["threads"] % 32 == 0 and shape["cluster"] == 16
+    assert shape["clusters"] == min(shape["tiles"], 7)
+    assert shape["rounds"] * shape["clusters"] >= shape["tiles"]
 
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version at the bench width
-    (H=200, D=40, 20 steps) and ragged batches. Tolerance 1e-4: fp32
-    sums in another order, carried through 20 recurrent steps."""
+    (H=200, D=40, 20 steps) at every tile edge and with more tiles than
+    the card's clusters (the persistent walk), and once with x0 and h0 at
+    an address that is not 16-byte aligned. Tolerance 1e-4: fp32 sums in
+    another order, carried through 20 recurrent steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
@@ -150,9 +183,12 @@ def test_kernel_matches_plain_on_card():
         bn.running_var.copy_(torch.rand(200, generator=gen) + 0.5)
     folded = dk.FoldedDecoder(*(t.cuda() for t in
                                 dk.fold_decoder_step(dec.decoder_step)))
-    for B in (6, 293, 1824):
-        x0 = torch.randn(B, 40, generator=gen).cuda()
-        h0 = torch.randn(2, B, 200, generator=gen).cuda()
+    for B, offset in [(B, 0) for B in (1, 6, 7, 8, 9, 96, 293, 1824)] + \
+            [(293, 1)]:
+        x0 = torch.randn(B * 40 + offset, generator=gen).cuda()[
+            offset:].view(B, 40)
+        h0 = torch.randn(2 * B * 200 + offset, generator=gen).cuda()[
+            offset:].view(2, B, 200)
         ys = dk.fused_chunk_decode(x0, h0, folded, 20)
         ref = dk.fused_chunk_decode_plain(x0, h0, folded, 20)
         torch.cuda.synchronize()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives two paths of the port, each with every kernel launch counter
+It drives four paths of the port, each with every kernel launch counter
 set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -49,8 +49,33 @@ The Part-c path (corpus tokenizer sweep and K-Means):
   check    kernel path against plain path on the card (tokens, latents,
            K-Means from the same initial centers), and the card against
            the CPU path on the first 2,048 windows;
-then the kernels line, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Any failed phase exits non-zero; without
+Exemplar mode (in the Part-c phase's directory):
+  main     `cli/_common.build_generator` from the Part-c DAE and tokenizer
+           checkpoints, a text2embedding checkpoint written in the JAX
+           package's format at the bench widths (TCN encoder) and the
+           cluster CLI's 58,488-window bank; the 6 s, 60 s and 1800 s
+           requests with and without exemplar_continuity (no kernel runs:
+           the launch counts must stay 0); the bank's device bytes;
+  check    shapes and finiteness; tokens, picks and frames of the card
+           against the CPU on the 60 s request;
+  timing   request seconds, stages (tokens, picks, gather + DAE decode)
+           and the device's idle share;
+The decode policies at the bench widths:
+  kernel   the chunk decoder at 24 steps (decode_overlap 4) and at B=1
+           (chunk_continuity), the GRU sequence at T=48 (the text
+           encoder's word window) for 1, 16, 303 and 304 windows, against
+           their plain versions, with cuDNN's layer beside the GRU;
+  policy   one line per policy (sampled at top_k 0 and 50, stage0 greedy
+           on a 4-stage model, beam 4, soft 1.0, overlap 4,
+           chunk_continuity, 4-stage stage_conditional, the GRU encoder)
+           on the 60 s and 1800 s requests: launches per request, the
+           kernel path against the module path on the card and the card
+           against the CPU at 60 s (tokens identical, frames within 1e-4,
+           a first differing window counted only as a near-tie of the
+           reference's decision scores), request seconds and stages;
+then the kernels line (each kernel's launches on its first path, on the
+new paths and its times at the new shapes), the nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
 a CUDA device, or without the package beside it, it exits non-zero
 before printing any result.
 """
@@ -95,6 +120,32 @@ VQ_D, VQ_SHAPES = 400, ((300, 300), (58488, 300), (1 << 20, 512))
 # VQ distances carry fp32 sums over 400 terms in another order
 NEAR_TIE, GSSOFT_TIE, DMIN_TOL = 1e-3, 1e-4, 1e-3
 CPU_WINDOWS = 2048
+# card against CPU and kernel against module path on the decode policies:
+# a token may differ only where the reference's two best decision scores
+# (logits, logits / temperature + noise, or beam scores) lie within this
+LOGIT_TIE = 1e-4
+# the Part-d checkpoint the exemplar path writes (the decode path's widths,
+# TCN encoder), as the JAX trainer saves its config
+T2T_ARGS = {"name": "seq2seqtxt", "model": "seq2seq", "hidden_size": HID,
+            "n_layers": L, "sentence_frame_length": SENT_LEN,
+            "n_poses": N_FRAMES, "n_pre_poses": 2, "autoencoder_att": True,
+            "autoencoder_vq": True, "autoencoder_vq_components": K,
+            "wordembed_dim": WORDEMBED, "motion_resampling_framerate": FPS,
+            "token_stages": 1, "stage_conditional": False,
+            "text_context_s": 0.0, "extras": {"text_encoder": "tcn"}}
+# (name, model variant of policy_trees, GestureGenerator options)
+POLICIES = (
+    ("sampled_t1_top_k0", "tcn", {"temperature": 1.0, "top_k": 0}),
+    ("sampled_t1_top_k50", "tcn", {"temperature": 1.0, "top_k": 50}),
+    ("stage0_greedy_t1_4stage", "stage4",
+     {"temperature": 1.0, "stage0_temperature": 0.0}),
+    ("beam4", "tcn", {"beam_width": 4}),
+    ("soft1", "tcn", {"soft_decode": 1.0}),
+    ("overlap4", "tcn", {"decode_overlap": 4}),
+    ("chunk_continuity", "tcn", {"chunk_continuity": True}),
+    ("stage_conditional_4stage", "stage4_cond", {}),
+    ("gru_encoder", "gru", {}))
+POLICY_REQUESTS_S = (60.0, 1800.0)
 # the checkpoints' configs, as the JAX trainer saves them (the fields of
 # configs/DAE.yml, configs/VQ-VAE.yml and configs/VQ-VAE_rvq.yml that
 # the loaders read)
@@ -493,21 +544,11 @@ def decode_path(smi: str) -> dict:
         n_frames = outs[d][0].shape[0]
         fused_s = best_s(lambda: gen.generate(w, d))
         plain_s = best_s(lambda: plain_gen.generate(w, d))
-        # stages of the fused path, host clock around synchronised work
-        ids, lens, _ = gen.window_inputs(w, d)
-        win_s = best_s(lambda: gen.window_inputs(w, d))
-        with torch.inference_mode():
-            tok_s = best_s(lambda: gen._predict_tokens(ids, lens))
-            toks = gen._predict_tokens(ids, lens)
-            chunk_s = best_s(lambda: gen._decode_tokens(toks))
-            lat = gen._decode_tokens(toks)
-            dae_s = best_s(lambda: gen.dae_model.decode(lat))
         emit({"phase": "timing", "request_s": d, "frames": n_frames,
               "fused_s": fused_s, "fused_frames_per_s": n_frames / fused_s,
               "rollout_s": plain_s,
               "rollout_frames_per_s": n_frames / plain_s,
-              "stages_s": {"windows": win_s, "tokens": tok_s,
-                           "chunk_decode": chunk_s, "dae_decode": dae_s},
+              "stages_s": stage_split(gen, d, reps=3),
               "device_busy": device_busy(lambda: gen.generate(w, d),
                                          fused_s),
               "card": smi})
@@ -580,14 +621,15 @@ def part_c_trees(rng: np.random.Generator):
 
 
 def write_checkpoint(path: str, args: dict, params, stats, kind: str,
-                     pose_dim: int) -> None:
+                     pose_dim: int, lang_model=None, **extra) -> None:
     """A checkpoint file as the JAX package's save_checkpoint writes it
     (a flax msgpack tree), through the port's own codec."""
     from gesture2vec_tpu_torch.utils import mpack
 
-    extra = {"batch_stats": stats, "parity": False} if stats else {}
+    if stats:
+        extra = {"batch_stats": stats, "parity": False, **extra}
     payload = {"args": args, "epoch": 1, "pose_dim": pose_dim,
-               "lang_model": None, "kind": kind, "params": params,
+               "lang_model": lang_model, "kind": kind, "params": params,
                "extra": extra}
     with open(path, "wb") as f:
         f.write(mpack.packb(payload))
@@ -818,7 +860,7 @@ def gssoft_near_ties(seq, hidden_plain, tok_a, tok_b) -> tuple:
     return int(diff.size), int((gap <= GSSOFT_TIE).sum())
 
 
-def part_c_path(smi: str) -> list:
+def part_c_path(smi: str, tmp: str) -> tuple:
     import torch
 
     from gesture2vec_tpu_torch.cli import cluster as cli
@@ -846,238 +888,237 @@ def part_c_path(smi: str) -> list:
     vq_rows = vq_kernel_rows()
     kernel_edges()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # -- main: the cluster CLI over the 244-minute corpus ------------
-        t0 = time.perf_counter()
-        train, val = write_corpus(tmp, rng)
-        ckpt = {n: os.path.join(tmp, f"{n}.bin")
-                for n in ("dae", "vq", "rvq")}
-        write_checkpoint(ckpt["dae"], DAE_ARGS, dae_p, None, "DAE", DIM)
-        write_checkpoint(ckpt["vq"], VQ_ARGS, vq_p, vq_s, "autoencoder_vq",
-                         REP)
-        write_checkpoint(ckpt["rvq"], RVQ_ARGS, rvq_p, rvq_s,
-                         "autoencoder_vq", REP)
-        setup_s = time.perf_counter() - t0
-        out = os.path.join(tmp, "clusters")
-        argv = [ckpt["dae"], ckpt["vq"], "--store", train, "--val-store",
-                val, "--kmeans", str(PC_KMEANS), "--out", out]
-        reset_launches()
-        t0 = time.perf_counter()
-        summary = cli.main(argv)
-        cli_s = time.perf_counter() - t0
-        counts = cli_counts = read_launches()
-        n_win, n_val = summary["windows"], summary["val_windows"]
-        want_gru = 2 * (math.ceil(n_win / 512) + math.ceil(n_val / 512))
-        want_vq = sum(summary["kmeans_n_iter"]) + len(summary["kmeans_n_iter"])
-        emit({"phase": "main", "path": "part_c",
-              "command": "python -m gesture2vec_tpu_torch.cli.cluster "
-                         + " ".join(os.path.basename(a) if a.startswith(tmp)
-                                    else a for a in argv),
-              "launches": counts, "want": {"gru_sequence": want_gru,
-                                           "vq_argmin": want_vq},
-              "windows": n_win, "val_windows": n_val,
-              "kmeans_lloyd_steps": summary["kmeans_n_iter"],
-              "kmeans_inertia": summary["kmeans_inertia"],
-              "seconds": cli_s, "setup_s": setup_s})
-        if n_win != PC_CLIPS * ((PC_FRAMES - 20) // 5 + 1):
-            raise AssertionError(f"{n_win} windows")
-        if counts["gru_sequence"] != want_gru or \
-                counts["vq_argmin"] != want_vq or counts["chunk_decoder"]:
-            raise AssertionError(f"Part-c launches {counts}, want "
-                                 f"gru {want_gru}, vq {want_vq}")
-        files = {f: os.path.getsize(os.path.join(out, f)) for f in (
-            "org_latent_clustering_data.npz", "kmeans_model.npz",
-            "Metrics.txt", "Metrics.tex", "Rep_distance.txt")}
-        with np.load(os.path.join(out, "org_latent_clustering_data.npz")) \
-                as z:
-            cli_tokens, cli_lat = z["tokens"], z["seq_latents"]
-        with np.load(os.path.join(out, "kmeans_model.npz")) as z:
-            centers = z["centers"]
-        metrics = open(os.path.join(out, "Metrics.txt")).read().split("\n")
-        if cli_tokens.shape != (n_win,) or cli_lat.shape != (n_win, L * HID) \
-                or not np.isfinite(cli_lat).all() \
-                or centers.shape != (PC_KMEANS, L * HID) \
-                or not np.isfinite(centers).all():
-            raise AssertionError("Part-c outputs: bad shapes or values")
-        n_codes = int(len(np.unique(cli_tokens)))
-        if n_codes < 2:
-            raise AssertionError("the sweep's tokens cover one code")
+    # -- main: the cluster CLI over the 244-minute corpus ------------
+    t0 = time.perf_counter()
+    train, val = write_corpus(tmp, rng)
+    ckpt = {n: os.path.join(tmp, f"{n}.bin")
+            for n in ("dae", "vq", "rvq")}
+    write_checkpoint(ckpt["dae"], DAE_ARGS, dae_p, None, "DAE", DIM)
+    write_checkpoint(ckpt["vq"], VQ_ARGS, vq_p, vq_s, "autoencoder_vq",
+                     REP)
+    write_checkpoint(ckpt["rvq"], RVQ_ARGS, rvq_p, rvq_s,
+                     "autoencoder_vq", REP)
+    setup_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "clusters")
+    argv = [ckpt["dae"], ckpt["vq"], "--store", train, "--val-store",
+            val, "--kmeans", str(PC_KMEANS), "--out", out]
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    counts = cli_counts = read_launches()
+    n_win, n_val = summary["windows"], summary["val_windows"]
+    want_gru = 2 * (math.ceil(n_win / 512) + math.ceil(n_val / 512))
+    want_vq = sum(summary["kmeans_n_iter"]) + len(summary["kmeans_n_iter"])
+    emit({"phase": "main", "path": "part_c",
+          "command": "python -m gesture2vec_tpu_torch.cli.cluster "
+                     + " ".join(os.path.basename(a) if a.startswith(tmp)
+                                else a for a in argv),
+          "launches": counts, "want": {"gru_sequence": want_gru,
+                                       "vq_argmin": want_vq},
+          "windows": n_win, "val_windows": n_val,
+          "kmeans_lloyd_steps": summary["kmeans_n_iter"],
+          "kmeans_inertia": summary["kmeans_inertia"],
+          "seconds": cli_s, "setup_s": setup_s})
+    if n_win != PC_CLIPS * ((PC_FRAMES - 20) // 5 + 1):
+        raise AssertionError(f"{n_win} windows")
+    if counts["gru_sequence"] != want_gru or \
+            counts["vq_argmin"] != want_vq or counts["chunk_decoder"]:
+        raise AssertionError(f"Part-c launches {counts}, want "
+                             f"gru {want_gru}, vq {want_vq}")
+    files = {f: os.path.getsize(os.path.join(out, f)) for f in (
+        "org_latent_clustering_data.npz", "kmeans_model.npz",
+        "Metrics.txt", "Metrics.tex", "Rep_distance.txt")}
+    with np.load(os.path.join(out, "org_latent_clustering_data.npz")) \
+            as z:
+        cli_tokens, cli_lat = z["tokens"], z["seq_latents"]
+    with np.load(os.path.join(out, "kmeans_model.npz")) as z:
+        centers = z["centers"]
+    metrics = open(os.path.join(out, "Metrics.txt")).read().split("\n")
+    if cli_tokens.shape != (n_win,) or cli_lat.shape != (n_win, L * HID) \
+            or not np.isfinite(cli_lat).all() \
+            or centers.shape != (PC_KMEANS, L * HID) \
+            or not np.isfinite(centers).all():
+        raise AssertionError("Part-c outputs: bad shapes or values")
+    n_codes = int(len(np.unique(cli_tokens)))
+    if n_codes < 2:
+        raise AssertionError("the sweep's tokens cover one code")
 
-        # -- main: the residual-VQ sweep with all stage tokens -----------
-        dae, _ = load_checkpoint_and_model(ckpt["dae"], "DAE")
-        rvq, rvq_payload = load_checkpoint_and_model(ckpt["rvq"],
-                                                     "autoencoder_vq")
-        store = ClipStore(train)
-        stride = int(rvq_payload["config"]["subdivision_stride"])
-        reset_launches()
-        t0 = time.perf_counter()
-        rdata = build_latent_dataset(store, dae_model=dae, seq_model=rvq,
-                                     n_poses=20, stride=stride,
-                                     all_stages=True)
-        rvq_s = time.perf_counter() - t0
-        counts = read_launches()
-        n_r = rdata["tokens"].shape[0]
-        stages = RVQ_ARGS["rvq_stages"]
-        want = {"gru_sequence": 2 * math.ceil(n_r / 512),
-                "vq_argmin": stages * math.ceil(n_r / 512)}
-        emit({"phase": "main", "path": "part_c_rvq_all_stages",
-              "launches": counts, "want": want, "windows": n_r,
-              "tokens_shape": list(rdata["tokens"].shape),
-              "distinct_codes_per_stage": [
-                  int(len(np.unique(rdata["tokens"][:, s])))
-                  for s in range(stages)], "seconds": rvq_s})
-        if rdata["tokens"].shape != (n_r, stages) or any(
-                counts[k] != v for k, v in want.items()):
-            raise AssertionError(f"RVQ sweep launches {counts}, want {want}")
-        emit({"phase": "check", "path": "part_c", "files": files,
-              "distinct_tokens": n_codes, "metrics": metrics[:-1],
-              "note": "outputs present, finite, of the expected shapes"})
+    # -- main: the residual-VQ sweep with all stage tokens -----------
+    dae, _ = load_checkpoint_and_model(ckpt["dae"], "DAE")
+    rvq, rvq_payload = load_checkpoint_and_model(ckpt["rvq"],
+                                                 "autoencoder_vq")
+    store = ClipStore(train)
+    stride = int(rvq_payload["config"]["subdivision_stride"])
+    reset_launches()
+    t0 = time.perf_counter()
+    rdata = build_latent_dataset(store, dae_model=dae, seq_model=rvq,
+                                 n_poses=20, stride=stride,
+                                 all_stages=True)
+    rvq_s = time.perf_counter() - t0
+    counts = read_launches()
+    n_r = rdata["tokens"].shape[0]
+    stages = RVQ_ARGS["rvq_stages"]
+    want = {"gru_sequence": 2 * math.ceil(n_r / 512),
+            "vq_argmin": stages * math.ceil(n_r / 512)}
+    emit({"phase": "main", "path": "part_c_rvq_all_stages",
+          "launches": counts, "want": want, "windows": n_r,
+          "tokens_shape": list(rdata["tokens"].shape),
+          "distinct_codes_per_stage": [
+              int(len(np.unique(rdata["tokens"][:, s])))
+              for s in range(stages)], "seconds": rvq_s})
+    if rdata["tokens"].shape != (n_r, stages) or any(
+            counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"RVQ sweep launches {counts}, want {want}")
+    emit({"phase": "check", "path": "part_c", "files": files,
+          "distinct_tokens": n_codes, "metrics": metrics[:-1],
+          "note": "outputs present, finite, of the expected shapes"})
 
-        # -- timing: the sweep stage by stage ----------------------------
-        seq, _ = load_checkpoint_and_model(ckpt["vq"], "autoencoder_vq")
-        stage = {}
-        stage["store_read_and_windows"] = best_s(
-            lambda: pose_windows(ClipStore(train), 20, 5))
-        wins = pose_windows(store, 20, 5)
-        stage["dae_encode"] = best_s(lambda: encode_windows_with_dae(dae,
-                                                                     wins))
-        lat_w = encode_windows_with_dae(dae, wins)
-        stage["tokenize"] = best_s(lambda: tokenize_windows(seq, lat_w))
-        toks, lats = tokenize_windows(seq, lat_w)
-        sweep_s = best_s(lambda: build_latent_dataset(
-            ClipStore(train), dae_model=dae, seq_model=seq, n_poses=20,
-            stride=5))
-        t0 = time.perf_counter()
-        res = km.kmeans_fit(lats, PC_KMEANS, seed=0)
-        stage["kmeans"] = time.perf_counter() - t0
-        vdata = build_latent_dataset(ClipStore(val), dae_model=dae,
-                                     seq_model=seq, n_poses=20, stride=5,
-                                     mean=store.pose_mean,
-                                     std=store.pose_std)
-        t0 = time.perf_counter()
-        hellinger(token_histogram(toks, K),
-                  token_histogram(vdata["tokens"], K))
-        frechet_distance(lats, vdata["seq_latents"])
-        token_perplexity(toks, K)
-        wasserstein_distance(toks, vdata["tokens"])
-        representation_neighbor_distance(lats)
-        stage["metrics"] = time.perf_counter() - t0
-        emit({"phase": "timing", "path": "part_c", "windows": len(toks),
-              "sweep_s": sweep_s, "sweep_windows_per_s": len(toks) / sweep_s,
-              "stages_s": stage, "kmeans_lloyd_steps": res.n_iter,
-              "kmeans_s_per_lloyd_step": stage["kmeans"] / sum(res.n_iter),
-              "cluster_cli_s": cli_s,
-              "device_busy": device_busy(lambda: build_latent_dataset(
-                  ClipStore(train), dae_model=dae, seq_model=seq,
-                  n_poses=20, stride=5), sweep_s),
-              "card": smi})
+    # -- timing: the sweep stage by stage ----------------------------
+    seq, _ = load_checkpoint_and_model(ckpt["vq"], "autoencoder_vq")
+    stage = {}
+    stage["store_read_and_windows"] = best_s(
+        lambda: pose_windows(ClipStore(train), 20, 5))
+    wins = pose_windows(store, 20, 5)
+    stage["dae_encode"] = best_s(lambda: encode_windows_with_dae(dae,
+                                                                 wins))
+    lat_w = encode_windows_with_dae(dae, wins)
+    stage["tokenize"] = best_s(lambda: tokenize_windows(seq, lat_w))
+    toks, lats = tokenize_windows(seq, lat_w)
+    sweep_s = best_s(lambda: build_latent_dataset(
+        ClipStore(train), dae_model=dae, seq_model=seq, n_poses=20,
+        stride=5))
+    t0 = time.perf_counter()
+    res = km.kmeans_fit(lats, PC_KMEANS, seed=0)
+    stage["kmeans"] = time.perf_counter() - t0
+    vdata = build_latent_dataset(ClipStore(val), dae_model=dae,
+                                 seq_model=seq, n_poses=20, stride=5,
+                                 mean=store.pose_mean,
+                                 std=store.pose_std)
+    t0 = time.perf_counter()
+    hellinger(token_histogram(toks, K),
+              token_histogram(vdata["tokens"], K))
+    frechet_distance(lats, vdata["seq_latents"])
+    token_perplexity(toks, K)
+    wasserstein_distance(toks, vdata["tokens"])
+    representation_neighbor_distance(lats)
+    stage["metrics"] = time.perf_counter() - t0
+    emit({"phase": "timing", "path": "part_c", "windows": len(toks),
+          "sweep_s": sweep_s, "sweep_windows_per_s": len(toks) / sweep_s,
+          "stages_s": stage, "kmeans_lloyd_steps": res.n_iter,
+          "kmeans_s_per_lloyd_step": stage["kmeans"] / sum(res.n_iter),
+          "cluster_cli_s": cli_s,
+          "device_busy": device_busy(lambda: build_latent_dataset(
+              ClipStore(train), dae_model=dae, seq_model=seq,
+              n_poses=20, stride=5), sweep_s),
+          "card": smi})
 
-        # -- check: kernel path against plain path, card against CPU ----
-        if not np.array_equal(toks, cli_tokens) or \
-                np.abs(lats - cli_lat).max() > 0:
-            raise AssertionError("the sweep is not deterministic")
-        x = torch.from_numpy(lat_w).cuda()
+    # -- check: kernel path against plain path, card against CPU ----
+    if not np.array_equal(toks, cli_tokens) or \
+            np.abs(lats - cli_lat).max() > 0:
+        raise AssertionError("the sweep is not deterministic")
+    x = torch.from_numpy(lat_w).cuda()
+    with torch.inference_mode():
+        seq.set_use_kernels(False)
+        toks_p, lats_p = tokenize_windows(seq, lat_w)
+        hid_p = torch.cat([seq.encode_hidden(x[s:s + 4096])
+                           for s in range(0, len(x), 4096)], dim=1)
+        seq.set_use_kernels(True)
+    differ, ties = gssoft_near_ties(seq, hid_p, toks, toks_p)
+    lat_err = float(np.abs(lats - lats_p).max())
+    # RVQ stage tokens, kernel against plain
+    rvq.set_use_kernels(False)
+    rt_p, _ = tokenize_windows(rvq, rdata["dae_latents"],
+                               all_stages=True)
+    rvq.set_use_kernels(True)
+    r_rows = np.nonzero((rt_p != rdata["tokens"]).any(axis=1))[0]
+    r_ties = 0
+    if r_rows.size:
         with torch.inference_mode():
-            seq.set_use_kernels(False)
-            toks_p, lats_p = tokenize_windows(seq, lat_w)
-            hid_p = torch.cat([seq.encode_hidden(x[s:s + 4096])
-                               for s in range(0, len(x), 4096)], dim=1)
-            seq.set_use_kernels(True)
-        differ, ties = gssoft_near_ties(seq, hid_p, toks, toks_p)
-        lat_err = float(np.abs(lats - lats_p).max())
-        # RVQ stage tokens, kernel against plain
-        rvq.set_use_kernels(False)
-        rt_p, _ = tokenize_windows(rvq, rdata["dae_latents"],
-                                   all_stages=True)
-        rvq.set_use_kernels(True)
-        r_rows = np.nonzero((rt_p != rdata["tokens"]).any(axis=1))[0]
-        r_ties = 0
-        if r_rows.size:
-            with torch.inference_mode():
-                h = rvq.encode_hidden(torch.from_numpy(
-                    rdata["dae_latents"][r_rows]).cuda())
-                resid = _flatten_hidden(h, rvq.vq_flatten)
-                for s, cb in enumerate(rvq.vq_layer.codebooks()):
-                    a = torch.from_numpy(rdata["tokens"][r_rows, s]).cuda()
-                    b = torch.from_numpy(rt_p[r_rows, s]).cuda()
-                    d = vk.codebook_distances(resid, cb)
-                    gap = (d.gather(1, a[:, None].long())
-                           - d.gather(1, b[:, None].long())).abs()[:, 0]
-                    first = (a != b) & (torch.as_tensor(
-                        (rdata["tokens"][r_rows, :s] == rt_p[r_rows, :s])
-                        .all(axis=1)).cuda())
-                    r_ties += int(((gap <= NEAR_TIE) & first).sum().item())
-                    resid = resid - cb[b.long()]
-        # K-Means from the same initial centers: at every Lloyd step of
-        # the kernel run, the kernel's assignment against the plain one
-        # on the same centers; then the two whole runs, kernel and plain
-        # (deterministic center sums keep them together until a near-tie
-        # flips a label, which K-Means would amplify)
-        xl = torch.from_numpy(lats).cuda()
-        c0 = km.plusplus_init(xl, PC_KMEANS,
-                              torch.Generator(device="cuda").manual_seed(3))
-        c, steps, shift = c0, 0, float("inf")
-        km_differ = km_ties = 0
-        inertia_rel = 0.0
-        while True:
-            lk, dmin_k = vk.vq_argmin(xl, c)
-            d = vk.codebook_distances(xl, c)
-            dmin_p, lp = d.min(dim=1)
-            differ_i, ties_i = near_ties(d, lk, lp)
-            km_differ, km_ties = km_differ + differ_i, km_ties + ties_i
-            inertia_rel = max(inertia_rel, abs(
-                dmin_k.sum().item() - dmin_p.sum().item())
-                / dmin_p.sum().item())
-            if steps == 300 or not shift > 1e-4:   # lloyd's defaults
-                break
-            new = km.lloyd_step(xl, c)
-            shift = torch.sum((new - c) ** 2).item()
-            c, steps = new, steps + 1
-        del d
-        ck, lk, ik, nk = km.lloyd(xl, c0, use_kernel=True)
-        km_deterministic = nk == steps and torch.equal(ck, c)
-        cp, lp, ip, np_ = km.lloyd(xl, c0, use_kernel=False)
-        run_differ, run_ties = near_ties(vk.codebook_distances(xl, cp),
-                                         lk, lp)
-        runs = {"lloyd_steps": [nk, np_], "labels_differing": run_differ,
-                "near_ties": run_ties,
-                "inertia_rel_err": abs(ik.item() - ip.item()) / ip.item()}
-        # the card against the CPU path on the first windows
-        dae_c, _ = load_checkpoint_and_model(ckpt["dae"], "DAE", "cpu")
-        seq_c, _ = load_checkpoint_and_model(ckpt["vq"], "autoencoder_vq",
-                                             "cpu")
-        lat_c = encode_windows_with_dae(dae_c, wins[:CPU_WINDOWS])
-        toks_c, lats_c = tokenize_windows(seq_c, lat_c)
-        with torch.inference_mode():
-            hid_c = seq_c.encode_hidden(torch.from_numpy(lat_c))
-        c_differ, c_ties = gssoft_near_ties(seq_c, hid_c,
-                                            toks[:CPU_WINDOWS], toks_c)
-        cpu_err = max(float(np.abs(lat_w[:CPU_WINDOWS] - lat_c).max()),
-                      float(np.abs(lats[:CPU_WINDOWS] - lats_c).max()))
-        result = {
-            "phase": "check", "path": "part_c_kernels_vs_plain",
-            "gssoft_tokens_differing": differ, "gssoft_near_ties": ties,
-            "gssoft_tie_margin": GSSOFT_TIE, "seq_latents_max_abs_err":
-                lat_err, "tol": TOL,
-            "rvq_rows_differing": int(r_rows.size), "rvq_near_ties": r_ties,
-            "kmeans_lloyd_steps": steps,
-            "kmeans_labels_differing": km_differ,
-            "kmeans_near_ties": km_ties, "kmeans_inertia_rel_err":
-                inertia_rel, "kmeans_deterministic": km_deterministic,
-            "kmeans_same_seed_fits": [summary["kmeans_n_iter"], res.n_iter],
-            "kmeans_kernel_vs_plain_runs": runs,
-            "card_vs_cpu_windows": CPU_WINDOWS,
-            "card_vs_cpu_tokens_differing": c_differ,
-            "card_vs_cpu_near_ties": c_ties,
-            "card_vs_cpu_max_abs_err": cpu_err}
-        emit(result)
-        if differ != ties or lat_err > TOL or r_rows.size != r_ties \
-                or km_differ != km_ties or inertia_rel > 1e-5 \
-                or not km_deterministic or run_differ != run_ties \
-                or runs["inertia_rel_err"] > 1e-5 \
-                or summary["kmeans_n_iter"] != res.n_iter \
-                or c_differ != c_ties or cpu_err > TOL:
-            raise AssertionError(f"Part-c check failed: {result}")
+            h = rvq.encode_hidden(torch.from_numpy(
+                rdata["dae_latents"][r_rows]).cuda())
+            resid = _flatten_hidden(h, rvq.vq_flatten)
+            for s, cb in enumerate(rvq.vq_layer.codebooks()):
+                a = torch.from_numpy(rdata["tokens"][r_rows, s]).cuda()
+                b = torch.from_numpy(rt_p[r_rows, s]).cuda()
+                d = vk.codebook_distances(resid, cb)
+                gap = (d.gather(1, a[:, None].long())
+                       - d.gather(1, b[:, None].long())).abs()[:, 0]
+                first = (a != b) & (torch.as_tensor(
+                    (rdata["tokens"][r_rows, :s] == rt_p[r_rows, :s])
+                    .all(axis=1)).cuda())
+                r_ties += int(((gap <= NEAR_TIE) & first).sum().item())
+                resid = resid - cb[b.long()]
+    # K-Means from the same initial centers: at every Lloyd step of
+    # the kernel run, the kernel's assignment against the plain one
+    # on the same centers; then the two whole runs, kernel and plain
+    # (deterministic center sums keep them together until a near-tie
+    # flips a label, which K-Means would amplify)
+    xl = torch.from_numpy(lats).cuda()
+    c0 = km.plusplus_init(xl, PC_KMEANS,
+                          torch.Generator(device="cuda").manual_seed(3))
+    c, steps, shift = c0, 0, float("inf")
+    km_differ = km_ties = 0
+    inertia_rel = 0.0
+    while True:
+        lk, dmin_k = vk.vq_argmin(xl, c)
+        d = vk.codebook_distances(xl, c)
+        dmin_p, lp = d.min(dim=1)
+        differ_i, ties_i = near_ties(d, lk, lp)
+        km_differ, km_ties = km_differ + differ_i, km_ties + ties_i
+        inertia_rel = max(inertia_rel, abs(
+            dmin_k.sum().item() - dmin_p.sum().item())
+            / dmin_p.sum().item())
+        if steps == 300 or not shift > 1e-4:   # lloyd's defaults
+            break
+        new = km.lloyd_step(xl, c)
+        shift = torch.sum((new - c) ** 2).item()
+        c, steps = new, steps + 1
+    del d
+    ck, lk, ik, nk = km.lloyd(xl, c0, use_kernel=True)
+    km_deterministic = nk == steps and torch.equal(ck, c)
+    cp, lp, ip, np_ = km.lloyd(xl, c0, use_kernel=False)
+    run_differ, run_ties = near_ties(vk.codebook_distances(xl, cp),
+                                     lk, lp)
+    runs = {"lloyd_steps": [nk, np_], "labels_differing": run_differ,
+            "near_ties": run_ties,
+            "inertia_rel_err": abs(ik.item() - ip.item()) / ip.item()}
+    # the card against the CPU path on the first windows
+    dae_c, _ = load_checkpoint_and_model(ckpt["dae"], "DAE", "cpu")
+    seq_c, _ = load_checkpoint_and_model(ckpt["vq"], "autoencoder_vq",
+                                         "cpu")
+    lat_c = encode_windows_with_dae(dae_c, wins[:CPU_WINDOWS])
+    toks_c, lats_c = tokenize_windows(seq_c, lat_c)
+    with torch.inference_mode():
+        hid_c = seq_c.encode_hidden(torch.from_numpy(lat_c))
+    c_differ, c_ties = gssoft_near_ties(seq_c, hid_c,
+                                        toks[:CPU_WINDOWS], toks_c)
+    cpu_err = max(float(np.abs(lat_w[:CPU_WINDOWS] - lat_c).max()),
+                  float(np.abs(lats[:CPU_WINDOWS] - lats_c).max()))
+    result = {
+        "phase": "check", "path": "part_c_kernels_vs_plain",
+        "gssoft_tokens_differing": differ, "gssoft_near_ties": ties,
+        "gssoft_tie_margin": GSSOFT_TIE, "seq_latents_max_abs_err":
+            lat_err, "tol": TOL,
+        "rvq_rows_differing": int(r_rows.size), "rvq_near_ties": r_ties,
+        "kmeans_lloyd_steps": steps,
+        "kmeans_labels_differing": km_differ,
+        "kmeans_near_ties": km_ties, "kmeans_inertia_rel_err":
+            inertia_rel, "kmeans_deterministic": km_deterministic,
+        "kmeans_same_seed_fits": [summary["kmeans_n_iter"], res.n_iter],
+        "kmeans_kernel_vs_plain_runs": runs,
+        "card_vs_cpu_windows": CPU_WINDOWS,
+        "card_vs_cpu_tokens_differing": c_differ,
+        "card_vs_cpu_near_ties": c_ties,
+        "card_vs_cpu_max_abs_err": cpu_err}
+    emit(result)
+    if differ != ties or lat_err > TOL or r_rows.size != r_ties \
+            or km_differ != km_ties or inertia_rel > 1e-5 \
+            or not km_deterministic or run_differ != run_ties \
+            or runs["inertia_rel_err"] > 1e-5 \
+            or summary["kmeans_n_iter"] != res.n_iter \
+            or c_differ != c_ties or cpu_err > TOL:
+        raise AssertionError(f"Part-c check failed: {result}")
 
     def entry(name, rows, main_row, launches, library_ms):
         return {"name": name, "route": "cuda",
@@ -1090,7 +1131,9 @@ def part_c_path(smi: str) -> list:
 
     g512 = next(r for r in gru_rows if r["B"] == 512 and not r["reverse"])
     v_main = next(r for r in vq_rows if r["N"] == 58488)
-    return [
+    files = {"dae": ckpt["dae"], "vq": ckpt["vq"], "train": train,
+             "bank": os.path.join(out, "org_latent_clustering_data.npz")}
+    return files, [
         {**entry("gru_sequence", gru_rows, g512,
                  cli_counts["gru_sequence"], g512["library_ms"]),
          "replaces": "gesture2vec_tpu/ops/gru_pallas.py:60", "B": 512,
@@ -1103,6 +1146,452 @@ def part_c_path(smi: str) -> list:
                  None),
          "replaces": "gesture2vec_tpu/ops/vq_pallas.py:54", "N": 58488,
          "K": PC_KMEANS, "launch": v_main["launch"]}]
+
+
+# -- exemplar mode and the decode policies --------------------------------
+def stage_split(gen, d: float, reps: int = 2) -> dict:
+    """Host seconds of each stage of one request (best of reps, each
+    timed alone on synchronised work): window ids, token decode (text
+    encoder and decoder, noise included), then the chunk rollout and the
+    DAE decode, or in exemplar mode the picks (host) and the bank gather
+    with the DAE decode."""
+    import torch
+
+    w = words(d)
+    out = {"windows": best_s(lambda: gen.window_inputs(w, d), reps)}
+    ids, lens, n_windows = gen.window_inputs(w, d)
+    n_tok = n_windows * gen.n_steps
+    with torch.inference_mode():
+        def tokens():
+            return gen._predict_windows(
+                ids[None], lens[None],
+                gen._noise(gen._next_generator(), (1, ids.shape[0])))
+
+        out["tokens"] = best_s(tokens, reps)
+        pred = tokens()
+        if gen.mode == "exemplar":
+            toks = [pred["tokens"][0, :n_tok].to(torch.int32).cpu().numpy()]
+            out["picks"] = best_s(lambda: gen._picks(toks), reps)
+            picks = gen._picks(toks)
+            out["gather_and_dae_decode"] = best_s(
+                lambda: gen._exemplar_decode(picks).cpu(), reps)
+            return out
+        if gen.chunk_continuity:
+            pred = {k: v[:, :n_tok] for k, v in pred.items()}
+        out["chunk_decode"] = best_s(lambda: gen._decode_chunks(pred), reps)
+        lat = gen._decode_chunks(pred).flatten(0, 1)
+        out["dae_decode"] = best_s(lambda: gen.dae_model.decode(lat), reps)
+    return out
+
+
+def token_margins(gen, requests) -> dict:
+    """For a fresh generator serving `requests` in this order: each
+    request's decision margins (windows, n_steps - 1), at each step the
+    smallest gap between the best and the second-best score of any choice
+    made. The windows decode as `generate` decodes one transcript
+    (window_carry), on the request's own noise: greedy and sampled scores
+    come from the returned logits through `decision_scores`, beam's from
+    its step scores (the K-th against the (K+1)-th, and at the last step
+    also the best hypothesis' lead)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.text2token import decision_scores
+
+    def gap(scores):
+        top = torch.topk(scores, 2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    if not gen.window_carry:
+        raise ValueError("token_margins replays window_carry decodes")
+    t2t, K = gen.t2t_model, gen._beam
+    t0 = gen.temperature if gen.stage0_temperature < 0.0 \
+        else gen.stage0_temperature
+    out = {}
+    with torch.inference_mode():
+        for d in requests:
+            ids, lens, _ = gen.window_inputs(words(d), d)
+            noise = gen._noise(gen._next_generator(), (1, ids.shape[0]))
+            enc, hid = t2t.encode_text(ids, lens)
+            positions = torch.arange(ids.shape[1], device=ids.device)
+            seed = torch.zeros((1, gen.n_steps), dtype=torch.long,
+                               device=ids.device)
+            per = []
+            for w in range(ids.shape[0]):
+                args = (enc[:, w:w + 1], hid[:, w:w + 1], seed)
+                mask = positions < lens[w]
+                if K:
+                    res = t2t.beam_decode(*args, K, mask)
+                    s = res["step_scores"][0]
+                    m = s[:, K - 1] - s[:, K]
+                    if K > 1:
+                        m[-1] = torch.minimum(m[-1], s[-1, 0] - s[-1, 1])
+                else:
+                    g = None if noise is None else noise[:, w]
+                    res = t2t.decode_tokens(
+                        *args, mask, temperature=gen.temperature,
+                        top_k=gen.top_k,
+                        stage0_temperature=gen.stage0_temperature, gumbel=g)
+                    m = gap(decision_scores(res["logits"][:, 1:], t0,
+                                            gen.top_k, None if g is None
+                                            else g[:, :, 0]))[0]
+                    if "stage_logits" in res:
+                        m = torch.minimum(m, gap(decision_scores(
+                            res["stage_logits"], gen.temperature, gen.top_k,
+                            None if g is None else g[:, :, 1:]))[0]
+                            .min(dim=-1).values)
+                per.append(m)
+                seed = torch.zeros_like(seed)
+                if t2t.n_pre_poses:
+                    seed[:, :t2t.n_pre_poses] = \
+                        res["tokens"][:, -t2t.n_pre_poses:]
+            out[d] = torch.stack(per).cpu().numpy()
+    return out
+
+
+def compare_runs(got, ref, margins) -> dict:
+    """got and ref are (frames, tokens) of one request. A window differs
+    where a token differs or a frame by more than TOL. Every window before
+    the first token difference has the same tokens and carried seed, so
+    its frames must agree within TOL. At the first token difference the
+    reference's smallest decision margin of that window (margins(),
+    (windows, n_steps - 1)) must be at most LOGIT_TIE: a near-tie. The
+    windows after it may differ through the carried seed."""
+    (fg, tg), (fr, tr) = got, ref
+    steps = SENT_LEN // N_FRAMES
+    W = len(tr) // steps
+    tok_bad = (tg != tr).reshape(W, steps).any(axis=1)
+    err = np.abs(fg - fr).reshape(W, -1).max(axis=1)
+    frame_bad = ~(err <= TOL)
+    w_tok = int(np.argmax(tok_bad)) if tok_bad.any() else W
+    res = {"windows": W, "windows_differing": int((tok_bad | frame_bad)
+                                                  .sum()),
+           "tokens_identical": bool(not tok_bad.any()),
+           "max_abs_err": float(err.max()),
+           "frames_ok_before_first_token_difference":
+               bool(not frame_bad[:w_tok].any())}
+    ok = res["frames_ok_before_first_token_difference"]
+    if w_tok < W:
+        m = float(margins()[w_tok].min())
+        res.update({"first_token_differing_window": w_tok,
+                    "its_margin": m, "near_tie": m <= LOGIT_TIE})
+        ok = ok and res["near_tie"]
+    res["ok"] = bool(ok)
+    return res
+
+
+def write_t2t_checkpoint(path: str, t2t_tree, vocab) -> None:
+    """The decode path's Part-d weights as a text2embedding checkpoint in
+    the JAX package's file format, with its vocabulary."""
+    write_checkpoint(path, T2T_ARGS, t2t_tree["params"],
+                     t2t_tree["batch_stats"], "text2embedding", K,
+                     lang_model=vocab.state_dict(), n_words=N_WORDS)
+
+
+def exemplar_path(smi: str, tmp: str, files: dict) -> dict:
+    """Exemplar mode through `cli/_common.build_generator` from the Part-c
+    DAE and tokenizer checkpoints, a text2embedding checkpoint at the bench
+    widths (TCN encoder) and the 58,488-window bank the cluster CLI wrote."""
+    import dataclasses
+
+    import torch
+
+    from gesture2vec_tpu_torch.cli._common import build_generator
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.text.vocab import Vocab
+
+    vocab = Vocab("bench")
+    for i in range(VOCAB_WORDS):
+        vocab.index_word(f"word{i}")
+    t2t_path = os.path.join(tmp, "t2t.bin")
+    write_t2t_checkpoint(t2t_path, jax_layout_trees(
+        np.random.default_rng(0))[0], vocab)
+    store = ClipStore(files["train"])
+
+    def make(device, **policy):
+        return build_generator(t2t_path, files["dae"], files["vq"], store,
+                               mode="exemplar",
+                               latent_bank_path=files["bank"], device=device,
+                               seed=0, **policy)[0]
+
+    t0 = time.perf_counter()
+    gens = {False: make("cuda")}
+    load_s = time.perf_counter() - t0
+    gens[True] = dataclasses.replace(gens[False], exemplar_continuity=True)
+    bank = gens[False]._exemplar_decode.bank
+    reset_launches()
+    outs = {c: {d: g.generate(words(d), d) for d in REQUESTS_S}
+            for c, g in gens.items()}
+    counts = read_launches()
+    emit({"phase": "main", "path": "exemplar",
+          "requests_s": list(REQUESTS_S), "launches": counts,
+          "want": "no kernel: TCN encoder, bank gather and DAE decode",
+          "bank_windows": int(bank.shape[0]),
+          "bank_device_bytes": bank.numel() * bank.element_size(),
+          "build_generator_s": load_s})
+    if any(counts.values()):
+        raise AssertionError(f"exemplar path launched kernels: {counts}")
+
+    # -- check --------------------------------------------------------
+    unit = SENT_LEN / FPS
+    checks = {}
+    for c, per in outs.items():
+        for d, (frames, toks) in per.items():
+            n_windows = int(np.ceil(d / unit))
+            if frames.shape != (n_windows * SENT_LEN, DIM) \
+                    or not np.isfinite(frames).all() \
+                    or toks.shape != (n_windows * SENT_LEN // N_FRAMES,):
+                raise AssertionError(f"exemplar {d} s: frames {frames.shape}")
+        # the card against the CPU path at 60 s, fresh generators, with
+        # each side's picks recorded
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            g = make(dev, exemplar_continuity=c)
+            picks, pick = [], g._picks
+            g._picks = lambda toks, pick=pick, picks=picks: \
+                picks.append(pick(toks)) or picks[-1]
+            runs[dev] = (g.generate(words(60.0), 60.0), picks[0])
+        cmp = compare_runs(runs["cuda"][0], runs["cpu"][0],
+                           lambda: token_margins(make("cpu"), [60.0])[60.0])
+        cmp["picks_identical"] = bool(np.array_equal(runs["cuda"][1],
+                                                     runs["cpu"][1]))
+        checks["continuity" if c else "uniform"] = cmp
+        if not cmp["ok"] or (cmp["tokens_identical"]
+                             and not cmp["picks_identical"]):
+            raise AssertionError(f"exemplar card vs CPU: {cmp}")
+    emit({"phase": "check", "path": "exemplar", "card_vs_cpu_60s": checks,
+          "tol": TOL, "near_tie_margin": LOGIT_TIE,
+          "distinct_tokens_1800s": int(len(np.unique(
+              outs[False][REQUESTS_S[-1]][1])))})
+
+    # -- timing -------------------------------------------------------
+    # (the profiler takes ~45 s over an 1800 s request's ~140k device
+    # ops: the continuity mode's is not profiled)
+    for c, g in gens.items():
+        for d in REQUESTS_S:
+            w = words(d)
+            req_s = best_s(lambda: g.generate(w, d), reps=2)
+            busy = None if c and d == REQUESTS_S[-1] else device_busy(
+                lambda: g.generate(w, d), req_s)
+            emit({"phase": "timing", "path": "exemplar",
+                  "exemplar_continuity": c, "request_s": d,
+                  "frames": outs[c][d][0].shape[0], "seconds": req_s,
+                  "frames_per_s": outs[c][d][0].shape[0] / req_s,
+                  "stages_s": stage_split(g, d), "device_busy": busy,
+                  "card": smi})
+    return counts
+
+
+def policy_trees(rng: np.random.Generator) -> dict:
+    """Bench-width variables for the policies path: the decode path's
+    (TCN encoder, one stage), a 4-stage Part d with independent or chained
+    stage heads over a 4-stage residual-VQ decoder (configs/VQ-VAE_rvq.yml
+    stages), and the GRU text encoder."""
+    t2t, seq, dae = jax_layout_trees(rng)
+
+    def u(shape, fan_in):
+        b = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-b, b, size=shape).astype(np.float32)
+
+    stages = RVQ_ARGS["rvq_stages"]
+    heads = {f"out_layer_r{s}": {"kernel": u((HID, K), HID),
+                                 "bias": u((K,), HID)}
+             for s in range(1, stages)}
+    embeds = {f"stage_embed_{s}": {"embedding": (
+        rng.normal(size=(K, HID)) / np.sqrt(HID)).astype(np.float32)}
+        for s in range(stages - 1)}
+    bigru = {}
+    for layer in range(L):
+        d = WORDEMBED if layer == 0 else 2 * HID
+        for sfx in ("", "_reverse"):
+            bigru.update({f"l{layer}_w_ih{sfx}": u((3 * HID, d), HID),
+                          f"l{layer}_w_hh{sfx}": u((3 * HID, HID), HID),
+                          f"l{layer}_b_ih{sfx}": u((3 * HID,), HID),
+                          f"l{layer}_b_hh{sfx}": u((3 * HID,), HID)})
+    p = t2t["params"]
+
+    def t2t_with(encoder=None, **step):
+        return {"params": {"encoder": encoder or p["encoder"],
+                           "decoder_step": {**p["decoder_step"], **step}},
+                "batch_stats": t2t["batch_stats"]}
+
+    seq4 = {"params": {**seq["params"], "vq_layer": {
+        **seq["params"]["vq_layer"],
+        **{f"codebook_r{s}": (0.1 * rng.normal(size=(K, L * HID)))
+           .astype(np.float32) for s in range(1, stages)}}},
+        "batch_stats": seq["batch_stats"]}
+    gru_enc = {"embedding_table": p["encoder"]["embedding_table"],
+               "gru": bigru}
+    return {"tcn": (t2t, seq, dae), "stage4": (t2t_with(**heads), seq4, dae),
+            "stage4_cond": (t2t_with(**heads, **embeds), seq4, dae),
+            "gru": (t2t_with(gru_enc), seq, dae)}
+
+
+def policy_kernel_rows(folded, gru_w) -> dict:
+    """Both kernels at the shapes the policies give them, against their
+    plain versions: the chunk decoder at n_steps 24 (decode_overlap 4) for
+    the 60 s and 1800 s chunk batches and at B=1 (chunk_continuity); the
+    GRU sequence at T=48 (the text encoder's word window) for 1, 16, 303
+    and 304 windows (303: no multiple of the 20-row cluster tile), both
+    directions, with cuDNN's layer and the matmul plus the kernel beside
+    it at every B."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = {"chunk_decoder": {}, "gru_sequence": {}}
+    for B, n in ((96, 24), (1824, 24), (1, 20), (1, 24)):
+        x0 = torch.randn(B, REP, device="cuda", generator=g)
+        h0 = torch.randn(2, B, HID, device="cuda", generator=g)
+        ys = dk.fused_chunk_decode(x0, h0, folded, n)
+        ref = dk.fused_chunk_decode_plain(x0, h0, folded, n)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "kernel": "chunk_decoder", "B": B,
+               "H": HID, "D": REP, "n_steps": n,
+               "launch": decoder_launch(B, HID, REP),
+               "max_abs_err": (ys - ref).abs().max().item(), "tol": TOL,
+               "ms": cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
+                                                           n), 20),
+               "plain_ms": cuda_ms(lambda: dk.fused_chunk_decode_plain(
+                   x0, h0, folded, n), 10),
+               **chunk_decoder_bound_ms(B, REP, HID, n)}
+        emit(row)
+        rows["chunk_decoder"][f"B{B}_T{n}"] = row
+    w_ih, w_hh, b_ih, b_hh = gru_w
+    cudnn = torch.nn.GRU(w_ih.shape[1], HID, 1).cuda()
+    with torch.no_grad():
+        for prm, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                       (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            prm.copy_(v)
+    with torch.inference_mode():
+        for B in (1, 16, 303, 304):
+            xs = torch.randn(48, B, w_ih.shape[1], device="cuda",
+                             generator=g)
+            h0 = torch.zeros(B, HID, device="cuda")
+            xp = (xs.reshape(-1, xs.shape[2]) @ w_ih.t() + b_ih).reshape(
+                48, B, -1)
+            err = 0.0
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(xp, h0, w_hh, b_hh, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(xp, h0, w_hh, b_hh,
+                                                  reverse)
+                torch.cuda.synchronize()
+                err = max(err, (ys - ys_p).abs().max().item(),
+                          (h - h_p).abs().max().item())
+            row = {"phase": "kernel", "kernel": "gru_sequence", "B": B,
+                   "T": 48, "H": HID, "directions": 2,
+                   "launch": gru_launch(B, HID), "max_abs_err": err,
+                   "tol": TOL,
+                   "ms": cuda_ms(lambda: gk.gru_sequence(xp, h0, w_hh,
+                                                         b_hh), 20),
+                   "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                       xp, h0, w_hh, b_hh), 5),
+                   **gru_bound_ms(48, B, HID)}
+            # cuDNN computes the input product too: its yardstick is the
+            # matmul plus the kernel
+            y_c, h_c = cudnn(xs, h0[None])
+            y_k, h_k = gru_layer(xs, h0, w_ih, w_hh, b_ih, b_hh)
+            row.update({
+                "library_ms": cuda_ms(lambda: cudnn(xs, h0[None]), 20),
+                "matmul_plus_kernel_ms": cuda_ms(lambda: gru_layer(
+                    xs, h0, w_ih, w_hh, b_ih, b_hh), 20),
+                "cudnn_max_abs_err": max((y_c - y_k).abs().max().item(),
+                                         (h_c[0] - h_k).abs().max().item())})
+            emit(row)
+            rows["gru_sequence"][f"T48_B{B}"] = row
+    bad = [r for k in rows.values() for r in k.values()
+           if not r["max_abs_err"] <= TOL]
+    if bad:
+        raise AssertionError(f"kernels at the policies' shapes: {bad}")
+    return rows
+
+
+def policies_path(smi: str) -> tuple:
+    """Decode mode at the bench widths under each policy, on the 60 s and
+    1800 s requests: launches per request, the kernel path against the
+    module path on the card, the card against the CPU at 60 s, request
+    seconds and stages."""
+    import torch
+
+    from gesture2vec_tpu_torch.compat.from_jax import generator_from_jax
+    from gesture2vec_tpu_torch.text.vocab import Vocab
+
+    vocab = Vocab("bench")
+    for i in range(VOCAB_WORDS):
+        vocab.index_word(f"word{i}")
+    trees = policy_trees(np.random.default_rng(0))
+    pose_mean = np.zeros(DIM, np.float32)
+    pose_std = np.ones(DIM, np.float32)
+
+    def make(variant, device, kernels, options):
+        gen = generator_from_jax(
+            *trees[variant], vocab, pose_mean, pose_std, n_frames=N_FRAMES,
+            sentence_frame_length=SENT_LEN, fps=FPS, max_words=MAXW,
+            device=device, use_fused_decoder=kernels, seed=0, **options)
+        gen.t2t_model.set_use_kernels(kernels)
+        return gen
+
+    enc = trees["gru"][0]["params"]["encoder"]["gru"]
+    rows = policy_kernel_rows(
+        make("tcn", "cuda", True, {})._folded,
+        [torch.from_numpy(enc[f"l0_{n}"]).cuda()
+         for n in ("w_ih", "w_hh", "b_ih", "b_hh")])
+    launches = {}
+    for name, variant, options in POLICIES:
+        gen = make(variant, "cuda", True, options)
+        reset_launches()
+        outs, per_request = {}, {}
+        for d in POLICY_REQUESTS_S:
+            before = read_launches()
+            outs[d] = gen.generate(words(d), d)
+            per_request[d] = {k: v - before[k]
+                              for k, v in read_launches().items()}
+        launches[name] = read_launches()
+        want = {d: {"chunk_decoder": len(outs[d][1])
+                    if options.get("chunk_continuity") else 1,
+                    "gru_sequence": 4 if variant == "gru" else 0,
+                    "vq_argmin": 0} for d in POLICY_REQUESTS_S}
+        for d, (frames, toks) in outs.items():
+            n_windows = int(np.ceil(d / (SENT_LEN / FPS)))
+            if frames.shape != (n_windows * SENT_LEN, DIM) \
+                    or not np.isfinite(frames).all():
+                raise AssertionError(f"{name} {d} s: frames {frames.shape}")
+        module = make(variant, "cuda", False, options)
+        vs_module = {d: compare_runs(
+            outs[d], module.generate(words(d), d),
+            lambda d=d: token_margins(make(variant, "cuda", False, options),
+                                      POLICY_REQUESTS_S)[d])
+            for d in POLICY_REQUESTS_S}
+        # the first request of a fresh generator on either side
+        d = POLICY_REQUESTS_S[0]
+        vs_cpu = compare_runs(
+            outs[d], make(variant, "cpu", True, options).generate(
+                words(d), d),
+            lambda: token_margins(make(variant, "cpu", True, options),
+                                  [d])[d])
+        timing = {}
+        for d in POLICY_REQUESTS_S:
+            w = words(d)
+            req_s = best_s(lambda: gen.generate(w, d), reps=2)
+            timing[d] = {"seconds": req_s,
+                         "frames_per_s": outs[d][0].shape[0] / req_s,
+                         "stages_s": stage_split(gen, d)}
+        # profiled on the short request only (~45 s of profiler on the
+        # long one's ~150k device ops)
+        d = POLICY_REQUESTS_S[0]
+        timing[d]["device_busy"] = device_busy(
+            lambda: gen.generate(words(d), d), timing[d]["seconds"])
+        emit({"phase": "policy", "policy": name, "model": variant,
+              "options": options, "launches_per_request": per_request,
+              "want": want, "kernel_vs_module": vs_module,
+              "card_vs_cpu_60s": vs_cpu, "tol": TOL,
+              "near_tie_margin": LOGIT_TIE, "timing": timing, "card": smi})
+        if per_request != want or not vs_cpu["ok"] \
+                or not all(c["ok"] for c in vs_module.values()):
+            raise AssertionError(f"policy {name} failed its checks")
+    return rows, launches
 
 
 def main() -> int:
@@ -1135,13 +1624,36 @@ def main() -> int:
         emit({"phase": "build", "kernel": name, "library": lib.name,
               "seconds": secs, "ptxas": ptxas})
 
+    secs = {}
     t0 = time.perf_counter()
     kernels = [decode_path(smi)]
-    decode_s = time.perf_counter() - t0
+    secs["decode_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files, part_c_kernels = part_c_path(smi, tmp)
+        kernels += part_c_kernels
+        secs["part_c_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exemplar_counts = exemplar_path(smi, tmp, files)
+        secs["exemplar_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kernels += part_c_path(smi)
-    emit({"phase": "paths", "decode_s": decode_s,
-          "part_c_s": time.perf_counter() - t0})
+    policy_rows, policy_counts = policies_path(smi)
+    secs["policies_s"] = time.perf_counter() - t0
+    emit({"phase": "paths", **secs})
+    for k in kernels:
+        # launches: the kernel's first path (decode or Part c); the new
+        # paths' counts beside it, and its times at the new shapes
+        k["launches_by_path"] = {
+            "exemplar": exemplar_counts[k["name"]],
+            "policies": {p: c[k["name"]] for p, c in policy_counts.items()}}
+        shapes = policy_rows.get(k["name"], {})
+        if shapes:
+            k["max_abs_err"] = max(k["max_abs_err"], *(
+                r["max_abs_err"] for r in shapes.values()))
+            k["by_shape"] = {name: {key: r.get(key) for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "matmul_plus_kernel_ms", "max_abs_err")}
+                for name, r in shapes.items()}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

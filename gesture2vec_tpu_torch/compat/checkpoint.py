@@ -11,7 +11,12 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
   DAE             `dae_trainer.make_frame_model`: a plain DAE
                   (motion_dim = input_motion_dim, latent = hidden_size);
   autoencoder_vq  `seq_ae_trainer.make_seq_ae`: the gesture tokenizer,
-  (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32.
+  (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32;
+  text2embedding  `text2token_trainer._build_t2t` / `make_text2token`: the
+                  Part-d model, n_words from extra, the text encoder
+                  (extras "text_encoder"), token_stages, stage_conditional
+                  and autoencoder_att (decoder attention) from the config,
+                  fp32 whatever the training dtype.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.compat.from_jax import (dae_from_jax,
-                                                   seq_ae_from_jax)
+                                                   seq_ae_from_jax,
+                                                   text2token_from_jax)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
 
@@ -81,9 +87,45 @@ def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
         commitment_cost=float(cfg["autoencoder_vq_commitment_cost"]))
 
 
+# the JAX package's Config defaults for the Part-d fields read here
+T2T_CONFIG_DEFAULTS = {"n_poses": 50, "n_pre_poses": 5,
+                 "sentence_frame_length": 120, "autoencoder_att": False,
+                 "token_stages": 1, "stage_conditional": False,
+                 "text_encoder": "tcn", "t2t_arch": "gru"}
+
+
+def text2token_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
+    cfg = {**T2T_CONFIG_DEFAULTS, **payload["config"]}
+    if cfg["t2t_arch"] == "transformer":
+        raise NotImplementedError(
+            "t2t_arch: transformer is "
+            + _LATER.format("the transformer Part-d slice"))
+    variables = {"params": payload["params"],
+                 "batch_stats": payload["extra"].get("batch_stats", {})}
+    model = text2token_from_jax(
+        variables, n_steps=int(cfg["sentence_frame_length"])
+        // int(cfg["n_poses"]), n_pre_poses=int(cfg["n_pre_poses"]))
+    stages = int(cfg["token_stages"])
+    want = {"n_words": int(payload["extra"]["n_words"]),
+            "text_encoder": cfg["text_encoder"], "token_stages": stages,
+            "stage_conditional": bool(cfg["stage_conditional"])
+            and stages > 1,
+            "autoencoder_att": bool(cfg["autoencoder_att"])}
+    got = {"n_words": model.encoder.embedding_table.num_embeddings,
+           "text_encoder": model.encoder_type,
+           "token_stages": model.token_stages,
+           "stage_conditional": model.stage_conditional,
+           "autoencoder_att": model.decoder_step.use_attention}
+    if got != want:
+        raise ValueError(f"the checkpoint's config says {want}, its "
+                         f"weights hold {got}")
+    return model
+
+
 _MAKERS = {"DAE": dae_from_checkpoint,
            "autoencoder_vq": seq_ae_from_checkpoint,
-           "autoencoder": seq_ae_from_checkpoint}
+           "autoencoder": seq_ae_from_checkpoint,
+           "text2embedding": text2token_from_checkpoint}
 
 
 def load_checkpoint_and_model(path: str, what: str,

@@ -11,12 +11,19 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
          permuted to (out, in, k)
   downsample kernel (1, in, out)     -> (out, in, 1)
   BiGRU l{n}_w_ih[_reverse] ...       -> copied, already torch layout
+  (the tokenizer's encoder, and the text encoder's masked biGRU)
   vq_layer codebook / codebook_r{s} / mean_layer / logvar_layer
-                                     -> the quantizer, same names
-Shapes (widths, layers, vocabulary, codes, stages) are read from the
-arrays; what the arrays cannot say (steps, teacher prefix, flatten mode)
-is passed in. `compat/checkpoint.py` reads the JAX package's checkpoint
-files into these trees.
+                                     -> the quantizer, same names; the
+                                        token decoder keeps codebook and
+                                        codebook_r{s} too
+  decoder_step out_layer_r{s} / stage_embed_{s}
+                                     -> the residual-stage heads and the
+                                        stage chain's embeddings
+Shapes (widths, layers, vocabulary, codes, stages, the text encoder, the
+stage chain, attention) are read from the arrays; what the arrays cannot
+say (steps, teacher prefix, flatten mode) is passed in. `compat/
+checkpoint.py` reads the JAX package's checkpoint files into these
+trees.
 """
 from __future__ import annotations
 
@@ -82,25 +89,59 @@ def _weight_norm_conv(conv: Tree, wn: Tree) -> torch.Tensor:
 
 def text2token_from_jax(variables: Tree, *, n_steps: int,
                         n_pre_poses: int = 2) -> Text2Token:
-    """A Text2Token (TCN encoder, greedy decode) from JAX variables."""
+    """A Text2Token from JAX variables: the TCN or the GRU text encoder,
+    and the residual-stage heads (chained when the variables hold
+    stage_embed_{s} tables)."""
     p = variables["params"]
     enc, dec = p["encoder"], p["decoder_step"]
     n_words, embed = np.shape(enc["embedding_table"])
     n_tokens, hidden = np.shape(dec["token_embedding"]["embedding"])
-    blocks = sorted(enc["tcn"], key=lambda b: int(b[len("block"):]))
-    kernel_size = np.shape(enc["tcn"]["block0"]["conv1"]["Conv_0"]
-                           ["kernel"])[0]
+    encoder_type = "tcn" if "tcn" in enc else "gru"
+    kernel_size = 2
+    if encoder_type == "tcn":
+        kernel_size = np.shape(enc["tcn"]["block0"]["conv1"]["Conv_0"]
+                               ["kernel"])[0]
     model = Text2Token(
         n_words=n_words, n_tokens=n_tokens, hidden_size=hidden,
         n_layers=_n_layers(dec["gru"]), n_steps=n_steps,
         n_pre_poses=n_pre_poses, word_embed_size=embed,
-        use_attention="attn" in dec, kernel_size=kernel_size)
-    if len(blocks) != model.n_layers:
-        raise ValueError(f"{len(blocks)} TCN blocks for "
-                         f"{model.n_layers} decoder layers")
+        encoder_type=encoder_type, use_attention="attn" in dec,
+        token_stages=1 + sum(1 for k in dec if k.startswith("out_layer_r")),
+        kernel_size=kernel_size, stage_conditional="stage_embed_0" in dec)
 
     e = model.encoder
     _set(e.embedding_table.weight, _t(enc["embedding_table"]))
+    if encoder_type == "gru":
+        if _n_layers(enc["gru"]) != model.n_layers:
+            raise ValueError(f"{_n_layers(enc['gru'])} encoder GRU layers "
+                             f"for {model.n_layers} decoder layers")
+        _gru(e.gru, enc["gru"])
+    else:
+        _fill_tcn(e, enc, model.n_layers)
+
+    d = model.decoder_step
+    _set(d.token_embedding.weight, _t(dec["token_embedding"]["embedding"]))
+    if d.attn is not None:
+        _dense(d.attn.attn, dec["attn"]["attn"])
+        _set(d.attn.v, _t(dec["attn"]["v"]))
+    _dense(d.pre_linear, dec["pre_linear"])
+    _bn(d.pre_bn, dec["pre_bn"],
+        variables["batch_stats"]["decoder_step"]["pre_bn"])
+    _gru(d.gru, dec["gru"])
+    _dense(d.out_layer, dec["out_layer"])
+    for s in range(d.n_stage_heads):
+        _dense(getattr(d, f"out_layer_r{s + 1}"), dec[f"out_layer_r{s + 1}"])
+        if d.stage_conditional:
+            _set(getattr(d, f"stage_embed_{s}").weight,
+                 _t(dec[f"stage_embed_{s}"]["embedding"]))
+    return model.eval()
+
+
+def _fill_tcn(e: nn.Module, enc: Tree, n_layers: int) -> None:
+    blocks = sorted(enc["tcn"], key=lambda b: int(b[len("block"):]))
+    if len(blocks) != n_layers:
+        raise ValueError(f"{len(blocks)} TCN blocks for "
+                         f"{n_layers} decoder layers")
     for block, name in zip(e.tcn.blocks, blocks):
         src = enc["tcn"][name]
         for conv in ("conv1", "conv2"):
@@ -114,23 +155,14 @@ def text2token_from_jax(variables: Tree, *, n_steps: int,
     _dense(e.decoder, enc["decoder"])
     _dense(e.hidden_proj, enc["hidden_proj"])
 
-    d = model.decoder_step
-    _set(d.token_embedding.weight, _t(dec["token_embedding"]["embedding"]))
-    if d.attn is not None:
-        _dense(d.attn.attn, dec["attn"]["attn"])
-        _set(d.attn.v, _t(dec["attn"]["v"]))
-    _dense(d.pre_linear, dec["pre_linear"])
-    _bn(d.pre_bn, dec["pre_bn"],
-        variables["batch_stats"]["decoder_step"]["pre_bn"])
-    _gru(d.gru, dec["gru"])
-    _dense(d.out_layer, dec["out_layer"])
-    return model.eval()
-
 
 def _fill_seq_decoder(model: SeqDecoder, variables: Tree) -> None:
     p = variables["params"]
     dec = p["decoder_step"]
     _set(model.codebook, _t(p["vq_layer"]["codebook"]))
+    for i in range(1, model.stages):
+        _set(getattr(model, f"codebook_r{i}"),
+             _t(p["vq_layer"][f"codebook_r{i}"]))
     s = model.decoder_step
     _dense(s.pre_linear, dec["pre_linear"])
     _bn(s.pre_bn, dec["pre_bn"],
@@ -142,15 +174,18 @@ def _fill_seq_decoder(model: SeqDecoder, variables: Tree) -> None:
 def seq_decoder_from_jax(variables: Tree, *, n_frames: int,
                          n_pre_poses: int = 1,
                          conditioned: bool = True) -> SeqDecoder:
-    """The decoder half (codebook + decoder step) of a JAX
-    SeqVQAutoencoder."""
+    """The decoder half (codebooks + decoder step) of a JAX
+    SeqVQAutoencoder; a residual-VQ one keeps every stage's codebook."""
     p = variables["params"]
     dec = p["decoder_step"]
     rep_dim, hidden = np.shape(dec["pre_linear"]["kernel"])
+    vq = p["vq_layer"]
     model = SeqDecoder(rep_dim=rep_dim, hidden_size=hidden,
                        n_layers=_n_layers(dec["gru"]), n_frames=n_frames,
-                       n_codes=np.shape(p["vq_layer"]["codebook"])[0],
-                       n_pre_poses=n_pre_poses, conditioned=conditioned)
+                       n_codes=np.shape(vq["codebook"])[0],
+                       n_pre_poses=n_pre_poses, conditioned=conditioned,
+                       stages=_n_stages(vq) if "mean_layer" not in vq
+                       else 1)
     _fill_seq_decoder(model, variables)
     return model.eval()
 
@@ -207,8 +242,9 @@ def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
                        dae_latent_dim: Optional[int] = None,
                        device: Optional[Union[str, torch.device]] = None,
                        **gen_kwargs) -> GestureGenerator:
-    """A decode-mode GestureGenerator from the three JAX variable trees,
-    with the same settings as the JAX package's GestureGenerator.
+    """A GestureGenerator from the three JAX variable trees, with the
+    same settings as the JAX package's GestureGenerator (mode,
+    latent_bank, seed and the decode policies pass through gen_kwargs).
     dae_latent_dim None reads the latent width from the DAE weights."""
     motion_dim = np.shape(pose_mean)[0]
     if dae_latent_dim is None:

@@ -1,47 +1,67 @@
 """End-to-end inference: transcript -> gesture tokens -> motion frames.
 
-Port of the JAX package's `infer/text2gesture.py` GestureGenerator in
-decode mode with greedy tokens. Per sentence window (sentence_frame_length
-/ fps seconds) the words inside it become ids, the Text2Token model
-emits n_steps gesture tokens, each token's codebook row becomes the
-decoder's initial hidden, the Part-b decoder rolls every chunk out from
-a zero seed frame, and the DAE decodes the latents to poses.
+Port of the JAX package's `infer/text2gesture.py` GestureGenerator. Per
+sentence window (sentence_frame_length / fps seconds) the words inside it
+become ids and the Text2Token model emits n_steps gesture tokens. Then
+one of two synthesis modes:
 
+  mode="decode"    each token's codebook row (plus the residual stages'
+                   rows for a token_stages > 1 model) becomes the decoder's
+                   initial hidden, the Part-b decoder rolls every chunk out
+                   from a zero seed frame, and the DAE decodes the latents;
+  mode="exemplar"  each token retrieves a corpus window of its cluster from
+                   the latent bank (infer/exemplar.py) and the DAE decodes
+                   the window's stored latents.
+
+Token decode:
   window_carry=True   windows decode one after another; each window's
                       teacher prefix is the previous window's last
                       n_pre_poses tokens, and its attention mask is its
                       own length.
   window_carry=False  all windows decode in one batch from zero seeds,
                       with the batch-max attention mask.
-  use_fused_decoder   the chunk rollout runs in ops/decoder_kernel (the
-                      Hopper kernel on CUDA, its plain version on the
-                      CPU); False takes SeqDecoder.rollout.
-
-Not ported yet: exemplar mode, chunk_continuity, decode_overlap,
-soft_decode, sampled and beam decodes (models/text2token), multi-stage
-tokens and generate_batch.
+  temperature, top_k, stage0_temperature   sampled decode
+                      (models/text2token.sample_logits). A request draws
+                      one integer from the generator's numpy stream (seeded
+                      by `seed`, shared with the exemplar picks and drawn
+                      before them), seeds a CPU torch.Generator with it and
+                      draws the request's Gumbel noise on the host; greedy
+                      requests draw nothing.
+  beam_width > 1      beam search (Text2Token.beam_decode).
+Chunk decode (decode mode):
+  use_fused_decoder   the rollout runs in ops/decoder_kernel (the Hopper
+                      kernel on CUDA, its plain version on the CPU): one
+                      launch a request; False takes SeqDecoder.rollout.
+  soft_decode > 0     each chunk's hidden is softmax(logits / soft_decode)
+                      @ codebook (and the stage mixtures), seed steps the
+                      hard rows.
+  decode_overlap = b  every chunk rolls b frames past its length and the
+                      next chunk's first b frames crossfade with them,
+                      weights (1 .. b) / (b + 1); the kernel takes the
+                      longer rollout (one launch).
+  chunk_continuity    chunks roll out one after another, each seeded with
+                      the previous chunk's last frame: one launch a chunk.
+`generate_batch` runs many transcripts as one batch (no mesh).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gesture2vec_tpu_torch.data.datasets import unnormalize
 from gesture2vec_tpu_torch.device import resolve_device
+from gesture2vec_tpu_torch.infer.exemplar import ExemplarBank
 from gesture2vec_tpu_torch.models.dae import DAE
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
-from gesture2vec_tpu_torch.models.text2token import Text2Token
+from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
 from gesture2vec_tpu_torch.ops.decoder_kernel import (fold_decoder_step,
                                                       fused_chunk_decode,
                                                       supported)
 from gesture2vec_tpu_torch.text.vocab import Vocab
-
-# the later slice that ports each option (ROADMAP.md queue A)
-_POLICIES = "the decode-policies slice"
-_LATER = "not ported yet ({} of the PyTorch port)"
 
 
 def bucket_windows(n_windows: int) -> int:
@@ -65,7 +85,9 @@ class GestureGenerator:
     sentence_frame_length: int = 120
     fps: int = 20
     max_words: int = 48
-    mode: str = "decode"
+    mode: str = "decode"            # "decode" | "exemplar"
+    latent_bank: Optional[Dict[str, np.ndarray]] = None
+    seed: int = 0
     window_carry: bool = True
     use_fused_decoder: bool = True
     # extend each window's word lookup backwards by this many seconds;
@@ -74,36 +96,67 @@ class GestureGenerator:
     chunk_continuity: bool = False
     decode_overlap: int = 0
     soft_decode: float = 0.0
+    temperature: float = 0.0
+    top_k: int = 0
+    stage0_temperature: float = -1.0
+    beam_width: int = 0
+    exemplar_continuity: bool = False
     device: Optional[Union[str, torch.device]] = None
 
     def __post_init__(self):
-        unported = {"mode='exemplar'": (self.mode != "decode",
-                                        "the exemplar-mode slice"),
-                    "chunk_continuity": (self.chunk_continuity, _POLICIES),
-                    "decode_overlap": (self.decode_overlap, _POLICIES),
-                    "soft_decode": (self.soft_decode, _POLICIES)}
-        for name, (on, where) in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"{name} is {_LATER.format(where)}")
+        if self.mode not in ("decode", "exemplar"):
+            raise ValueError(f"unknown mode {self.mode!r}")
         self.device = resolve_device(self.device)
         self.n_steps = self.sentence_frame_length // self.n_frames
-        if self.t2t_model.n_steps != self.n_steps:
-            raise ValueError(f"Text2Token decodes {self.t2t_model.n_steps} "
+        self._rng = np.random.default_rng(self.seed)
+        t2t, seq = self.t2t_model, self.seq_decoder
+        if t2t.n_steps != self.n_steps:
+            raise ValueError(f"Text2Token decodes {t2t.n_steps} "
                              f"steps, windows hold {self.n_steps} chunks")
-        if self.seq_decoder.n_frames != self.n_frames:
-            raise ValueError(f"SeqDecoder rolls {self.seq_decoder.n_frames}"
+        if seq.n_frames != self.n_frames:
+            raise ValueError(f"SeqDecoder rolls {seq.n_frames}"
                              f" frames, chunks hold {self.n_frames}")
-        for m in (self.t2t_model, self.seq_decoder, self.dae_model):
+        self._sampling = self.temperature > 0.0 or \
+            self.stage0_temperature > 0.0
+        self._beam = int(self.beam_width) if self.beam_width > 1 else 0
+        soft = float(self.soft_decode)
+        if self._beam and self._sampling:
+            raise ValueError("beam_width>1 and temperature>0 are "
+                             "mutually exclusive decode policies")
+        if soft and self.mode != "decode":
+            raise ValueError("soft_decode only applies to decode mode "
+                             "(exemplar retrieval is indexed by hard "
+                             "tokens)")
+        if soft and self._beam:
+            raise ValueError("soft_decode needs the per-step predictive "
+                             "distribution, which beam search does not "
+                             "produce; use greedy or sampled decode")
+        if self.decode_overlap and self.chunk_continuity:
+            raise ValueError("decode_overlap and chunk_continuity are "
+                             "mutually exclusive chunk-transition "
+                             "mechanisms")
+        if t2t.token_stages > seq.stages:
+            raise ValueError(f"Part d predicts {t2t.token_stages} stages "
+                             f"but the tokenizer has {seq.stages}")
+        for m in (t2t, seq, self.dae_model):
             m.to(self.device).eval()
         if self.use_fused_decoder:
-            reason = supported(self.seq_decoder.decoder_step)
-            if not reason and self.seq_decoder.n_pre_poses != 1:
+            reason = supported(seq.decoder_step)
+            if not reason and seq.n_pre_poses != 1:
                 reason = "the kernel starts from one seed frame " \
                          "(n_pre_poses=1)"
             if reason:
                 raise ValueError(f"use_fused_decoder: {reason}")
-            self._folded = fold_decoder_step(self.seq_decoder.decoder_step)
+            self._folded = fold_decoder_step(seq.decoder_step)
+        if self.mode == "exemplar":
+            if self.latent_bank is None:
+                raise ValueError("exemplar mode needs a latent bank "
+                                 "(cluster/latent_dataset)")
+            self._exemplars = ExemplarBank(
+                self.latent_bank, t2t.n_tokens,
+                seq.codebook.detach().cpu().numpy(), self._rng)
+            self._exemplar_decode = self._exemplars.make_decode_fn(
+                self.dae_model, self.device)
 
     # ------------------------------------------------------------------
     def _window_word_ids(self, words: List[List], t0: float, t1: float
@@ -117,59 +170,179 @@ class GestureGenerator:
         arr[: len(ids)] = ids
         return arr, max(len(ids), 1)
 
-    def _predict_tokens(self, word_ids: torch.Tensor, lengths: torch.Tensor
-                        ) -> torch.Tensor:
-        """word_ids (W, S), lengths (W,) -> tokens (W * n_steps,)."""
-        t2t, n_steps = self.t2t_model, self.n_steps
-        W, S = word_ids.shape
-        if not self.window_carry:
-            targets = torch.zeros((W, n_steps), dtype=torch.long,
-                                  device=self.device)
-            return t2t(word_ids, lengths, targets)["tokens"].reshape(-1)
+    def _next_generator(self) -> Optional[torch.Generator]:
+        """The request's noise generator, seeded by one draw from the
+        numpy stream, as the JAX generator draws its request key; None
+        (and no draw) when the decode is greedy."""
+        if not self._sampling:
+            return None
+        return torch.Generator().manual_seed(
+            int(self._rng.integers(2 ** 31 - 1)))
 
-        enc_outs, dec_hidden = t2t.encode_text(word_ids, lengths)
+    def _noise(self, generator: Optional[torch.Generator],
+               windows: Tuple[int, int]) -> Optional[torch.Tensor]:
+        """Gumbel noise (B, W, n_steps - 1, token_stages, K) drawn on the
+        host, then moved to the device."""
+        if generator is None:
+            return None
+        t2t = self.t2t_model
+        shape = (*windows, self.n_steps - 1, t2t.token_stages, t2t.n_tokens)
+        return gumbel_noise(shape, generator).to(self.device)
+
+    def _decode_windows(self, enc_outs, dec_hidden, seed, mask, gumbel):
+        if self._beam:
+            return self.t2t_model.beam_decode(enc_outs, dec_hidden, seed,
+                                              self._beam, mask)
+        return self.t2t_model.decode_tokens(
+            enc_outs, dec_hidden, seed, mask, temperature=self.temperature,
+            top_k=self.top_k, stage0_temperature=self.stage0_temperature,
+            gumbel=gumbel)
+
+    def _predict_windows(self, word_ids: torch.Tensor, lengths: torch.Tensor,
+                         gumbel: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """word_ids (B, W, S), lengths (B, W) for B transcripts of W
+        windows -> "tokens" (B, W * n_steps); with residual stages
+        "stage" (B, W * n_steps, S-1), -1 at each window's seed step; with
+        soft_decode the mixtures "probs" (B, W * n_steps, K) and
+        "stage_probs" (B, W * n_steps, S-1, K). Every window of every
+        transcript is encoded in one batch. window_carry decodes window w of all transcripts as
+        one batch, each row with its own mask and carried seed; otherwise
+        all windows decode at once, each with its transcript's batch-max
+        mask."""
+        t2t, n_steps, n_pre = self.t2t_model, self.n_steps, \
+            self.t2t_model.n_pre_poses
+        B, W, S = word_ids.shape
+        enc_outs, dec_hidden = t2t.encode_text(word_ids.reshape(B * W, S),
+                                               lengths.reshape(B * W))
         positions = torch.arange(S, device=self.device)
-        n_pre = t2t.n_pre_poses
-        seed = torch.zeros((1, n_steps), dtype=torch.long, device=self.device)
-        toks = []
-        for w in range(W):
-            res = t2t.decode_tokens(enc_outs[:, w:w + 1],
-                                    dec_hidden[:, w:w + 1], seed,
-                                    enc_mask=positions < lengths[w])
-            toks.append(res["tokens"])
-            seed = torch.zeros_like(seed)
-            if n_pre:
-                seed[:, :n_pre] = res["tokens"][:, -n_pre:]
-        return torch.cat(toks, dim=1).reshape(-1)
+        if not self.window_carry:
+            longest = lengths.max(dim=1).values.repeat_interleave(W)
+            mask = positions[None, :] < longest[:, None]
+            seed = torch.zeros((B * W, n_steps), dtype=torch.long,
+                               device=self.device)
+            res = self._decode_windows(
+                enc_outs, dec_hidden, seed, mask,
+                None if gumbel is None else gumbel.flatten(0, 1))
+            res = {k: v.reshape(B, W, *v.shape[1:]) for k, v in res.items()}
+        else:
+            eo = enc_outs.reshape(S, B, W, -1)
+            dh = dec_hidden.reshape(dec_hidden.shape[0], B, W, -1)
+            seed = torch.zeros((B, n_steps), dtype=torch.long,
+                               device=self.device)
+            per_window = []
+            for w in range(W):
+                res = self._decode_windows(
+                    eo[:, :, w], dh[:, :, w], seed,
+                    positions[None, :] < lengths[:, w, None],
+                    None if gumbel is None else gumbel[:, w])
+                per_window.append(res)
+                seed = torch.zeros_like(seed)
+                if n_pre:
+                    seed[:, :n_pre] = res["tokens"][:, -n_pre:]
+            res = {k: torch.stack([r[k] for r in per_window], dim=1)
+                   for k in per_window[0]}
+        out = {"tokens": res["tokens"].reshape(B, -1)}
+        soft = float(self.soft_decode)
+        if soft:
+            p = torch.softmax(res["logits"] / soft, dim=-1)
+            p[:, :, 0] = F.one_hot(res["tokens"][:, :, 0],
+                                   p.shape[-1]).to(p.dtype)
+            out["probs"] = p.reshape(B, W * n_steps, -1)
+        if t2t.token_stages > 1:
+            st = res["stage_tokens"]                     # (B, W, T-1, S-1)
+            pad = torch.full_like(st[:, :, :1], -1)
+            out["stage"] = torch.cat([pad, st], dim=2).reshape(
+                B, W * n_steps, -1)
+            if soft:
+                sp = torch.softmax(res["stage_logits"] / soft, dim=-1)
+                sp = torch.cat([torch.zeros_like(sp[:, :, :1]), sp], dim=2)
+                out["stage_probs"] = sp.reshape(B, W * n_steps,
+                                                *sp.shape[3:])
+        return out
 
-    def _decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (N,) -> latents (N * n_frames, rep_dim): every chunk
-        rolls out as one batch from a zero seed frame."""
-        seq = self.seq_decoder
-        hidden = seq.token_hidden(tokens).contiguous()
-        seed = torch.zeros((tokens.shape[0], seq.rep_dim),
-                           dtype=torch.float32, device=self.device)
+    def _rollout(self, seed: torch.Tensor, hidden: torch.Tensor,
+                 n_steps: int) -> torch.Tensor:
+        """seed (N, D), hidden (L, N, H) -> (N, n_steps, D), through the
+        kernel or the module rollout."""
         if self.use_fused_decoder:
-            ys = fused_chunk_decode(seed, hidden, self._folded,
-                                    n_steps=seq.n_frames)
-            return ys.transpose(0, 1).reshape(-1, seq.rep_dim)
-        return seq.rollout(hidden, seed).reshape(-1, seq.rep_dim)
+            return fused_chunk_decode(seed.contiguous(), hidden.contiguous(),
+                                      self._folded,
+                                      n_steps=n_steps).transpose(0, 1)
+        return self.seq_decoder.rollout(hidden, seed, n_steps=n_steps)
+
+    def _decode_chunks(self, pred: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The token prediction of B transcripts of N chunks -> latents
+        (B, N * n_frames, rep_dim)."""
+        seq, Fr = self.seq_decoder, self.n_frames
+        B, N = pred["tokens"].shape
+
+        def flat(key):
+            return None if key not in pred else pred[key].flatten(0, 1)
+
+        hidden = seq.token_hidden(flat("tokens"), flat("stage"),
+                                  flat("probs"), flat("stage_probs"))
+        D = seq.rep_dim
+        if self.chunk_continuity:
+            hidden = hidden.reshape(hidden.shape[0], B, N, -1)
+            prev = torch.zeros((B, D), dtype=torch.float32,
+                               device=self.device)
+            chunks = []
+            for i in range(N):
+                out = self._rollout(prev, hidden[:, :, i], Fr)
+                prev = out[:, -1]
+                chunks.append(out)
+            return torch.stack(chunks, dim=1).reshape(B, N * Fr, D)
+        b = int(self.decode_overlap)
+        seed = torch.zeros((B * N, D), dtype=torch.float32,
+                           device=self.device)
+        out = self._rollout(seed, hidden, Fr + b)
+        if not b:
+            return out.reshape(B, N * Fr, D)
+        out = out.reshape(B, N, Fr + b, D)
+        main = out[:, :, :Fr].clone()
+        w = ((torch.arange(b, dtype=torch.float32, device=self.device) + 1.0)
+             / (b + 1.0))[:, None]
+        main[:, 1:, :b] = (1 - w) * out[:, :-1, Fr:] + w * out[:, 1:, :b]
+        return main.reshape(B, N * Fr, D)
+
+    def _windows(self, transcripts: Sequence[List[List]],
+                 durations_s: Sequence[float]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+        """(word_ids (B, W, max_words), lengths (B, W)) on the device for
+        the bucketed window count W of the longest transcript, and each
+        transcript's real window count. Padded windows hold no words and
+        generate throwaway frames."""
+        unit = self.sentence_frame_length / self.fps
+        wins = [max(int(np.ceil(d / unit)), 1) for d in durations_s]
+        n_padded = bucket_windows(max(wins))
+        word_ids = np.zeros((len(wins), n_padded, self.max_words), np.int64)
+        lengths = np.ones((len(wins), n_padded), np.int64)
+        for b, words in enumerate(transcripts):
+            for w in range(wins[b]):
+                word_ids[b, w], lengths[b, w] = self._window_word_ids(
+                    words, w * unit, (w + 1) * unit)
+        return (torch.from_numpy(word_ids).to(self.device),
+                torch.from_numpy(lengths).to(self.device), wins)
 
     def window_inputs(self, words: List[List], duration_s: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """(word_ids (W, max_words), lengths (W,)) on the device for the
-        bucketed window count W, and the real window count. Padded
-        windows hold no words and generate throwaway frames."""
-        unit = self.sentence_frame_length / self.fps
-        n_windows = max(int(np.ceil(duration_s / unit)), 1)
-        n_padded = bucket_windows(n_windows)
-        word_ids = np.zeros((n_padded, self.max_words), np.int64)
-        lengths = np.ones((n_padded,), np.int64)
-        for w in range(n_windows):
-            word_ids[w], lengths[w] = self._window_word_ids(
-                words, w * unit, (w + 1) * unit)
-        return (torch.from_numpy(word_ids).to(self.device),
-                torch.from_numpy(lengths).to(self.device), n_windows)
+        bucketed window count W, and the real window count."""
+        word_ids, lengths, wins = self._windows([words], [duration_s])
+        return word_ids[0], lengths[0], wins[0]
+
+    def _frames(self, frames: torch.Tensor) -> np.ndarray:
+        return unnormalize(frames.cpu().numpy(), self.pose_mean,
+                           self.pose_std)
+
+    def _picks(self, tokens: Sequence[np.ndarray]) -> np.ndarray:
+        """Exemplar picks for each transcript's tokens: one vectorised
+        pick over all of them, or one continuity chain per transcript."""
+        if self.exemplar_continuity:
+            return np.concatenate(
+                [self._exemplars.pick_indices_continuity(t) for t in tokens])
+        return self._exemplars.pick_indices(np.concatenate(tokens))
 
     @torch.inference_mode()
     def generate(self, words: List[List], duration_s: float
@@ -178,13 +351,51 @@ class GestureGenerator:
         (n_windows * sentence_frame_length, pose_dim) unnormalized,
         tokens (n_windows * n_steps,) int32)."""
         word_ids, lengths, n_windows = self.window_inputs(words, duration_s)
-        tokens = self._predict_tokens(word_ids, lengths)
-        frames = self.dae_model.decode(self._decode_tokens(tokens))
-        n_tokens_real = n_windows * self.n_steps
-        frames = frames[: n_tokens_real * self.n_frames].cpu().numpy()
-        frames = unnormalize(frames, self.pose_mean, self.pose_std)
-        return frames, tokens[:n_tokens_real].to(torch.int32).cpu().numpy()
+        generator = self._next_generator()
+        pred = self._predict_windows(
+            word_ids[None], lengths[None],
+            self._noise(generator, (1, word_ids.shape[0])))
+        n_tok = n_windows * self.n_steps
+        tokens = pred["tokens"][0, :n_tok].to(torch.int32).cpu().numpy()
+        if self.mode == "exemplar":
+            picks = self._picks([tokens])
+            return self._frames(self._exemplar_decode(picks)), tokens
+        if self.chunk_continuity:
+            # a chunk depends only on the chunks before it: roll out the
+            # real ones alone
+            pred = {k: v[:, :n_tok] for k, v in pred.items()}
+        latents = self._decode_chunks(pred)[0, : n_tok * self.n_frames]
+        return self._frames(self.dae_model.decode(latents)), tokens
 
-    def generate_batch(self, transcripts, durations_s, mesh=None):
-        raise NotImplementedError(
-            f"generate_batch is {_LATER.format(_POLICIES)}")
+    @torch.inference_mode()
+    def generate_batch(self, transcripts: List[List[List]], durations_s,
+                       mesh=None) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Many transcripts as one batch: transcripts pad to a common
+        window bucket; durations_s is one float or one per transcript.
+        Returns one (motion, tokens) per transcript, as generate gives."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "generate_batch(mesh=...) is not ported yet (the scale-out "
+                "slice of the PyTorch port)")
+        B = len(transcripts)
+        if not isinstance(durations_s, (list, tuple, np.ndarray)):
+            durations_s = [durations_s] * B
+        if len(durations_s) != B:
+            raise ValueError(f"{len(durations_s)} durations for {B} "
+                             f"transcripts")
+        word_ids, lengths, wins = self._windows(transcripts, durations_s)
+        generator = self._next_generator()
+        pred = self._predict_windows(
+            word_ids, lengths, self._noise(generator, tuple(word_ids.shape[:2])))
+        tokens_all = pred["tokens"].to(torch.int32).cpu().numpy()
+        per = [tokens_all[b, : wins[b] * self.n_steps] for b in range(B)]
+        if self.mode == "exemplar":
+            frames = self._frames(self._exemplar_decode(self._picks(per)))
+            bounds = np.cumsum([0] + [len(t) * self.n_frames for t in per])
+            return [(frames[bounds[b]: bounds[b + 1]], per[b])
+                    for b in range(B)]
+        latents = self._decode_chunks(pred)
+        frames = self._frames(self.dae_model.decode(
+            latents.flatten(0, 1))).reshape(B, latents.shape[1], -1)
+        return [(frames[b, : len(per[b]) * self.n_frames], per[b])
+                for b in range(B)]

@@ -10,8 +10,15 @@ torch layout (3H, in)):
     h' = (1 - z) * n + z * h
 `gru_layer` hoists the input projections of every step into one matmul
 and runs the recurrence through `ops/gru_kernel.gru_sequence` (the
-Hopper kernel on CUDA, its plain version on the CPU). The masked
-bidirectional GRU (the text encoder's) is not ported yet.
+Hopper kernel on CUDA, its plain version on the CPU).
+
+`masked_gru_layer` / `MaskedBiGRU` are the text encoder's GRU over padded
+sequences (torch pack_padded_sequence semantics: outputs past a
+sequence's length are zero, its last hidden is the state at its last
+valid step, the reverse direction reads each sequence backwards from its
+own last word). The state at step t < length depends only on the steps
+before t, so the unmasked recurrence gives every valid output: the
+layer runs the same kernel unmasked and masks afterwards.
 """
 from __future__ import annotations
 
@@ -123,11 +130,13 @@ class BiGRU(nn.Module):
         return tuple(getattr(self, f"l{layer}_{n}{sfx}")
                      for n in ("w_ih", "w_hh", "b_ih", "b_hh"))
 
-    def forward(self, xs: torch.Tensor, n_run: Optional[int] = None
+    def forward(self, xs: torch.Tensor, n_run: Optional[int] = None,
+                lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xs (T, B, in), every state starting from zeros. n_run runs only
         the first n_run layers (the hidden of the rest is not computed and
-        not returned)."""
+        not returned). lengths (B,) runs each layer as `masked_gru_layer`
+        over padded sequences."""
         n_run = self.n_layers if n_run is None else n_run
         recurrence = gru_sequence if self.use_kernel else gru_sequence_plain
         h0 = xs.new_zeros((xs.shape[1], self.hidden_size))
@@ -136,9 +145,65 @@ class BiGRU(nn.Module):
             ys = []
             for reverse in (False, True):
                 w_ih, w_hh, b_ih, b_hh = self.layer_weights(layer, reverse)
-                y, h_last = recurrence(_input_projection(outs, w_ih, b_ih),
-                                       h0, w_hh, b_hh, reverse)
+                if lengths is None:
+                    y, h_last = recurrence(
+                        _input_projection(outs, w_ih, b_ih), h0, w_hh, b_hh,
+                        reverse)
+                else:
+                    y, h_last = masked_gru_layer(
+                        outs, lengths, h0, w_ih, w_hh, b_ih, b_hh, reverse,
+                        self.use_kernel)
                 ys.append(y)
                 h_finals.append(h_last)
             outs = torch.cat(ys, dim=-1)
         return outs, torch.stack(h_finals, dim=0)
+
+
+def reverse_padded(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse each sequence within its own length: xs (T, B, D), lengths
+    (B,) -> out[t, b] = xs[lengths[b] - 1 - t, b], zero at t >= lengths[b]
+    (the JAX package's `_reverse_padded`)."""
+    T = xs.shape[0]
+    src = lengths[None, :] - 1 - torch.arange(T, device=xs.device)[:, None]
+    valid = src >= 0
+    src = src.clamp(0, T - 1)
+    gathered = torch.gather(xs, 0, src[:, :, None].expand(-1, -1,
+                                                          xs.shape[2]))
+    return torch.where(valid[:, :, None], gathered, gathered.new_zeros(()))
+
+
+def masked_gru_layer(xs: torch.Tensor, lengths: torch.Tensor,
+                     h0: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+                     b_ih: torch.Tensor, b_hh: torch.Tensor,
+                     reverse: bool = False, use_kernel: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One GRU layer over padded sequences: xs (T, B, in), lengths (B,),
+    h0 (B, H) -> (outputs (T, B, H), zero at t >= length; last hidden
+    (B, H), the state after each sequence's last valid step, h0 where the
+    length is 0). reverse reads each sequence from its last valid step."""
+    lengths = lengths.long()
+    if reverse:
+        xs = reverse_padded(xs, lengths)
+    recurrence = gru_sequence if use_kernel else gru_sequence_plain
+    ys, _ = recurrence(_input_projection(xs, w_ih, b_ih), h0.contiguous(),
+                       w_hh, b_hh, False)
+    T, B, _ = ys.shape
+    last = ys[(lengths - 1).clamp(min=0), torch.arange(B, device=ys.device)]
+    h_last = torch.where((lengths > 0)[:, None], last, h0)
+    valid = torch.arange(T, device=ys.device)[:, None] < lengths[None, :]
+    ys = torch.where(valid[:, :, None], ys, ys.new_zeros(()))
+    if reverse:
+        ys = reverse_padded(ys, lengths)
+    return ys, h_last
+
+
+class MaskedBiGRU(BiGRU):
+    """BiGRU over padded sequences with lengths (the JAX package's
+    MaskedBiGRU, same parameter names): 2 recurrences a layer, each one
+    `gru_sequence` launch on the card."""
+
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xs (T, B, in), lengths (B,) -> (outputs (T, B, 2H), hidden
+        (2 * layers, B, H) ordered [l0_fwd, l0_bwd, l1_fwd, ...])."""
+        return super().forward(xs, lengths=lengths)

@@ -32,8 +32,9 @@ _LATER = "not ported yet ({} of the PyTorch port)"
 
 class Attn(nn.Module):
     """Bahdanau additive attention: hidden (B, H), encoder_outputs
-    (T, B, H) -> weights (B, T). mask (T,) bool marks VALID positions;
-    the rest are -inf'd out of the softmax."""
+    (T, B, H) -> weights (B, T). mask (T,) for every row, or (B, T) one
+    per row, bool, marks VALID positions; the rest are -inf'd out of the
+    softmax."""
 
     def __init__(self, hidden_size: int):
         super().__init__()
@@ -48,7 +49,8 @@ class Attn(nn.Module):
                                                 dim=-1)))
         scores = (energy @ self.v).t()                         # (B, T)
         if mask is not None:
-            scores = scores.masked_fill(~mask[None, :], float("-inf"))
+            scores = scores.masked_fill(~(mask if mask.dim() == 2
+                                          else mask[None, :]), float("-inf"))
         return torch.softmax(scores, dim=-1)
 
 
@@ -77,11 +79,13 @@ class DecoderStep(nn.Module):
 
 class SeqDecoder(nn.Module):
     """The token -> latent-chunk half of the gesture tokenizer: the
-    codebook (n_codes, n_layers * H) and the decoder step."""
+    codebook (n_codes, n_layers * H), for a residual-VQ tokenizer the
+    later stages' codebooks `codebook_r{s}` (s = 1 .. stages - 1), and the
+    decoder step."""
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, n_codes: int, n_pre_poses: int = 1,
-                 conditioned: bool = True):
+                 conditioned: bool = True, stages: int = 1):
         super().__init__()
         self.rep_dim = rep_dim
         self.hidden_size = hidden_size
@@ -89,15 +93,40 @@ class SeqDecoder(nn.Module):
         self.n_frames = n_frames
         self.n_pre_poses = n_pre_poses
         self.conditioned = conditioned
-        self.codebook = nn.Parameter(
-            torch.zeros(n_codes, n_layers * hidden_size))
+        self.stages = stages
+        for s in range(stages):
+            self.register_parameter(
+                "codebook" if s == 0 else f"codebook_r{s}",
+                nn.Parameter(torch.zeros(n_codes, n_layers * hidden_size)))
         self.decoder_step = DecoderStep(rep_dim, hidden_size, n_layers,
                                         conditioned)
 
-    def token_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+    def token_hidden(self, tokens: torch.Tensor,
+                     stage_tokens: Optional[torch.Tensor] = None,
+                     probs: Optional[torch.Tensor] = None,
+                     stage_probs: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
         """(N,) token ids -> (n_layers, N, H) decoder-initial hidden from
-        the codebook rows."""
-        flat = self.codebook[tokens]
+        the codebook rows (the JAX generator's `_token_hidden`).
+        stage_tokens (N, S') adds the rows of stages 1 .. S' (-1: no
+        contribution). Soft decode: probs (N, K) replaces the stage-0 row
+        by probs @ codebook, and stage_probs (N, S', K) the stage rows by
+        their mixtures (all-zero rows contribute nothing)."""
+        flat = probs @ self.codebook if probs is not None \
+            else self.codebook[tokens]
+        n_stages = 0 if stage_tokens is None else stage_tokens.shape[-1]
+        if n_stages >= self.stages:
+            raise ValueError(f"{n_stages} residual stages given, the "
+                             f"tokenizer has {self.stages - 1}")
+        for s in range(n_stages):
+            cb = getattr(self, f"codebook_r{s + 1}")
+            if stage_probs is not None:
+                flat = flat + stage_probs[:, s] @ cb
+                continue
+            st = stage_tokens[:, s]
+            flat = flat + torch.where((st >= 0)[:, None],
+                                      cb[st.clamp(min=0)],
+                                      flat.new_zeros(()))
         return flat.reshape(-1, self.n_layers,
                             self.hidden_size).transpose(0, 1)
 
@@ -188,8 +217,10 @@ class SeqVQAutoencoder(nn.Module):
             self.vq_layer = VQGSSoft(vq_components, d, commitment_cost)
         else:
             raise ValueError(f"unknown vq_variant {vq_variant!r}")
-        self.decoder = SeqDecoder(rep_dim, hidden_size, n_layers, n_frames,
-                                  vq_components, n_pre_poses, conditioned)
+        self.decoder = SeqDecoder(
+            rep_dim, hidden_size, n_layers, n_frames, vq_components,
+            n_pre_poses, conditioned,
+            stages=rvq_stages if vq_variant == "rvq" else 1)
 
     def set_use_kernels(self, on: bool) -> "SeqVQAutoencoder":
         """Route the GRU recurrences and the residual argmins through the

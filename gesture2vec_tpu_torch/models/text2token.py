@@ -1,42 +1,104 @@
-"""Part d - text to gesture-token translation (greedy inference).
+"""Part d - text to gesture-token translation (inference).
 
-Port of the JAX package's `models/text2token.py` for the decode path
-that generation runs: the TCN text encoder, then an autoregressive
-decoder step (token embedding -> Bahdanau attention -> pre_linear ->
-BatchNorm -> ReLU -> GRU stack -> logits) for n_steps - 1 steps.
+Port of the JAX package's `models/text2token.py`: a text encoder (the
+TCN, or the masked biGRU with its two directions summed), then an
+autoregressive decoder step (token embedding -> Bahdanau attention ->
+pre_linear -> BatchNorm -> ReLU -> GRU stack -> logits, plus one logit
+head per residual stage when token_stages > 1) for n_steps - 1 steps.
 
 Step 0 is the seed: its logits are the seed's one-hot and its token is
 the seed. The input at step t is the teacher token while
-t - 1 < n_pre_poses, else the previous step's argmax (ties go to the
-first index, as in jnp.argmax).
-
-Not ported yet: the biGRU text encoder (encoder_type="gru"), sampled
-and beam decodes, and residual-stage heads (token_stages > 1).
+t - 1 < n_pre_poses, else the previous step's choice. A choice is
+  greedy   the argmax (ties go to the first index, as in jnp.argmax);
+  sampled  `sample_logits`: logits / temperature, every logit below the
+           top_k-th set to -inf, then the categorical as Gumbel-max,
+           argmax(logits + g) - what jax.random.categorical computes. The
+           noise g is an input (B, n_steps - 1, token_stages, K): [..., 0,
+           :] for the primary token, [..., s, :] for stage s. The generator
+           draws it on the host from a seeded torch.Generator, so the card
+           and the CPU sample alike, and a test can feed both packages the
+           same draws;
+  beam     `Text2Token.beam_decode`: K hypotheses on the batch axis.
+stage0_temperature >= 0 overrides the primary token's temperature only.
+Residual-stage heads (`out_layer_r{s}`) read the decoder output; with
+stage_conditional they form the JAX package's `stage_chain`: head s also
+reads embeddings (`stage_embed_{s}`) of the codes chosen before it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gesture2vec_tpu_torch.models.gru import GRUCellStack
+from gesture2vec_tpu_torch.models.gru import GRUCellStack, MaskedBiGRU
 from gesture2vec_tpu_torch.models.seq_ae import Attn
 from gesture2vec_tpu_torch.models.tcn import TextEncoderTCN
 
-# the later slice that ports each decode option (ROADMAP.md queue A)
-_LATER = "not ported yet (the decode-policies slice of the PyTorch port)"
+
+def decision_scores(logits: torch.Tensor, temperature: float, top_k: int,
+                    gumbel: Optional[torch.Tensor]) -> torch.Tensor:
+    """The scores whose argmax is the choice: the logits themselves at
+    temperature 0 (greedy), else logits / temperature with every logit
+    below the top_k-th largest set to -inf (those equal to it stay, as
+    with lax.top_k and `<`), plus the Gumbel noise."""
+    if temperature <= 0.0:
+        return logits
+    lg = logits / temperature
+    if top_k and top_k < lg.shape[-1]:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = lg.masked_fill(lg < kth, float("-inf"))
+    return lg + gumbel
+
+
+def sample_logits(logits: torch.Tensor, temperature: float, top_k: int,
+                  gumbel: torch.Tensor) -> torch.Tensor:
+    """A categorical draw from softmax(logits / temperature), truncated to
+    the top_k logits first (0 keeps them all; 1 is the argmax)."""
+    return torch.argmax(decision_scores(logits, temperature, top_k, gumbel),
+                        dim=-1)
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel draws on the CPU, -log(-log(u)) with u uniform in
+    [tiny, 1), as jax.random.gumbel draws them."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+class TextEncoderRNN(nn.Module):
+    """Embedding -> masked biGRU, directions summed. Outputs (S, B, H);
+    the hidden is (2 * layers, B, H) ordered [l0_fwd, l0_bwd, l1_fwd, ...],
+    so the decoder-initial hidden (its first n_layers entries) is
+    [l0_fwd, l0_bwd] at 2 layers: the reference's quirk, kept."""
+
+    def __init__(self, n_words: int, embed_size: int, hidden_size: int,
+                 n_layers: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.embedding_table = nn.Embedding(n_words, embed_size)
+        self.gru = MaskedBiGRU(embed_size, hidden_size, n_layers)
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        emb = self.embedding_table(tokens).transpose(0, 1)   # (S, B, E)
+        outs, hidden = self.gru(emb, lengths)
+        H = self.hidden_size
+        return outs[..., :H] + outs[..., H:], hidden
 
 
 class TokenDecoderStep(nn.Module):
-    """One decoder step over gesture tokens -> (logits (B, K) fp32,
-    new hidden (L, B, H))."""
+    """One decoder step over gesture tokens."""
 
     def __init__(self, hidden_size: int, n_tokens: int, n_layers: int,
-                 use_attention: bool = True):
+                 use_attention: bool = True, n_stage_heads: int = 0,
+                 stage_conditional: bool = False):
         super().__init__()
         self.use_attention = use_attention
+        self.n_stage_heads = n_stage_heads
+        self.stage_conditional = stage_conditional and n_stage_heads > 0
         self.token_embedding = nn.Embedding(n_tokens, hidden_size)
         in_dim = 2 * hidden_size if use_attention else hidden_size
         self.attn = Attn(hidden_size) if use_attention else None
@@ -44,11 +106,19 @@ class TokenDecoderStep(nn.Module):
         self.pre_bn = nn.BatchNorm1d(hidden_size, eps=1e-5)
         self.gru = GRUCellStack(hidden_size, hidden_size, n_layers)
         self.out_layer = nn.Linear(hidden_size, n_tokens)
+        for s in range(n_stage_heads):
+            setattr(self, f"out_layer_r{s + 1}",
+                    nn.Linear(hidden_size, n_tokens))
+            if self.stage_conditional:
+                setattr(self, f"stage_embed_{s}",
+                        nn.Embedding(n_tokens, hidden_size))
 
-    def forward(self, token: torch.Tensor, hidden: torch.Tensor,
-                encoder_outputs: torch.Tensor,
-                enc_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def step(self, token: torch.Tensor, hidden: torch.Tensor,
+             encoder_outputs: torch.Tensor,
+             enc_mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(logits (B, K) fp32, new hidden (L, B, H), the GRU output
+        (B, H) that the stage heads read)."""
         x = self.token_embedding(token)                        # (B, H)
         if self.use_attention:
             w = self.attn(hidden[-1], encoder_outputs, mask=enc_mask)
@@ -56,31 +126,75 @@ class TokenDecoderStep(nn.Module):
             x = torch.cat([x, context], dim=-1)
         h = torch.relu(self.pre_bn(self.pre_linear(x)))
         out, new_hidden = self.gru(h, hidden)
-        return self.out_layer(out), new_hidden
+        return self.out_layer(out), new_hidden, out
+
+    def forward(self, token: torch.Tensor, hidden: torch.Tensor,
+                encoder_outputs: torch.Tensor,
+                enc_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, K) fp32, new hidden (L, B, H))."""
+        logits, new_hidden, _ = self.step(token, hidden, encoder_outputs,
+                                          enc_mask)
+        return logits, new_hidden
+
+    def stage_logits(self, out: torch.Tensor) -> torch.Tensor:
+        """Independent residual-stage heads: (B, H) -> (B, S-1, K)."""
+        return torch.stack([getattr(self, f"out_layer_r{s + 1}")(out)
+                            for s in range(self.n_stage_heads)], dim=-2)
+
+    def stage_chain(self, out: torch.Tensor, first: torch.Tensor,
+                    choose: Callable[[torch.Tensor, int], torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Conditional heads: h_0 = out, h_{s+1} = h_s + E_s(c_s), logits
+        of stage s+1 = W_{s+1} h_{s+1}; c_0 = first (the primary choice),
+        c_{s+1} = choose(logits, s). Returns (stage logits (B, S-1, K),
+        stage choices (B, S-1))."""
+        h, prev = out, first
+        logits, chosen = [], []
+        for s in range(self.n_stage_heads):
+            h = h + getattr(self, f"stage_embed_{s}")(prev)
+            lg = getattr(self, f"out_layer_r{s + 1}")(h)
+            prev = choose(lg, s)
+            logits.append(lg)
+            chosen.append(prev)
+        return torch.stack(logits, dim=-2), torch.stack(chosen, dim=-1)
 
 
 class Text2Token(nn.Module):
-    """Sentence -> n_steps gesture tokens."""
+    """Sentence -> n_steps gesture tokens (and residual-stage codes)."""
 
     def __init__(self, n_words: int, n_tokens: int, hidden_size: int,
                  n_layers: int, n_steps: int, n_pre_poses: int = 2,
                  word_embed_size: int = 300, encoder_type: str = "tcn",
                  use_attention: bool = True, token_stages: int = 1,
-                 kernel_size: int = 2):
+                 kernel_size: int = 2, stage_conditional: bool = False):
         super().__init__()
-        if encoder_type != "tcn":
-            raise NotImplementedError(
-                f"encoder_type={encoder_type!r} is {_LATER}")
-        if token_stages != 1:
-            raise NotImplementedError(f"token_stages > 1 is {_LATER}")
         self.n_tokens = n_tokens
         self.n_layers = n_layers
         self.n_steps = n_steps
         self.n_pre_poses = n_pre_poses
-        self.encoder = TextEncoderTCN(n_words, word_embed_size, hidden_size,
-                                      n_layers, kernel_size)
-        self.decoder_step = TokenDecoderStep(hidden_size, n_tokens, n_layers,
-                                             use_attention)
+        self.encoder_type = encoder_type
+        self.token_stages = token_stages
+        self.stage_conditional = stage_conditional and token_stages > 1
+        if encoder_type == "tcn":
+            self.encoder = TextEncoderTCN(n_words, word_embed_size,
+                                          hidden_size, n_layers, kernel_size)
+        elif encoder_type == "gru":
+            self.encoder = TextEncoderRNN(n_words, word_embed_size,
+                                          hidden_size, n_layers)
+        else:
+            raise ValueError(f"unknown encoder_type {encoder_type!r}")
+        self.decoder_step = TokenDecoderStep(
+            hidden_size, n_tokens, n_layers, use_attention,
+            n_stage_heads=token_stages - 1,
+            stage_conditional=stage_conditional)
+
+    def set_use_kernels(self, on: bool) -> "Text2Token":
+        """Route the GRU text encoder's recurrences through the Hopper
+        kernel (True, the default) or its plain version."""
+        if self.encoder_type == "gru":
+            self.encoder.gru.use_kernel = on
+        return self
 
     def encode_text(self, tokens: torch.Tensor, lengths: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -92,37 +206,134 @@ class Text2Token(nn.Module):
     def decode_tokens(self, enc_outs: torch.Tensor, dec_hidden: torch.Tensor,
                       target_tokens: torch.Tensor,
                       enc_mask: Optional[torch.Tensor] = None,
-                      temperature: float = 0.0, beam_width: int = 0
+                      temperature: float = 0.0, top_k: int = 0,
+                      stage0_temperature: float = -1.0,
+                      gumbel: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
-        """Greedy decode given a text encoding. target_tokens (B, n_steps)
-        is the teacher signal (column 0 the seed). Returns "logits"
-        (B, n_steps, K) and "tokens" (B, n_steps)."""
-        if temperature > 0.0:
-            raise NotImplementedError(f"sampled decode is {_LATER}")
-        if beam_width > 1:
-            raise NotImplementedError(f"beam search is {_LATER}")
+        """The autoregressive decode given a text encoding. target_tokens
+        (B, n_steps) is the teacher signal (column 0 the seed); enc_mask
+        (S,) or (B, S). Returns "logits" (B, n_steps, K), "tokens"
+        (B, n_steps), and with residual stages "stage_logits" (B,
+        n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1)."""
+        t0 = temperature if stage0_temperature < 0.0 else stage0_temperature
+        multi = self.token_stages > 1
+        sampled = t0 > 0.0 or (multi and temperature > 0.0)
+        if sampled and gumbel is None:
+            raise ValueError("a sampled decode needs its Gumbel noise "
+                             "(B, n_steps - 1, token_stages, K)")
+        step = self.decoder_step
         seed = target_tokens[:, 0]
         logits = [F.one_hot(seed, self.n_tokens).to(enc_outs.dtype)]
-        tokens = [seed]
+        tokens, stage_logits, stage_tokens = [seed], [], []
         prev, hidden = seed, dec_hidden
         for t in range(1, self.n_steps):
             token_in = (target_tokens[:, t - 1] if t - 1 < self.n_pre_poses
                         else prev)
-            lg, hidden = self.decoder_step(token_in, hidden, enc_outs,
-                                           enc_mask=enc_mask)
-            prev = torch.argmax(lg, dim=-1)
+            lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
+            g = None if gumbel is None else gumbel[:, t - 1]
+            prev = sample_logits(lg, t0, top_k,
+                                 None if g is None else g[:, 0])
+            if step.stage_conditional:
+                slg, stok = step.stage_chain(
+                    out, prev, lambda l, s: sample_logits(
+                        l, temperature, top_k,
+                        None if g is None else g[:, 1 + s]))
+            elif multi:
+                slg = step.stage_logits(out)
+                stok = sample_logits(slg, temperature, top_k,
+                                     None if g is None else g[:, 1:])
             logits.append(lg)
             tokens.append(prev)
-        return {"logits": torch.stack(logits, dim=1),
-                "tokens": torch.stack(tokens, dim=1)}
+            if multi:
+                stage_logits.append(slg)
+                stage_tokens.append(stok)
+        res = {"logits": torch.stack(logits, dim=1),
+               "tokens": torch.stack(tokens, dim=1)}
+        if multi:
+            res["stage_logits"] = torch.stack(stage_logits, dim=1)
+            res["stage_tokens"] = torch.stack(stage_tokens, dim=1)
+        return res
+
+    def beam_decode(self, enc_outs: torch.Tensor, dec_hidden: torch.Tensor,
+                    target_tokens: torch.Tensor, beam_width: int = 4,
+                    enc_mask: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Beam search over the decode (the JAX package's
+        beam_decode_impl). The K hypotheses of a row ride the batch axis
+        (row b's at b*K .. b*K + K-1); only hypothesis 0 is live at the
+        start, so the first expansion picks the K best distinct
+        continuations; the recombination keeps the K best of K*V scores,
+        ties to the lower index as lax.top_k breaks them (a stable sort).
+        Inputs at steps t - 1 < n_pre_poses are the teacher tokens. Stage
+        ids are each hypothesis's own argmax choices (through the chain
+        with stage_conditional, conditioned on its argmax primary); they
+        never enter the score. Returns "tokens" (B, n_steps), "logprob"
+        (B,), "step_scores" (B, n_steps - 1, K + 1), each step's K + 1
+        best scores in descending order (the last step's first K are the
+        final hypotheses' log-probabilities), and with residual stages
+        "stage_tokens" (B, n_steps - 1, S-1)."""
+        K = int(beam_width)
+        V, L, T = self.n_tokens, self.n_layers, self.n_steps
+        B = target_tokens.shape[0]
+        S1 = self.token_stages - 1
+        step = self.decoder_step
+        dev = enc_outs.device
+        rows = torch.arange(B, device=dev)[:, None]
+
+        seed = target_tokens[:, 0]
+        eo = enc_outs.repeat_interleave(K, dim=1)           # (S, B*K, H)
+        hidden = dec_hidden.repeat_interleave(K, dim=1)     # (L, B*K, H)
+        mask = (enc_mask.repeat_interleave(K, dim=0)
+                if enc_mask is not None and enc_mask.dim() == 2
+                else enc_mask)
+        tokens = seed.repeat_interleave(K)
+        logprob = torch.full((B, K), float("-inf"), device=dev)
+        logprob[:, 0] = 0.0
+        seqs = torch.zeros((B, K, T), dtype=seed.dtype, device=dev)
+        seqs[:, :, 0] = seed[:, None]
+        stages = torch.zeros((B, K, T, max(S1, 1)), dtype=seed.dtype,
+                             device=dev)
+        step_scores = []
+        for t in range(1, T):
+            token_in = (target_tokens[:, t - 1].repeat_interleave(K)
+                        if t - 1 < self.n_pre_poses else tokens)
+            logits, new_hidden, out = step.step(token_in, hidden, eo, mask)
+            logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+            scores = (logprob[:, :, None] + logp).reshape(B, K * V)
+            order = torch.sort(scores, dim=-1, descending=True, stable=True)
+            logprob, top_idx = order.values[:, :K], order.indices[:, :K]
+            step_scores.append(order.values[:, :K + 1])
+            parent, new_tok = top_idx // V, top_idx % V
+            hidden = new_hidden.reshape(L, B, K, -1)[:, rows, parent] \
+                .reshape(L, B * K, -1)
+            seqs = seqs[rows, parent]
+            seqs[:, :, t] = new_tok
+            if S1:
+                if step.stage_conditional:
+                    _, st = step.stage_chain(
+                        out, torch.argmax(logits, dim=-1),
+                        lambda l, s: torch.argmax(l, dim=-1))
+                else:
+                    st = torch.argmax(step.stage_logits(out), dim=-1)
+                stages = stages[rows, parent]
+                stages[:, :, t] = st.reshape(B, K, S1)[rows, parent]
+            tokens = new_tok.reshape(-1)
+        best = torch.argmax(logprob, dim=1)
+        b = torch.arange(B, device=dev)
+        res = {"tokens": seqs[b, best], "logprob": logprob[b, best],
+               "step_scores": torch.stack(step_scores, dim=1)}
+        if S1:
+            res["stage_tokens"] = stages[b, best][:, 1:, :]
+        return res
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                target_tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+                target_tokens: torch.Tensor, **decode_kw
+                ) -> Dict[str, torch.Tensor]:
         """Encode + decode with the batch-max mask: attention only over
         positions < max(lengths), like the reference's packed-sequence
-        trimming."""
+        trimming. decode_kw as in decode_tokens."""
         enc_outs, dec_hidden = self.encode_text(tokens, lengths)
         enc_mask = (torch.arange(tokens.shape[1], device=tokens.device)
                     < lengths.max())
         return self.decode_tokens(enc_outs, dec_hidden, target_tokens,
-                                  enc_mask=enc_mask)
+                                  enc_mask=enc_mask, **decode_kw)

@@ -145,17 +145,34 @@ def test_entry_point_needs_cuda_unless_cpu(jax_gen, monkeypatch):
     assert _port(jax_gen, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("option", [
-    {"mode": "exemplar"}, {"chunk_continuity": True},
-    {"decode_overlap": 2}, {"soft_decode": 0.5}])
-def test_unported_options_raise(jax_gen, option):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _port(jax_gen, **option)
+@pytest.mark.parametrize("case", ["t2t_arch_transformer",
+                                  "generate_batch_mesh",
+                                  "seq_arch_transformer"])
+def test_still_unported_raise(jax_gen, tmp_path, case):
+    """What later slices port: the transformer Part d and Part-b encoder
+    (refused by the checkpoint makers) and generate_batch over a mesh."""
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+    from gesture2vec_tpu_torch.utils import mpack
 
-
-def test_generate_batch_not_ported(jax_gen):
-    with pytest.raises(NotImplementedError, match="generate_batch"):
-        _port(jax_gen).generate_batch([_words(3.0)], 3.0)
+    if case == "generate_batch_mesh":
+        with pytest.raises(NotImplementedError, match="scale-out"):
+            _port(jax_gen).generate_batch([_words(3.0)], 3.0, mesh=object())
+        return
+    kind, args, what = {
+        "t2t_arch_transformer": ("text2embedding",
+                                 {"extras": {"t2t_arch": "transformer"}},
+                                 "transformer Part-d"),
+        "seq_arch_transformer": ("autoencoder_vq",
+                                 {"seq_arch": "transformer",
+                                  "autoencoder_vq": True, "extras": {}},
+                                 "transformer-encoder")}[case]
+    path = tmp_path / "ckpt.bin"
+    path.write_bytes(mpack.packb({
+        "args": args, "epoch": 1, "pose_dim": 0, "lang_model": None,
+        "kind": kind, "params": {}, "extra": {"n_words": 10}}))
+    with pytest.raises(NotImplementedError, match=what):
+        load_checkpoint_and_model(str(path), kind, "cpu")
 
 
 def test_fused_decoder_raises_when_ineligible(jax_gen):

@@ -126,22 +126,6 @@ def test_text2token_greedy_decode_matches_jax(t2t_pair, rng):
                                np.asarray(res_j["logits"]), atol=ATOL)
 
 
-def test_text2token_unported_options_raise(t2t_pair):
-    _, _, port = t2t_pair
-    eo = torch.zeros(MAXW, 1, HID)
-    dh = torch.zeros(2, 1, HID)
-    tgt = torch.zeros(1, N_STEPS, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        port.decode_tokens(eo, dh, tgt, temperature=1.0)
-    with pytest.raises(NotImplementedError, match="beam"):
-        port.decode_tokens(eo, dh, tgt, beam_width=4)
-    from gesture2vec_tpu_torch.models.text2token import Text2Token
-    with pytest.raises(NotImplementedError, match="gru"):
-        Text2Token(10, 8, 4, 2, 6, encoder_type="gru")
-    with pytest.raises(NotImplementedError, match="token_stages"):
-        Text2Token(10, 8, 4, 2, 6, token_stages=2)
-
-
 def test_gru_cell_stack_matches_jax(rng):
     from gesture2vec_tpu.models.gru import GRUCellStack as JaxStack
 

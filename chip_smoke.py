@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives four paths of the port, each with every kernel launch counter
+It drives six paths of the port, each with every kernel launch counter
 set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -73,8 +73,27 @@ The decode policies at the bench widths:
            against the CPU at 60 s (tokens identical, frames within 1e-4,
            a first differing window counted only as a near-tie of the
            reference's decision scores), request seconds and stages;
+The Part-c sweep with `seq_arch: transformer` tokenizers (in the Part-c
+phase's directory):
+  main     GS-Soft and 4-stage residual-VQ tokenizers with the transformer
+           chunk encoder (random, written as the JAX package's
+           checkpoints) over the 244-minute store, K-Means (K=300) on the
+           GS-Soft latents: launches (no `gru_sequence`), distinct codes;
+  timing   windows/s of each sweep and its tokenize stage, idle share;
+  check    the residual tokens of the kernel path against the plain path
+           on the card, both sweeps against the CPU on the first windows;
+The recommended recipe (configs/seq2seqtxt_recommended.yml: the
+transformer Part d, 4 heads, 4 chained stages, teacher prefix 1, over
+configs/VQ-VAE_rvq.yml's 4-stage tokenizer), weights through the bridge:
+  recipe   one line per policy (greedy; temperature 0 with
+           stage0_temperature 1, the recipe's; beam 4) on the 6 s, 60 s
+           and 1800 s requests: launches per request, the kernel path
+           against the module path on the card and the card against the
+           CPU at 60 s (tokens identical or a counted near-tie, frames
+           within 1e-4), request seconds and stages, idle share at 60 s;
+           then exemplar mode at 60 s over Part c's residual-VQ bank;
 then the kernels line (each kernel's launches on its first path, on the
-new paths and its times at the new shapes), the nvidia-smi line, and as
+later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
 a CUDA device, or without the package beside it, it exits non-zero
 before printing any result.
@@ -164,6 +183,16 @@ VQ_ARGS = {"name": "VQVAE", "model": "seq2seq", "hidden_size": HID,
            "extras": {}}
 RVQ_ARGS = {**VQ_ARGS, "name": "VQVAE_rvq", "autoencoder_vq_variant": "rvq",
             "rvq_stages": 4, "subdivision_stride": 10}
+# the recommended recipe (configs/seq2seqtxt_recommended.yml over
+# configs/VQ-VAE_rvq.yml): the transformer Part d with t2t_heads 4, 4
+# chained stages and a 1-token teacher prefix, under three policies
+RECIPE_HEADS, RECIPE_N_PRE = 4, 1
+RECIPE_POLICIES = (
+    ("greedy", {}),
+    ("recipe_t0_stage0_t1", {"temperature": 0.0, "stage0_temperature": 1.0}),
+    ("beam4", {"beam_width": 4}))
+# the exemplar request's policy: the recipe's
+RECIPE_POLICY = dict(RECIPE_POLICIES)["recipe_t0_stage0_t1"]
 
 
 def emit(obj) -> None:
@@ -458,7 +487,7 @@ def decode_path(smi: str) -> dict:
         return generator_from_jax(
             *trees, vocab, pose_mean, pose_std, n_frames=N_FRAMES,
             sentence_frame_length=SENT_LEN, fps=FPS, max_words=MAXW,
-            device=device, use_fused_decoder=fused)
+            device=device, mode="decode", use_fused_decoder=fused)
 
     gen = make("cuda", True)
     folded = gen._folded
@@ -860,6 +889,37 @@ def gssoft_near_ties(seq, hidden_plain, tok_a, tok_b) -> tuple:
     return int(diff.size), int((gap <= GSSOFT_TIE).sum())
 
 
+def rvq_near_ties(rvq, latents: np.ndarray, toks_a: np.ndarray,
+                  toks_b: np.ndarray) -> tuple:
+    """(windows whose residual-VQ stage tokens (N, S) differ, how many of
+    them first differ at a near-tie): the residual follows toks_b, the
+    reference, through the stages, and a stage's two codes are a near-tie
+    where their distances to it differ by at most NEAR_TIE."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.seq_ae import _flatten_hidden
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    rows = np.nonzero((toks_a != toks_b).any(axis=1))[0]
+    ties = 0
+    if rows.size:
+        with torch.inference_mode():
+            h = rvq.encode_hidden(torch.from_numpy(latents[rows]).cuda())
+            resid = _flatten_hidden(h, rvq.vq_flatten)
+            for s, cb in enumerate(rvq.vq_layer.codebooks()):
+                a = torch.from_numpy(toks_a[rows, s]).cuda()
+                b = torch.from_numpy(toks_b[rows, s]).cuda()
+                d = vk.codebook_distances(resid, cb)
+                gap = (d.gather(1, a[:, None].long())
+                       - d.gather(1, b[:, None].long())).abs()[:, 0]
+                first = (a != b) & (torch.as_tensor(
+                    (toks_a[rows, :s] == toks_b[rows, :s])
+                    .all(axis=1)).cuda())
+                ties += int(((gap <= NEAR_TIE) & first).sum().item())
+                resid = resid - cb[b.long()]
+    return int(rows.size), ties
+
+
 def part_c_path(smi: str, tmp: str) -> tuple:
     import torch
 
@@ -876,7 +936,6 @@ def part_c_path(smi: str, tmp: str) -> tuple:
     from gesture2vec_tpu_torch.data.store import ClipStore
     from gesture2vec_tpu_torch.data.teacher import (encode_windows_with_dae,
                                                     tokenize_windows)
-    from gesture2vec_tpu_torch.models.seq_ae import _flatten_hidden
     from gesture2vec_tpu_torch.ops import vq_kernel as vk
 
     rng = np.random.default_rng(0)
@@ -1031,24 +1090,8 @@ def part_c_path(smi: str, tmp: str) -> tuple:
     rt_p, _ = tokenize_windows(rvq, rdata["dae_latents"],
                                all_stages=True)
     rvq.set_use_kernels(True)
-    r_rows = np.nonzero((rt_p != rdata["tokens"]).any(axis=1))[0]
-    r_ties = 0
-    if r_rows.size:
-        with torch.inference_mode():
-            h = rvq.encode_hidden(torch.from_numpy(
-                rdata["dae_latents"][r_rows]).cuda())
-            resid = _flatten_hidden(h, rvq.vq_flatten)
-            for s, cb in enumerate(rvq.vq_layer.codebooks()):
-                a = torch.from_numpy(rdata["tokens"][r_rows, s]).cuda()
-                b = torch.from_numpy(rt_p[r_rows, s]).cuda()
-                d = vk.codebook_distances(resid, cb)
-                gap = (d.gather(1, a[:, None].long())
-                       - d.gather(1, b[:, None].long())).abs()[:, 0]
-                first = (a != b) & (torch.as_tensor(
-                    (rdata["tokens"][r_rows, :s] == rt_p[r_rows, :s])
-                    .all(axis=1)).cuda())
-                r_ties += int(((gap <= NEAR_TIE) & first).sum().item())
-                resid = resid - cb[b.long()]
+    r_rows, r_ties = rvq_near_ties(rvq, rdata["dae_latents"],
+                                   rdata["tokens"], rt_p)
     # K-Means from the same initial centers: at every Lloyd step of
     # the kernel run, the kernel's assignment against the plain one
     # on the same centers; then the two whole runs, kernel and plain
@@ -1100,7 +1143,7 @@ def part_c_path(smi: str, tmp: str) -> tuple:
         "gssoft_tokens_differing": differ, "gssoft_near_ties": ties,
         "gssoft_tie_margin": GSSOFT_TIE, "seq_latents_max_abs_err":
             lat_err, "tol": TOL,
-        "rvq_rows_differing": int(r_rows.size), "rvq_near_ties": r_ties,
+        "rvq_rows_differing": r_rows, "rvq_near_ties": r_ties,
         "kmeans_lloyd_steps": steps,
         "kmeans_labels_differing": km_differ,
         "kmeans_near_ties": km_ties, "kmeans_inertia_rel_err":
@@ -1112,7 +1155,7 @@ def part_c_path(smi: str, tmp: str) -> tuple:
         "card_vs_cpu_near_ties": c_ties,
         "card_vs_cpu_max_abs_err": cpu_err}
     emit(result)
-    if differ != ties or lat_err > TOL or r_rows.size != r_ties \
+    if differ != ties or lat_err > TOL or r_rows != r_ties \
             or km_differ != km_ties or inertia_rel > 1e-5 \
             or not km_deterministic or run_differ != run_ties \
             or runs["inertia_rel_err"] > 1e-5 \
@@ -1132,7 +1175,10 @@ def part_c_path(smi: str, tmp: str) -> tuple:
     g512 = next(r for r in gru_rows if r["B"] == 512 and not r["reverse"])
     v_main = next(r for r in vq_rows if r["N"] == 58488)
     files = {"dae": ckpt["dae"], "vq": ckpt["vq"], "train": train,
-             "bank": os.path.join(out, "org_latent_clustering_data.npz")}
+             "bank": os.path.join(out, "org_latent_clustering_data.npz"),
+             # the residual-VQ sweep's windows: the recipe's exemplar bank
+             "rvq_bank": {"tokens": rdata["tokens"][:, 0],
+                          "dae_latents": rdata["dae_latents"]}}
     return files, [
         {**entry("gru_sequence", gru_rows, g512,
                  cli_counts["gru_sequence"], g512["library_ms"]),
@@ -1241,9 +1287,8 @@ def token_margins(gen, requests) -> dict:
                             .min(dim=-1).values)
                 per.append(m)
                 seed = torch.zeros_like(seed)
-                if t2t.n_pre_poses:
-                    seed[:, :t2t.n_pre_poses] = \
-                        res["tokens"][:, -t2t.n_pre_poses:]
+                if t2t.n_pre:
+                    seed[:, :t2t.n_pre] = res["tokens"][:, -t2t.n_pre:]
             out[d] = torch.stack(per).cpu().numpy()
     return out
 
@@ -1292,8 +1337,6 @@ def exemplar_path(smi: str, tmp: str, files: dict) -> dict:
     DAE and tokenizer checkpoints, a text2embedding checkpoint at the bench
     widths (TCN encoder) and the 58,488-window bank the cluster CLI wrote."""
     import dataclasses
-
-    import torch
 
     from gesture2vec_tpu_torch.cli._common import build_generator
     from gesture2vec_tpu_torch.data.store import ClipStore
@@ -1529,7 +1572,8 @@ def policies_path(smi: str) -> tuple:
         gen = generator_from_jax(
             *trees[variant], vocab, pose_mean, pose_std, n_frames=N_FRAMES,
             sentence_frame_length=SENT_LEN, fps=FPS, max_words=MAXW,
-            device=device, use_fused_decoder=kernels, seed=0, **options)
+            device=device, mode="decode", use_fused_decoder=kernels, seed=0,
+            **options)
         gen.t2t_model.set_use_kernels(kernels)
         return gen
 
@@ -1574,10 +1618,12 @@ def policies_path(smi: str) -> tuple:
         timing = {}
         for d in POLICY_REQUESTS_S:
             w = words(d)
-            req_s = best_s(lambda: gen.generate(w, d), reps=2)
+            # one repeat of the long request keeps the run in its budget
+            reps = 1 if d == POLICY_REQUESTS_S[-1] else 2
+            req_s = best_s(lambda: gen.generate(w, d), reps=reps)
             timing[d] = {"seconds": req_s,
                          "frames_per_s": outs[d][0].shape[0] / req_s,
-                         "stages_s": stage_split(gen, d)}
+                         "stages_s": stage_split(gen, d, reps=reps)}
         # profiled on the short request only (~45 s of profiler on the
         # long one's ~150k device ops)
         d = POLICY_REQUESTS_S[0]
@@ -1592,6 +1638,327 @@ def policies_path(smi: str) -> tuple:
                 or not all(c["ok"] for c in vs_module.values()):
             raise AssertionError(f"policy {name} failed its checks")
     return rows, launches
+
+
+# -- the transformer models: the recipe's Part d, the transformer tokenizer --
+def transformer_makers(rng: np.random.Generator):
+    """Makers of random transformer variables in the JAX package's layout
+    (numpy): dense(i, o), ln() and block(cross) at the bench width, drawn
+    as the layers initialise (uniform in +-1/sqrt(fan_in); LayerNorm
+    scale near 1)."""
+    def u(shape, fan_in):
+        b = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-b, b, size=shape).astype(np.float32)
+
+    def dense(i, o):
+        return {"kernel": u((i, o), i), "bias": u((o,), i)}
+
+    def ln():
+        return {"scale": (1 + 0.1 * rng.normal(size=HID)).astype(np.float32),
+                "bias": (0.1 * rng.normal(size=HID)).astype(np.float32)}
+
+    def block(cross):
+        out = {"ln_self": ln(), "ln_mlp": ln(),
+               "self_attn": {p: dense(HID, HID) for p in "qkvo"},
+               "mlp_in": dense(HID, 4 * HID), "mlp_out": dense(4 * HID, HID)}
+        if cross:
+            out.update(ln_cross=ln(),
+                       cross_attn={p: dense(HID, HID) for p in "qkvo"})
+        return out
+
+    return dense, ln, block
+
+
+def recipe_trees(rng: np.random.Generator):
+    """The recommended recipe's variables (numpy, JAX layout): the
+    transformer Part d at the bench widths (2 layers, 5000 x 300 word
+    table, 512 codes, 4 stages with the stage chain), and Part c's
+    residual-VQ tokenizer and DAE (part_c_trees at seed 0), whose sweep is
+    the exemplar bank."""
+    dense, ln, block = transformer_makers(rng)
+    stages = RVQ_ARGS["rvq_stages"]
+    enc = {"embedding_table": rng.normal(size=(N_WORDS, WORDEMBED))
+           .astype(np.float32), "embed_proj": dense(WORDEMBED, HID),
+           "final_ln": ln(), **{f"layer_{i}": block(False) for i in range(L)}}
+    dec = {"token_embedding": {"embedding": (rng.normal(size=(K, HID))
+                                             / np.sqrt(HID))
+                               .astype(np.float32)},
+           "final_ln": ln(), "out_layer": dense(HID, K),
+           **{f"layer_{i}": block(True) for i in range(L)},
+           **{f"out_layer_r{s}": dense(HID, K) for s in range(1, stages)},
+           **{f"stage_embed_{s}": {"embedding": (
+               rng.normal(size=(K, HID)) / np.sqrt(HID)).astype(np.float32)}
+              for s in range(stages - 1)}}
+    dae, _, (rvq, rvq_stats) = part_c_trees(np.random.default_rng(0))
+    return ({"params": {"encoder": enc, "decoder": dec}},
+            {"params": rvq, "batch_stats": rvq_stats}, {"params": dae})
+
+
+def recipe_path(smi: str, bank: dict) -> dict:
+    """The recommended recipe through the weight bridge: decode mode on the
+    6 s, 60 s and 1800 s requests under each of RECIPE_POLICIES, and
+    exemplar mode on the 60 s request against Part c's residual-VQ bank.
+    At 60 s the kernel path is held against the module path on the card
+    and the card against the CPU (fresh generators, first request)."""
+    from gesture2vec_tpu_torch.compat.from_jax import generator_from_jax
+    from gesture2vec_tpu_torch.models.transformer import \
+        TransformerText2Token
+    from gesture2vec_tpu_torch.text.vocab import Vocab
+
+    vocab = Vocab("bench")
+    for i in range(VOCAB_WORDS):
+        vocab.index_word(f"word{i}")
+    trees = recipe_trees(np.random.default_rng(0))
+    pose_mean = np.zeros(DIM, np.float32)
+    pose_std = np.ones(DIM, np.float32)
+
+    def make(device, kernels, mode="decode", **options):
+        gen = generator_from_jax(
+            *trees, vocab, pose_mean, pose_std, n_frames=N_FRAMES,
+            sentence_frame_length=SENT_LEN, fps=FPS, max_words=MAXW,
+            t2t_n_pre_poses=RECIPE_N_PRE, t2t_heads=RECIPE_HEADS,
+            device=device, mode=mode, use_fused_decoder=kernels, seed=0,
+            latent_bank=bank if mode == "exemplar" else None, **options)
+        if not isinstance(gen.t2t_model, TransformerText2Token):
+            raise AssertionError("the recipe's Part d is not the transformer")
+        return gen
+
+    unit = SENT_LEN / FPS
+    d60 = REQUESTS_S[1]
+    launches = {}
+    for name, options in RECIPE_POLICIES:
+        gen = make("cuda", True, **options)
+        reset_launches()
+        outs, per_request = {}, {}
+        for d in REQUESTS_S:
+            before = read_launches()
+            outs[d] = gen.generate(words(d), d)
+            per_request[d] = {k: v - before[k]
+                              for k, v in read_launches().items()}
+        launches[name] = read_launches()
+        want = {d: {"chunk_decoder": 1, "gru_sequence": 0, "vq_argmin": 0}
+                for d in REQUESTS_S}
+        for d, (frames, toks) in outs.items():
+            n_windows = int(np.ceil(d / unit))
+            if frames.shape != (n_windows * SENT_LEN, DIM) \
+                    or not np.isfinite(frames).all() \
+                    or toks.shape != (n_windows * SENT_LEN // N_FRAMES,):
+                raise AssertionError(f"recipe {name} {d} s: frames "
+                                     f"{frames.shape}, tokens {toks.shape}")
+        # at 60 s, the first request of fresh generators: the kernel path
+        # against the module path on the card, and the card against the
+        # CPU
+        first = make("cuda", True, **options).generate(words(d60), d60)
+        vs_module = compare_runs(
+            first, make("cuda", False, **options).generate(words(d60), d60),
+            lambda: token_margins(make("cuda", False, **options),
+                                  [d60])[d60])
+        vs_cpu = compare_runs(
+            first, make("cpu", True, **options).generate(words(d60), d60),
+            lambda: token_margins(make("cpu", True, **options), [d60])[d60])
+        timing = {}
+        for d in REQUESTS_S:
+            w = words(d)
+            reps = 1 if d == REQUESTS_S[-1] else 2
+            req_s = best_s(lambda: gen.generate(w, d), reps=reps)
+            timing[d] = {"seconds": req_s,
+                         "frames_per_s": outs[d][0].shape[0] / req_s,
+                         "stages_s": stage_split(gen, d, reps=reps),
+                         "launches": per_request[d]}
+        # profiled on the 60 s request only
+        timing[d60]["device_busy"] = device_busy(
+            lambda: gen.generate(words(d60), d60), timing[d60]["seconds"])
+        emit({"phase": "recipe", "policy": name, "options": options,
+              "launches_per_request": per_request, "want": want,
+              "kernel_vs_module_60s": vs_module, "card_vs_cpu_60s": vs_cpu,
+              "tol": TOL, "near_tie_margin": LOGIT_TIE,
+              "distinct_tokens_1800s": int(len(np.unique(
+                  outs[REQUESTS_S[-1]][1]))), "timing": timing, "card": smi})
+        if per_request != want or not vs_module["ok"] or not vs_cpu["ok"]:
+            raise AssertionError(f"recipe {name} failed its checks")
+
+    # -- exemplar mode at 60 s, the recipe's policy ---------------------
+    gen = make("cuda", True, mode="exemplar", **RECIPE_POLICY)
+    reset_launches()
+    out = gen.generate(words(d60), d60)
+    counts = read_launches()
+    if any(counts.values()) or out[0].shape != (
+            int(np.ceil(d60 / unit)) * SENT_LEN, DIM) \
+            or not np.isfinite(out[0]).all():
+        raise AssertionError(f"recipe exemplar: launches {counts}, frames "
+                             f"{out[0].shape}")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        g = make(dev, True, mode="exemplar", **RECIPE_POLICY)
+        picks, pick = [], g._picks
+        g._picks = lambda toks, pick=pick, picks=picks: \
+            picks.append(pick(toks)) or picks[-1]
+        runs[dev] = (g.generate(words(d60), d60), picks[0])
+    cmp = compare_runs(runs["cuda"][0], runs["cpu"][0], lambda: token_margins(
+        make("cpu", True, mode="exemplar", **RECIPE_POLICY), [d60])[d60])
+    cmp["picks_identical"] = bool(np.array_equal(runs["cuda"][1],
+                                                 runs["cpu"][1]))
+    req_s = best_s(lambda: gen.generate(words(d60), d60), reps=2)
+    emit({"phase": "recipe", "policy": "exemplar_" + RECIPE_POLICIES[1][0],
+          "options": RECIPE_POLICY, "launches": counts,
+          "want": "no kernel: transformer Part d, bank gather, DAE decode",
+          "bank_windows": int(bank["tokens"].shape[0]),
+          "card_vs_cpu_60s": cmp, "tol": TOL,
+          "timing": {d60: {"seconds": req_s,
+                           "frames_per_s": out[0].shape[0] / req_s,
+                           "stages_s": stage_split(gen, d60),
+                           "device_busy": device_busy(
+                               lambda: gen.generate(words(d60), d60),
+                               req_s)}}, "card": smi})
+    if not cmp["ok"] or (cmp["tokens_identical"]
+                         and not cmp["picks_identical"]):
+        raise AssertionError(f"recipe exemplar card vs CPU: {cmp}")
+    return {**launches, "exemplar": counts}
+
+
+def tf_tokenizer_trees(rng: np.random.Generator):
+    """Part c's GS-Soft and 4-stage residual-VQ tokenizers (quantizers and
+    decoders of part_c_trees at seed 0) with a `seq_arch: transformer`
+    chunk encoder in place of the BiGRU: ((params, stats), (params,
+    stats))."""
+    dense, ln, block = transformer_makers(rng)
+    _, (vq, vq_stats), (rvq, rvq_stats) = part_c_trees(
+        np.random.default_rng(0))
+
+    def encoder():
+        return {"in_layer": dense(REP, HID), "final_ln": ln(),
+                "hidden_proj": dense(HID, L * HID),
+                **{f"layer_{i}": block(False) for i in range(L)}}
+
+    return (({**vq, "encoder": encoder()}, vq_stats),
+            ({**rvq, "encoder": encoder()}, rvq_stats))
+
+
+def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
+    """The Part-c sweep with `seq_arch: transformer` tokenizers written as
+    the JAX package's checkpoints: the GS-Soft sweep over the 244-minute
+    store with K-Means (K=300) on its sequence latents, and the 4-stage
+    residual-VQ sweep with all stage tokens. Checks: launches (no
+    `gru_sequence`), the residual tokens of the kernel path against the
+    plain path on the card, and the card against the CPU on the first
+    windows."""
+    import torch
+
+    from gesture2vec_tpu_torch.cluster import kmeans as km
+    from gesture2vec_tpu_torch.cluster.latent_dataset import \
+        build_latent_dataset
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.data.teacher import (encode_windows_with_dae,
+                                                    tokenize_windows)
+
+    (vq_p, vq_s), (rvq_p, rvq_s) = tf_tokenizer_trees(
+        np.random.default_rng(1))
+    extras = {"extras": {"seq_arch": "transformer"}}
+    ckpt = {"gssoft": os.path.join(tmp, "tf_vq.bin"),
+            "rvq": os.path.join(tmp, "tf_rvq.bin")}
+    write_checkpoint(ckpt["gssoft"], {**VQ_ARGS, "name": "VQVAE_tf",
+                                      **extras}, vq_p, vq_s,
+                     "autoencoder_vq", REP)
+    write_checkpoint(ckpt["rvq"], {**RVQ_ARGS, "name": "VQVAE_rvq_tf",
+                                   **extras}, rvq_p, rvq_s,
+                     "autoencoder_vq", REP)
+    dae, _ = load_checkpoint_and_model(files["dae"], "DAE")
+    seqs = {v: load_checkpoint_and_model(p, "autoencoder_vq")[0]
+            for v, p in ckpt.items()}
+    if any(m.encoder_arch != "transformer" for m in seqs.values()):
+        raise AssertionError("the tokenizers' encoders are not transformers")
+    store = ClipStore(files["train"])
+    stride = {"gssoft": VQ_ARGS["subdivision_stride"],
+              "rvq": RVQ_ARGS["subdivision_stride"]}
+    stages = RVQ_ARGS["rvq_stages"]
+
+    def sweep(v):
+        return build_latent_dataset(store, dae_model=dae, seq_model=seqs[v],
+                                    n_poses=20, stride=stride[v],
+                                    all_stages=v == "rvq")
+
+    counts, data = {}, {}
+    for v in ("gssoft", "rvq"):
+        reset_launches()
+        data[v] = sweep(v)
+        counts[v] = read_launches()
+    reset_launches()
+    fit = km.kmeans_fit(data["gssoft"]["seq_latents"], PC_KMEANS, seed=0)
+    counts["kmeans"] = read_launches()
+    n = {v: data[v]["tokens"].shape[0] for v in data}
+    want = {"gssoft": {"chunk_decoder": 0, "gru_sequence": 0,
+                       "vq_argmin": 0},
+            "rvq": {"chunk_decoder": 0, "gru_sequence": 0,
+                    "vq_argmin": stages * math.ceil(n["rvq"] / 512)},
+            "kmeans": {"chunk_decoder": 0, "gru_sequence": 0,
+                       "vq_argmin": sum(fit.n_iter) + len(fit.n_iter)}}
+    distinct = {"gssoft": int(len(np.unique(data["gssoft"]["tokens"]))),
+                "rvq": [int(len(np.unique(data["rvq"]["tokens"][:, s])))
+                        for s in range(stages)]}
+    emit({"phase": "main", "path": "tf_part_c", "launches": counts,
+          "want": want, "windows": n, "distinct_codes": distinct,
+          "kmeans_lloyd_steps": fit.n_iter,
+          "kmeans_inertia": float(fit.inertia)})
+    if counts != want or distinct["gssoft"] < 2 or min(distinct["rvq"]) < 2 \
+            or data["rvq"]["tokens"].shape != (n["rvq"], stages):
+        raise AssertionError(f"transformer-tokenizer sweep: launches "
+                             f"{counts}, want {want}; codes {distinct}")
+
+    # -- timing -------------------------------------------------------
+    lat = {v: data[v]["dae_latents"] for v in data}
+    timing = {}
+    for v in ("gssoft", "rvq"):
+        s_sweep = best_s(lambda: sweep(v), reps=2)
+        timing[v] = {"windows": n[v], "sweep_s": s_sweep,
+                     "sweep_windows_per_s": n[v] / s_sweep,
+                     "tokenize_s": best_s(lambda: tokenize_windows(
+                         seqs[v], lat[v], all_stages=v == "rvq"), reps=2)}
+    timing["gssoft"]["device_busy"] = device_busy(
+        lambda: sweep("gssoft"), timing["gssoft"]["sweep_s"])
+    emit({"phase": "timing", "path": "tf_part_c", **timing, "card": smi})
+
+    # -- check: kernel path against plain path, card against CPU -------
+    rvq = seqs["rvq"]
+    rvq.set_use_kernels(False)
+    plain = tokenize_windows(rvq, lat["rvq"], all_stages=True)[0]
+    rvq.set_use_kernels(True)
+    k_rows, k_ties = rvq_near_ties(rvq, lat["rvq"], data["rvq"]["tokens"],
+                                   plain)
+    dae_c, _ = load_checkpoint_and_model(files["dae"], "DAE", "cpu")
+    cpu = {}
+    for v, path in ckpt.items():
+        seq_c, _ = load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
+        lat_c = encode_windows_with_dae(
+            dae_c, data[v]["windows"][:CPU_WINDOWS])
+        toks_c, seq_lat_c = tokenize_windows(seq_c, lat_c,
+                                             all_stages=v == "rvq")
+        err = max(float(np.abs(lat[v][:CPU_WINDOWS] - lat_c).max()),
+                  float(np.abs(data[v]["seq_latents"][:CPU_WINDOWS]
+                               - seq_lat_c).max()))
+        if v == "gssoft":
+            with torch.inference_mode():
+                hid_c = seq_c.encode_hidden(torch.from_numpy(lat_c))
+            rows, ties = gssoft_near_ties(
+                seq_c, hid_c, data[v]["tokens"][:CPU_WINDOWS], toks_c)
+        else:
+            rows, ties = rvq_near_ties(rvq, lat[v][:CPU_WINDOWS],
+                                       data[v]["tokens"][:CPU_WINDOWS],
+                                       toks_c)
+        cpu[v] = {"windows": CPU_WINDOWS, "tokens_differing": rows,
+                  "near_ties": ties, "max_abs_err": err}
+    result = {"phase": "check", "path": "tf_part_c",
+              "rvq_kernel_vs_plain": {"windows_differing": k_rows,
+                                      "near_ties": k_ties},
+              "card_vs_cpu": cpu, "tol": TOL, "near_tie_gap": NEAR_TIE,
+              "gssoft_tie_margin": GSSOFT_TIE}
+    emit(result)
+    if k_rows != k_ties or any(c["tokens_differing"] != c["near_ties"]
+                               or not c["max_abs_err"] <= TOL
+                               for c in cpu.values()):
+        raise AssertionError(f"transformer-tokenizer check failed: {result}")
+    return counts
 
 
 def main() -> int:
@@ -1636,16 +2003,24 @@ def main() -> int:
         t0 = time.perf_counter()
         exemplar_counts = exemplar_path(smi, tmp, files)
         secs["exemplar_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tf_counts = tf_part_c_path(smi, tmp, files)
+        secs["tf_part_c_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     policy_rows, policy_counts = policies_path(smi)
     secs["policies_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recipe_counts = recipe_path(smi, files["rvq_bank"])
+    secs["recipe_s"] = time.perf_counter() - t0
     emit({"phase": "paths", **secs})
     for k in kernels:
-        # launches: the kernel's first path (decode or Part c); the new
+        # launches: the kernel's first path (decode or Part c); the later
         # paths' counts beside it, and its times at the new shapes
         k["launches_by_path"] = {
             "exemplar": exemplar_counts[k["name"]],
-            "policies": {p: c[k["name"]] for p, c in policy_counts.items()}}
+            "policies": {p: c[k["name"]] for p, c in policy_counts.items()},
+            "tf_part_c": {p: c[k["name"]] for p, c in tf_counts.items()},
+            "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()}}
         shapes = policy_rows.get(k["name"], {})
         if shapes:
             k["max_abs_err"] = max(k["max_abs_err"], *(

@@ -11,12 +11,17 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
   DAE             `dae_trainer.make_frame_model`: a plain DAE
                   (motion_dim = input_motion_dim, latent = hidden_size);
   autoencoder_vq  `seq_ae_trainer.make_seq_ae`: the gesture tokenizer,
-  (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32;
+  (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32; the
+                  BiGRU or (extras "seq_arch: transformer") the transformer
+                  chunk encoder;
   text2embedding  `text2token_trainer._build_t2t` / `make_text2token`: the
-                  Part-d model, n_words from extra, the text encoder
-                  (extras "text_encoder"), token_stages, stage_conditional
-                  and autoencoder_att (decoder attention) from the config,
+                  Part-d model, n_words from extra, the architecture
+                  (extras "t2t_arch": the GRU model, or the transformer
+                  with "t2t_heads" heads), the text encoder (extras
+                  "text_encoder"), token_stages, stage_conditional and
+                  autoencoder_att (decoder attention) from the config,
                   fp32 whatever the training dtype.
+Each maker holds what the config says against what the weights hold.
 """
 from __future__ import annotations
 
@@ -26,9 +31,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from gesture2vec_tpu_torch.compat.from_jax import (dae_from_jax,
-                                                   seq_ae_from_jax,
-                                                   text2token_from_jax)
+from gesture2vec_tpu_torch.compat.from_jax import (
+    dae_from_jax, is_transformer_text2token, seq_ae_from_jax,
+    text2token_from_jax, transformer_text2token_from_jax)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
 
@@ -62,10 +67,6 @@ def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     if cfg.get("use_derivative", False):
         raise NotImplementedError(
             "use_derivative is " + _LATER.format("the training slice"))
-    if cfg.get("seq_arch", "bigru") != "bigru":
-        raise NotImplementedError(
-            f"seq_arch: {cfg['seq_arch']} is "
-            + _LATER.format("the transformer-encoder slice"))
     if cfg.get("autoencoder_vae", False):
         raise NotImplementedError(
             "autoencoder_vae is " + _LATER.format("the training slice"))
@@ -79,43 +80,54 @@ def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     parity = bool(payload["extra"].get("parity", False))
     variables = {"params": payload["params"],
                  "batch_stats": payload["extra"].get("batch_stats", {})}
-    return seq_ae_from_jax(
+    model = seq_ae_from_jax(
         variables, n_frames=int(cfg["n_poses"]),
         n_pre_poses=int(cfg["n_pre_poses"]),
         conditioned=cfg.get("autoencoder_conditioned", True),
         vq_flatten="torch_view" if parity else "per_sample",
         commitment_cost=float(cfg["autoencoder_vq_commitment_cost"]))
+    # the JAX package builds the transformer for "transformer", else the
+    # BiGRU
+    want = "transformer" if cfg.get("seq_arch") == "transformer" \
+        else "bigru"
+    if model.encoder_arch != want:
+        raise ValueError(f"the checkpoint's config says seq_arch {want}, "
+                         f"its weights hold {model.encoder_arch}")
+    return model
 
 
 # the JAX package's Config defaults for the Part-d fields read here
 T2T_CONFIG_DEFAULTS = {"n_poses": 50, "n_pre_poses": 5,
                  "sentence_frame_length": 120, "autoencoder_att": False,
                  "token_stages": 1, "stage_conditional": False,
-                 "text_encoder": "tcn", "t2t_arch": "gru"}
+                 "text_encoder": "tcn", "t2t_arch": "gru", "t2t_heads": 4}
 
 
 def text2token_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     cfg = {**T2T_CONFIG_DEFAULTS, **payload["config"]}
-    if cfg["t2t_arch"] == "transformer":
-        raise NotImplementedError(
-            "t2t_arch: transformer is "
-            + _LATER.format("the transformer Part-d slice"))
     variables = {"params": payload["params"],
                  "batch_stats": payload["extra"].get("batch_stats", {})}
-    model = text2token_from_jax(
-        variables, n_steps=int(cfg["sentence_frame_length"])
-        // int(cfg["n_poses"]), n_pre_poses=int(cfg["n_pre_poses"]))
+    kw = dict(n_steps=int(cfg["sentence_frame_length"])
+              // int(cfg["n_poses"]), n_pre_poses=int(cfg["n_pre_poses"]))
     stages = int(cfg["token_stages"])
-    want = {"n_words": int(payload["extra"]["n_words"]),
-            "text_encoder": cfg["text_encoder"], "token_stages": stages,
+    want = {"arch": "transformer" if cfg["t2t_arch"] == "transformer"
+            else "gru", "n_words": int(payload["extra"]["n_words"]),
+            "token_stages": stages,
             "stage_conditional": bool(cfg["stage_conditional"])
-            and stages > 1,
-            "autoencoder_att": bool(cfg["autoencoder_att"])}
-    got = {"n_words": model.encoder.embedding_table.num_embeddings,
-           "text_encoder": model.encoder_type,
-           "token_stages": model.token_stages,
-           "stage_conditional": model.stage_conditional,
-           "autoencoder_att": model.decoder_step.use_attention}
+            and stages > 1}
+    if is_transformer_text2token(variables):
+        model = transformer_text2token_from_jax(
+            variables, n_heads=int(cfg["t2t_heads"]), **kw)
+        got = {"arch": "transformer"}
+    else:
+        model = text2token_from_jax(variables, **kw)
+        want.update(text_encoder=cfg["text_encoder"],
+                    autoencoder_att=bool(cfg["autoencoder_att"]))
+        got = {"arch": "gru", "text_encoder": model.encoder_type,
+               "autoencoder_att": model.decoder_step.use_attention}
+    got.update(n_words=model.encoder.embedding_table.num_embeddings,
+               token_stages=model.token_stages,
+               stage_conditional=model.stage_conditional)
     if got != want:
         raise ValueError(f"the checkpoint's config says {want}, its "
                          f"weights hold {got}")

@@ -19,9 +19,17 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
   decoder_step out_layer_r{s} / stage_embed_{s}
                                      -> the residual-stage heads and the
                                         stage chain's embeddings
+  transformer layer_{i} (ln_self, self_attn q/k/v/o, ln_cross,
+  cross_attn, ln_mlp, mlp_in, mlp_out), final_ln, embed_proj,
+  hidden_proj, decoder out_layer_r{s} / stage_embed_{s}
+                                     -> the same names (LayerNorm scale
+                                        -> weight); the transformer Part
+                                        d, and the chunk encoder of a
+                                        `seq_arch: transformer` tokenizer
 Shapes (widths, layers, vocabulary, codes, stages, the text encoder, the
-stage chain, attention) are read from the arrays; what the arrays cannot
-say (steps, teacher prefix, flatten mode) is passed in. `compat/
+stage chain, attention, the architecture) are read from the arrays; what
+the arrays cannot say (steps, teacher prefix, flatten mode, attention
+heads) is passed in. `compat/
 checkpoint.py` reads the JAX package's checkpoint files into these
 trees.
 """
@@ -37,6 +45,7 @@ from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
 from gesture2vec_tpu_torch.models.dae import DAE
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder, SeqVQAutoencoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token
+from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.text.vocab import Vocab
 
 Tree = Mapping[str, object]
@@ -73,6 +82,44 @@ def _gru(mod: nn.Module, p: Tree) -> None:
 
 def _n_layers(gru: Tree) -> int:
     return sum(1 for k in gru if k.endswith("_w_hh"))
+
+
+def _n_blocks(tree: Tree) -> int:
+    return sum(1 for k in tree if k.startswith("layer_"))
+
+
+def _ln(mod: nn.LayerNorm, p: Tree) -> None:
+    _set(mod.weight, _t(p["scale"]))
+    _set(mod.bias, _t(p["bias"]))
+
+
+def _block(mod: nn.Module, p: Tree) -> None:
+    """A transformer Block: LayerNorms, attention q/k/v/o and the MLP."""
+    attns = ("self_attn", "cross_attn") if mod.cross else ("self_attn",)
+    for ln in ("ln_self", "ln_mlp") + (("ln_cross",) if mod.cross else ()):
+        _ln(getattr(mod, ln), p[ln])
+    for attn in attns:
+        for proj in "qkvo":
+            _dense(getattr(getattr(mod, attn), proj), p[attn][proj])
+    _dense(mod.mlp_in, p["mlp_in"])
+    _dense(mod.mlp_out, p["mlp_out"])
+
+
+def _fill_blocks(mod: nn.Module, p: Tree) -> None:
+    if _n_blocks(p) != mod.n_layers:
+        raise ValueError(f"{_n_blocks(p)} transformer blocks for "
+                         f"{mod.n_layers} layers")
+    for i in range(mod.n_layers):
+        _block(getattr(mod, f"layer_{i}"), p[f"layer_{i}"])
+    _ln(mod.final_ln, p["final_ln"])
+
+
+def _stage_heads(mod: nn.Module, p: Tree) -> None:
+    for s in range(mod.n_stage_heads):
+        _dense(getattr(mod, f"out_layer_r{s + 1}"), p[f"out_layer_r{s + 1}"])
+        if mod.stage_conditional:
+            _set(getattr(mod, f"stage_embed_{s}").weight,
+                 _t(p[f"stage_embed_{s}"]["embedding"]))
 
 
 def _n_stages(vq: Tree) -> int:
@@ -129,12 +176,44 @@ def text2token_from_jax(variables: Tree, *, n_steps: int,
         variables["batch_stats"]["decoder_step"]["pre_bn"])
     _gru(d.gru, dec["gru"])
     _dense(d.out_layer, dec["out_layer"])
-    for s in range(d.n_stage_heads):
-        _dense(getattr(d, f"out_layer_r{s + 1}"), dec[f"out_layer_r{s + 1}"])
-        if d.stage_conditional:
-            _set(getattr(d, f"stage_embed_{s}").weight,
-                 _t(dec[f"stage_embed_{s}"]["embedding"]))
+    _stage_heads(d, dec)
     return model.eval()
+
+
+def transformer_text2token_from_jax(variables: Tree, *, n_steps: int,
+                                    n_pre_poses: int = 2, n_heads: int = 4
+                                    ) -> TransformerText2Token:
+    """A TransformerText2Token from JAX variables (`t2t_arch:
+    transformer`). n_heads is the config's `t2t_heads` (4 by default):
+    the weights do not say it."""
+    p = variables["params"]
+    enc, dec = p["encoder"], p["decoder"]
+    n_words, embed = np.shape(enc["embedding_table"])
+    n_tokens, hidden = np.shape(dec["token_embedding"]["embedding"])
+    if _n_blocks(dec) != _n_blocks(enc):
+        raise ValueError(f"{_n_blocks(enc)} encoder blocks, "
+                         f"{_n_blocks(dec)} decoder blocks")
+    model = TransformerText2Token(
+        n_words=n_words, n_tokens=n_tokens, hidden_size=hidden,
+        n_layers=_n_blocks(enc), n_steps=n_steps, n_pre_poses=n_pre_poses,
+        word_embed_size=embed, n_heads=n_heads,
+        token_stages=1 + sum(1 for k in dec if k.startswith("out_layer_r")),
+        stage_conditional="stage_embed_0" in dec)
+    e, d = model.encoder, model.decoder
+    _set(e.embedding_table.weight, _t(enc["embedding_table"]))
+    _dense(e.embed_proj, enc["embed_proj"])
+    _fill_blocks(e, enc)
+    _set(d.token_embedding.weight, _t(dec["token_embedding"]["embedding"]))
+    _fill_blocks(d, dec)
+    _dense(d.out_layer, dec["out_layer"])
+    _stage_heads(d, dec)
+    return model.eval()
+
+
+def is_transformer_text2token(variables: Tree) -> bool:
+    """Whether Part-d variables are a transformer's (`decoder`) or the GRU
+    model's (`decoder_step`)."""
+    return "decoder" in variables["params"]
 
 
 def _fill_tcn(e: nn.Module, enc: Tree, n_layers: int) -> None:
@@ -194,22 +273,27 @@ def seq_ae_from_jax(variables: Tree, *, n_frames: int,
                     n_pre_poses: int = 1, conditioned: bool = True,
                     vq_flatten: str = "per_sample",
                     commitment_cost: float = 0.25) -> SeqVQAutoencoder:
-    """A whole JAX SeqVQAutoencoder (BiGRU encoder, GS-Soft or residual
-    quantizer, decoder). The variant and the stage count come from the
-    vq_layer's variables."""
+    """A whole JAX SeqVQAutoencoder (BiGRU or transformer encoder, GS-Soft
+    or residual quantizer, decoder). The encoder, the variant and the
+    stage count come from the variables."""
     p = variables["params"]
     enc, vq = p["encoder"], p["vq_layer"]
     rep_dim, hidden = np.shape(enc["in_layer"]["kernel"])
-    n_layers = _n_layers(enc["gru"])
+    arch = "bigru" if "gru" in enc else "transformer"
+    n_layers = _n_layers(enc["gru"]) if arch == "bigru" else _n_blocks(enc)
     rvq = "mean_layer" not in vq
     model = SeqVQAutoencoder(
         rep_dim=rep_dim, hidden_size=hidden, n_layers=n_layers,
         n_frames=n_frames, vq_components=np.shape(vq["codebook"])[0],
         n_pre_poses=n_pre_poses, vq_variant="rvq" if rvq else "gssoft",
         rvq_stages=_n_stages(vq), commitment_cost=commitment_cost,
-        conditioned=conditioned, vq_flatten=vq_flatten)
+        conditioned=conditioned, vq_flatten=vq_flatten, encoder_arch=arch)
     _dense(model.encoder.in_layer, enc["in_layer"])
-    _gru(model.encoder.gru, enc["gru"])
+    if arch == "bigru":
+        _gru(model.encoder.gru, enc["gru"])
+    else:
+        _fill_blocks(model.encoder, enc)
+        _dense(model.encoder.hidden_proj, enc["hidden_proj"])
     q = model.vq_layer
     if rvq:
         for name, param in q.named_parameters():
@@ -238,22 +322,30 @@ def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
                        pose_mean: np.ndarray, pose_std: np.ndarray, *,
                        n_frames: int = 20, sentence_frame_length: int = 120,
                        fps: int = 20, max_words: int = 48,
-                       t2t_n_pre_poses: int = 2,
+                       t2t_n_pre_poses: int = 2, t2t_heads: int = 4,
                        dae_latent_dim: Optional[int] = None,
                        device: Optional[Union[str, torch.device]] = None,
                        **gen_kwargs) -> GestureGenerator:
     """A GestureGenerator from the three JAX variable trees, with the
     same settings as the JAX package's GestureGenerator (mode,
     latent_bank, seed and the decode policies pass through gen_kwargs).
-    dae_latent_dim None reads the latent width from the DAE weights."""
+    The Part-d architecture comes from its variables (t2t_heads: a
+    transformer's heads). dae_latent_dim None reads the latent width from
+    the DAE weights."""
     motion_dim = np.shape(pose_mean)[0]
+    n_steps = sentence_frame_length // n_frames
+    if is_transformer_text2token(t2t_variables):
+        t2t = transformer_text2token_from_jax(
+            t2t_variables, n_steps=n_steps, n_pre_poses=t2t_n_pre_poses,
+            n_heads=t2t_heads)
+    else:
+        t2t = text2token_from_jax(t2t_variables, n_steps=n_steps,
+                                  n_pre_poses=t2t_n_pre_poses)
     if dae_latent_dim is None:
         dae_latent_dim = np.shape(dae_variables["params"]["decoder"]
                                   ["kernel"])[0]
     return GestureGenerator(
-        t2t_model=text2token_from_jax(
-            t2t_variables, n_steps=sentence_frame_length // n_frames,
-            n_pre_poses=t2t_n_pre_poses),
+        t2t_model=t2t,
         seq_decoder=seq_decoder_from_jax(seq_variables, n_frames=n_frames),
         dae_model=dae_from_jax(dae_variables, motion_dim=motion_dim,
                                latent_dim=dae_latent_dim),

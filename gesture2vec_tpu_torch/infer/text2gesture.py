@@ -2,24 +2,29 @@
 
 Port of the JAX package's `infer/text2gesture.py` GestureGenerator. Per
 sentence window (sentence_frame_length / fps seconds) the words inside it
-become ids and the Text2Token model emits n_steps gesture tokens. Then
-one of two synthesis modes:
+become ids and the Part-d model (`models/text2token.Text2Token` or
+`models/transformer.TransformerText2Token`) emits n_steps gesture tokens.
+Then one of two synthesis modes:
 
+  mode="exemplar"  (the default, as in the JAX package) each token
+                   retrieves a corpus window of its cluster from the
+                   latent bank (infer/exemplar.py) and the DAE decodes the
+                   window's stored latents;
   mode="decode"    each token's codebook row (plus the residual stages'
                    rows for a token_stages > 1 model) becomes the decoder's
                    initial hidden, the Part-b decoder rolls every chunk out
-                   from a zero seed frame, and the DAE decodes the latents;
-  mode="exemplar"  each token retrieves a corpus window of its cluster from
-                   the latent bank (infer/exemplar.py) and the DAE decodes
-                   the window's stored latents.
+                   from a zero seed frame, and the DAE decodes the latents.
 
 Token decode:
   window_carry=True   windows decode one after another; each window's
-                      teacher prefix is the previous window's last
-                      n_pre_poses tokens, and its attention mask is its
-                      own length.
+                      teacher prefix is the previous window's last n_pre
+                      tokens (the model's n_pre: n_pre_poses, clamped to
+                      >= 1 by the transformer), and its attention mask is
+                      its own length.
   window_carry=False  all windows decode in one batch from zero seeds,
-                      with the batch-max attention mask.
+                      with the batch-max attention mask, or each window's
+                      own for a model with per_sentence_mask (the
+                      transformer: its pad positions carry content).
   temperature, top_k, stage0_temperature   sampled decode
                       (models/text2token.sample_logits). A request draws
                       one integer from the generator's numpy stream (seeded
@@ -58,10 +63,15 @@ from gesture2vec_tpu_torch.infer.exemplar import ExemplarBank
 from gesture2vec_tpu_torch.models.dae import DAE
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
+from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.ops.decoder_kernel import (fold_decoder_step,
                                                       fused_chunk_decode,
                                                       supported)
 from gesture2vec_tpu_torch.text.vocab import Vocab
+
+
+# the decode outputs a request reads, each (windows, ...)
+_PER_WINDOW = ("tokens", "logits", "stage_tokens", "stage_logits")
 
 
 def bucket_windows(n_windows: int) -> int:
@@ -75,7 +85,7 @@ def bucket_windows(n_windows: int) -> int:
 
 @dataclasses.dataclass
 class GestureGenerator:
-    t2t_model: Text2Token
+    t2t_model: Union[Text2Token, TransformerText2Token]
     seq_decoder: SeqDecoder
     dae_model: DAE
     vocab: Vocab
@@ -85,7 +95,7 @@ class GestureGenerator:
     sentence_frame_length: int = 120
     fps: int = 20
     max_words: int = 48
-    mode: str = "decode"            # "decode" | "exemplar"
+    mode: str = "exemplar"          # "exemplar" | "decode"
     latent_bank: Optional[Dict[str, np.ndarray]] = None
     seed: int = 0
     window_carry: bool = True
@@ -206,25 +216,27 @@ class GestureGenerator:
         "stage" (B, W * n_steps, S-1), -1 at each window's seed step; with
         soft_decode the mixtures "probs" (B, W * n_steps, K) and
         "stage_probs" (B, W * n_steps, S-1, K). Every window of every
-        transcript is encoded in one batch. window_carry decodes window w of all transcripts as
-        one batch, each row with its own mask and carried seed; otherwise
-        all windows decode at once, each with its transcript's batch-max
-        mask."""
+        transcript is encoded in one batch. window_carry decodes window w
+        of all transcripts as one batch, each row with its own mask and
+        carried seed; otherwise all windows decode at once, each with its
+        transcript's batch-max mask or (per_sentence_mask) its own."""
         t2t, n_steps, n_pre = self.t2t_model, self.n_steps, \
-            self.t2t_model.n_pre_poses
+            self.t2t_model.n_pre
         B, W, S = word_ids.shape
         enc_outs, dec_hidden = t2t.encode_text(word_ids.reshape(B * W, S),
                                                lengths.reshape(B * W))
         positions = torch.arange(S, device=self.device)
         if not self.window_carry:
-            longest = lengths.max(dim=1).values.repeat_interleave(W)
-            mask = positions[None, :] < longest[:, None]
+            longest = (lengths if t2t.per_sentence_mask else
+                       lengths.max(dim=1, keepdim=True).values.expand(B, W))
+            mask = positions[None, :] < longest.reshape(B * W, 1)
             seed = torch.zeros((B * W, n_steps), dtype=torch.long,
                                device=self.device)
             res = self._decode_windows(
                 enc_outs, dec_hidden, seed, mask,
                 None if gumbel is None else gumbel.flatten(0, 1))
-            res = {k: v.reshape(B, W, *v.shape[1:]) for k, v in res.items()}
+            res = {k: v.reshape(B, W, *v.shape[1:]) for k, v in res.items()
+                   if k in _PER_WINDOW}
         else:
             eo = enc_outs.reshape(S, B, W, -1)
             dh = dec_hidden.reshape(dec_hidden.shape[0], B, W, -1)
@@ -241,7 +253,7 @@ class GestureGenerator:
                 if n_pre:
                     seed[:, :n_pre] = res["tokens"][:, -n_pre:]
             res = {k: torch.stack([r[k] for r in per_window], dim=1)
-                   for k in per_window[0]}
+                   for k in per_window[0] if k in _PER_WINDOW}
         out = {"tokens": res["tokens"].reshape(B, -1)}
         soft = float(self.soft_decode)
         if soft:

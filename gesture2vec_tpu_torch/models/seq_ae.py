@@ -6,7 +6,10 @@ BatchNorm (running stats) -> ReLU -> GRU stack -> out_layer), the
 generative rollout and the token codebook (`SeqDecoder`); the encoder
 (in_layer -> bidirectional GRU, directions summed) and the quantizer
 (`SeqVQAutoencoder.encode` / `quantize` / `tokens_from_hidden` /
-`stage_tokens`), with `_flatten_hidden` in both `vq_flatten` modes.
+`stage_tokens`), with `_flatten_hidden` in both `vq_flatten` modes. With
+encoder_arch="transformer" (the JAX package's `seq_arch: transformer`)
+the encoder is `models/seq_encoder.TransformerSeqEncoder`; decoder and
+quantizer are the same.
 
 The decoder-initial hidden is the encoder hidden sliced to its first
 n_layers entries, which for the bidirectional GRU is [l0_fwd, l0_bwd]
@@ -193,10 +196,8 @@ class SeqVQAutoencoder(nn.Module):
                  conditioned: bool = True, vq_flatten: str = "per_sample",
                  encoder_arch: str = "bigru", use_vae: bool = False):
         super().__init__()
-        if encoder_arch != "bigru":
-            raise NotImplementedError(
-                f"encoder_arch={encoder_arch!r} is "
-                + _LATER.format("the transformer-encoder slice"))
+        if encoder_arch not in ("bigru", "transformer"):
+            raise ValueError(f"unknown encoder_arch {encoder_arch!r}")
         if use_vae:
             raise NotImplementedError(
                 "use_vae is " + _LATER.format("the training slice"))
@@ -208,7 +209,15 @@ class SeqVQAutoencoder(nn.Module):
         self.n_frames = n_frames
         self.vq_flatten = vq_flatten
         self.vq_variant = vq_variant
-        self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers)
+        self.encoder_arch = encoder_arch
+        if encoder_arch == "transformer":
+            # imported here: models/transformer imports this module
+            from gesture2vec_tpu_torch.models.seq_encoder import \
+                TransformerSeqEncoder
+            self.encoder = TransformerSeqEncoder(rep_dim, hidden_size,
+                                                 n_layers)
+        else:
+            self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers)
         d = hidden_size * n_layers
         if vq_variant == "rvq":
             self.vq_layer = VQResidual(vq_components, d, rvq_stages,
@@ -223,9 +232,11 @@ class SeqVQAutoencoder(nn.Module):
             stages=rvq_stages if vq_variant == "rvq" else 1)
 
     def set_use_kernels(self, on: bool) -> "SeqVQAutoencoder":
-        """Route the GRU recurrences and the residual argmins through the
-        Hopper kernels (True, the default) or their plain versions."""
-        self.encoder.gru.use_kernel = on
+        """Route the BiGRU encoder's recurrences and the residual argmins
+        through the Hopper kernels (True, the default) or their plain
+        versions (the transformer encoder runs no kernel)."""
+        if self.encoder_arch == "bigru":
+            self.encoder.gru.use_kernel = on
         if isinstance(self.vq_layer, VQResidual):
             self.vq_layer.use_kernel = on
         return self
@@ -233,14 +244,17 @@ class SeqVQAutoencoder(nn.Module):
     def encode(self, in_poses: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """in_poses (B, T, D) -> (encoder outputs (T, B, H),
-        decoder-initial hidden (L, B, H)); runs every GRU layer."""
+        decoder-initial hidden (L, B, H)); runs every encoder layer."""
         enc_outs, enc_hidden = self.encoder(in_poses.transpose(0, 1))
         return enc_outs, enc_hidden[: self.n_layers]
 
     def encode_hidden(self, in_poses: torch.Tensor) -> torch.Tensor:
-        """The decoder-initial hidden of `encode` alone, running only the
-        ceil(n_layers / 2) GRU layers whose states it holds (layer 0 at 2
-        layers): the same values, half the recurrences."""
+        """The decoder-initial hidden of `encode` alone. The BiGRU runs
+        only the ceil(n_layers / 2) GRU layers whose states it holds
+        (layer 0 at 2 layers): the same values, half the recurrences. The
+        transformer's hidden is its pooled projection: every layer runs."""
+        if self.encoder_arch == "transformer":
+            return self.encode(in_poses)[1]
         n_run = (self.n_layers + 1) // 2
         _, enc_hidden = self.encoder(in_poses.transpose(0, 1), n_run=n_run)
         return enc_hidden[: self.n_layers]

@@ -1,0 +1,47 @@
+"""Part b, transformer encoder variant - the chunk encoder of a
+`seq_arch: transformer` gesture tokenizer (inference).
+
+Port of the JAX package's `models/seq_encoder.py`: in_layer -> sinusoidal
+positions -> pre-LN blocks (`models/transformer.Block`, no mask) ->
+final_ln over the chunk's frames, then the unmasked mean-pool over the
+frames and `hidden_proj` to the (n_layers, B, H) hidden that the
+quantizer reads. Contract of `seq_ae.SeqEncoder`: (T, B, D) time-major
+frames -> (outputs (T, B, H), hidden (n_layers, B, H)); the tokenizer's
+`[:n_layers]` slice of the hidden is then the identity. The JAX package
+builds it with 4 heads.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from gesture2vec_tpu_torch.models.transformer import (LN_EPS, add_blocks,
+                                                      position_table)
+
+
+class TransformerSeqEncoder(nn.Module):
+    """Chunk frames -> contextual frame embeddings + pooled hidden."""
+
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int,
+                 n_heads: int = 4):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.n_layers = n_layers
+        self.in_layer = nn.Linear(input_size, hidden_size)
+        add_blocks(self, n_layers, hidden_size, n_heads)
+        self.final_ln = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.hidden_proj = nn.Linear(hidden_size, n_layers * hidden_size)
+
+    def forward(self, xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xs (T, B, D) -> (outputs (T, B, H), hidden (n_layers, B, H))."""
+        x = self.in_layer(xs).transpose(0, 1)                  # (B, T, H)
+        x = x + position_table(x.shape[1], self.hidden_size, x.device)
+        for i in range(self.n_layers):
+            x, _ = getattr(self, f"layer_{i}")(x, None)
+        x = self.final_ln(x)
+        flat = self.hidden_proj(x.mean(dim=1))                 # (B, L*H)
+        hidden = flat.reshape(-1, self.n_layers,
+                              self.hidden_size).transpose(0, 1)
+        return x.transpose(0, 1), hidden

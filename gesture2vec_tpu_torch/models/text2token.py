@@ -68,6 +68,72 @@ def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def stage_logits(heads: nn.Module, out: torch.Tensor) -> torch.Tensor:
+    """Independent residual-stage heads `out_layer_r{s}` of `heads` (a
+    module with `n_stage_heads` of them): (..., H) -> (..., S-1, K)."""
+    return torch.stack([getattr(heads, f"out_layer_r{s + 1}")(out)
+                        for s in range(heads.n_stage_heads)], dim=-2)
+
+
+def stage_chain(heads: nn.Module, out: torch.Tensor, first: torch.Tensor,
+                choose: Callable[[torch.Tensor, int], torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conditional heads (the JAX package's `stage_chain`), over any
+    leading shape: h_0 = out, h_{s+1} = h_s + E_s(c_s), logits of stage
+    s+1 = W_{s+1} h_{s+1}; c_0 = first (the primary choice), c_{s+1} =
+    choose(logits, s). `heads` holds `stage_embed_{s}` and
+    `out_layer_r{s+1}`. Returns (stage logits (..., S-1, K), stage
+    choices (..., S-1))."""
+    h, prev = out, first
+    logits, chosen = [], []
+    for s in range(heads.n_stage_heads):
+        h = h + getattr(heads, f"stage_embed_{s}")(prev)
+        lg = getattr(heads, f"out_layer_r{s + 1}")(h)
+        prev = choose(lg, s)
+        logits.append(lg)
+        chosen.append(prev)
+    return torch.stack(logits, dim=-2), torch.stack(chosen, dim=-1)
+
+
+def choose_step(heads: nn.Module, logits: torch.Tensor, out: torch.Tensor,
+                temperature: float, top_k: int, stage0_temperature: float,
+                gumbel: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
+    """One decode step's choices from its logits (..., K) and the decoder
+    output (..., H) the stage heads of `heads` read: (primary choice,
+    stage logits (..., S-1, K), stage choices (..., S-1)), the stage
+    entries None without residual stages. gumbel (..., token_stages, K)
+    is the step's noise ([..., 0, :] the primary token's)."""
+    t0 = temperature if stage0_temperature < 0.0 else stage0_temperature
+
+    def noise(s):
+        return None if gumbel is None else gumbel[..., s, :]
+
+    best = sample_logits(logits, t0, top_k, noise(0))
+    if not heads.n_stage_heads:
+        return best, None, None
+    if heads.stage_conditional:
+        slg, stok = stage_chain(heads, out, best, lambda lg, s: sample_logits(
+            lg, temperature, top_k, noise(1 + s)))
+    else:
+        slg = stage_logits(heads, out)
+        stok = sample_logits(slg, temperature, top_k, noise(slice(1, None)))
+    return best, slg, stok
+
+
+def check_noise(token_stages: int, temperature: float,
+                stage0_temperature: float,
+                gumbel: Optional[torch.Tensor]) -> None:
+    """A sampled decode (a positive primary or, with residual stages,
+    stage temperature) must be given its noise."""
+    t0 = temperature if stage0_temperature < 0.0 else stage0_temperature
+    sampled = t0 > 0.0 or (token_stages > 1 and temperature > 0.0)
+    if sampled and gumbel is None:
+        raise ValueError("a sampled decode needs its Gumbel noise "
+                         "(B, n_steps - 1, token_stages, K)")
+
+
 class TextEncoderRNN(nn.Module):
     """Embedding -> masked biGRU, directions summed. Outputs (S, B, H);
     the hidden is (2 * layers, B, H) ordered [l0_fwd, l0_bwd, l1_fwd, ...],
@@ -137,31 +203,14 @@ class TokenDecoderStep(nn.Module):
                                           enc_mask)
         return logits, new_hidden
 
-    def stage_logits(self, out: torch.Tensor) -> torch.Tensor:
-        """Independent residual-stage heads: (B, H) -> (B, S-1, K)."""
-        return torch.stack([getattr(self, f"out_layer_r{s + 1}")(out)
-                            for s in range(self.n_stage_heads)], dim=-2)
-
-    def stage_chain(self, out: torch.Tensor, first: torch.Tensor,
-                    choose: Callable[[torch.Tensor, int], torch.Tensor]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Conditional heads: h_0 = out, h_{s+1} = h_s + E_s(c_s), logits
-        of stage s+1 = W_{s+1} h_{s+1}; c_0 = first (the primary choice),
-        c_{s+1} = choose(logits, s). Returns (stage logits (B, S-1, K),
-        stage choices (B, S-1))."""
-        h, prev = out, first
-        logits, chosen = [], []
-        for s in range(self.n_stage_heads):
-            h = h + getattr(self, f"stage_embed_{s}")(prev)
-            lg = getattr(self, f"out_layer_r{s + 1}")(h)
-            prev = choose(lg, s)
-            logits.append(lg)
-            chosen.append(prev)
-        return torch.stack(logits, dim=-2), torch.stack(chosen, dim=-1)
 
 
 class Text2Token(nn.Module):
     """Sentence -> n_steps gesture tokens (and residual-stage codes)."""
+
+    # batched windows attend up to the batch's longest sentence, as the
+    # reference's packed sequences do (the JAX package's batch-max mask)
+    per_sentence_mask = False
 
     def __init__(self, n_words: int, n_tokens: int, hidden_size: int,
                  n_layers: int, n_steps: int, n_pre_poses: int = 2,
@@ -189,6 +238,12 @@ class Text2Token(nn.Module):
             n_stage_heads=token_stages - 1,
             stage_conditional=stage_conditional)
 
+    @property
+    def n_pre(self) -> int:
+        """Teacher steps a window takes from its seed: the last n_pre
+        tokens of a window seed the next one (window_carry)."""
+        return self.n_pre_poses
+
     def set_use_kernels(self, on: bool) -> "Text2Token":
         """Route the GRU text encoder's recurrences through the Hopper
         kernel (True, the default) or its plain version."""
@@ -215,12 +270,9 @@ class Text2Token(nn.Module):
         (S,) or (B, S). Returns "logits" (B, n_steps, K), "tokens"
         (B, n_steps), and with residual stages "stage_logits" (B,
         n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1)."""
-        t0 = temperature if stage0_temperature < 0.0 else stage0_temperature
+        check_noise(self.token_stages, temperature, stage0_temperature,
+                    gumbel)
         multi = self.token_stages > 1
-        sampled = t0 > 0.0 or (multi and temperature > 0.0)
-        if sampled and gumbel is None:
-            raise ValueError("a sampled decode needs its Gumbel noise "
-                             "(B, n_steps - 1, token_stages, K)")
         step = self.decoder_step
         seed = target_tokens[:, 0]
         logits = [F.one_hot(seed, self.n_tokens).to(enc_outs.dtype)]
@@ -230,18 +282,9 @@ class Text2Token(nn.Module):
             token_in = (target_tokens[:, t - 1] if t - 1 < self.n_pre_poses
                         else prev)
             lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
-            g = None if gumbel is None else gumbel[:, t - 1]
-            prev = sample_logits(lg, t0, top_k,
-                                 None if g is None else g[:, 0])
-            if step.stage_conditional:
-                slg, stok = step.stage_chain(
-                    out, prev, lambda l, s: sample_logits(
-                        l, temperature, top_k,
-                        None if g is None else g[:, 1 + s]))
-            elif multi:
-                slg = step.stage_logits(out)
-                stok = sample_logits(slg, temperature, top_k,
-                                     None if g is None else g[:, 1:])
+            prev, slg, stok = choose_step(
+                step, lg, out, temperature, top_k, stage0_temperature,
+                None if gumbel is None else gumbel[:, t - 1])
             logits.append(lg)
             tokens.append(prev)
             if multi:
@@ -309,12 +352,7 @@ class Text2Token(nn.Module):
             seqs = seqs[rows, parent]
             seqs[:, :, t] = new_tok
             if S1:
-                if step.stage_conditional:
-                    _, st = step.stage_chain(
-                        out, torch.argmax(logits, dim=-1),
-                        lambda l, s: torch.argmax(l, dim=-1))
-                else:
-                    st = torch.argmax(step.stage_logits(out), dim=-1)
+                _, _, st = choose_step(step, logits, out, 0.0, 0, -1.0, None)
                 stages = stages[rows, parent]
                 stages[:, :, t] = st.reshape(B, K, S1)[rows, parent]
             tokens = new_tok.reshape(-1)

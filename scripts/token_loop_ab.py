@@ -2,13 +2,16 @@
 against each other on one card, in alternation:
 
     python3 scripts/token_loop_ab.py TREE [TREE ...] [--rounds 2]
+        [--arch gru|transformer]
 
 A TREE is the root of a checkout of the repo (`.` for this one). Each
 round runs every tree once in the order given and then once in reverse
 (A B B A for two trees), each run a process of its own with that tree
 first on sys.path, so host-clock drift within the call falls on every
 tree alike. A run builds chip_smoke.py's decode-path generator (the bench
-widths, random weights from seed 0) and times, best of REPS synchronised
+widths, random weights from seed 0; `--arch transformer`: the recommended
+recipe's, chip_smoke.recipe_trees, the transformer Part d with 4 chained
+stages, in trees that have it) and times, best of REPS synchronised
 calls, the 6 s and 60 s requests:
   tokens   the text encoder and the greedy token decode of every window
            (the tree's `_predict_windows`, or `_predict_tokens` where it
@@ -32,7 +35,7 @@ REQUESTS_S = (6.0, 60.0)
 REPS = 7
 
 
-def child(device: str) -> None:
+def child(device: str, arch: str) -> None:
     import numpy as np
     import torch
 
@@ -55,11 +58,18 @@ def child(device: str) -> None:
     vocab = Vocab("bench")
     for i in range(cs.VOCAB_WORDS):
         vocab.index_word(f"word{i}")
+    rng = np.random.default_rng(0)
+    if arch == "transformer":
+        trees = cs.recipe_trees(rng)
+        recipe = dict(t2t_n_pre_poses=cs.RECIPE_N_PRE,
+                      t2t_heads=cs.RECIPE_HEADS)
+    else:
+        trees, recipe = cs.jax_layout_trees(rng), {}
     gen = generator_from_jax(
-        *cs.jax_layout_trees(np.random.default_rng(0)), vocab,
-        np.zeros(cs.DIM, np.float32), np.ones(cs.DIM, np.float32),
-        n_frames=cs.N_FRAMES, sentence_frame_length=cs.SENT_LEN, fps=cs.FPS,
-        max_words=cs.MAXW, device=device, use_fused_decoder=True)
+        *trees, vocab, np.zeros(cs.DIM, np.float32),
+        np.ones(cs.DIM, np.float32), n_frames=cs.N_FRAMES,
+        sentence_frame_length=cs.SENT_LEN, fps=cs.FPS, max_words=cs.MAXW,
+        device=device, mode="decode", use_fused_decoder=True, **recipe)
     out = {}
     for d in REQUESTS_S:
         w = cs.words(d)
@@ -81,10 +91,12 @@ def main() -> int:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default="gru", choices=["gru", "transformer"],
+                    help="the Part d timed (transformer: the recipe's)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.device)
+        child(args.device, args.arch)
         return 0
     trees = [os.path.abspath(t) for t in args.trees]
     order = (trees + trees[::-1]) * args.rounds
@@ -92,7 +104,8 @@ def main() -> int:
     for tree in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), tree, "--child",
-             "--device", args.device], cwd=tree, capture_output=True,
+             "--device", args.device, "--arch", args.arch], cwd=tree,
+            capture_output=True,
             text=True, env={**os.environ, "PYTHONPATH": tree}, timeout=600)
         if proc.returncode:
             print(proc.stderr[-4000:], file=sys.stderr)

@@ -347,7 +347,6 @@ def test_unported_options_raise(corpus, tmp_path):
             port_cli.main(common + extra)
     payload = load_checkpoint(corpus["gssoft"])
     for kw, what in ((dict(use_derivative=True), "use_derivative"),
-                     (dict(seq_arch="transformer"), "transformer"),
                      (dict(autoencoder_vae=True), "autoencoder_vae"),
                      (dict(autoencoder_att=True), "autoencoder_att")):
         path = str(tmp_path / f"{what}.bin")
@@ -357,6 +356,33 @@ def test_unported_options_raise(corpus, tmp_path):
             kind="autoencoder_vq")
         with pytest.raises(NotImplementedError, match=what):
             load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
+    # seq_arch: transformer loads (the transformer chunk encoder), its
+    # tokens JAX's; under BiGRU weights the config is refused
+    from gesture2vec_tpu.data.teacher import tokenize_windows as jax_tok
+    from gesture2vec_tpu.train.seq_ae_trainer import make_seq_ae
+
+    cfg = _seq_cfg("gssoft", seq_arch="transformer")
+    jm = make_seq_ae(cfg)
+    dummy = jnp.zeros((2, NP, REP))
+    tf_vars = perturb(jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k: jm.init(k, dummy, dummy, train=False))(
+        jax.random.PRNGKey(3))), np.random.default_rng(3), 0.1)
+    for params, name in ((tf_vars["params"], "tf.bin"),
+                         (payload["params"], "tf_bigru.bin")):
+        path = str(tmp_path / name)
+        checkpoints.save_checkpoint(
+            path, config=cfg, epoch=1, params=params,
+            extra={"batch_stats": tf_vars["batch_stats"], "parity": False},
+            kind="autoencoder_vq")
+    tf, _ = load_checkpoint_and_model(str(tmp_path / "tf.bin"),
+                                      "autoencoder_vq", "cpu")
+    lat = np.random.default_rng(4).normal(size=(20, NP, REP)).astype(
+        np.float32)
+    np.testing.assert_array_equal(tokenize_windows(tf, lat)[0], np.asarray(
+        jax_tok(jm, tf_vars, lat)[0]))
+    with pytest.raises(ValueError, match="seq_arch transformer"):
+        load_checkpoint_and_model(str(tmp_path / "tf_bigru.bin"),
+                                  "autoencoder_vq", "cpu")
     path = str(tmp_path / "no_vq.bin")
     checkpoints.save_checkpoint(
         path, config=_seq_cfg("gssoft").replace(autoencoder_vq=False),

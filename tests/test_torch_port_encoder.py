@@ -293,8 +293,14 @@ def test_unported_options_raise():
     from gesture2vec_tpu_torch.models.seq_ae import (SeqVQAutoencoder,
                                                      _flatten_hidden)
 
-    with pytest.raises(NotImplementedError, match="transformer"):
-        SeqVQAutoencoder(8, 16, 2, 8, encoder_arch="transformer")
+    # the transformer chunk encoder is ported; an unknown one is refused
+    from gesture2vec_tpu_torch.models.seq_encoder import \
+        TransformerSeqEncoder
+    assert isinstance(SeqVQAutoencoder(8, 16, 2, 8,
+                                       encoder_arch="transformer").encoder,
+                      TransformerSeqEncoder)
+    with pytest.raises(ValueError, match="encoder_arch"):
+        SeqVQAutoencoder(8, 16, 2, 8, encoder_arch="conv")
     with pytest.raises(NotImplementedError, match="use_vae"):
         SeqVQAutoencoder(8, 16, 2, 8, use_vae=True)
     with pytest.raises(ValueError, match="vq_flatten"):

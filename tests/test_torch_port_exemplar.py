@@ -73,18 +73,45 @@ def jax_gen():
         pose_std=np.abs(rng.normal(size=DIM)).astype(np.float32))
 
 
-def _port(g, **kw):
+def _port(g, mode="decode", **kw):
     return generator_from_jax(
         g.t2t_variables, g.seq_variables, g.dae_variables, _vocab(),
         g.pose_mean, g.pose_std, n_frames=NF, sentence_frame_length=SENT,
         fps=FPS, max_words=MAXW, latent_bank=g.latent_bank, device="cpu",
-        **kw)
+        mode=mode, **kw)
 
 
 def _assert_same(want, got):
     np.testing.assert_array_equal(got[1], want[1])
     assert got[0].shape == want[0].shape
     np.testing.assert_allclose(got[0], want[0], atol=ATOL)
+
+
+def test_mode_defaults_to_exemplar_like_jax(jax_gen):
+    """A generator built without `mode` is in exemplar mode on both sides:
+    without a bank both refuse it, with one the port gives JAX's exemplar
+    frames."""
+    from gesture2vec_tpu.infer.text2gesture import GestureGenerator as JaxGen
+
+    from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
+
+    assert GestureGenerator.mode == JaxGen.mode == "exemplar"
+    fields = {f.name: getattr(jax_gen, f.name)
+              for f in dataclasses.fields(JaxGen)
+              if f.init and f.name != "mode"}
+    with pytest.raises(AssertionError, match="latent bank"):
+        JaxGen(**{**fields, "latent_bank": None})
+    args = (jax_gen.t2t_variables, jax_gen.seq_variables,
+            jax_gen.dae_variables, _vocab(), jax_gen.pose_mean,
+            jax_gen.pose_std)
+    kw = dict(n_frames=NF, sentence_frame_length=SENT, fps=FPS,
+              max_words=MAXW, device="cpu")
+    with pytest.raises(ValueError, match="latent bank"):
+        generator_from_jax(*args, **kw)
+    port = generator_from_jax(*args, latent_bank=jax_gen.latent_bank, **kw)
+    assert port.mode == "exemplar"
+    _assert_same(JaxGen(**fields).generate(_words(7.0), 7.0),
+                 port.generate(_words(7.0), 7.0))
 
 
 def test_picks_match_jax_with_unpopulated_tokens(rng):

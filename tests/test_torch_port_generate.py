@@ -9,6 +9,7 @@ Tokens must be identical; frames within 1e-5 (fp32 on both sides).
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -84,11 +85,11 @@ def _vocab():
     return v
 
 
-def _port(g, device="cpu", **kw):
+def _port(g, device="cpu", mode="decode", **kw):
     return generator_from_jax(
         g.t2t_variables, g.seq_variables, g.dae_variables, _vocab(),
         g.pose_mean, g.pose_std, n_frames=NF, sentence_frame_length=SENT,
-        fps=FPS, max_words=MAXW, device=device, **kw)
+        fps=FPS, max_words=MAXW, device=device, mode=mode, **kw)
 
 
 # 7.0 s = 6 windows -> bucket 8; 24.0 s = 20 windows -> bucket 32
@@ -145,34 +146,78 @@ def test_entry_point_needs_cuda_unless_cpu(jax_gen, monkeypatch):
     assert _port(jax_gen, device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("case", ["generate_batch_mesh"])
+def test_still_unported_raise(jax_gen, case):
+    """What a later slice ports: generate_batch over a mesh."""
+    with pytest.raises(NotImplementedError, match="scale-out"):
+        _port(jax_gen).generate_batch([_words(3.0)], 3.0, mesh=object())
+
+
 @pytest.mark.parametrize("case", ["t2t_arch_transformer",
-                                  "generate_batch_mesh",
                                   "seq_arch_transformer"])
-def test_still_unported_raise(jax_gen, tmp_path, case):
-    """What later slices port: the transformer Part d and Part-b encoder
-    (refused by the checkpoint makers) and generate_batch over a mesh."""
+def test_transformer_checkpoints_load_like_jax(tmp_path, rng, case):
+    """The transformer Part d and the transformer chunk encoder, once
+    refused by the checkpoint makers: a JAX-written checkpoint of each
+    loads, and its tokens are JAX's (greedy Part-d tokens of ragged
+    sentences; GS-Soft tokens of random latent windows)."""
+    from gesture2vec_tpu.train import checkpoints
+    from gesture2vec_tpu.train.config import load_config
+
     from gesture2vec_tpu_torch.compat.checkpoint import \
         load_checkpoint_and_model
-    from gesture2vec_tpu_torch.utils import mpack
 
-    if case == "generate_batch_mesh":
-        with pytest.raises(NotImplementedError, match="scale-out"):
-            _port(jax_gen).generate_batch([_words(3.0)], 3.0, mesh=object())
-        return
-    kind, args, what = {
-        "t2t_arch_transformer": ("text2embedding",
-                                 {"extras": {"t2t_arch": "transformer"}},
-                                 "transformer Part-d"),
-        "seq_arch_transformer": ("autoencoder_vq",
-                                 {"seq_arch": "transformer",
-                                  "autoencoder_vq": True, "extras": {}},
-                                 "transformer-encoder")}[case]
-    path = tmp_path / "ckpt.bin"
-    path.write_bytes(mpack.packb({
-        "args": args, "epoch": 1, "pose_dim": 0, "lang_model": None,
-        "kind": kind, "params": {}, "extra": {"n_words": 10}}))
-    with pytest.raises(NotImplementedError, match=what):
-        load_checkpoint_and_model(str(path), kind, "cpu")
+    def init(model, *args, **kw):
+        v = jax.jit(lambda k, *a: model.init(k, *a, **kw))(
+            jax.random.PRNGKey(0), *args)
+        return perturb(jax.tree_util.tree_map(np.asarray, v), rng, 0.1)
+
+    cfg = load_config(dict(
+        name=case, model="seq2seq", hidden_size=HID, n_layers=2,
+        dropout_prob=0.2, n_poses=NF, n_pre_poses=1, rep_learning_dim=REP,
+        sentence_frame_length=SENT, autoencoder_vq=True,
+        autoencoder_vq_components=K, wordembed_dim=12, random_seed=0,
+        **({"t2t_arch": "transformer"} if case.startswith("t2t")
+           else {"seq_arch": "transformer"})))
+    path = str(tmp_path / "ckpt.bin")
+    if case.startswith("t2t"):
+        from gesture2vec_tpu.train.text2token_trainer import make_text2token
+
+        m = make_text2token(cfg, 60)
+        lengths = np.array([1, MAXW, 3, 6], np.int32)
+        ids = rng.integers(4, 60, size=(4, MAXW)).astype(np.int32)
+        ids[np.arange(MAXW)[None, :] >= lengths[:, None]] = 0
+        targets = rng.integers(0, K, size=(4, SENT // NF)).astype(np.int32)
+        args = (jnp.asarray(ids), jnp.asarray(lengths), jnp.asarray(targets))
+        variables = init(m, *args)
+        checkpoints.save_checkpoint(path, config=cfg, epoch=1,
+                                    params=variables["params"],
+                                    extra={"n_words": 60},
+                                    kind="text2embedding")
+        want = m.apply(variables, *args, train=False)["tokens"]
+        port, _ = load_checkpoint_and_model(path, "text2embedding", "cpu")
+        with torch.no_grad():
+            got = port(*(torch.from_numpy(np.asarray(a)).long()
+                         for a in args))["tokens"]
+    else:
+        from gesture2vec_tpu.data.teacher import tokenize_windows as jax_tok
+        from gesture2vec_tpu.train.seq_ae_trainer import make_seq_ae
+
+        from gesture2vec_tpu_torch.data.teacher import tokenize_windows
+
+        m = make_seq_ae(cfg)
+        dummy = jnp.zeros((2, NF, REP))
+        variables = init(m, dummy, dummy, train=False)
+        checkpoints.save_checkpoint(
+            path, config=cfg, epoch=1, params=variables["params"],
+            pose_dim=REP, extra={"batch_stats": variables["batch_stats"],
+                                 "parity": False}, kind="autoencoder_vq")
+        lat = rng.normal(size=(30, NF, REP)).astype(np.float32)
+        want = jax_tok(m, variables, lat, batch=8)[0]
+        port, _ = load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
+        assert port.encoder_arch == "transformer"
+        got = tokenize_windows(port, lat, batch=8)[0]
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert len(np.unique(np.asarray(got))) > 1
 
 
 def test_fused_decoder_raises_when_ineligible(jax_gen):

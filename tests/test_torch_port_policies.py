@@ -107,11 +107,11 @@ def jax_gen(token_stages=1, stage_conditional=False, encoder="tcn"):
     return _GENS[key]
 
 
-def _port(g, **kw):
+def _port(g, mode="decode", **kw):
     return generator_from_jax(
         g.t2t_variables, g.seq_variables, g.dae_variables, _vocab(),
         g.pose_mean, g.pose_std, n_frames=NF, sentence_frame_length=SENT,
-        fps=FPS, max_words=MAXW, device="cpu", **kw)
+        fps=FPS, max_words=MAXW, device="cpu", mode=mode, **kw)
 
 
 def _both(g, duration=7.0, port_kw=None, **kw):

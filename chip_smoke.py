@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives six paths of the port, each with every kernel launch counter
+It drives seven paths of the port, each with every kernel launch counter
 set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -60,6 +60,29 @@ Exemplar mode (in the Part-c phase's directory):
            against the CPU on the 60 s request;
   timing   request seconds, stages (tokens, picks, gather + DAE decode)
            and the device's idle share;
+The two commands (in the same directory, after exemplar mode):
+  main     `python -m gesture2vec_tpu_torch.cli.make_dataset` (its
+           main()) over a Trinity-layout corpus of 4 BVH files of 60 s
+           at 60 fps with transcripts and audio (tests/corpus.py): the
+           stores open, the features are 135 wide, data_pipe.json loads
+           and a clip's features -> to_bvh -> write_bvh -> parse ->
+           transform round trip agrees within 1e-4; seconds and source
+           frames/s. Then `g2v-infer` (`cli/infer.main`) from exemplar
+           mode's text2embedding checkpoint, the Part-c checkpoints and
+           train store and the ingest's data_pipe.json, on Google-STT
+           transcripts: decode mode at 6 s, 60 s and 1800 s, three 60 s
+           transcripts in one call (generate_batch) and exemplar mode at
+           60 s over the cluster CLI's bank; one `chunk_decoder` launch a
+           decode call, none in exemplar mode; frames and BVH files
+           checked for shape and finiteness;
+  check    the same 60 s decode call with --device cpu: tokens identical
+           or a counted near-tie, frames within 1e-4, identical BVH
+           headers and frame counts, the largest BVH motion difference
+           printed;
+  timing   the 1800 s decode call stage by stage, each function it
+           calls wrapped in a timer: checkpoint and vocab load, pipeline
+           load, generate, savgol, features_to_euler, smoothing_spline,
+           inverse_transform, write_bvh;
 The decode policies at the bench widths:
   kernel   the chunk decoder at 24 steps (decode_overlap 4) and at B=1
            (chunk_continuity), the GRU sequence at T=48 (the text
@@ -100,6 +123,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -118,11 +142,14 @@ HID, L, K, REP, DIM = 200, 2, 512, 40, 135
 N_FRAMES, SENT_LEN, FPS, N_WORDS, MAXW, WORDEMBED = 20, 120, 20, 5000, 48, 300
 VOCAB_WORDS = 300
 REQUESTS_S = (6.0, 60.0, 1800.0)
-KERNEL_BATCHES = (6, 96, 293, 1824)   # 6 s, 60 s, ragged, 1800 s
+# the cli path's corpus: 4 Trinity-layout files of 60 s at 60 fps
+CLI_CORPUS = (4, 3600)
+# 6 s, 60 s, three 60 s transcripts in one g2v-infer call, ragged, 1800 s
+KERNEL_BATCHES = (6, 96, 288, 293, 1824)
 # chunk-decoder batches at the edges of its tiles: a single row, one
 # round of 1-row tiles (the card holds 7 clusters), 2-row tiles, several
-# rounds of 8-row tiles
-DECODER_EDGE_BATCHES = (1, 6, 7, 8, 9, 96, 293, 1824)
+# rounds of 8-row tiles, and every batch the decode and cli paths send
+DECODER_EDGE_BATCHES = (1, 6, 7, 8, 9, 96, 288, 293, 1824)
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -584,7 +611,7 @@ def decode_path(smi: str) -> dict:
 
     k = kernel_rows[KERNEL_BATCHES[-1]]
     by_batch = {B: {key: kernel_rows[B][key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by")} for B in (6, 1824)}
+        "ms", "plain_ms", "bound_ms", "bound_by")} for B in (6, 288, 1824)}
     return {"name": "chunk_decoder", "route": "cuda",
             "source": "gesture2vec_tpu_torch/csrc/chunk_decoder.cu",
             "replaces": "gesture2vec_tpu/ops/decoder_pallas.py:144",
@@ -1230,7 +1257,7 @@ def stage_split(gen, d: float, reps: int = 2) -> dict:
     return out
 
 
-def token_margins(gen, requests) -> dict:
+def token_margins(gen, requests, seed: int = 0) -> dict:
     """For a fresh generator serving `requests` in this order: each
     request's decision margins (windows, n_steps - 1), at each step the
     smallest gap between the best and the second-best score of any choice
@@ -1238,7 +1265,8 @@ def token_margins(gen, requests) -> dict:
     (window_carry), on the request's own noise: greedy and sampled scores
     come from the returned logits through `decision_scores`, beam's from
     its step scores (the K-th against the (K+1)-th, and at the last step
-    also the best hypothesis' lead)."""
+    also the best hypothesis' lead). Each request's words are
+    words(d, seed)."""
     import torch
 
     from gesture2vec_tpu_torch.models.text2token import decision_scores
@@ -1255,7 +1283,7 @@ def token_margins(gen, requests) -> dict:
     out = {}
     with torch.inference_mode():
         for d in requests:
-            ids, lens, _ = gen.window_inputs(words(d), d)
+            ids, lens, _ = gen.window_inputs(words(d, seed), d)
             noise = gen._noise(gen._next_generator(), (1, ids.shape[0]))
             enc, hid = t2t.encode_text(ids, lens)
             positions = torch.arange(ids.shape[1], device=ids.device)
@@ -1421,6 +1449,244 @@ def exemplar_path(smi: str, tmp: str, files: dict) -> dict:
                   "frames_per_s": outs[c][d][0].shape[0] / req_s,
                   "stages_s": stage_split(g, d), "device_busy": busy,
                   "card": smi})
+    return counts
+
+
+def repo_test_module(name: str):
+    """tests/<name>.py of this checkout as `tests.<name>`, loaded from its
+    file: the checkout's tests/ is a namespace package, which a `tests`
+    package installed in site-packages would shadow."""
+    import importlib.util
+
+    full = f"tests.{name}"
+    spec = importlib.util.spec_from_file_location(full, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[full] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def stage_clock(targets: dict):
+    """Host seconds of named calls while the block runs: each target
+    (owner, attribute), a module's function or a class's method, is
+    wrapped in a timer and restored after. Yields {name: seconds}."""
+    secs, saved = {}, []
+    for name, (owner, attr) in targets.items():
+        fn = getattr(owner, attr)
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                secs[_name] = secs.get(_name, 0.0) + \
+                    time.perf_counter() - t0
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+    try:
+        yield secs
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def write_transcript(path: str, d: float, seed: int = 0) -> str:
+    """words(d, seed) as a Google speech-to-text JSON transcript."""
+    with open(path, "w") as f:
+        json.dump({"results": [{"alternatives": [{"words": [
+            {"word": w, "startTime": f"{s!r}s", "endTime": f"{e!r}s"}
+            for w, s, e in words(d, seed)]}]}]}, f)
+    return path
+
+
+def bvh_parts(text: str) -> tuple:
+    """(header through the Frame Time line, motion (frames, channels))."""
+    head, motion = text.split("Frame Time:", 1)
+    lines = motion.splitlines()
+    return (head + "Frame Time:" + lines[0],
+            np.array([ln.split() for ln in lines[1:]], np.float64))
+
+
+def cli_path(smi: str, tmp: str, files: dict) -> dict:
+    """The port's two commands as a user runs them: `make_dataset` over a
+    Trinity-layout BVH corpus, then `g2v-infer` (the `cli/infer` entry
+    function) from exemplar_path's text2embedding checkpoint, the Part-c
+    checkpoints, store and bank, and the ingest's data_pipe.json, to BVH
+    files."""
+    import glob
+
+    from gesture2vec_tpu_torch.cli import _common, infer, make_dataset
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.infer import exporter
+    from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
+    from gesture2vec_tpu_torch.io.bvh import parse_bvh, write_bvh
+    from gesture2vec_tpu_torch.io.subtitles import read_subtitles
+    from gesture2vec_tpu_torch.mocap.features import FeatureExtractor
+    from gesture2vec_tpu_torch.mocap.pipeline import MotionPipeline
+
+    # -- ingest --------------------------------------------------------
+    repo_test_module("fixtures")
+    n_files, n_src = CLI_CORPUS
+    corpus = repo_test_module("corpus").make_corpus(os.path.join(tmp, "corpus"), n_files=n_files,
+                         n_frames=n_src, fps=60)
+    out = os.path.join(tmp, "ingested")
+    t0 = time.perf_counter()
+    train_dir, val_dir = make_dataset.main([corpus, "--out", out])
+    ingest_s = time.perf_counter() - t0
+    stores = [ClipStore(train_dir), ClipStore(val_dir)]
+    pipe = os.path.join(out, "data_pipe.json")
+    fe = FeatureExtractor.load(pipe)
+    widths = {s.meta["feature_dim"] for s in stores} | {
+        s[i]["poses"].shape[1] for s in stores for i in range(len(s))}
+    feats = fe.transform(parse_bvh(sorted(glob.glob(os.path.join(
+        corpus, "Motion", "*.bvh")))[-1]))
+    back = fe.transform(parse_bvh(write_bvh(fe.to_bvh(feats)),
+                                  from_text=True))
+    n = min(len(feats), len(back))
+    rt_err = float(np.abs(feats[:n] - back[:n]).max())
+    emit({"phase": "main", "path": "cli", "command":
+          "python -m gesture2vec_tpu_torch.cli.make_dataset corpus",
+          "corpus": {"files": n_files, "frames": n_src, "fps": 60},
+          "clips": [len(s) for s in stores], "feature_widths":
+          sorted(widths), "seconds": ingest_s,
+          "source_frames_per_s": n_files * n_src / ingest_s,
+          "round_trip_frames": n, "round_trip_max_abs_err": rt_err,
+          "tol": TOL, "card": smi})
+    if widths != {DIM} or [len(s) for s in stores] != \
+            [2 * (n_files - 1), 2] or not rt_err <= TOL:
+        raise AssertionError(f"ingest check failed: widths {widths}, "
+                             f"round trip {rt_err}")
+
+    # -- g2v-infer -----------------------------------------------------
+    t2t = os.path.join(tmp, "t2t.bin")
+    tdir = os.path.join(tmp, "transcripts")
+    os.makedirs(tdir, exist_ok=True)
+
+    def transcript(d, seed=0):
+        return write_transcript(os.path.join(tdir, f"t{d:g}_{seed}.json"),
+                                d, seed)
+
+    def run(name, transcripts, *flags, dev="cuda"):
+        argv = [t2t, *transcripts, files["dae"], files["vq"], "--store",
+                files["train"], "--pipeline", pipe, "--device", dev,
+                "--out", os.path.join(tdir, name + ".bvh"), *flags]
+        reset_launches()
+        t0 = time.perf_counter()
+        res = infer.main(argv)
+        secs = time.perf_counter() - t0
+        return res, read_launches(), secs
+
+    mid = REQUESTS_S[1]
+    batch = f"decode_batch_3x{mid:g}s"
+    plan = [(f"decode_{d:g}s", [transcript(d)], ("--mode", "decode"), 1)
+            for d in REQUESTS_S]
+    plan += [(batch, [transcript(mid, s) for s in (1, 2, 3)],
+              ("--mode", "decode"), 1),
+             (f"exemplar_{mid:g}s", [transcript(mid)],
+              ("--latent-bank", files["bank"]), 0)]
+    # the longest decode call is timed stage by stage, through the
+    # functions the CLI calls
+    timed_run = f"decode_{REQUESTS_S[-1]:g}s"
+    export = ("savgol", "features_to_euler", "smoothing_spline",
+              "inverse_transform", "write_bvh")
+    targets = {"checkpoint_and_vocab_load": (_common, "build_generator"),
+               "pipeline_load": (_common, "load_bvh_exporter"),
+               "generate": (GestureGenerator, "generate"),
+               "savgol": (exporter, "savgol"),
+               "features_to_euler": (exporter, "features_to_euler"),
+               "smoothing_spline": (exporter, "smoothing_spline"),
+               "inverse_transform": (MotionPipeline, "inverse_transform"),
+               "write_bvh": (exporter, "write_bvh")}
+    unit = SENT_LEN / FPS
+    # the chunk batches each call hands the decoder: the kernel phase held
+    # the kernel against its plain version at each of KERNEL_BATCHES
+    rollout, batches = GestureGenerator._rollout, []
+
+    def recording(self, seed, hidden, n_steps):
+        batches.append(int(seed.shape[0]))
+        return rollout(self, seed, hidden, n_steps)
+
+    counts, results = {}, {}
+    for name, transcripts, flags, want in plan:
+        batches.clear()
+        GestureGenerator._rollout = recording
+        try:
+            with stage_clock(targets if name == timed_run else {}) \
+                    as stages:
+                res, c, secs = run(name, transcripts, *flags)
+        finally:
+            GestureGenerator._rollout = rollout
+        counts[name], results[name] = c, res
+        for (frames, toks, path), t in zip(res, transcripts):
+            n_win = int(np.ceil(read_subtitles(t)[-1][2] / unit))
+            with open(path) as f:
+                _, motion = bvh_parts(f.read())
+            if frames.shape != (n_win * SENT_LEN, DIM) \
+                    or toks.shape != (n_win * SENT_LEN // N_FRAMES,) \
+                    or not np.isfinite(frames).all() \
+                    or motion.shape[0] != frames.shape[0] \
+                    or not np.isfinite(motion).all():
+                raise AssertionError(f"cli {name}: frames {frames.shape}, "
+                                     f"BVH motion {motion.shape}")
+        emit({"phase": "main", "path": "cli", "run": name,
+              "transcripts": len(transcripts), "flags": list(flags),
+              "launches": c, "want_chunk_decoder": want,
+              "chunk_batches": list(batches),
+              "frames": [r[0].shape[0] for r in res],
+              "bvh_bytes": [os.path.getsize(r[2]) for r in res],
+              "seconds": secs, "card": smi})
+        if c != {"chunk_decoder": want, "gru_sequence": 0, "vq_argmin": 0}:
+            raise AssertionError(f"cli {name} launches {c}, want "
+                                 f"chunk_decoder {want}")
+        if want and not set(batches) <= set(KERNEL_BATCHES):
+            raise AssertionError(f"cli {name}: chunk batches {batches} "
+                                 f"not all among {KERNEL_BATCHES}")
+        if name == timed_run:
+            emit({"phase": "timing", "path": "cli", "run": name,
+                  "frames": res[0][0].shape[0], "seconds": secs,
+                  "stages_s": stages,
+                  "export_s": sum(stages[k] for k in export),
+                  "largest_stage": max(stages, key=stages.get),
+                  "card": smi})
+
+    # -- check: the card against the CPU, the middle request alone and
+    # the batch of three, transcript by transcript --------------------
+    def margins(seed):
+        return lambda: token_margins(_common.build_generator(
+            t2t, files["dae"], files["vq"], ClipStore(files["train"]),
+            mode="decode", device="cpu", seed=0)[0], [mid], seed)[mid]
+
+    checks = {}
+    for name, seeds in ((f"decode_{mid:g}s", (0,)), (batch, (1, 2, 3))):
+        cpu, _, cpu_s = run("cpu_" + name, [transcript(mid, s)
+                                            for s in seeds],
+                            "--mode", "decode", dev="cpu")
+        for seed, card, ref in zip(seeds, results[name], cpu):
+            cmp = compare_runs(card[:2], ref[:2], margins(seed))
+            with open(card[2]) as f:
+                head, motion = bvh_parts(f.read())
+            with open(ref[2]) as f:
+                c_head, c_motion = bvh_parts(f.read())
+            cmp.update({
+                "bvh_headers_identical": head == c_head,
+                "bvh_frames": [motion.shape[0], c_motion.shape[0]],
+                # printed, not held: the export's euler extraction of an
+                # untrained model's non-orthonormal matrices amplifies
+                # frame differences near its poles
+                "bvh_motion_max_abs_diff": float(np.abs(
+                    motion - c_motion).max()) if motion.shape ==
+                c_motion.shape else None,
+                "cpu_seconds": cpu_s})
+            checks[f"{name}/words_seed{seed}"] = cmp
+    emit({"phase": "check", "path": "cli", "card_vs_cpu": checks,
+          "tol": TOL, "near_tie_margin": LOGIT_TIE})
+    bad = {k: c for k, c in checks.items() if not c["ok"]
+           or not c["bvh_headers_identical"]
+           or c["bvh_frames"][0] != c["bvh_frames"][1]}
+    if bad:
+        raise AssertionError(f"cli card vs CPU: {bad}")
     return counts
 
 
@@ -2004,6 +2270,9 @@ def main() -> int:
         exemplar_counts = exemplar_path(smi, tmp, files)
         secs["exemplar_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        cli_counts = cli_path(smi, tmp, files)
+        secs["cli_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         tf_counts = tf_part_c_path(smi, tmp, files)
         secs["tf_part_c_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2018,6 +2287,7 @@ def main() -> int:
         # paths' counts beside it, and its times at the new shapes
         k["launches_by_path"] = {
             "exemplar": exemplar_counts[k["name"]],
+            "cli": {p: c[k["name"]] for p, c in cli_counts.items()},
             "policies": {p: c[k["name"]] for p, c in policy_counts.items()},
             "tf_part_c": {p: c[k["name"]] for p, c in tf_counts.items()},
             "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()}}

@@ -7,6 +7,7 @@ vocabulary (the Part-d checkpoint's `lang_model`, else the store's
 words) and, for exemplar mode, the latent bank that `cli/cluster.py`
 writes, and assembles the port's GestureGenerator with the checkpoint's
 chunk length, window length, frame rate and text context.
+`load_bvh_exporter` is the port of its BVH export half.
 """
 from __future__ import annotations
 
@@ -61,3 +62,25 @@ def build_generator(t2t_checkpoint: str, rep_checkpoint: str,
         latent_bank=bank, text_context_s=float(cfg["text_context_s"]),
         device=dev, **policy)
     return gen, cfg
+
+
+def load_bvh_exporter(dataset: str, pipeline_path: str,
+                      twh_variant: str = "test1"):
+    """Returns to_bvh(frames, path=None) -> BVHData|None for the
+    dataset family (Trinity rotmat features or TWH variants), from the
+    fitted data_pipe.json that either package's ingest writes."""
+    if dataset == "twh":
+        from gesture2vec_tpu_torch.infer.exporter import frames_to_bvh_twh
+        from gesture2vec_tpu_torch.mocap.features import TWHFeatureExtractor
+        fe = TWHFeatureExtractor.load(pipeline_path, twh_variant)
+
+        def to_bvh(frames, path=None):
+            return frames_to_bvh_twh(frames, fe, path=path)
+    else:
+        from gesture2vec_tpu_torch.infer.exporter import frames_to_bvh
+        from gesture2vec_tpu_torch.mocap.features import FeatureExtractor
+        fe = FeatureExtractor.load(pipeline_path)
+
+        def to_bvh(frames, path=None):
+            return frames_to_bvh(frames, fe, path=path)
+    return to_bvh

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives seven paths of the port, each with every kernel launch counter
+It drives eight paths of the port, each with every kernel launch counter
 set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -83,11 +83,35 @@ The two commands (in the same directory, after exemplar mode):
            calls wrapped in a timer: checkpoint and vocab load, pipeline
            load, generate, savgol, features_to_euler, smoothing_spline,
            inverse_transform, write_bvh;
+g2v-serve (in the same directory, after the commands):
+  main     `serve()` in process on port 0 with the decode path's
+           generator, 60 s requests: /generate from 8 sequential clients,
+           then 16 and 32 at once (fused up to 32), one 6 s BVH answer
+           through the ingest's data_pipe.json; /stream from 1, 16 and 64
+           sessions through the stream-step batcher capped at 1 (every
+           step alone) and 16 and 64 capped at 16; one stream each with
+           chunk_continuity, the recipe's Part d and exemplar continuity
+           over the cluster CLI's bank; the GRU text encoder's Part d:
+           8 /stream sessions through the batcher and 4 concurrent
+           /generate requests; launches, every rollout's chunk batch
+           (each among KERNEL_BATCHES) and every GRU recurrence's batch
+           (each among GRU_T48_BATCHES) per run; then
+           `python -m gesture2vec_tpu_torch.cli.serve` as a subprocess:
+           /healthz, /generate, /stream, SIGINT, exit code 0;
+  check    every answer against the card's `generate` on its words,
+           batched streams against unbatched ones, one /generate and one
+           /stream answer against the CPU (tokens identical or a counted
+           near-tie, frames within 1e-4); no answer but 200;
+  timing   /generate frames/s, worker and client p50/p99, batches; /stream
+           time to the first window, per-window p50/p99, windows/s and
+           the batcher's stats; idle share over the 32-client /generate
+           and the 64-session batched /stream;
 The decode policies at the bench widths:
   kernel   the chunk decoder at 24 steps (decode_overlap 4) and at B=1
            (chunk_continuity), the GRU sequence at T=48 (the text
-           encoder's word window) for 1, 16, 303 and 304 windows, against
-           their plain versions, with cuDNN's layer beside the GRU;
+           encoder's word window) for each of GRU_T48_BATCHES windows
+           (the serve path's among them), against their plain versions,
+           with cuDNN's layer beside the GRU;
   policy   one line per policy (sampled at top_k 0 and 50, stage0 greedy
            on a 4-stage model, beam 4, soft 1.0, overlap 4,
            chunk_continuity, 4-stage stage_conditional, the GRU encoder)
@@ -144,12 +168,16 @@ VOCAB_WORDS = 300
 REQUESTS_S = (6.0, 60.0, 1800.0)
 # the cli path's corpus: 4 Trinity-layout files of 60 s at 60 fps
 CLI_CORPUS = (4, 3600)
-# 6 s, 60 s, three 60 s transcripts in one g2v-infer call, ragged, 1800 s
-KERNEL_BATCHES = (6, 96, 288, 293, 1824)
+# every chunk batch the paths send: a continuity chunk (1); 6 s, 60 s,
+# three 60 s transcripts in one g2v-infer call, ragged, 1800 s; the serve
+# path's stream-step buckets 2-16 (12-96) and fused /generate buckets 2-32
+# of 60 s requests (192-3072)
+KERNEL_BATCHES = (1, 6, 12, 24, 48, 96, 192, 288, 293, 384, 768, 1536, 1824,
+                  3072)
 # chunk-decoder batches at the edges of its tiles: a single row, one
 # round of 1-row tiles (the card holds 7 clusters), 2-row tiles, several
-# rounds of 8-row tiles, and every batch the decode and cli paths send
-DECODER_EDGE_BATCHES = (1, 6, 7, 8, 9, 96, 288, 293, 1824)
+# rounds of 8-row tiles, and every batch the paths send
+DECODER_EDGE_BATCHES = tuple(sorted({7, 8, 9, *KERNEL_BATCHES}))
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -220,9 +248,31 @@ RECIPE_POLICIES = (
     ("beam4", {"beam_width": 4}))
 # the exemplar request's policy: the recipe's
 RECIPE_POLICY = dict(RECIPE_POLICIES)["recipe_t0_stage0_t1"]
+# the serve path: 60 s requests; /generate from 8 sequential clients, then
+# 16 and 32 at once (fused up to 32); one 6 s BVH answer; /stream from
+# (sessions, stream_batch); the served command's start-up limit
+SERVE_REQUEST_S, SERVE_BVH_S, SERVE_MAX_BATCH = 60.0, 6.0, 32
+SERVE_SEQUENTIAL, SERVE_CLIENTS = 8, (16, 32)
+SERVE_STREAMS = ((1, 1), (16, 1), (64, 1), (16, 16), (64, 16))
+# the GRU text encoder's Part d on the serve path: /stream sessions
+# through the batcher, concurrent /generate requests
+SERVE_GRU_STREAMS, SERVE_GRU_CLIENTS = 8, 4
+# the GRU sequence's batches at T=48 (the text encoder's word window):
+# a window a step, the serve path's stream buckets 2-8 and fused 60 s
+# /generate buckets of 16 windows a request (16-64), and the policies'
+# 1800 s request (303 windows, 304 in the bucket)
+GRU_T48_BATCHES = (1, 2, 4, 8, 16, 32, 64, 303, 304)
+SERVE_CLI_START_S = 120.0
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the
+    script started ("t_s"), so a run shows where its time limit went."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -611,7 +661,8 @@ def decode_path(smi: str) -> dict:
 
     k = kernel_rows[KERNEL_BATCHES[-1]]
     by_batch = {B: {key: kernel_rows[B][key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by")} for B in (6, 288, 1824)}
+        "ms", "plain_ms", "bound_ms", "bound_by")}
+        for B in (6, 288, 1824, 3072)}
     return {"name": "chunk_decoder", "route": "cuda",
             "source": "gesture2vec_tpu_torch/csrc/chunk_decoder.cu",
             "replaces": "gesture2vec_tpu/ops/decoder_pallas.py:144",
@@ -1404,7 +1455,7 @@ def exemplar_path(smi: str, tmp: str, files: dict) -> dict:
 
     # -- check --------------------------------------------------------
     unit = SENT_LEN / FPS
-    checks = {}
+    checks, base = {}, {"cuda": gens[False]}
     for c, per in outs.items():
         for d, (frames, toks) in per.items():
             n_windows = int(np.ceil(d / unit))
@@ -1412,17 +1463,21 @@ def exemplar_path(smi: str, tmp: str, files: dict) -> dict:
                     or not np.isfinite(frames).all() \
                     or toks.shape != (n_windows * SENT_LEN // N_FRAMES,):
                 raise AssertionError(f"exemplar {d} s: frames {frames.shape}")
-        # the card against the CPU path at 60 s, fresh generators, with
-        # each side's picks recorded
+        # the card against the CPU path at 60 s, fresh generators (a
+        # replace starts a new numpy stream from the seed and loads no
+        # file), with each side's picks recorded
         runs = {}
         for dev in ("cuda", "cpu"):
-            g = make(dev, exemplar_continuity=c)
+            if dev not in base:
+                base[dev] = make(dev)
+            g = dataclasses.replace(base[dev], exemplar_continuity=c)
             picks, pick = [], g._picks
             g._picks = lambda toks, pick=pick, picks=picks: \
                 picks.append(pick(toks)) or picks[-1]
             runs[dev] = (g.generate(words(60.0), 60.0), picks[0])
         cmp = compare_runs(runs["cuda"][0], runs["cpu"][0],
-                           lambda: token_margins(make("cpu"), [60.0])[60.0])
+                           lambda: token_margins(dataclasses.replace(
+                               base["cpu"]), [60.0])[60.0])
         cmp["picks_identical"] = bool(np.array_equal(runs["cuda"][1],
                                                      runs["cpu"][1]))
         checks["continuity" if c else "uniform"] = cmp
@@ -1440,14 +1495,16 @@ def exemplar_path(smi: str, tmp: str, files: dict) -> dict:
     for c, g in gens.items():
         for d in REQUESTS_S:
             w = words(d)
-            req_s = best_s(lambda: g.generate(w, d), reps=2)
+            # one repeat of the long request keeps the run in its budget
+            reps = 1 if d == REQUESTS_S[-1] else 2
+            req_s = best_s(lambda: g.generate(w, d), reps=reps)
             busy = None if c and d == REQUESTS_S[-1] else device_busy(
                 lambda: g.generate(w, d), req_s)
             emit({"phase": "timing", "path": "exemplar",
                   "exemplar_continuity": c, "request_s": d,
                   "frames": outs[c][d][0].shape[0], "seconds": req_s,
                   "frames_per_s": outs[c][d][0].shape[0] / req_s,
-                  "stages_s": stage_split(g, d), "device_busy": busy,
+                  "stages_s": stage_split(g, d, reps), "device_busy": busy,
                   "card": smi})
     return counts
 
@@ -1690,6 +1747,515 @@ def cli_path(smi: str, tmp: str, files: dict) -> dict:
     return counts
 
 
+# -- the serve path: g2v-serve's /generate and /stream under load ---------
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port: int, method: str, path: str, obj=None,
+              timeout: float = 300.0):
+    """(status, body bytes, seconds) of one request to 127.0.0.1:port."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=None if obj is None else
+                     json.dumps(obj), headers={"Content-Type":
+                                               "application/json"})
+        resp = conn.getresponse()
+        body = resp.read()
+        return resp.status, body, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def http_generate(port: int, d: float, seed: int, fmt: str = "json"):
+    """POST /generate of words(d, seed): ((frames, tokens) or the BVH
+    text, seconds). A status other than 200 fails."""
+    import base64
+
+    code, body, secs = http_call(port, "POST", "/generate", {
+        "words": words(d, seed), "duration_s": d, "format": fmt})
+    if code != 200:
+        raise AssertionError(f"/generate answered {code}: {body[:300]}")
+    if fmt == "bvh":
+        return body.decode(), secs
+    out = json.loads(body)
+    frames = np.frombuffer(base64.b64decode(out["frames_b64"]),
+                           np.float32).reshape(out["frames_shape"])
+    return (frames, np.asarray(out["tokens"], np.int32)), secs
+
+
+def http_stream(port: int, d: float, seed: int, timeout: float = 300.0):
+    """POST /stream of words(d, seed), read line by line: ((frames,
+    tokens) of the windows concatenated, the seconds from the request to
+    each window's line). A status other than 200, an error line or a
+    wrong done line fails."""
+    import base64
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/stream", body=json.dumps(
+            {"words": words(d, seed), "duration_s": d}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"/stream answered {resp.status}: "
+                                 f"{resp.read()[:300]}")
+        lines, stamps = [], []
+        while True:
+            ln = resp.readline()
+            if not ln:
+                break
+            lines.append(json.loads(ln))
+            stamps.append(time.perf_counter() - t0)
+    finally:
+        conn.close()
+    n_windows = int(np.ceil(d / (SENT_LEN / FPS)))
+    if lines[-1] != {"done": True, "windows": n_windows} or any(
+            "error" in ln for ln in lines):
+        raise AssertionError(f"/stream ended with {lines[-1]}")
+    windows = lines[:-1]
+    frames = np.concatenate([np.frombuffer(base64.b64decode(
+        w["frames_b64"]), np.float32).reshape(w["frames_shape"])
+        for w in windows])
+    tokens = np.concatenate([w["tokens"] for w in windows]).astype(np.int32)
+    return (frames, tokens), stamps[:-1]
+
+
+def concurrently(fn, n: int) -> list:
+    """fn(i) for i < n, each on its own thread; the results in order (a
+    failure in any thread fails the call)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        return list(ex.map(fn, range(n)))
+
+
+@contextlib.contextmanager
+def serving(gen, **kw):
+    """The in-process server (serve() on port 0), shut down after."""
+    import threading
+
+    from gesture2vec_tpu_torch.serve.server import serve
+
+    httpd = serve(gen, port=0, **kw)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield httpd
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+
+
+def percentiles(values) -> dict:
+    from gesture2vec_tpu_torch.serve.server import nearest_rank
+
+    values = list(values)
+    return {"p50": nearest_rank(values, 0.5),
+            "p99": nearest_rank(values, 0.99)}
+
+
+def serve_path(smi: str, tmp: str, files: dict) -> dict:
+    """`g2v-serve` in process (serve() on port 0) with the decode generator
+    at the bench widths (weights through the bridge): /generate from 1, 16
+    and 32 clients and one BVH request through the ingest's data_pipe.json;
+    /stream from 1, 16 and 64 sessions, per-session steps and through the
+    stream-step batcher capped at 1 and at 16; a chunk_continuity stream,
+    a recipe stream and an exemplar-continuity stream over the cluster
+    CLI's bank; the GRU text encoder's Part d from 8 streams and 4
+    concurrent /generate requests. Every answer
+    is held against the card's own `generate` (near-tie rule), launches
+    and chunk batches against what each endpoint sends. Then `python -m
+    gesture2vec_tpu_torch.cli.serve` as a subprocess, stopped by SIGINT."""
+    import dataclasses
+    import signal
+
+    from gesture2vec_tpu_torch.cli import _common
+    from gesture2vec_tpu_torch.models import gru as gru_module
+    from gesture2vec_tpu_torch.compat.from_jax import generator_from_jax
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
+    from gesture2vec_tpu_torch.io.bvh import write_bvh
+    from gesture2vec_tpu_torch.text.vocab import Vocab
+
+    vocab = Vocab("bench")
+    for i in range(VOCAB_WORDS):
+        vocab.index_word(f"word{i}")
+    pose_mean = np.zeros(DIM, np.float32)
+    pose_std = np.ones(DIM, np.float32)
+
+    def make(trees, device, **kw):
+        return generator_from_jax(
+            *trees, vocab, pose_mean, pose_std, n_frames=N_FRAMES,
+            sentence_frame_length=SENT_LEN, fps=FPS, max_words=MAXW,
+            device=device, mode="decode", seed=0, **kw)
+
+    trees = jax_layout_trees(np.random.default_rng(0))
+    gen = make(trees, "cuda")
+    pipe = os.path.join(tmp, "ingested", "data_pipe.json")
+    to_bvh = _common.load_bvh_exporter("trinity", pipe)
+
+    def export_bvh(frames):
+        return write_bvh(to_bvh(frames, path=None))
+
+    d = SERVE_REQUEST_S
+    n_win = int(np.ceil(d / (SENT_LEN / FPS)))
+    steps = SENT_LEN // N_FRAMES
+    # the chunk batch of every rollout while the path runs (each phase
+    # reads its own before it compares with the card's `generate`), and
+    # the (T, B) of every GRU recurrence (the GRU text encoder's)
+    rollout, batches = GestureGenerator._rollout, []
+    recurrence, gru_batches = gru_module.gru_sequence, []
+
+    def recording(self, seed, hidden, n_steps):
+        batches.append(int(seed.shape[0]))
+        return rollout(self, seed, hidden, n_steps)
+
+    def recording_gru(x_proj, *args):
+        gru_batches.append(tuple(x_proj.shape[:2]))
+        return recurrence(x_proj, *args)
+
+    solo = {}
+
+    def solo_of(s):
+        if s not in solo:
+            solo[s] = gen.generate(words(d, s), d)
+        return solo[s]
+
+    def vs_solo(got, s, ref=None, margin_gen=None):
+        """compare_runs of an answer for words(d, s) against the card's
+        `generate` (near-tie margins from a fresh generator)."""
+        return compare_runs(got, ref if ref is not None else solo_of(s),
+                            lambda: token_margins(
+                                margin_gen() if margin_gen else
+                                make(trees, "cuda"), [d], s)[d])
+
+    checks, counts = {}, {}
+
+    def record(name, c, want, got_batches, allowed, want_gru=0,
+               got_gru=(), allowed_gru=()):
+        """Check one run's launches (want chunk-decoder and GRU-sequence
+        launches) and batches (among `allowed` and KERNEL_BATCHES, the
+        GRU's at T=48 among `allowed_gru` and GRU_T48_BATCHES)."""
+        counts[name] = c
+        gru_bs = sorted({b for t, b in got_gru})
+        row = {"phase": "main", "path": "serve", "run": name, "launches": c,
+               "want_chunk_decoder": want, "want_gru_sequence": want_gru,
+               "chunk_batches": sorted(set(got_batches)),
+               "chunk_batch_counts": {b: got_batches.count(b)
+                                      for b in sorted(set(got_batches))},
+               "gru_t48_batches": gru_bs}
+        emit(row)
+        if c["chunk_decoder"] != want or c["gru_sequence"] != want_gru \
+                or c["vq_argmin"]:
+            raise AssertionError(f"serve {name}: launches {c}, want "
+                                 f"chunk_decoder {want}, gru_sequence "
+                                 f"{want_gru}")
+        if not set(got_batches) <= set(allowed) \
+                or not set(got_batches) <= set(KERNEL_BATCHES):
+            raise AssertionError(f"serve {name}: chunk batches "
+                                 f"{sorted(set(got_batches))} not among "
+                                 f"{allowed} and {KERNEL_BATCHES}")
+        if any(t != MAXW for t, _ in got_gru) \
+                or not set(gru_bs) <= set(allowed_gru) \
+                or not set(gru_bs) <= set(GRU_T48_BATCHES):
+            raise AssertionError(f"serve {name}: GRU batches {got_gru} "
+                                 f"not at T={MAXW} among {allowed_gru} "
+                                 f"and {GRU_T48_BATCHES}")
+
+    GestureGenerator._rollout = recording
+    gru_module.gru_sequence = recording_gru
+    try:
+        # -- /generate: 8 sequential clients, then 16 and 32 at once ----
+        gen_buckets = [96 * b for b in (1, 2, 4, 8, 16, 32)]
+        for clients, concurrent in ((SERVE_SEQUENTIAL, False),
+                                    *((n, True) for n in SERVE_CLIENTS)):
+            name = f"generate_{clients}_{'concurrent' if concurrent else 'sequential'}"
+            with serving(gen, max_batch=SERVE_MAX_BATCH,
+                         export_bvh=export_bvh) as httpd:
+                batches.clear()
+                reset_launches()
+                t0 = time.perf_counter()
+                if concurrent:
+                    res = concurrently(lambda i: http_generate(
+                        httpd.server_address[1], d, i), clients)
+                else:
+                    res = [http_generate(httpd.server_address[1], d, i)
+                           for i in range(clients)]
+                wall = time.perf_counter() - t0
+                c, got_batches = read_launches(), list(batches)
+                stats = dict(httpd.worker.stats)
+                lat = httpd.worker.latency_stats()
+                busy = None
+                if clients == SERVE_CLIENTS[-1]:
+                    busy = device_busy(lambda: concurrently(
+                        lambda i: http_generate(httpd.server_address[1], d,
+                                                i), clients), wall)
+            record(name, c, stats["batches"], got_batches,
+                   gen_buckets if concurrent else [96])
+            if stats["requests"] != clients or (
+                    not concurrent and stats["batched_requests"]) or (
+                    concurrent and stats["batches"] >= clients):
+                raise AssertionError(f"serve {name}: worker stats {stats}")
+            cmp = [vs_solo(r, i) for i, (r, _) in enumerate(res)]
+            checks[name] = {"windows_differing": sum(
+                x["windows_differing"] for x in cmp), "max_abs_err": max(
+                x["max_abs_err"] for x in cmp), "ok": all(x["ok"]
+                                                         for x in cmp)}
+            frames = sum(r[0].shape[0] for r, _ in res)
+            emit({"phase": "timing", "path": "serve",
+                          "endpoint": "/generate", "clients": clients,
+                          "concurrent": concurrent, "request_s": d,
+                          "frames": frames, "seconds": wall,
+                          "frames_per_s": frames / wall,
+                          "worker_latency": lat,
+                          "client_latency_s": percentiles(
+                              s for _, s in res),
+                          "batches": stats["batches"],
+                          "batched_requests": stats["batched_requests"],
+                          "device_busy": busy, "card": smi})
+            if not checks[name]["ok"]:
+                raise AssertionError(f"serve {name}: {cmp}")
+            if not concurrent:
+                generate_0 = res[0][0]
+
+        # -- one BVH answer at 6 s through the ingest's data_pipe.json ---
+        with serving(gen, export_bvh=export_bvh) as httpd:
+            batches.clear()
+            reset_launches()
+            text, secs = http_generate(httpd.server_address[1],
+                                       SERVE_BVH_S, 0, fmt="bvh")
+            c = read_launches()
+        _, motion = bvh_parts(text)
+        record("generate_bvh_6s", c, 1, list(batches), [6])
+        if motion.shape[0] != SENT_LEN or not np.isfinite(motion).all():
+            raise AssertionError(f"serve BVH answer: motion {motion.shape}")
+        emit({"phase": "timing", "path": "serve",
+                      "endpoint": "/generate", "format": "bvh",
+                      "request_s": SERVE_BVH_S, "seconds": secs,
+                      "bvh_bytes": len(text), "card": smi})
+
+        # -- /stream through the stream-step batcher, capped at 1 and 16 --
+        streams = {}
+        for sessions, sb in SERVE_STREAMS:
+            name = f"stream_{sessions}_batch{sb}"
+            with serving(gen, stream_batch=sb) as httpd:
+                batches.clear()
+                reset_launches()
+                t0 = time.perf_counter()
+                res = concurrently(lambda i: http_stream(
+                    httpd.server_address[1], d, i), sessions)
+                wall = time.perf_counter() - t0
+                c, got_batches = read_launches(), list(batches)
+                bstats = dict(httpd.stream_programs.batcher.stats)
+                stats = dict(httpd.worker.stats)
+                busy = None
+                if (sessions, sb) == SERVE_STREAMS[-1]:
+                    busy = device_busy(lambda: concurrently(
+                        lambda i: http_stream(httpd.server_address[1], d,
+                                              i), sessions), wall)
+            streams[sessions, sb] = [r for r, _ in res]
+            record(name, c, bstats["batches"], got_batches,
+                   [6 * b for b in (1, 2, 4, 8, 16)] if sb > 1 else [6])
+            if stats["streams"] != sessions or \
+                    stats["stream_windows"] != sessions * n_win or \
+                    bstats["calls"] != sessions * n_win or (
+                    sb == 1 and bstats["batches"] != sessions * n_win):
+                raise AssertionError(f"serve {name}: stats {stats}, "
+                                     f"batcher {bstats}")
+            cmp = [vs_solo(r, i) for i, (r, _) in enumerate(res)]
+            if sb > 1:
+                # the batched sessions against their unbatched run
+                cmp += [compare_runs(r, u, lambda i=i: token_margins(
+                    make(trees, "cuda"), [d], i)[d]) for i, (r, u) in
+                    enumerate(zip(streams[sessions, sb],
+                                  streams[sessions, 1]))]
+            checks[name] = {"windows_differing": sum(
+                x["windows_differing"] for x in cmp), "max_abs_err": max(
+                x["max_abs_err"] for x in cmp), "ok": all(x["ok"]
+                                                         for x in cmp)}
+            first = [st[0] for _, st in res]
+            per_window = [b - a for _, st in res
+                          for a, b in zip([0.0] + st[:-1], st)]
+            emit({"phase": "timing", "path": "serve",
+                          "endpoint": "/stream", "sessions": sessions,
+                          "stream_batch": sb, "request_s": d,
+                          "windows": sessions * n_win, "seconds": wall,
+                          "windows_per_s": sessions * n_win / wall,
+                          "first_window_s": percentiles(first),
+                          "window_latency_s": percentiles(per_window),
+                          "batcher": bstats, "device_busy": busy,
+                          "card": smi})
+            if not checks[name]["ok"]:
+                raise AssertionError(f"serve {name}: {cmp}")
+
+        # -- a chunk_continuity stream, a recipe stream, an exemplar one --
+        cont = dataclasses.replace(gen, chunk_continuity=True)
+        recipe = make(recipe_trees(np.random.default_rng(0)), "cuda",
+                      t2t_n_pre_poses=RECIPE_N_PRE, t2t_heads=RECIPE_HEADS)
+        t2t = os.path.join(tmp, "t2t.bin")
+        exemplar = _common.build_generator(
+            t2t, files["dae"], files["vq"], ClipStore(files["train"]),
+            mode="exemplar", latent_bank_path=files["bank"], device="cuda",
+            seed=0, exemplar_continuity=True)[0]
+        one = (("stream_continuity", cont, n_win * steps, [1],
+                lambda: dataclasses.replace(gen, chunk_continuity=True)),
+               ("stream_recipe_greedy", recipe, n_win, [6],
+                lambda: make(recipe_trees(np.random.default_rng(0)), "cuda",
+                             t2t_n_pre_poses=RECIPE_N_PRE,
+                             t2t_heads=RECIPE_HEADS)),
+               ("stream_exemplar_continuity", exemplar, 0, [],
+                lambda: dataclasses.replace(exemplar)))
+        for name, g, want, allowed, fresh in one:
+            with serving(g) as httpd:
+                batches.clear()
+                reset_launches()
+                got, stamps = http_stream(httpd.server_address[1], d, 0)
+                c = read_launches()
+            record(name, c, want, list(batches), allowed)
+            # a fresh generator of the same seed: exemplar picks draw the
+            # same numpy stream
+            cmp = vs_solo(got, 0, ref=fresh().generate(words(d, 0), d),
+                          margin_gen=fresh)
+            checks[name] = cmp
+            emit({"phase": "timing", "path": "serve",
+                          "endpoint": "/stream", "run": name,
+                          "request_s": d, "seconds": stamps[-1],
+                          "first_window_s": stamps[0], "card": smi})
+            if not cmp["ok"]:
+                raise AssertionError(f"serve {name}: {cmp}")
+
+        # -- the GRU text encoder: streams through the batcher, a fused
+        # /generate; 4 recurrences (2 layers, 2 directions) a text encode
+        gru_trees = policy_trees(np.random.default_rng(0))["gru"]
+        gru_gen = make(gru_trees, "cuda")
+        gru_solo = {}
+        for name, n, endpoint in (
+                (f"gru_stream_{SERVE_GRU_STREAMS}", SERVE_GRU_STREAMS,
+                 http_stream),
+                (f"gru_generate_{SERVE_GRU_CLIENTS}_concurrent",
+                 SERVE_GRU_CLIENTS, http_generate)):
+            with serving(gru_gen, max_batch=SERVE_MAX_BATCH) as httpd:
+                batches.clear()
+                gru_batches.clear()
+                reset_launches()
+                t0 = time.perf_counter()
+                res = concurrently(lambda i: endpoint(
+                    httpd.server_address[1], d, i), n)
+                wall = time.perf_counter() - t0
+                c, got_batches = read_launches(), list(batches)
+                got_gru = list(gru_batches)
+                stats = dict(httpd.worker.stats)
+                sbat = httpd.stream_programs.batcher
+                bstats = None if sbat is None else dict(sbat.stats)
+            if endpoint is http_stream:
+                record(name, c, bstats["batches"], got_batches,
+                       [6 * b for b in (1, 2, 4, 8)], 4 * bstats["batches"],
+                       got_gru, (1, 2, 4, 8))
+            else:
+                record(name, c, stats["batches"], got_batches,
+                       [96 * b for b in (1, 2, 4)], 4 * stats["batches"],
+                       got_gru, (16, 32, 64))
+            for i in range(n):
+                if i not in gru_solo:
+                    gru_solo[i] = gru_gen.generate(words(d, i), d)
+            cmp = [vs_solo(r, i, ref=gru_solo[i],
+                           margin_gen=lambda: make(gru_trees, "cuda"))
+                   for i, (r, _) in enumerate(res)]
+            checks[name] = {"windows_differing": sum(
+                x["windows_differing"] for x in cmp), "max_abs_err": max(
+                x["max_abs_err"] for x in cmp), "ok": all(x["ok"]
+                                                         for x in cmp)}
+            emit({"phase": "timing", "path": "serve", "run": name,
+                  "request_s": d, "clients": n, "seconds": wall,
+                  "batches": stats["batches"], "batcher": bstats,
+                  "card": smi})
+            if not checks[name]["ok"]:
+                raise AssertionError(f"serve {name}: {cmp}")
+    finally:
+        GestureGenerator._rollout = rollout
+        gru_module.gru_sequence = recurrence
+
+    # -- the card against the CPU: one /generate and one /stream answer --
+    cpu_ref = make(trees, "cpu").generate(words(d, 0), d)
+    cpu_margins = (lambda: token_margins(make(trees, "cpu"), [d], 0)[d])
+    checks["card_vs_cpu"] = {
+        "generate": compare_runs(generate_0, cpu_ref, cpu_margins),
+        "stream": compare_runs(streams[1, 1][0], cpu_ref, cpu_margins)}
+    if not all(c["ok"] for c in checks["card_vs_cpu"].values()):
+        raise AssertionError(f"serve card vs CPU: {checks['card_vs_cpu']}")
+
+    # -- the command: python -m gesture2vec_tpu_torch.cli.serve -----------
+    port = free_port()
+    cmd = [sys.executable, "-m", "gesture2vec_tpu_torch.cli.serve", t2t,
+           files["dae"], files["vq"], "--store", files["train"],
+           "--pipeline", pipe, "--port", str(port), "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        health = None
+        while time.perf_counter() - t0 < SERVE_CLI_START_S:
+            if proc.poll() is not None:
+                break
+            try:
+                code, body, _ = http_call(port, "GET", "/healthz",
+                                          timeout=10)
+            except OSError:
+                time.sleep(0.25)
+                continue
+            if code == 200:
+                health = json.loads(body)
+                break
+        up_s = time.perf_counter() - t0
+        if health is None:
+            raise AssertionError(f"g2v-serve did not come up in "
+                                 f"{SERVE_CLI_START_S} s (exit "
+                                 f"{proc.poll()})")
+        text, gen_s = http_generate(port, d, 0, fmt="bvh")
+        (frames, toks), stamps = http_stream(port, SERVE_BVH_S, 0)
+        _, motion = bvh_parts(text)
+        code, body, _ = http_call(port, "GET", "/healthz", timeout=30)
+        health = json.loads(body)
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=60)
+        rc = proc.returncode
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    cli = {"phase": "main", "path": "serve", "run": "cli_subprocess",
+           "command": "python -m gesture2vec_tpu_torch.cli.serve t2t.bin "
+           "dae.bin vq.bin --store train --pipeline data_pipe.json "
+           "--port P --device cuda", "up_s": up_s, "healthz": health,
+           "generate_bvh_frames": int(motion.shape[0]),
+           "generate_s": gen_s, "stream_frames": list(frames.shape),
+           "stream_s": stamps[-1], "exit_code": rc,
+           "log_tail": out.strip().splitlines()[-3:], "card": smi}
+    emit(cli)
+    if rc != 0 or motion.shape[0] != n_win * SENT_LEN \
+            or not np.isfinite(motion).all() \
+            or frames.shape != (SENT_LEN, DIM) \
+            or not np.isfinite(frames).all() \
+            or health["requests"] != 1 or health["streams"] != 1:
+        raise AssertionError(f"g2v-serve subprocess: {cli}")
+
+    emit({"phase": "check", "path": "serve", "vs_card_generate": checks,
+          "tol": TOL, "near_tie_margin": LOGIT_TIE})
+    return counts
+
+
 def policy_trees(rng: np.random.Generator) -> dict:
     """Bench-width variables for the policies path: the decode path's
     (TCN encoder, one stage), a 4-stage Part d with independent or chained
@@ -1739,8 +2305,9 @@ def policy_kernel_rows(folded, gru_w) -> dict:
     """Both kernels at the shapes the policies give them, against their
     plain versions: the chunk decoder at n_steps 24 (decode_overlap 4) for
     the 60 s and 1800 s chunk batches and at B=1 (chunk_continuity); the
-    GRU sequence at T=48 (the text encoder's word window) for 1, 16, 303
-    and 304 windows (303: no multiple of the 20-row cluster tile), both
+    GRU sequence at T=48 (the text encoder's word window) for each of
+    GRU_T48_BATCHES windows (303: no multiple of the 20-row cluster
+    tile), both
     directions, with cuDNN's layer and the matmul plus the kernel beside
     it at every B."""
     import torch
@@ -1775,7 +2342,7 @@ def policy_kernel_rows(folded, gru_w) -> dict:
                        (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
             prm.copy_(v)
     with torch.inference_mode():
-        for B in (1, 16, 303, 304):
+        for B in GRU_T48_BATCHES:
             xs = torch.randn(48, B, w_ih.shape[1], device="cuda",
                              generator=g)
             h0 = torch.zeros(B, HID, device="cuda")
@@ -1884,12 +2451,13 @@ def policies_path(smi: str) -> tuple:
         timing = {}
         for d in POLICY_REQUESTS_S:
             w = words(d)
-            # one repeat of the long request keeps the run in its budget
-            reps = 1 if d == POLICY_REQUESTS_S[-1] else 2
-            req_s = best_s(lambda: gen.generate(w, d), reps=reps)
+            # one repeat of the long request and no stage split of it
+            # keep the run in its budget
+            long = d == POLICY_REQUESTS_S[-1]
+            req_s = best_s(lambda: gen.generate(w, d), reps=1 if long else 2)
             timing[d] = {"seconds": req_s,
                          "frames_per_s": outs[d][0].shape[0] / req_s,
-                         "stages_s": stage_split(gen, d, reps=reps)}
+                         "stages_s": None if long else stage_split(gen, d)}
         # profiled on the short request only (~45 s of profiler on the
         # long one's ~150k device ops)
         d = POLICY_REQUESTS_S[0]
@@ -2025,11 +2593,11 @@ def recipe_path(smi: str, bank: dict) -> dict:
         timing = {}
         for d in REQUESTS_S:
             w = words(d)
-            reps = 1 if d == REQUESTS_S[-1] else 2
-            req_s = best_s(lambda: gen.generate(w, d), reps=reps)
+            long = d == REQUESTS_S[-1]
+            req_s = best_s(lambda: gen.generate(w, d), reps=1 if long else 2)
             timing[d] = {"seconds": req_s,
                          "frames_per_s": outs[d][0].shape[0] / req_s,
-                         "stages_s": stage_split(gen, d, reps=reps),
+                         "stages_s": None if long else stage_split(gen, d),
                          "launches": per_request[d]}
         # profiled on the 60 s request only
         timing[d60]["device_busy"] = device_busy(
@@ -2273,6 +2841,9 @@ def main() -> int:
         cli_counts = cli_path(smi, tmp, files)
         secs["cli_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        serve_counts = serve_path(smi, tmp, files)
+        secs["serve_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         tf_counts = tf_part_c_path(smi, tmp, files)
         secs["tf_part_c_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2288,6 +2859,7 @@ def main() -> int:
         k["launches_by_path"] = {
             "exemplar": exemplar_counts[k["name"]],
             "cli": {p: c[k["name"]] for p, c in cli_counts.items()},
+            "serve": {p: c[k["name"]] for p, c in serve_counts.items()},
             "policies": {p: c[k["name"]] for p, c in policy_counts.items()},
             "tf_part_c": {p: c[k["name"]] for p, c in tf_counts.items()},
             "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()}}

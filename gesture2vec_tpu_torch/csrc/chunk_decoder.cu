@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -509,14 +510,21 @@ cudaLaunchConfig_t launch_config(int clusters, size_t smem,
   return cfg;
 }
 
-// the (H, D) prepare() last succeeded for, and the clusters the card holds
+// the (H, D) prepare() last succeeded for, and the clusters the card holds,
+// under prepare_mutex: a server's threads launch concurrently
+std::mutex prepare_mutex;
 int checked_H = -1, checked_D = -1, max_clusters = 0;
 
 // Sets the kernels' attributes (dynamic shared memory, the non-portable
 // cluster size) and reads how many 16-block clusters of this shape the
-// card holds at once (the least over the tile heights); fails if none.
-cudaError_t prepare(int H, int D) {
-  if (H == checked_H && D == checked_D) return cudaSuccess;
+// card holds at once (the least over the tile heights) into *clusters;
+// fails if none.
+cudaError_t prepare(int H, int D, int* clusters) {
+  const std::lock_guard<std::mutex> lock(prepare_mutex);
+  if (H == checked_H && D == checked_D) {
+    *clusters = max_clusters;
+    return cudaSuccess;
+  }
   const size_t smem = smem_bytes(H, D);
   // a warp per unit: U <= 16 (the shared memory already implies it)
   if (smem > kSmemLimit || layout(H, D).U > kThreads / S)
@@ -540,6 +548,7 @@ cudaError_t prepare(int H, int D) {
   checked_H = H;
   checked_D = D;
   max_clusters = least;
+  *clusters = least;
   return cudaSuccess;
 }
 
@@ -562,9 +571,10 @@ extern "C" int g2v_chunk_decode(
     int B, int D, int H, int T, void* stream) {
   if (B <= 0 || D <= 0 || H <= 0 || T <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = prepare(H, D);
+  int mc = 0;
+  cudaError_t e = prepare(H, D, &mc);
   if (e != cudaSuccess) return (int)e;
-  const int R = rows_for(B, max_clusters);
+  const int R = rows_for(B, mc);
   Params P = {x0, h0, w_pre, bn_scale, bn_bias, w_out, b_out,
               {w0_ih, w0_hh, w1_ih, w1_hh}, {b0_ih, b0_hh, b1_ih, b1_hh},
               ys, B, D, H, T, 0};
@@ -573,7 +583,7 @@ extern "C" int g2v_chunk_decode(
   const int tiles = (B + R - 1) / R;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(
-      tiles < max_clusters ? tiles : max_clusters, smem_bytes(H, D),
+      tiles < mc ? tiles : mc, smem_bytes(H, D),
       static_cast<cudaStream_t>(stream), &attr);
   e = cudaLaunchKernelEx(&cfg, kKernels[R - 1], P);
   if (e != cudaSuccess) return (int)e;
@@ -585,8 +595,9 @@ extern "C" int g2v_chunk_decode(
 // shared bytes, tiles, clusters in the grid, clusters the card holds}.
 extern "C" int g2v_chunk_decode_shape(int B, int H, int D, long long* out) {
   if (B <= 0 || H <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = prepare(H, D);
-  const int mc = e == cudaSuccess ? max_clusters : 1;
+  int clusters = 0;
+  const cudaError_t e = prepare(H, D, &clusters);
+  const int mc = e == cudaSuccess ? clusters : 1;
   const int R = rows_for(B, mc), tiles = (B + R - 1) / R;
   out[0] = R;
   out[1] = C;
@@ -594,6 +605,6 @@ extern "C" int g2v_chunk_decode_shape(int B, int H, int D, long long* out) {
   out[3] = (long long)smem_bytes(H, D);
   out[4] = tiles;
   out[5] = tiles < mc ? tiles : mc;
-  out[6] = e == cudaSuccess ? max_clusters : 0;
+  out[6] = e == cudaSuccess ? clusters : 0;
   return (int)e;
 }

@@ -55,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -272,7 +273,9 @@ cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
   return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// the H prepare() last succeeded for
+// the H prepare() last succeeded for, under prepare_mutex: a server's
+// threads launch concurrently
+std::mutex prepare_mutex;
 int checked_H = -1;
 
 }  // namespace
@@ -286,11 +289,14 @@ extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
                                 int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H != checked_H) {
-    int n = 0;
-    const cudaError_t e = prepare(B, H, st, &n);
-    if (e != cudaSuccess) return (int)e;
-    checked_H = H;
+  {
+    const std::lock_guard<std::mutex> lock(prepare_mutex);
+    if (H != checked_H) {
+      int n = 0;
+      const cudaError_t e = prepare(B, H, st, &n);
+      if (e != cudaSuccess) return (int)e;
+      checked_H = H;
+    }
   }
   const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(h0) % 16 == 0;

@@ -209,7 +209,8 @@ class GestureGenerator:
             gumbel=gumbel)
 
     def _predict_windows(self, word_ids: torch.Tensor, lengths: torch.Tensor,
-                         gumbel: Optional[torch.Tensor] = None
+                         gumbel: Optional[torch.Tensor] = None,
+                         seed: Optional[torch.Tensor] = None
                          ) -> Dict[str, torch.Tensor]:
         """word_ids (B, W, S), lengths (B, W) for B transcripts of W
         windows -> "tokens" (B, W * n_steps); with residual stages
@@ -218,15 +219,20 @@ class GestureGenerator:
         "stage_probs" (B, W * n_steps, S-1, K). Every window of every
         transcript is encoded in one batch. window_carry decodes window w
         of all transcripts as one batch, each row with its own mask and
-        carried seed; otherwise all windows decode at once, each with its
-        transcript's batch-max mask or (per_sentence_mask) its own."""
+        carried seed, and gives each row's seed for a next window as
+        "next_seed" (B, n_steps); otherwise all windows decode at once,
+        each with its transcript's batch-max mask or (per_sentence_mask)
+        its own. seed (B, n_steps), the teacher seed of each row's first
+        window (zeros when None), takes the carried decode whatever
+        window_carry says: a streamed window continues its transcript."""
         t2t, n_steps, n_pre = self.t2t_model, self.n_steps, \
             self.t2t_model.n_pre
         B, W, S = word_ids.shape
         enc_outs, dec_hidden = t2t.encode_text(word_ids.reshape(B * W, S),
                                                lengths.reshape(B * W))
         positions = torch.arange(S, device=self.device)
-        if not self.window_carry:
+        next_seed = None
+        if not self.window_carry and seed is None:
             longest = (lengths if t2t.per_sentence_mask else
                        lengths.max(dim=1, keepdim=True).values.expand(B, W))
             mask = positions[None, :] < longest.reshape(B * W, 1)
@@ -240,8 +246,9 @@ class GestureGenerator:
         else:
             eo = enc_outs.reshape(S, B, W, -1)
             dh = dec_hidden.reshape(dec_hidden.shape[0], B, W, -1)
-            seed = torch.zeros((B, n_steps), dtype=torch.long,
-                               device=self.device)
+            if seed is None:
+                seed = torch.zeros((B, n_steps), dtype=torch.long,
+                                   device=self.device)
             per_window = []
             for w in range(W):
                 res = self._decode_windows(
@@ -254,7 +261,10 @@ class GestureGenerator:
                     seed[:, :n_pre] = res["tokens"][:, -n_pre:]
             res = {k: torch.stack([r[k] for r in per_window], dim=1)
                    for k in per_window[0] if k in _PER_WINDOW}
+            next_seed = seed
         out = {"tokens": res["tokens"].reshape(B, -1)}
+        if next_seed is not None:
+            out["next_seed"] = next_seed
         soft = float(self.soft_decode)
         if soft:
             p = torch.softmax(res["logits"] / soft, dim=-1)
@@ -283,9 +293,12 @@ class GestureGenerator:
                                       n_steps=n_steps).transpose(0, 1)
         return self.seq_decoder.rollout(hidden, seed, n_steps=n_steps)
 
-    def _decode_chunks(self, pred: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _decode_chunks(self, pred: Dict[str, torch.Tensor],
+                       prev: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The token prediction of B transcripts of N chunks -> latents
-        (B, N * n_frames, rep_dim)."""
+        (B, N * n_frames, rep_dim). With chunk_continuity, prev (B, rep_dim)
+        seeds each row's first chunk (zeros when None), and the carry for
+        a next call is the last latent frame, latents[:, -1]."""
         seq, Fr = self.seq_decoder, self.n_frames
         B, N = pred["tokens"].shape
 
@@ -297,8 +310,9 @@ class GestureGenerator:
         D = seq.rep_dim
         if self.chunk_continuity:
             hidden = hidden.reshape(hidden.shape[0], B, N, -1)
-            prev = torch.zeros((B, D), dtype=torch.float32,
-                               device=self.device)
+            if prev is None:
+                prev = torch.zeros((B, D), dtype=torch.float32,
+                                   device=self.device)
             chunks = []
             for i in range(N):
                 out = self._rollout(prev, hidden[:, :, i], Fr)

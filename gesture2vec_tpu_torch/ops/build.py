@@ -5,7 +5,9 @@ into a shared library with a plain C interface and loaded with ctypes
 (no PyTorch headers, so a build takes seconds). Libraries go into
 `build/kernels/` at the repo root, named by a hash of the source and the
 flags, so a changed source is rebuilt and an unchanged one is reused.
-Nothing is built or loaded at import time.
+Nothing is built or loaded at import time. `load` and the launch
+counters are safe under threads: a server's handler threads make the
+first kernel calls concurrently.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -26,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -84,10 +89,19 @@ def build_all() -> Dict[str, Tuple[Path, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel source, built on first use."""
-    if name not in _loaded:
-        lib = library_path(name)
-        if not lib.exists():
-            build_all()
-        _loaded[name] = ctypes.CDLL(str(lib))
-    return _loaded[name]
+    """The loaded library of one kernel source, built on first use (once,
+    whatever the number of threads asking)."""
+    with _load_lock:
+        if name not in _loaded:
+            lib = library_path(name)
+            if not lib.exists():
+                build_all()
+            _loaded[name] = ctypes.CDLL(str(lib))
+        return _loaded[name]
+
+
+def count_launch(wrapper) -> None:
+    """Adds one to a kernel wrapper's `launches` count (a read, add and
+    write, so under a lock)."""
+    with _count_lock:
+        wrapper.launches += 1

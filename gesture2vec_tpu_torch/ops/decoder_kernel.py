@@ -25,6 +25,7 @@ import torch
 
 from gesture2vec_tpu_torch.models.gru import gru_cell
 from gesture2vec_tpu_torch.models.seq_ae import DecoderStep
+from gesture2vec_tpu_torch.ops.build import count_launch
 
 # the kernel's launch (csrc/chunk_decoder.cu's C, RM and kThreads): blocks
 # per cluster, most rows in a tile, threads per block
@@ -194,7 +195,7 @@ def _launch(x0: torch.Tensor, h0: torch.Tensor, w: FoldedDecoder,
     if err != 0:
         raise RuntimeError(f"chunk_decoder kernel launch failed: CUDA "
                            f"error {err}")
-    fused_chunk_decode.launches += 1
+    count_launch(fused_chunk_decode)
     return ys
 
 

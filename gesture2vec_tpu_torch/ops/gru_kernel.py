@@ -23,6 +23,8 @@ from typing import Tuple
 
 import torch
 
+from gesture2vec_tpu_torch.ops.build import count_launch
+
 # the kernel's tile (csrc/gru_sequence.cu's R, C and RT): batch rows per
 # cluster, blocks per cluster, rows per thread
 ROWS, CLUSTER, ROWS_PER_THREAD = 20, 4, 4
@@ -116,7 +118,7 @@ def _launch(x_proj, h0, w_hh, b_hh, reverse):
     if err != 0:
         raise RuntimeError(f"gru_sequence kernel launch failed: CUDA "
                            f"error {err}")
-    gru_sequence.launches += 1
+    count_launch(gru_sequence)
     return ys, h_last
 
 

@@ -22,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from gesture2vec_tpu_torch.ops.build import count_launch
+
 
 # the kernel's tiles (csrc/vq_argmin.cu's BN, BK, STAGES, TM x TN): codes
 # per tile, dims per codebook slice, slices in the ring, a thread's rows
@@ -108,7 +110,7 @@ def _launch(x: torch.Tensor, codebook: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"vq_argmin kernel launch failed: CUDA error "
                            f"{err}")
-    vq_argmin.launches += 1
+    count_launch(vq_argmin)
     return idx, dmin
 
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives eight paths of the port, each with every kernel launch counter
+It drives nine paths of the port, each with every kernel launch counter
 set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -12,8 +12,9 @@ JSON line:
            shared-memory / spill lines;
 The decode path (text -> gesture generation):
   kernel   the chunk decoder against its plain PyTorch version on the
-           card, at the path's shapes, with times from CUDA events (20
-           and 40 steps), and its launch shape (16-block clusters, rows per tile) as the
+           card, at the path's shapes (and at the training path's Part-b
+           validation, B=128 over 19 steps), with times from CUDA events
+           (n and 2n steps), and its launch shape (16-block clusters, rows per tile) as the
            kernel reports it, held against the wrapper's mirror;
   main     decode-mode generation at the bench widths (hidden 200,
            2 layers, 512 codes, DAE latent 40, pose 135, 20-frame
@@ -27,8 +28,9 @@ The decode path (text -> gesture generation):
   timing   frames/s of each request and its stages;
 The Part-c path (corpus tokenizer sweep and K-Means):
   kernel   the GRU-sequence kernel (T=20, H=200, B 300 and 512, forward
-           and reverse) and the VQ-argmin kernel (D=400, (N, K) = (300,
-           300), (58,488, 300), (2^20, 512)) against their plain versions,
+           and reverse) and the VQ-argmin kernel (D=400, (N, K) = (128,
+           512) and (5,120, 512) of the training path, (300, 300), (58,488,
+           300), (2^20, 512)) against their plain versions,
            with cuDNN's GRU as the GRU's yardstick, and each launch shape
            as the kernel reports it, held against the wrapper's mirror;
   kernel_edges  the chunk decoder at every edge of its tiles (B 1 to
@@ -139,6 +141,40 @@ configs/VQ-VAE_rvq.yml's 4-stage tokenizer), weights through the bridge:
            CPU at 60 s (tokens identical or a counted near-tie, frames
            within 1e-4), request seconds and stages, idle share at 60 s;
            then exemplar mode at 60 s over Part c's residual-VQ bank;
+Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
+  kernel   the GRU-sequence backward kernel against its plain version and
+           against autograd through the plain forward, at T=20 with B=128
+           and 512, T=48 with B=128 and a ragged B=117 (H=200, both
+           directions; each output's error relative to the reference's
+           largest magnitude), CUDA-event means of 20 launches after 3
+           warm-ups, the bound, and cuDNN's backward of one GRU layer with
+           the same weights (torch.autograd.grad) as its yardstick; the
+           forward of GRUSequenceFn at the same shapes against the plain
+           recurrence;
+  train    a synthetic store 135 wide (4 clips x 13,000 frames, a word
+           every 0.4 s; one 3,000-frame validation clip) and configs
+           written from configs/DAE.yml, VQ-VAE.yml, VQ-VAE_rvq.yml
+           (rvq_reestimate_every 1) and seq2seqtxt.yml (text_encoder tcn,
+           then gru) at their widths, epochs cut to 1 (2 for the residual
+           VQ); one line a run: the command's launches against those its
+           train steps, validation batches, K-Means re-fit and teacher
+           sweeps must make, and its seconds; then, from a separate loop
+           over the command's own arrays on a fresh model, launches per
+           train step and per validation batch, steps/s and samples/s
+           (10 steps in parts b and d), the forward / backward /
+           optimizer split, the device's idle share over a few profiled
+           steps; the first step's loss and each epoch's;
+  check    the command's launches, every kernel launch's shape (each
+           held against the plain version in a kernel phase), finite
+           losses, the last epoch's mean below the first step's,
+           the launches per step (GRU 4 forward and 4 backward in Part b
+           and the GRU encoder's Part d, 4 argmins under residual VQ, no
+           chunk decoder) and >= 1 chunk-decoder launch per Part-b
+           validation batch, one train step per run on the card against
+           the CPU from the same weights (loss and every gradient within
+           1e-4), and each Part-d checkpoint through
+           `cli/_common.build_generator` to finite frames of a 6 s
+           transcript with one chunk-decoder launch;
 then the kernels line (each kernel's launches on its first path, on the
 later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
@@ -177,7 +213,13 @@ KERNEL_BATCHES = (1, 6, 12, 24, 48, 96, 192, 288, 293, 384, 768, 1536, 1824,
 # chunk-decoder batches at the edges of its tiles: a single row, one
 # round of 1-row tiles (the card holds 7 clusters), 2-row tiles, several
 # rounds of 8-row tiles, and every batch the paths send
-DECODER_EDGE_BATCHES = tuple(sorted({7, 8, 9, *KERNEL_BATCHES}))
+DECODER_EDGE_BATCHES = tuple(sorted({7, 8, 9, 128, *KERNEL_BATCHES}))
+# the training path's Part-b validation: batches of 128 rolled out from
+# the seed frame over n_poses - 1 steps (held against the plain version
+# beside KERNEL_BATCHES, which run N_FRAMES steps)
+TRAIN_VAL_DECODE = (128, N_FRAMES - 1)
+DECODER_SHAPES = tuple((B, N_FRAMES) for B in KERNEL_BATCHES) + (
+    TRAIN_VAL_DECODE,)
 # published H100 SXM peaks: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 
@@ -187,7 +229,41 @@ PC_CLIPS, PC_FRAMES, PC_VAL_CLIPS, PC_KMEANS = 24, 12200, 2, 300
 GRU_T, GRU_BATCHES = 20, (300, 512)
 # batches that fill one row of a 20-row cluster, part of one, and many
 GRU_EDGE_BATCHES = (1, 17, 300, 512)
-VQ_D, VQ_SHAPES = 400, ((300, 300), (58488, 300), (1 << 20, 512))
+# the training path: 4 clips of 13,000 frames (43 minutes at 20 fps), which
+# give Part d 2,580 sentence windows (20 full batches of 128), and one
+# 3,000-frame validation clip
+TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_VAL_FRAMES = 4, 13000, 3000
+# (run, part, shipped config, what is cut or set beside the paths): the
+# epochs cut to 1 (Part a: 406 steps) or, for the residual VQ, 2 with the
+# re-fit every epoch so its K-Means runs once; the two text encoders
+TRAIN_RUNS = (
+    ("a", "a", "DAE.yml", {"epochs": 1}),
+    ("b_gssoft", "b", "VQ-VAE.yml", {"epochs": 1}),
+    ("b_rvq", "b", "VQ-VAE_rvq.yml", {"epochs": 2,
+                                      "rvq_reestimate_every": 1}),
+    ("d_tcn", "d", "seq2seqtxt.yml", {"epochs": 1, "text_encoder": "tcn"}),
+    ("d_gru", "d", "seq2seqtxt.yml", {"epochs": 1, "text_encoder": "gru"}))
+# steps timed for steps/s, and steps under torch.profiler for the idle
+# share, per part
+TRAIN_TIMED_STEPS = {"a": 200, "b": 10, "d": 10}
+TRAIN_PROFILED_STEPS = {"a": 50, "b": 1, "d": 3}
+# kernel launches a train step (the others 0): the BiGRUs' 2 layers x 2
+# directions forward and backward, the 4 residual stages' argmins
+TRAIN_STEP_LAUNCHES = {
+    "a": {}, "b_gssoft": {"gru_sequence": 4, "gru_sequence_backward": 4},
+    "b_rvq": {"gru_sequence": 4, "gru_sequence_backward": 4,
+              "vq_argmin": 4},
+    "d_tcn": {}, "d_gru": {"gru_sequence": 4, "gru_sequence_backward": 4}}
+# the GRU backward's (T, B): the tokenizer's steps at the training batch
+# (128) and at 512, the text encoder's word window, and a ragged batch
+GRU_BWD_SHAPES = ((20, 128), (20, 512), (48, 128), (20, 117))
+# the residual VQ's K-Means re-fit in the training path: 10 full batches
+# of 512 of its 5,196 windows
+TRAIN_REFIT_ROWS = 5120
+# (N, K) at D=400: a training batch's residual stages, the re-fit, the
+# Part-c shapes
+VQ_D, VQ_SHAPES = 400, ((128, 512), (300, 300), (TRAIN_REFIT_ROWS, 512),
+                        (58488, 300), (1 << 20, 512))
 # near-ties: kernel and plain may pick different codes only where the
 # plain distances of the two differ by at most NEAR_TIE (GS-Soft: where
 # the plain log-assignments differ by at most GSSOFT_TIE); dmin and the
@@ -416,7 +492,9 @@ def launch_counters() -> dict:
     from gesture2vec_tpu_torch.ops import vq_kernel as vk
 
     return {"chunk_decoder": dk.fused_chunk_decode,
-            "gru_sequence": gk.gru_sequence, "vq_argmin": vk.vq_argmin}
+            "gru_sequence": gk.gru_sequence,
+            "gru_sequence_backward": gk.gru_sequence_backward,
+            "vq_argmin": vk.vq_argmin}
 
 
 def reset_launches() -> None:
@@ -572,34 +650,33 @@ def decode_path(smi: str) -> dict:
     # -- kernel vs plain ----------------------------------------------
     g = torch.Generator(device="cuda").manual_seed(0)
     kernel_rows = {}
-    for B in KERNEL_BATCHES:
+    for B, n in DECODER_SHAPES:
         x0 = torch.randn(B, REP, device="cuda", generator=g)
         h0 = torch.randn(2, B, HID, device="cuda", generator=g)
-        ys = dk.fused_chunk_decode(x0, h0, folded, N_FRAMES)
-        ref = dk.fused_chunk_decode_plain(x0, h0, folded, N_FRAMES)
+        ys = dk.fused_chunk_decode(x0, h0, folded, n)
+        ref = dk.fused_chunk_decode_plain(x0, h0, folded, n)
         torch.cuda.synchronize()
         err = (ys - ref).abs().max().item()
-        ms = cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
-                                                   N_FRAMES), 20)
+        ms = cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded, n), 20)
         plain_ms = cuda_ms(lambda: dk.fused_chunk_decode_plain(
-            x0, h0, folded, N_FRAMES), 10)
-        # twice the steps: the difference is 20 steps without the
+            x0, h0, folded, n), 10)
+        # twice the steps: the difference is n steps without the
         # weights' staging and the launch
-        ms_40 = cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
-                                                      2 * N_FRAMES), 20)
+        ms_2n = cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
+                                                      2 * n), 20)
         row = {"phase": "kernel", "kernel": "chunk_decoder", "B": B,
-               "H": HID, "D": REP, "n_steps": N_FRAMES,
+               "H": HID, "D": REP, "n_steps": n,
                "launch": decoder_launch(B, HID, REP),
                "max_abs_err": err, "tol": TOL, "ms": ms,
-               "ms_40_steps": ms_40,
-               "us_per_step": (ms_40 - ms) / N_FRAMES * 1e3,
+               "ms_twice_the_steps": ms_2n,
+               "us_per_step": (ms_2n - ms) / n * 1e3,
                "plain_ms": plain_ms,
-               **chunk_decoder_bound_ms(B, REP, HID, N_FRAMES)}
+               **chunk_decoder_bound_ms(B, REP, HID, n)}
         emit(row)
-        kernel_rows[B] = row
+        kernel_rows[B, n] = row
         if not np.isfinite(err) or err > TOL:
-            raise AssertionError(f"chunk_decoder B={B}: max abs error "
-                                 f"{err} > {TOL}")
+            raise AssertionError(f"chunk_decoder B={B}, {n} steps: max "
+                                 f"abs error {err} > {TOL}")
 
     # -- main path ----------------------------------------------------
     reset_launches()
@@ -659,10 +736,10 @@ def decode_path(smi: str) -> dict:
                                          fused_s),
               "card": smi})
 
-    k = kernel_rows[KERNEL_BATCHES[-1]]
-    by_batch = {B: {key: kernel_rows[B][key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by")}
-        for B in (6, 288, 1824, 3072)}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    k = kernel_rows[KERNEL_BATCHES[-1], N_FRAMES]
+    by_batch = {B: {key: kernel_rows[B, N_FRAMES][key] for key in keys}
+                for B in (6, 288, 1824, 3072)}
     return {"name": "chunk_decoder", "route": "cuda",
             "source": "gesture2vec_tpu_torch/csrc/chunk_decoder.cu",
             "replaces": "gesture2vec_tpu/ops/decoder_pallas.py:144",
@@ -671,6 +748,9 @@ def decode_path(smi: str) -> dict:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "B": k["B"], "by_batch": by_batch,
+            "train_validation": {"B": TRAIN_VAL_DECODE[0],
+                                 "n_steps": TRAIN_VAL_DECODE[1], **{
+                key: kernel_rows[TRAIN_VAL_DECODE][key] for key in keys}},
             "launch": k["launch"]}
 
 
@@ -817,6 +897,134 @@ def gru_kernel_rows(w_ih, w_hh, b_ih, b_hh) -> list:
                     raise AssertionError(f"gru_sequence B={B} reverse="
                                          f"{reverse}: max abs error {err}")
     return rows
+
+
+def gru_backward_bound_ms(T: int, B: int, H: int) -> dict:
+    """The recomputed gh and dgh @ w_hh, 4*T*B*H*3H; x_proj, h0, w_hh,
+    b_hh, ys, dys and dh_last in, d x_proj, dgh and d h0 out."""
+    return bound(4.0 * T * B * H * 3 * H,
+                 4.0 * (3 * T * B * 3 * H + 2 * B * H + 3 * H * H + 3 * H
+                        + 2 * T * B * H + B * H))
+
+
+def rel_err(got, ref) -> float:
+    """Largest difference relative to the reference's largest magnitude."""
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(),
+                                                1e-30)
+
+
+def gru_backward_rows() -> list:
+    """The GRU-sequence backward kernel against its plain version and
+    against autograd through the plain forward, at the training path's
+    shapes (T=20 at B=128 and 512, T=48 at B=128, and a ragged B=117,
+    H=200, both directions), with cuDNN's backward of one GRU layer with
+    the same weights (torch.autograd.grad) as its yardstick."""
+    import torch
+
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    H = HID
+    bnd = 1.0 / H ** 0.5
+    w_ih, w_hh = ((torch.rand(3 * H, H, device="cuda", generator=g) * 2 - 1)
+                  * bnd for _ in range(2))
+    b_ih, b_hh = ((torch.rand(3 * H, device="cuda", generator=g) * 2 - 1)
+                  * bnd for _ in range(2))
+    cudnn = torch.nn.GRU(H, H, 1).cuda()
+    with torch.no_grad():
+        for p, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                     (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            p.copy_(v)
+    rows = []
+    for T, B in GRU_BWD_SHAPES:
+        xs = torch.randn(T, B, H, device="cuda", generator=g)
+        h0 = 0.5 * torch.randn(B, H, device="cuda", generator=g)
+        x_proj = (xs.reshape(-1, H) @ w_ih.t() + b_ih).reshape(T, B, -1)
+        dys = torch.randn(T, B, H, device="cuda", generator=g)
+        dhl = torch.randn(B, H, device="cuda", generator=g)
+        for reverse in (False, True):
+            with torch.no_grad():
+                ys, _ = gk.gru_sequence(x_proj, h0, w_hh, b_hh, reverse)
+            args = (x_proj, h0, w_hh, b_hh, ys, dys, dhl, reverse)
+            got = gk.gru_sequence_backward(*args)
+            ref = gk.gru_sequence_backward_plain(*args)
+            # the Function's gradients against autograd of the plain loop
+            leaves = [t.clone().requires_grad_() for t in (x_proj, h0, w_hh,
+                                                           b_hh)]
+            ys_f, h_f = gk.GRUSequenceFn.apply(*leaves, reverse)
+            fn_grads = torch.autograd.grad((ys_f, h_f), leaves, (dys, dhl))
+            ys_p, h_p = gk.gru_sequence_plain(*leaves, reverse)
+            auto = torch.autograd.grad((ys_p, h_p), leaves, (dys, dhl))
+            torch.cuda.synchronize()
+            # the Function's forward (the forward kernel at the training
+            # shapes) against the plain recurrence, and the gradients
+            errs = {"ys": rel_err(ys_f, ys_p), "h_last": rel_err(h_f, h_p),
+                    "dx_proj": rel_err(got[0], ref[0]),
+                    "dgh": rel_err(got[1], ref[1]),
+                    "dh0": rel_err(got[2], ref[2])}
+            auto_errs = {n: rel_err(a, b) for n, a, b in zip(
+                ("dx_proj", "dh0", "dw_hh", "db_hh"), fn_grads, auto)}
+            row = {"phase": "kernel", "kernel": "gru_sequence_backward",
+                   "T": T, "B": B, "H": H, "reverse": reverse,
+                   "launch": gru_backward_launch(B, H),
+                   "rel_err_vs_plain": errs,
+                   "rel_err_vs_autograd": auto_errs,
+                   "max_abs_err": max((a - b).abs().max().item()
+                                      for a, b in zip(got, ref)),
+                   "tol": TOL,
+                   "ms": cuda_ms(lambda: gk.gru_sequence_backward(*args),
+                                 20),
+                   "plain_ms": cuda_ms(
+                       lambda: gk.gru_sequence_backward_plain(*args), 5),
+                   **gru_backward_bound_ms(T, B, H)}
+            if not reverse:
+                # the Function's whole backward (kernel + dW_hh, db_hh)
+                # and cuDNN's backward of one layer on the same weights
+                ys_f, h_f = gk.GRUSequenceFn.apply(*leaves, reverse)
+                row["function_backward_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(
+                        (ys_f, h_f), leaves, (dys, dhl), retain_graph=True),
+                    20)
+                xs_l = xs.clone().requires_grad_()
+                h0_l = h0[None].clone().requires_grad_()
+                y_c, h_c = cudnn(xs_l, h0_l)
+                params = [xs_l, h0_l, *cudnn.parameters()]
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(
+                        (y_c, h_c), params, (dys, dhl[None]),
+                        retain_graph=True), 20)
+            emit(row)
+            rows.append(row)
+            worst = max(*errs.values(), *auto_errs.values())
+            if not np.isfinite(worst) or worst > TOL:
+                raise AssertionError(f"gru_sequence_backward T={T} B={B} "
+                                     f"reverse={reverse}: {errs} "
+                                     f"{auto_errs}")
+    return rows
+
+
+def gru_backward_launch(B: int, H: int) -> dict:
+    """The backward kernel's launch shape as the kernel reports it
+    (g2v_gru_sequence_backward_shape), held against the wrapper's
+    mirror."""
+    import ctypes
+
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops.build import load
+
+    fn = load("gru_sequence_backward").g2v_gru_sequence_backward_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_longlong * 6)()
+    rc = fn(B, H, out)
+    got = dict(zip(("rows", "cluster", "threads", "smem_bytes", "clusters",
+                    "max_active_clusters"), list(out)))
+    want = gk.backward_launch_shape(
+        B, H, max_clusters=max(got["max_active_clusters"], 1))
+    if rc or any(want[k] != got[k] for k in got if k in want):
+        raise AssertionError(f"GRU backward launch shape: kernel {got} "
+                             f"(rc {rc}), wrapper {want}")
+    return {**want, "max_active_clusters": got["max_active_clusters"]}
 
 
 def near_ties(d: "torch.Tensor", a: "torch.Tensor", b: "torch.Tensor"):
@@ -1269,7 +1477,11 @@ def part_c_path(smi: str, tmp: str) -> tuple:
         {**entry("vq_argmin", vq_rows, v_main, cli_counts["vq_argmin"],
                  None),
          "replaces": "gesture2vec_tpu/ops/vq_pallas.py:54", "N": 58488,
-         "K": PC_KMEANS, "launch": v_main["launch"]}]
+         "K": PC_KMEANS, "launch": v_main["launch"],
+         # the training path's shapes: a residual-VQ batch, the re-fit
+         "train_shapes": {f"N{r['N']}_K{r['K']}": {key: r[key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by")}
+             for r in vq_rows if r["N"] in (128, TRAIN_REFIT_ROWS)}}]
 
 
 # -- exemplar mode and the decode policies --------------------------------
@@ -1694,7 +1906,8 @@ def cli_path(smi: str, tmp: str, files: dict) -> dict:
               "frames": [r[0].shape[0] for r in res],
               "bvh_bytes": [os.path.getsize(r[2]) for r in res],
               "seconds": secs, "card": smi})
-        if c != {"chunk_decoder": want, "gru_sequence": 0, "vq_argmin": 0}:
+        if c != {"chunk_decoder": want, "gru_sequence": 0,
+                 "gru_sequence_backward": 0, "vq_argmin": 0}:
             raise AssertionError(f"cli {name} launches {c}, want "
                                  f"chunk_decoder {want}")
         if want and not set(batches) <= set(KERNEL_BATCHES):
@@ -2429,6 +2642,7 @@ def policies_path(smi: str) -> tuple:
         want = {d: {"chunk_decoder": len(outs[d][1])
                     if options.get("chunk_continuity") else 1,
                     "gru_sequence": 4 if variant == "gru" else 0,
+                    "gru_sequence_backward": 0,
                     "vq_argmin": 0} for d in POLICY_REQUESTS_S}
         for d, (frames, toks) in outs.items():
             n_windows = int(np.ceil(d / (SENT_LEN / FPS)))
@@ -2570,7 +2784,8 @@ def recipe_path(smi: str, bank: dict) -> dict:
             per_request[d] = {k: v - before[k]
                               for k, v in read_launches().items()}
         launches[name] = read_launches()
-        want = {d: {"chunk_decoder": 1, "gru_sequence": 0, "vq_argmin": 0}
+        want = {d: {"chunk_decoder": 1, "gru_sequence": 0,
+                    "gru_sequence_backward": 0, "vq_argmin": 0}
                 for d in REQUESTS_S}
         for d, (frames, toks) in outs.items():
             n_windows = int(np.ceil(d / unit))
@@ -2668,6 +2883,459 @@ def tf_tokenizer_trees(rng: np.random.Generator):
             ({**rvq, "encoder": encoder()}, rvq_stats))
 
 
+# -- training: g2v-train parts a, b and d ---------------------------------
+def write_train_store(root: str, rng: np.random.Generator) -> list:
+    """The training stores: smooth synthetic motion (sinusoids plus noise)
+    135 wide with a word every 0.4 s (150 a minute)."""
+    from gesture2vec_tpu_torch.data.store import ClipStoreWriter
+
+    paths = []
+    for name, n_clips, n_frames in (("train", TRAIN_CLIPS, TRAIN_FRAMES),
+                                    ("val", 1, TRAIN_VAL_FRAMES)):
+        w = ClipStoreWriter(os.path.join(root, name))
+        clips = []
+        for i in range(n_clips):
+            t = np.arange(n_frames)[:, None] / FPS
+            poses = (np.sin(t * rng.uniform(0.3, 2.0, DIM)
+                            + rng.uniform(0, 2 * np.pi, DIM))
+                     + 0.1 * rng.normal(size=(n_frames, DIM))
+                     ).astype(np.float32)
+            starts = np.arange(0.1, n_frames / FPS - 0.5, 0.4)
+            w.add_clip(f"{name}{i}", poses, [
+                [f"word{rng.integers(VOCAB_WORDS)}", float(s), float(s + 0.3)]
+                for s in starts])
+            clips.append(poses)
+        frames = np.concatenate(clips)
+        w.set_stats(frames.mean(0), frames.std(0))
+        w.set_meta(fps=FPS, feature_dim=DIM)
+        w.finish()
+        paths.append(w.root)
+    return paths
+
+
+def write_train_config(path: str, shipped: str, overrides: dict) -> dict:
+    """A shipped config (its widths as they are) with the paths and the
+    cuts of TRAIN_RUNS, as a YAML file."""
+    from gesture2vec_tpu_torch.train.config import parse_yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", shipped)) as f:
+        cfg = parse_yaml(f.read())
+    cfg.update(overrides)
+    with open(path, "w") as f:
+        for k, v in cfg.items():
+            v = json.dumps(v) if isinstance(v, str) else (
+                str(v).lower() if isinstance(v, bool) else v)
+            f.write(f"{k}: {v}\n")
+    return cfg
+
+
+def train_step_of(part: str, cfg, model, opt):
+    """The trainer's own step object for a part."""
+    from gesture2vec_tpu_torch.train import dae_trainer as dt
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train import text2token_trainer as tt
+
+    if part == "a":
+        return dt.TrainStep(model, opt)
+    if part == "b":
+        return st.TrainStep(cfg, model, opt)
+    return tt.TrainStep(model, opt, cfg.label_smoothing)
+
+
+def fresh_model(part: str, cfg, n_words: int, device: str):
+    """A part's model as its trainer builds and initialises it."""
+    import torch
+
+    from gesture2vec_tpu_torch.train import dae_trainer as dt
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train import text2token_trainer as tt
+
+    dev = torch.device(device)
+    if part == "a":
+        return dt.init_model(dt.make_frame_model(cfg), 0, dev)
+    if part == "b":
+        return dt.init_model(st.make_seq_ae(cfg), 0, dev)
+    return tt.init_text2token(tt.make_text2token(cfg, n_words), 0, dev)
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Counts every kernel launch made inside by its shape: chunk_decoder
+    (B, steps), gru_sequence and its backward (T, B, H), vq_argmin (N, K,
+    D). It wraps the wrappers' private launch functions, so the wrappers'
+    own launch counts stay as they are."""
+    import collections
+
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    def gru_key(x_proj, *_):
+        return (*x_proj.shape[:2], x_proj.shape[2] // 3)
+
+    shapes = {name: collections.Counter() for name in launch_counters()}
+    hooks = ((dk, "_launch", "chunk_decoder",
+              lambda x0, h0, w, n: (x0.shape[0], n)),
+             (gk, "_launch", "gru_sequence", gru_key),
+             (gk, "_launch_backward", "gru_sequence_backward", gru_key),
+             (vk, "_launch", "vq_argmin",
+              lambda x, cb: (x.shape[0], cb.shape[0], x.shape[1])))
+    saved = []
+    for mod, attr, name, key in hooks:
+        def recording(*args, _fn=getattr(mod, attr), _name=name, _key=key):
+            shapes[_name][tuple(int(v) for v in _key(*args))] += 1
+            return _fn(*args)
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, recording)
+    try:
+        yield shapes
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def compared_shapes() -> dict:
+    """Each kernel's shapes that the kernel phases hold against its plain
+    version, keyed as kernel_shapes counts them."""
+    gru = {(GRU_T, B, H) for B in (*GRU_BATCHES, *GRU_EDGE_BATCHES)
+           for H in (HID, HID + 1)}
+    gru |= {(MAXW, B, HID) for B in GRU_T48_BATCHES}
+    bwd = {(T, B, HID) for T, B in GRU_BWD_SHAPES}
+    return {"chunk_decoder": set(DECODER_SHAPES), "gru_sequence": gru | bwd,
+            "gru_sequence_backward": bwd,
+            "vq_argmin": {(N, Kc, VQ_D) for N, Kc in VQ_SHAPES}}
+
+
+def train_want_launches(part: str, run: str, cfg, n: int, m: int,
+                        lloyd_steps: list) -> dict:
+    """The launches a `cli/train` command must make, from its n train and
+    m validation samples (full batches only) over its epochs: Part b's
+    BiGRU 4 forward a train step and a validation batch and 4 backward a
+    train step, one chunk_decoder a validation batch, the residual VQ's 4
+    argmins a step and a batch; a re-fit runs the BiGRU's layer 0 (2
+    launches) per 512 windows and, per stage, a Lloyd fit (its steps + 1
+    argmins) and the residual's argmin. Part d's data runs the GS-Soft
+    tokenizer's layer 0 (2) per 512 chunks of train and validation
+    windows; its GRU encoder launches as Part b's BiGRU does."""
+    bs, epochs = cfg.batch_size, cfg.epochs
+    steps, val = n // bs, m // bs
+    want = {name: 0 for name in launch_counters()}
+    recurrent = part == "b" or cfg.extras.get("text_encoder") == "gru"
+    if recurrent:
+        want["gru_sequence"] = 4 * (steps + val) * epochs
+        want["gru_sequence_backward"] = 4 * steps * epochs
+    if part == "b":
+        want["chunk_decoder"] = val * epochs
+    if run == "b_rvq":
+        every = cfg.rvq_reestimate_every
+        refits = sum(1 for e in range(1, epochs) if e % every == 0)
+        want["gru_sequence"] += 2 * (min(n, 20000) // 512) * refits
+        want["vq_argmin"] = 4 * (steps + val) * epochs + sum(
+            s + 2 for s in lloyd_steps)
+    if part == "d":
+        chunks = cfg.sentence_frame_length // cfg.n_poses
+        want["gru_sequence"] += 2 * (-(-chunks * n // 512)
+                                     - (-chunks * m // 512))
+    return want
+
+
+def train_measure(run: str, part: str, cfg, arrays, val_arrays,
+                  n_words: int) -> dict:
+    """The trainer's steps (its first epoch's batches) on a fresh model:
+    launches per step and per validation batch, steps/s and samples/s over
+    TRAIN_TIMED_STEPS steps, the forward / backward / optimizer split over
+    5 steps, and the device's idle share over TRAIN_PROFILED_STEPS steps
+    (torch.profiler, whose post-processing grows with the device ops it
+    records: a Part-b step launches ~7,800)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.layers import dropout_generator
+    from gesture2vec_tpu_torch.train import dae_trainer as dt
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train import text2token_trainer as tt
+    from gesture2vec_tpu_torch.train.optim import Adam
+    from gesture2vec_tpu_torch.train.token_loop import to_device
+
+    model = fresh_model(part, cfg, n_words, "cuda").train()
+    opt = Adam(model.parameters(), cfg.learning_rate)
+    step = train_step_of(part, cfg, model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bs = cfg.batch_size
+    n = arrays[0].shape[0]
+    perm = np.random.default_rng(0).permutation(n)
+    n_timed, n_prof = TRAIN_TIMED_STEPS[part], TRAIN_PROFILED_STEPS[part]
+    batches = [tuple(to_device(a[perm[b * bs:(b + 1) * bs]], "cuda")
+                     for a in arrays)
+               for b in range(min(n // bs, n_timed + n_prof + 6))]
+
+    def run_steps(bb):
+        for batch in bb:
+            with dropout_generator(gen):
+                step(*batch)
+
+    reset_launches()
+    run_steps(batches[:1])
+    torch.cuda.synchronize()
+    per_step = read_launches()
+    model.eval()
+    reset_launches()
+    vb = tuple(to_device(a[:bs], "cuda") for a in val_arrays)
+    if part == "a":
+        dt.eval_step(model, *vb)
+    elif part == "b":
+        st.eval_step(cfg, model, *vb)
+    else:
+        tt.make_eval_step(model)(*vb)
+    torch.cuda.synchronize()
+    per_val = read_launches()
+    model.train()
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for batch in batches[1:6]:
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dropout_generator(gen):
+            loss = step.loss(*batch)
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt_s in (("forward_ms", t1 - t0), ("backward_ms", t2 - t1),
+                          ("optimizer_ms", t3 - t2)):
+            split[key] += dt_s * 1e3 / 5
+    timed = batches[6:6 + n_timed]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = batches[6 + n_timed:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(prof)
+    torch.cuda.synchronize()
+    busy = device_busy(lambda: run_steps(prof), time.perf_counter() - t0)
+    return {"steps_per_epoch": n // bs, "batch": bs,
+            "launches_per_step": per_step,
+            "launches_per_val_batch": per_val,
+            "timed_steps": len(timed), "steps_per_s": len(timed) / wall,
+            "samples_per_s": len(timed) * bs / wall, "split_ms": split,
+            "profiled_steps": len(prof), **busy}
+
+
+def train_card_vs_cpu(part: str, cfg, arrays, n_words: int) -> dict:
+    """One train step from the same initial weights and batch on the card
+    and on the CPU, every dropout off: the loss (relative) and each
+    gradient against the CPU's largest magnitude of that tensor (the
+    tensors that the decoder's batch-statistics BatchNorm cancels against
+    the largest gradient of the model: their gradient is rounding)."""
+    import copy
+
+    import torch
+
+    from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.train.optim import Adam
+    from gesture2vec_tpu_torch.train.token_loop import to_device
+
+    cpu = fresh_model(part, cfg, n_words, "cpu").train()
+    card = copy.deepcopy(cpu).cuda().train()
+    batch = [a[:cfg.batch_size] for a in arrays]
+    losses, grads = [], []
+    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+        step = train_step_of(part, cfg, m, Adam(m.parameters(), 1e-3))
+        loss = step.loss(*(to_device(a, dev) for a in batch))
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss.backward()
+        losses.append(float(loss))
+        grads.append({path: (p.grad if p.grad is not None
+                             else torch.zeros_like(p)).detach().cpu()
+                      for path, p, _, _ in param_entries(m)})
+    top = max(float(g.abs().max()) for g in grads[0].values())
+    worst, where = 0.0, ""
+    for path, g in grads[0].items():
+        scale = top if path[-2:] == ("pre_linear", "bias") or path == (
+            "encoder", "decoder", "bias") else float(g.abs().max())
+        err = float((grads[1][path] - g).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, where = err, "/".join(path)
+    return {"loss_cpu": losses[0], "loss_card": losses[1],
+            "loss_rel_err": abs(losses[1] - losses[0]) / abs(losses[0]),
+            "grad_rel_err": worst, "grad_worst": where}
+
+
+def train_path(smi: str, tmp: str) -> tuple:
+    """`cli/train.main()` for part a, part b (GS-Soft, then residual VQ)
+    and part d (TCN, then GRU encoder) at the shipped configs' widths,
+    each run's launches, speed and losses; then the checks."""
+    import glob
+
+    import torch
+
+    from gesture2vec_tpu_torch.cli import train as cli_train
+    from gesture2vec_tpu_torch.cli._common import build_generator
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+
+    bwd_rows = gru_backward_rows()
+    root = os.path.join(tmp, "training")
+    stores = write_train_store(root, np.random.default_rng(9))
+    ckpts, runs, counts = {}, {}, {}
+    # the command's own data (cli/train.build_arrays) and the re-fit's
+    # Lloyd steps, recorded as the command runs
+    build, built = cli_train.build_arrays, {}
+    lloyd, lloyd_steps = st.lloyd, []
+
+    def recording_build(*args):
+        built["out"] = build(*args)
+        return built["out"]
+
+    def recording_lloyd(*args, **kw):
+        out = lloyd(*args, **kw)
+        lloyd_steps.append(out[3])
+        return out
+
+    with kernel_shapes() as shapes:
+        for run, part, shipped, cuts in TRAIN_RUNS:
+            cfg_path = os.path.join(root, f"{run}.yml")
+            save = os.path.join(root, "out", run)
+            write_train_config(cfg_path, shipped, {
+                "train_data_path": stores[0], "val_data_path": stores[1],
+                "model_save_path": save, **cuts})
+            argv = ["-c", cfg_path, "--part", part, "--save-dir", save]
+            if part in "bd":
+                argv += ["--rep-checkpoint", ckpts["a"]]
+            if part == "d":
+                argv += ["--autoencoder-checkpoint", ckpts["b_gssoft"]]
+            lloyd_steps.clear()
+            cli_train.build_arrays, st.lloyd = recording_build, \
+                recording_lloyd
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                _, hist = cli_train.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                cli_train.build_arrays, st.lloyd = build, lloyd
+            wall = time.perf_counter() - t0
+            counts[run] = read_launches()
+            ckpts[run] = sorted(glob.glob(os.path.join(save, "*.bin")))[-1]
+            cfg, (train, val), kw = built.pop("out")
+            if part == "d":
+                fields = ("word_ids", "lengths", "tokens") + (
+                    ("stage_tokens",) if cfg.token_stages > 1 else ())
+                train, val = (tuple(d[f] for f in fields)
+                              for d in (train, val))
+            else:
+                train, val = (train,), (val,)
+            n_words = kw.get("n_words", 0)
+            row = {"phase": "train", "run": run, "part": part,
+                   "config": f"configs/{shipped}", "cuts": cuts,
+                   "cli_s": wall, "launches": counts[run],
+                   "want_launches": train_want_launches(
+                       part, run, cfg, train[0].shape[0], val[0].shape[0],
+                       lloyd_steps),
+                   "lloyd_steps": list(lloyd_steps),
+                   "train_samples": int(train[0].shape[0]),
+                   "val_samples": int(val[0].shape[0]),
+                   "first_step_loss": hist["first_step_loss"][0],
+                   "epoch_loss": hist["train_loss"],
+                   "val_loss": hist["val_loss"],
+                   # steps/s, the split and the idle share: a separate
+                   # loop over the first epoch's batches on a fresh model
+                   **train_measure(run, part, cfg, train, val, n_words),
+                   "card_vs_cpu": train_card_vs_cpu(part, cfg, train,
+                                                    n_words)}
+            emit(row)
+            runs[run] = row
+
+        # -- check ---------------------------------------------------------
+        problems = []
+        for run, row in runs.items():
+            if row["launches"] != row["want_launches"]:
+                problems.append(f"{run}: the command launched "
+                                f"{row['launches']}, want "
+                                f"{row['want_launches']}")
+            want = {name: 0 for name in launch_counters()}
+            want.update(TRAIN_STEP_LAUNCHES[run])
+            if row["launches_per_step"] != want:
+                problems.append(f"{run}: launches per step "
+                                f"{row['launches_per_step']}, want {want}")
+            if row["part"] == "b" and row["launches_per_val_batch"][
+                    "chunk_decoder"] < 1:
+                problems.append(f"{run}: validation launched no "
+                                f"chunk_decoder")
+            losses = [row["first_step_loss"], *row["epoch_loss"],
+                      *row["val_loss"]]
+            if not all(np.isfinite(losses)) or not \
+                    row["epoch_loss"][-1] < row["first_step_loss"]:
+                problems.append(f"{run}: losses {losses}")
+            cvc = row["card_vs_cpu"]
+            if not cvc["loss_rel_err"] <= TOL or \
+                    not cvc["grad_rel_err"] <= TOL:
+                problems.append(f"{run}: card vs CPU {cvc}")
+        gens = {}
+        for run in ("d_tcn", "d_gru"):
+            gen, _ = build_generator(ckpts[run], ckpts["a"],
+                                     ckpts["b_gssoft"], ClipStore(stores[0]),
+                                     mode="decode")
+            reset_launches()
+            frames, tokens = gen.generate(words(6.0), 6.0)
+            torch.cuda.synchronize()
+            got = read_launches()
+            gens[run] = {"frames": list(frames.shape),
+                         "finite": bool(np.isfinite(frames).all()),
+                         "launches": got}
+            if frames.shape != (int(6.0 * FPS), DIM) or not \
+                    gens[run]["finite"] or got["chunk_decoder"] != 1:
+                problems.append(f"{run}: generator {gens[run]}")
+    # every shape the path gave a kernel, held against its plain version
+    # in a kernel phase
+    compared = compared_shapes()
+    seen = {name: sorted(c.items()) for name, c in shapes.items()}
+    for name, counter in shapes.items():
+        missing = sorted(set(counter) - compared[name])
+        if missing:
+            problems.append(f"{name}: shapes {missing} not compared with "
+                            f"the plain version")
+    emit({"phase": "check", "path": "train", "generators": gens,
+          "card_vs_cpu": {r: row["card_vs_cpu"] for r, row in runs.items()},
+          "kernel_shapes": {name: [[list(k), v] for k, v in c]
+                            for name, c in seen.items()},
+          "tol": TOL, "problems": problems})
+    if problems:
+        raise AssertionError(f"train check failed: {problems}")
+    main_row = next(r for r in bwd_rows if r["T"] == 20 and r["B"] == 128
+                    and not r["reverse"])
+    entry = {"name": "gru_sequence_backward", "route": "cuda",
+             "source": "gesture2vec_tpu_torch/csrc/gru_sequence_backward.cu",
+             "replaces": "gesture2vec_tpu/ops/gru_pallas.py:60",
+             "replaces_note": "its gradient: the JAX package has no "
+                              "Pallas backward and differentiates the "
+                              "lax.scan",
+             "launches": sum(c["gru_sequence_backward"]
+                             for c in counts.values()),
+             "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+             "max_rel_err": max(max(*r["rel_err_vs_plain"].values(),
+                                    *r["rel_err_vs_autograd"].values())
+                                for r in bwd_rows),
+             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+             "bound_ms": main_row["bound_ms"],
+             "bound_by": main_row["bound_by"],
+             "library_ms": main_row["library_ms"],
+             "by_shape": {f"T{r['T']}_B{r['B']}": {k: r.get(k) for k in (
+                 "ms", "plain_ms", "bound_ms", "library_ms",
+                 "function_backward_ms")}
+                 for r in bwd_rows if not r["reverse"]}}
+    return entry, counts
+
+
 def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
     """The Part-c sweep with `seq_arch: transformer` tokenizers written as
     the JAX package's checkpoints: the GS-Soft sweep over the 244-minute
@@ -2723,10 +3391,12 @@ def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
     counts["kmeans"] = read_launches()
     n = {v: data[v]["tokens"].shape[0] for v in data}
     want = {"gssoft": {"chunk_decoder": 0, "gru_sequence": 0,
-                       "vq_argmin": 0},
+                       "gru_sequence_backward": 0, "vq_argmin": 0},
             "rvq": {"chunk_decoder": 0, "gru_sequence": 0,
+                    "gru_sequence_backward": 0,
                     "vq_argmin": stages * math.ceil(n["rvq"] / 512)},
             "kmeans": {"chunk_decoder": 0, "gru_sequence": 0,
+                       "gru_sequence_backward": 0,
                        "vq_argmin": sum(fit.n_iter) + len(fit.n_iter)}}
     distinct = {"gssoft": int(len(np.unique(data["gssoft"]["tokens"]))),
                 "rvq": [int(len(np.unique(data["rvq"]["tokens"][:, s])))
@@ -2852,17 +3522,24 @@ def main() -> int:
     t0 = time.perf_counter()
     recipe_counts = recipe_path(smi, files["rvq_bank"])
     secs["recipe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_entry, train_counts = train_path(smi, tmp)
+    kernels.append(train_entry)
+    secs["train_s"] = time.perf_counter() - t0
     emit({"phase": "paths", **secs})
     for k in kernels:
-        # launches: the kernel's first path (decode or Part c); the later
-        # paths' counts beside it, and its times at the new shapes
+        # launches: the kernel's first path (decode, Part c or, for the
+        # GRU backward, training); the later paths' counts beside it, and
+        # its times at the new shapes
         k["launches_by_path"] = {
             "exemplar": exemplar_counts[k["name"]],
             "cli": {p: c[k["name"]] for p, c in cli_counts.items()},
             "serve": {p: c[k["name"]] for p, c in serve_counts.items()},
             "policies": {p: c[k["name"]] for p, c in policy_counts.items()},
             "tf_part_c": {p: c[k["name"]] for p, c in tf_counts.items()},
-            "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()}}
+            "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()},
+            "train": {p: c[k["name"]] for p, c in train_counts.items()}}
         shapes = policy_rows.get(k["name"], {})
         if shapes:
             k["max_abs_err"] = max(k["max_abs_err"], *(

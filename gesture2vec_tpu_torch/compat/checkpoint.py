@@ -37,7 +37,8 @@ from gesture2vec_tpu_torch.compat.from_jax import (
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
 
-_LATER = "not ported yet ({} of the PyTorch port)"
+# the queue item that ports each refused option
+_LATER = "not ported yet (ROADMAP.md queue A item {})"
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
@@ -56,7 +57,7 @@ def dae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     if cfg.get("autoencoder_vq", False) or cfg.get("autoencoder_vae", False):
         raise NotImplementedError(
             "VQFrame / VAEFrame Part-a models are "
-            + _LATER.format("the training slice"))
+            + _LATER.format("3.3"))
     return dae_from_jax({"params": payload["params"]},
                         motion_dim=int(cfg["input_motion_dim"]),
                         latent_dim=int(cfg["hidden_size"]))
@@ -66,14 +67,14 @@ def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     cfg = payload["config"]
     if cfg.get("use_derivative", False):
         raise NotImplementedError(
-            "use_derivative is " + _LATER.format("the training slice"))
+            "use_derivative is " + _LATER.format("3.4"))
     if cfg.get("autoencoder_vae", False):
         raise NotImplementedError(
-            "autoencoder_vae is " + _LATER.format("the training slice"))
+            "autoencoder_vae is " + _LATER.format("3.4"))
     if cfg.get("autoencoder_att", False):
         raise NotImplementedError(
             "autoencoder_att (decoder attention) is "
-            + _LATER.format("the reconstruction slice"))
+            + _LATER.format("6, reconstruction"))
     if not cfg.get("autoencoder_vq", False):
         raise ValueError("the checkpoint has no quantizer "
                          "(autoencoder_vq is false): it gives no tokens")

@@ -7,8 +7,8 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
   GRU l{n}_w_ih / w_hh / b_ih / b_hh -> copied, already torch layout
   pre_bn scale/bias + batch_stats    -> BatchNorm1d (eps 1e-5)
   TCN Conv_0.kernel (k, in, out) + WeightNorm scale
-      -> w = kernel * rsqrt(sum_{k,in} kernel^2 + 1e-12) * scale,
-         permuted to (out, in, k)
+      -> the weight-normalised conv's kernel, permuted to (out, in, k),
+         and scale
   downsample kernel (1, in, out)     -> (out, in, 1)
   BiGRU l{n}_w_ih[_reverse] ...       -> copied, already torch layout
   (the tokenizer's encoder, and the text encoder's masked biGRU)
@@ -26,6 +26,11 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
                                         -> weight); the transformer Part
                                         d, and the chunk encoder of a
                                         `seq_arch: transformer` tokenizer
+The other way, for training: `param_entries` lists a trainable port
+model's parameters with their JAX path, layout and initialiser;
+`to_jax_variables` / `load_jax_variables` carry params and batch_stats
+across, `jax_tree` any per-parameter tensors (gradients, Adam moments),
+and `flax_init` initialises a model as the JAX package would.
 Shapes (widths, layers, vocabulary, codes, stages, the text encoder, the
 stage chain, attention, the architecture) are read from the arrays; what
 the arrays cannot say (steps, teacher prefix, flatten mode, attention
@@ -35,7 +40,7 @@ trees.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -126,12 +131,6 @@ def _n_stages(vq: Tree) -> int:
     return 1 + sum(1 for k in vq if k.startswith("codebook_r"))
 
 
-def _weight_norm_conv(conv: Tree, wn: Tree) -> torch.Tensor:
-    k = np.asarray(conv["kernel"], np.float32)               # (k, in, out)
-    scale = np.asarray(wn["Conv_0/kernel/scale"], np.float32)
-    norm = (k * k).sum(axis=(0, 1), keepdims=True) + 1e-12
-    w = k / np.sqrt(norm) * scale[None, None, :]
-    return torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0)))
 
 
 def text2token_from_jax(variables: Tree, *, n_steps: int,
@@ -224,9 +223,11 @@ def _fill_tcn(e: nn.Module, enc: Tree, n_layers: int) -> None:
     for block, name in zip(e.tcn.blocks, blocks):
         src = enc["tcn"][name]
         for conv in ("conv1", "conv2"):
-            _set(getattr(block, conv).weight,
-                 _weight_norm_conv(src[conv]["Conv_0"], src[conv]["wn"]))
-            _set(getattr(block, conv).bias, _t(src[conv]["Conv_0"]["bias"]))
+            mod = getattr(block, conv)
+            _set(mod.kernel, _t(src[conv]["Conv_0"]["kernel"]).permute(
+                2, 1, 0))
+            _set(mod.scale, _t(src[conv]["wn"]["Conv_0/kernel/scale"]))
+            _set(mod.bias, _t(src[conv]["Conv_0"]["bias"]))
         if block.downsample is not None:
             _set(block.downsample.weight,
                  _t(src["downsample"]["kernel"]).permute(2, 1, 0))
@@ -352,3 +353,239 @@ def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
         vocab=vocab, pose_mean=pose_mean, pose_std=pose_std,
         n_frames=n_frames, sentence_frame_length=sentence_frame_length,
         fps=fps, max_words=max_words, device=device, **gen_kwargs)
+
+
+# -- the port's modules -> the JAX package's layout ----------------------
+# One entry per parameter: (path in the JAX params tree, the port's
+# tensor, layout, initialiser). Layouts: "dense" (Linear weight (out, in)
+# <-> kernel (in, out)), "conv" ((out, in, k) <-> (k, in, out)), "same".
+# Initialisers are the JAX package's for that layer (flax's Dense:
+# lecun_normal kernel and zero bias; nn.Embed: normal(1/sqrt(features));
+# the GRUs' U(+-1/sqrt(H)); the TCN's normal(0.01) kernels, WeightNorm
+# scale 1; BatchNorm scale 1, bias 0; the codebooks' normal(1)).
+Entry = Tuple[Tuple[str, ...], torch.Tensor, str, str]
+
+
+def _dense_entries(path, mod: nn.Linear, kernel_init: str = "lecun"
+                   ) -> List[Entry]:
+    return [(path + ("kernel",), mod.weight, "dense", kernel_init),
+            (path + ("bias",), mod.bias, "same", "zeros")]
+
+
+def _gru_entries(path, mod: nn.Module, hidden: int) -> List[Entry]:
+    init = f"uniform:{1.0 / np.sqrt(hidden)}"
+    return [(path + (name,), p, "same", init)
+            for name, p in mod.named_parameters()]
+
+
+def _bn_entries(path, mod: nn.BatchNorm1d) -> List[Entry]:
+    return [(path + ("scale",), mod.weight, "same", "ones"),
+            (path + ("bias",), mod.bias, "same", "zeros")]
+
+
+def _embed(path, mod: nn.Embedding) -> Entry:
+    return (path, mod.weight, "same",
+            f"normal:{1.0 / np.sqrt(mod.embedding_dim)}")
+
+
+def _decoder_step_entries(d: nn.Module, hidden: int) -> List[Entry]:
+    p = ("decoder_step",)
+    out = _dense_entries(p + ("pre_linear",), d.pre_linear) \
+        + _bn_entries(p + ("pre_bn",), d.pre_bn) \
+        + _gru_entries(p + ("gru",), d.gru, hidden) \
+        + _dense_entries(p + ("out_layer",), d.out_layer)
+    return out
+
+
+def dae_entries(model: DAE) -> List[Entry]:
+    if model.latent_dim == -1:
+        return []
+    return _dense_entries(("encoder",), model.encoder) \
+        + _dense_entries(("decoder",), model.decoder)
+
+
+def seq_ae_entries(model: SeqVQAutoencoder) -> List[Entry]:
+    """A BiGRU tokenizer's parameters (the transformer encoder does not
+    train in the port yet)."""
+    if model.encoder_arch != "bigru":
+        raise NotImplementedError(
+            "seq_arch: transformer training is not ported yet (ROADMAP.md "
+            "queue A item 3.2)")
+    H = model.hidden_size
+    out = _dense_entries(("encoder", "in_layer"), model.encoder.in_layer) \
+        + _gru_entries(("encoder", "gru"), model.encoder.gru, H)
+    q = model.vq_layer
+    if model.vq_variant == "rvq":
+        out += [(("vq_layer", name), p, "same", "normal:1.0")
+                for name, p in q.named_parameters()]
+    else:
+        out += [(("vq_layer", "codebook"), q.codebook, "same", "normal:1.0")]
+        out += _dense_entries(("vq_layer", "mean_layer"), q.mean_layer)
+        out += _dense_entries(("vq_layer", "logvar_layer"), q.logvar_layer)
+    return out + _decoder_step_entries(model.decoder.decoder_step, H)
+
+
+def text2token_entries(model: Text2Token) -> List[Entry]:
+    """A GRU-decoder Part d's parameters (TCN or GRU text encoder). The
+    embedding table keeps the values it has (the vocabulary's vectors)."""
+    e, d = model.encoder, model.decoder_step
+    H = e.hidden_size
+    out: List[Entry] = [(("encoder", "embedding_table"),
+                         e.embedding_table.weight, "same", "keep")]
+    if model.encoder_type == "gru":
+        out += _gru_entries(("encoder", "gru"), e.gru, H)
+    else:
+        for i, block in enumerate(e.tcn.blocks):
+            p = ("encoder", "tcn", f"block{i}")
+            for conv in ("conv1", "conv2"):
+                mod = getattr(block, conv)
+                out += [(p + (conv, "Conv_0", "kernel"), mod.kernel, "conv",
+                         "normal:0.01"),
+                        (p + (conv, "Conv_0", "bias"), mod.bias, "same",
+                         "zeros"),
+                        (p + (conv, "wn", "Conv_0/kernel/scale"), mod.scale,
+                         "same", "ones")]
+            if block.downsample is not None:
+                out += [(p + ("downsample", "kernel"),
+                         block.downsample.weight, "conv", "normal:0.01"),
+                        (p + ("downsample", "bias"), block.downsample.bias,
+                         "same", "zeros")]
+        out += _dense_entries(("encoder", "decoder"), e.decoder,
+                              "normal:0.01")
+        out += _dense_entries(("encoder", "hidden_proj"), e.hidden_proj)
+    p = ("decoder_step",)
+    out.append(_embed(p + ("token_embedding", "embedding"),
+                      d.token_embedding))
+    if d.attn is not None:
+        out += _dense_entries(p + ("attn", "attn"), d.attn.attn)
+        out.append((p + ("attn", "v"), d.attn.v, "same",
+                    f"normal:{1.0 / np.sqrt(H)}"))
+    out += _decoder_step_entries(d, H)
+    for s in range(d.n_stage_heads):
+        out += _dense_entries(p + (f"out_layer_r{s + 1}",),
+                              getattr(d, f"out_layer_r{s + 1}"))
+        if d.stage_conditional:
+            out.append(_embed(p + (f"stage_embed_{s}", "embedding"),
+                              getattr(d, f"stage_embed_{s}")))
+    return out
+
+
+def param_entries(model: nn.Module) -> List[Entry]:
+    """The entries of a trainable port model (DAE, BiGRU tokenizer, GRU
+    Part d)."""
+    if isinstance(model, DAE):
+        return dae_entries(model)
+    if isinstance(model, SeqVQAutoencoder):
+        return seq_ae_entries(model)
+    if isinstance(model, Text2Token):
+        return text2token_entries(model)
+    raise NotImplementedError(f"no JAX layout for {type(model).__name__}")
+
+
+def batch_norms(model: nn.Module) -> Dict[Tuple[str, ...], nn.Module]:
+    """{path in the JAX batch_stats tree: BatchNorm}."""
+    if isinstance(model, SeqVQAutoencoder):
+        return {("decoder_step", "pre_bn"): model.decoder.decoder_step.pre_bn}
+    if isinstance(model, Text2Token):
+        return {("decoder_step", "pre_bn"): model.decoder_step.pre_bn}
+    return {}
+
+
+def to_jax_layout(t: torch.Tensor, layout: str) -> np.ndarray:
+    a = t.detach().float().cpu().numpy()
+    if layout == "dense":
+        a = a.T
+    elif layout == "conv":
+        a = a.transpose(2, 1, 0)
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def from_jax_layout(a, layout: str) -> torch.Tensor:
+    t = _t(a)
+    if layout == "dense":
+        t = t.t()
+    elif layout == "conv":
+        t = t.permute(2, 1, 0)
+    return t.contiguous()
+
+
+def _put(tree: dict, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _get(tree: Tree, path: Tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def jax_tree(entries: List[Entry], values=None) -> dict:
+    """The JAX-layout numpy tree of the entries' tensors, or of values
+    {id(parameter): tensor of its shape} (gradients, Adam moments)."""
+    out: dict = {}
+    for path, param, layout, _ in entries:
+        t = param if values is None else values[id(param)]
+        _put(out, path, to_jax_layout(t, layout))
+    return out
+
+
+def to_jax_variables(model: nn.Module) -> dict:
+    """{"params": ..., "batch_stats": ...} in the JAX package's layout
+    (numpy), the inverse of the `*_from_jax` converters."""
+    bs: dict = {}
+    for path, bn in batch_norms(model).items():
+        _put(bs, path, {"mean": bn.running_mean.detach().cpu().numpy()
+                        .astype(np.float32),
+                        "var": bn.running_var.detach().cpu().numpy()
+                        .astype(np.float32)})
+    return {"params": jax_tree(param_entries(model)), "batch_stats": bs}
+
+
+@torch.no_grad()
+def load_jax_variables(model: nn.Module, params: Tree,
+                       batch_stats: Optional[Tree] = None) -> None:
+    """Set a port model's parameters (and BatchNorm statistics) from a
+    JAX-layout tree, in place."""
+    for path, param, layout, _ in param_entries(model):
+        _set(param, from_jax_layout(_get(params, path), layout).to(
+            param.device))
+    for path, bn in batch_norms(model).items():
+        if batch_stats:
+            stats = _get(batch_stats, path)
+            _set(bn.running_mean, _t(stats["mean"]).to(bn.running_mean.device))
+            _set(bn.running_var, _t(stats["var"]).to(bn.running_var.device))
+
+
+@torch.no_grad()
+def flax_init(model: nn.Module, generator: torch.Generator) -> None:
+    """Initialise a port model as the JAX package initialises the same
+    layers (see the entries' initialisers), drawing on the CPU from
+    generator; BatchNorm statistics start at mean 0, var 1."""
+    for _, param, layout, init in param_entries(model):
+        shape = param.shape
+        if init == "keep":
+            continue
+        if init == "zeros":
+            v = torch.zeros(shape)
+        elif init == "ones":
+            v = torch.ones(shape)
+        elif init == "lecun":
+            # flax's lecun_normal: a normal truncated at 2 sigma, rescaled
+            # so the std is 1/sqrt(fan_in)
+            fan_in = shape[1]
+            std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+            v = torch.empty(shape)
+            torch.nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+        elif init.startswith("normal:"):
+            v = torch.randn(shape, generator=generator) * float(init[7:])
+        elif init.startswith("uniform:"):
+            b = float(init[8:])
+            v = (torch.rand(shape, generator=generator) * 2 - 1) * b
+        else:
+            raise ValueError(f"unknown initialiser {init!r}")
+        param.copy_(v.to(param.device))
+    for bn in batch_norms(model).values():
+        bn.reset_running_stats()

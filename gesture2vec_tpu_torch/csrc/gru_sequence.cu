@@ -315,7 +315,14 @@ extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
 extern "C" int g2v_gru_sequence_shape(int B, int H, long long* out) {
   if (B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   int n = 0;
-  const cudaError_t e = prepare(B, H, nullptr, &n);
+  cudaError_t e;
+  {
+    // prepare() sets the kernel's shared-memory attribute for this H: a
+    // launch re-prepares for its own H afterwards
+    const std::lock_guard<std::mutex> lock(prepare_mutex);
+    e = prepare(B, H, nullptr, &n);
+    checked_H = e == cudaSuccess ? H : -1;
+  }
   out[0] = R;
   out[1] = C;
   out[2] = threads_for(H);

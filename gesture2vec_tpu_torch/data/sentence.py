@@ -1,0 +1,75 @@
+"""The Part-d sentence dataset (the port's copy of the JAX package's
+`data/sentence.py`, text only): windows of sentence_frame_length frames
+with at least 4 words, their word ids (SOS ... EOS, zero-padded to
+max_words) and the gesture tokens of each n_frames chunk, from one
+offline sweep of the frozen Part-a DAE and Part-b tokenizer
+(`data/teacher.py`). The audio fields (`include_audio`,
+`include_raw_audio`) wait for the audio trainer (ROADMAP.md queue A item
+3.9).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from gesture2vec_tpu_torch.data.datasets import normalize, sentence_windows
+from gesture2vec_tpu_torch.data.teacher import (encode_windows_with_dae,
+                                                tokenize_windows)
+
+_AUDIO = "{} is not ported yet (ROADMAP.md queue A item 3.9, the audio " \
+         "trainer)"
+
+
+def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
+                           sentence_frame_length: int = 120,
+                           stride: int = 20, n_frames: int = 20,
+                           fps: int = 20, max_words: int = 48,
+                           mean: Optional[np.ndarray] = None,
+                           std: Optional[np.ndarray] = None,
+                           include_audio: bool = False,
+                           include_raw_audio: bool = False,
+                           mesh=None, emit_stage_tokens: bool = False,
+                           text_context_s: float = 0.0
+                           ) -> Dict[str, np.ndarray]:
+    """Returns {"word_ids" (N, max_words) int32, "lengths" (N,) int32,
+    "tokens" (N, n_steps) int32 with n_steps = sentence_frame_length //
+    n_frames, "poses" (N, sentence_frame_length, D) float32 normalized},
+    and "stage_tokens" (N, n_steps, S) when emit_stage_tokens (a
+    residual-VQ tokenizer; "tokens" is its column 0)."""
+    if include_audio:
+        raise NotImplementedError(_AUDIO.format("include_audio"))
+    if include_raw_audio:
+        raise NotImplementedError(_AUDIO.format("include_raw_audio"))
+    mean = store.pose_mean if mean is None else mean
+    std = store.pose_std if std is None else std
+    wins = sentence_windows(store, sentence_frame_length, stride, fps,
+                            context_s=text_context_s)
+    if not wins:
+        raise ValueError("no sentence windows (too few words or frames)")
+    clips = {i: store[i] for i in sorted({w["clip"] for w in wins})}
+    poses = np.stack([
+        normalize(clips[w["clip"]]["poses"][
+            w["frame0"]:w["frame0"] + sentence_frame_length], mean, std)
+        for w in wins]).astype(np.float32)
+
+    N = len(wins)
+    word_ids = np.zeros((N, max_words), np.int32)
+    lengths = np.zeros((N,), np.int32)
+    for i, w in enumerate(wins):
+        ids = vocab.words_to_ids([t[0] for t in w["words"]])[:max_words]
+        word_ids[i, :len(ids)] = ids
+        lengths[i] = len(ids)
+
+    n_steps = sentence_frame_length // n_frames
+    latents = encode_windows_with_dae(dae_model, poses, mesh=mesh)
+    chunks = latents.reshape(N * n_steps, n_frames, -1)
+    tokens, _ = tokenize_windows(seq_model, chunks, mesh=mesh,
+                                 all_stages=emit_stage_tokens)
+    out = {"word_ids": word_ids, "lengths": lengths, "poses": poses}
+    if emit_stage_tokens:
+        out["stage_tokens"] = tokens.reshape(N, n_steps, -1).astype(np.int32)
+        out["tokens"] = out["stage_tokens"][:, :, 0]
+    else:
+        out["tokens"] = tokens.reshape(N, n_steps).astype(np.int32)
+    return out

@@ -10,7 +10,14 @@ torch layout (3H, in)):
     h' = (1 - z) * n + z * h
 `gru_layer` hoists the input projections of every step into one matmul
 and runs the recurrence through `ops/gru_kernel.gru_sequence` (the
-Hopper kernel on CUDA, its plain version on the CPU).
+Hopper kernel on CUDA, its plain version on the CPU); with grad enabled
+that call carries its gradient through the backward kernel
+(`GRUSequenceFn`), and d w_ih, d b_ih and d xs come from autograd
+through the input projection.
+
+In training mode (`.train()`, see `models/layers`) the stacks apply
+dropout to the outputs of every layer but the last, as the JAX package's
+GRUCellStack, BiGRU and MaskedBiGRU do.
 
 `masked_gru_layer` / `MaskedBiGRU` are the text encoder's GRU over padded
 sequences (torch pack_padded_sequence semantics: outputs past a
@@ -27,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from gesture2vec_tpu_torch.models.layers import dropout
 from gesture2vec_tpu_torch.ops.gru_kernel import (gru_sequence,
                                                   gru_sequence_plain)
 
@@ -49,10 +57,12 @@ class GRUCellStack(nn.Module):
     Parameters are named l{n}_w_ih / l{n}_w_hh / l{n}_b_ih / l{n}_b_hh,
     as in the JAX package, so weights copy across by name."""
 
-    def __init__(self, input_size: int, hidden_size: int, n_layers: int):
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
+        self.dropout_rate = dropout_rate
         H = hidden_size
         for layer in range(n_layers):
             in_dim = input_size if layer == 0 else H
@@ -77,6 +87,8 @@ class GRUCellStack(nn.Module):
         for layer in range(self.n_layers):
             outs = gru_cell(outs, h[layer], *self.layer_weights(layer))
             new_h.append(outs)
+            if layer < self.n_layers - 1:
+                outs = dropout(outs, self.dropout_rate, self.training)
         return outs, torch.stack(new_h, dim=0)
 
 
@@ -108,10 +120,12 @@ class BiGRU(nn.Module):
     use_kernel=False runs the plain recurrence on any device.
     """
 
-    def __init__(self, input_size: int, hidden_size: int, n_layers: int):
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
+        self.dropout_rate = dropout_rate
         self.use_kernel = True
         H = hidden_size
         for layer in range(n_layers):
@@ -156,6 +170,8 @@ class BiGRU(nn.Module):
                 ys.append(y)
                 h_finals.append(h_last)
             outs = torch.cat(ys, dim=-1)
+            if layer < self.n_layers - 1:
+                outs = dropout(outs, self.dropout_rate, self.training)
         return outs, torch.stack(h_finals, dim=0)
 
 

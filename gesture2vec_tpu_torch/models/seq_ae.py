@@ -1,36 +1,42 @@
-"""Part b - the sequence VQ autoencoder (the gesture tokenizer), inference.
+"""Part b - the sequence VQ autoencoder (the gesture tokenizer).
 
 Port of the JAX package's `models/seq_ae.py`: Bahdanau attention
 (shared with the text->token decoder), one decoder step (pre_linear ->
-BatchNorm (running stats) -> ReLU -> GRU stack -> out_layer), the
-generative rollout and the token codebook (`SeqDecoder`); the encoder
-(in_layer -> bidirectional GRU, directions summed) and the quantizer
-(`SeqVQAutoencoder.encode` / `quantize` / `tokens_from_hidden` /
-`stage_tokens`), with `_flatten_hidden` in both `vq_flatten` modes. With
-encoder_arch="transformer" (the JAX package's `seq_arch: transformer`)
-the encoder is `models/seq_encoder.TransformerSeqEncoder`; decoder and
-quantizer are the same.
+BatchNorm -> ReLU -> GRU stack -> out_layer), the generative rollout,
+the teacher-forced `decode` and the token codebook (`SeqDecoder`); the
+encoder (in_layer -> bidirectional GRU, directions summed) and the
+quantizer (`SeqVQAutoencoder.encode` / `quantize` / `tokens_from_hidden`
+/ `stage_tokens`), with `_flatten_hidden` in both `vq_flatten` modes.
+With encoder_arch="transformer" (the JAX package's `seq_arch:
+transformer`) the encoder is `models/seq_encoder.TransformerSeqEncoder`;
+decoder and quantizer are the same.
 
 The decoder-initial hidden is the encoder hidden sliced to its first
 n_layers entries, which for the bidirectional GRU is [l0_fwd, l0_bwd]
 at 2 layers: a reference quirk the JAX package keeps.
 
-Every module here is inference-only: BatchNorm reads its running
-statistics and no dropout is applied, which is the JAX package's eval
-mode with `eval_step_dropout=False`.
+Eval mode (`.eval()`) is the JAX package's eval with
+`eval_step_dropout=False`: BatchNorm reads its running statistics and
+no dropout is applied. Training mode (`.train()`, masks drawn inside
+`models/layers.dropout_generator`) is its train=True: dropout on the
+encoder's input and between the BiGRU's layers, the reference's 0.95
+dropout on the decoder's input at every step, dropout between the
+decoder's GRU layers, and BatchNorm on batch statistics, updated once a
+step (`models/layers.BatchNorm`).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import BiGRU, GRUCellStack
+from gesture2vec_tpu_torch.models.layers import BatchNorm, dropout
 from gesture2vec_tpu_torch.models.vq import VQGSSoft, VQOutput, VQResidual
 
-# the later slices that port each option (ROADMAP.md queue A)
-_LATER = "not ported yet ({} of the PyTorch port)"
+# the queue item that ports each refused option
+_LATER = "not ported yet (ROADMAP.md queue A item {})"
 
 
 class Attn(nn.Module):
@@ -60,21 +66,27 @@ class Attn(nn.Module):
 class DecoderStep(nn.Module):
     """One Part-b decoder timestep without attention: pre_linear ->
     BatchNorm -> ReLU -> GRU stack -> out_layer. conditioned=False
-    zeroes the input, as the JAX module does."""
+    zeroes the input, as the JAX module does; in training the input then
+    takes the reference's step dropout."""
+
+    # the reference's dropout on the decoder's input at every step
+    step_dropout = 0.95
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
-                 conditioned: bool = True):
+                 conditioned: bool = True, dropout_rate: float = 0.0):
         super().__init__()
         self.conditioned = conditioned
         self.pre_linear = nn.Linear(input_size, hidden_size)
-        self.pre_bn = nn.BatchNorm1d(hidden_size, eps=1e-5)
-        self.gru = GRUCellStack(hidden_size, hidden_size, n_layers)
+        self.pre_bn = BatchNorm(hidden_size)
+        self.gru = GRUCellStack(hidden_size, hidden_size, n_layers,
+                                dropout_rate)
         self.out_layer = nn.Linear(hidden_size, input_size)
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.conditioned:
             x = torch.zeros_like(x)
+        x = dropout(x, self.step_dropout, self.training)
         h = torch.relu(self.pre_bn(self.pre_linear(x)))
         out, new_hidden = self.gru(h, hidden)
         return self.out_layer(out), new_hidden
@@ -88,8 +100,10 @@ class SeqDecoder(nn.Module):
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, n_codes: int, n_pre_poses: int = 1,
-                 conditioned: bool = True, stages: int = 1):
+                 conditioned: bool = True, stages: int = 1,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.use_kernel = True
         self.rep_dim = rep_dim
         self.hidden_size = hidden_size
         self.n_layers = n_layers
@@ -102,7 +116,7 @@ class SeqDecoder(nn.Module):
                 "codebook" if s == 0 else f"codebook_r{s}",
                 nn.Parameter(torch.zeros(n_codes, n_layers * hidden_size)))
         self.decoder_step = DecoderStep(rep_dim, hidden_size, n_layers,
-                                        conditioned)
+                                        conditioned, dropout_rate)
 
     def token_hidden(self, tokens: torch.Tensor,
                      stage_tokens: Optional[torch.Tensor] = None,
@@ -145,15 +159,60 @@ class SeqDecoder(nn.Module):
             outs.append(x)
         return torch.stack(outs, dim=1)
 
+    def kernel_reason(self) -> str:
+        """'' when the eval decode can run the chunk-decoder kernel, else
+        why not."""
+        from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+
+        if self.n_pre_poses != 1:
+            return "the kernel starts from one seed frame (n_pre_poses=1)"
+        return dk.supported(self.decoder_step)
+
+    def decode(self, dec_hidden: torch.Tensor, out_poses: torch.Tensor
+               ) -> torch.Tensor:
+        """The teacher-forced rollout of training and validation (the JAX
+        package's `SeqVQAutoencoder.decode`): out_poses (B, T, D) gives
+        the seed, outputs[:, 0], and the inputs of the steps t with
+        t - 1 < n_pre_poses; every later step reads the previous output.
+        dec_hidden (L, B, H) -> (B, n_frames, D). In eval mode with a
+        1-frame teacher prefix this is the seed plus the rollout from it,
+        which `ops/decoder_kernel.fused_chunk_decode` runs in one launch
+        (`use_kernel`, the default). On a CUDA tensor a decoder the kernel
+        cannot run raises (`kernel_reason`); on the CPU it takes the plain
+        loop."""
+        from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+
+        seed = out_poses[:, 0]
+        kernel = not self.training and self.use_kernel
+        if kernel:
+            reason = self.kernel_reason()
+            if reason and seed.is_cuda:
+                raise ValueError(f"eval decode on the card: {reason} "
+                                 f"(set_use_kernels(False) runs the plain "
+                                 f"rollout)")
+            kernel = not reason
+        if kernel:
+            ys = dk.fused_chunk_decode(
+                seed.float().contiguous(), dec_hidden.float().contiguous(),
+                dk.fold_decoder_step(self.decoder_step), self.n_frames - 1)
+            return torch.cat([out_poses[:, :1], ys.transpose(0, 1)], dim=1)
+        prev, hidden, outs = seed, dec_hidden, [seed]
+        for t in range(1, self.n_frames):
+            x = out_poses[:, t - 1] if t - 1 < self.n_pre_poses else prev
+            prev, hidden = self.decoder_step(x, hidden)
+            outs.append(prev)
+        return torch.stack(outs, dim=1)
+
 
 class SeqEncoder(nn.Module):
     """Linear-in + bidirectional GRU, directions summed."""
 
-    def __init__(self, input_size: int, hidden_size: int, n_layers: int):
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.in_layer = nn.Linear(input_size, hidden_size)
-        self.gru = BiGRU(hidden_size, hidden_size, n_layers)
+        self.gru = BiGRU(hidden_size, hidden_size, n_layers, dropout_rate)
 
     def forward(self, xs: torch.Tensor, n_run: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,22 +244,25 @@ def _unflatten_hidden(flat: torch.Tensor, shape: Tuple[int, int, int],
 
 
 class SeqVQAutoencoder(nn.Module):
-    """The gesture tokenizer at inference: encoder, quantizer and the
-    token decoder (`SeqDecoder`, whose codebook is the quantizer's stage-0
-    codebook). vq_variant "gssoft" (the reference's) or "rvq"."""
+    """The gesture tokenizer: encoder, quantizer and the token decoder
+    (`SeqDecoder`, whose codebook is the quantizer's stage-0 codebook).
+    vq_variant "gssoft" (the reference's) or "rvq". The decoder's stage-0
+    codebook is the quantizer's own parameter (and for "rvq" every
+    stage's), so training moves one tensor for both."""
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, vq_components: int = 512,
                  n_pre_poses: int = 1, vq_variant: str = "gssoft",
                  rvq_stages: int = 2, commitment_cost: float = 0.25,
                  conditioned: bool = True, vq_flatten: str = "per_sample",
-                 encoder_arch: str = "bigru", use_vae: bool = False):
+                 encoder_arch: str = "bigru", use_vae: bool = False,
+                 dropout_rate: float = 0.2):
         super().__init__()
         if encoder_arch not in ("bigru", "transformer"):
             raise ValueError(f"unknown encoder_arch {encoder_arch!r}")
         if use_vae:
             raise NotImplementedError(
-                "use_vae is " + _LATER.format("the training slice"))
+                "use_vae (autoencoder_vae) is " + _LATER.format("3.4"))
         if vq_flatten not in ("per_sample", "torch_view"):
             raise ValueError(f"unknown vq_flatten mode {vq_flatten!r}")
         self.rep_dim = rep_dim
@@ -210,6 +272,7 @@ class SeqVQAutoencoder(nn.Module):
         self.vq_flatten = vq_flatten
         self.vq_variant = vq_variant
         self.encoder_arch = encoder_arch
+        self.dropout_rate = dropout_rate
         if encoder_arch == "transformer":
             # imported here: models/transformer imports this module
             from gesture2vec_tpu_torch.models.seq_encoder import \
@@ -217,7 +280,8 @@ class SeqVQAutoencoder(nn.Module):
             self.encoder = TransformerSeqEncoder(rep_dim, hidden_size,
                                                  n_layers)
         else:
-            self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers)
+            self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers,
+                                      dropout_rate)
         d = hidden_size * n_layers
         if vq_variant == "rvq":
             self.vq_layer = VQResidual(vq_components, d, rvq_stages,
@@ -229,24 +293,47 @@ class SeqVQAutoencoder(nn.Module):
         self.decoder = SeqDecoder(
             rep_dim, hidden_size, n_layers, n_frames, vq_components,
             n_pre_poses, conditioned,
-            stages=rvq_stages if vq_variant == "rvq" else 1)
+            stages=rvq_stages if vq_variant == "rvq" else 1,
+            dropout_rate=dropout_rate)
+        # one tensor for each codebook: the quantizer's
+        for s, cb in enumerate(self.vq_layer.codebooks()
+                               if vq_variant == "rvq"
+                               else [self.vq_layer.codebook]):
+            setattr(self.decoder, "codebook" if s == 0
+                    else f"codebook_r{s}", cb)
 
     def set_use_kernels(self, on: bool) -> "SeqVQAutoencoder":
-        """Route the BiGRU encoder's recurrences and the residual argmins
-        through the Hopper kernels (True, the default) or their plain
-        versions (the transformer encoder runs no kernel)."""
+        """Route the BiGRU encoder's recurrences, the residual argmins and
+        the eval-mode teacher-forced decode through the Hopper kernels
+        (True, the default) or their plain versions (the transformer
+        encoder runs no kernel)."""
         if self.encoder_arch == "bigru":
             self.encoder.gru.use_kernel = on
         if isinstance(self.vq_layer, VQResidual):
             self.vq_layer.use_kernel = on
+        self.decoder.use_kernel = on
         return self
 
     def encode(self, in_poses: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """in_poses (B, T, D) -> (encoder outputs (T, B, H),
-        decoder-initial hidden (L, B, H)); runs every encoder layer."""
-        enc_outs, enc_hidden = self.encoder(in_poses.transpose(0, 1))
+        decoder-initial hidden (L, B, H)); runs every encoder layer. In
+        training the input takes dropout first."""
+        xs = dropout(in_poses.transpose(0, 1), self.dropout_rate,
+                     self.training)
+        enc_outs, enc_hidden = self.encoder(xs)
         return enc_outs, enc_hidden[: self.n_layers]
+
+    def forward(self, in_poses: torch.Tensor, out_poses: torch.Tensor
+                ) -> Dict[str, object]:
+        """The JAX package's `SeqVQAutoencoder.__call__`: encode,
+        quantize, teacher-forced decode. Returns {"outputs" (B, n_frames,
+        D), "first_hidden" (L, B, H) the quantized decoder-initial
+        hidden, "vq" the quantizer's VQOutput}."""
+        _, dec_hidden = self.encode(in_poses)
+        vq_out, dec_hidden = self.quantize(dec_hidden)
+        return {"outputs": self.decoder.decode(dec_hidden, out_poses),
+                "first_hidden": dec_hidden, "vq": vq_out}
 
     def encode_hidden(self, in_poses: torch.Tensor) -> torch.Tensor:
         """The decoder-initial hidden of `encode` alone. The BiGRU runs

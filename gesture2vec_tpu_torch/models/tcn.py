@@ -1,11 +1,17 @@
-"""Temporal Convolutional Network text encoder (inference).
+"""Temporal Convolutional Network text encoder.
 
 Port of the JAX package's `models/tcn.py`: causal dilated convolutions
 (left pad (k-1)*dilation, dilation 2**i per block), a 1x1 downsample
 only where the width changes, and a decoder-initial hidden projected
-from each sequence's last valid TCN state. Weight normalisation is
-folded into plain conv weights when the weights are converted
-(compat/from_jax.py), so inference runs ordinary convolutions.
+from each sequence's last valid TCN state. The convolutions keep flax's
+weight normalisation as their parameters, a direction `kernel` and a
+per-output `scale`: the weight is kernel * rsqrt(sum over (in, k) of
+kernel^2 + 1e-12) * scale, so training moves the same parameters with
+the same gradients as the JAX package does.
+
+In training mode (`.train()`, see `models/layers`) the embeddings take
+dropout 0.1 and each block's two activations dropout 0.3, the rates the
+JAX package's Text2Token builds the encoder with.
 
 Layouts follow the JAX package at the public functions: token ids are
 batch-major (B, S); outputs are time-major (S, B, H) and the hidden is
@@ -19,18 +25,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gesture2vec_tpu_torch.models.layers import dropout
+
+# flax's WeightNorm epsilon
+WN_EPS = 1e-12
+
 
 class CausalConv1d(nn.Module):
-    """1D causal convolution over (B, C, T); weight (out, in, k)."""
+    """Weight-normalised 1D causal convolution over (B, C, T): kernel
+    (out, in, k), scale (out,), bias (out,)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, dilation: int):
         super().__init__()
         self.dilation = dilation
         self.pad = (kernel_size - 1) * dilation
-        self.weight = nn.Parameter(
+        self.kernel = nn.Parameter(
             torch.zeros(out_channels, in_channels, kernel_size))
+        self.scale = nn.Parameter(torch.ones(out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        """The effective convolution weight (out, in, k)."""
+        norm = (self.kernel * self.kernel).sum(dim=(1, 2), keepdim=True)
+        return self.kernel * torch.rsqrt(norm + WN_EPS) \
+            * self.scale[:, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(F.pad(x, (self.pad, 0)), self.weight, self.bias,
@@ -38,12 +58,13 @@ class CausalConv1d(nn.Module):
 
 
 class TemporalBlock(nn.Module):
-    """conv -> relu, twice, plus a residual (1x1 downsample where the
-    width changes), then relu. Dropout is a no-op at inference."""
+    """conv -> relu -> dropout, twice, plus a residual (1x1 downsample
+    where the width changes), then relu."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, dilation: int):
+                 kernel_size: int, dilation: int, dropout_rate: float = 0.3):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.conv1 = CausalConv1d(in_channels, out_channels, kernel_size,
                                   dilation)
         self.conv2 = CausalConv1d(out_channels, out_channels, kernel_size,
@@ -52,8 +73,10 @@ class TemporalBlock(nn.Module):
                            if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.conv1(x))
-        h = torch.relu(self.conv2(h))
+        h = dropout(torch.relu(self.conv1(x)), self.dropout_rate,
+                    self.training)
+        h = dropout(torch.relu(self.conv2(h)), self.dropout_rate,
+                    self.training)
         res = x if self.downsample is None else self.downsample(x)
         return torch.relu(h + res)
 
@@ -62,11 +85,12 @@ class TemporalConvNet(nn.Module):
     """Stacked blocks with dilation 2**i, over (B, C, T)."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
-                 kernel_size: int = 2):
+                 kernel_size: int = 2, dropout_rate: float = 0.3):
         super().__init__()
         blocks = []
         for i, ch in enumerate(channels):
-            blocks.append(TemporalBlock(in_channels, ch, kernel_size, 2 ** i))
+            blocks.append(TemporalBlock(in_channels, ch, kernel_size, 2 ** i,
+                                        dropout_rate))
             in_channels = ch
         self.blocks = nn.ModuleList(blocks)
 
@@ -81,13 +105,15 @@ class TextEncoderTCN(nn.Module):
     hidden_proj(tanh(y[last valid])) reshaped to (n_layers, B, H)."""
 
     def __init__(self, n_words: int, embed_size: int, hidden_size: int,
-                 n_layers: int, kernel_size: int = 2):
+                 n_layers: int, kernel_size: int = 2,
+                 dropout_rate: float = 0.3, emb_dropout: float = 0.1):
         super().__init__()
         self.hidden_size = hidden_size
+        self.emb_dropout = emb_dropout
         self.n_layers = n_layers
         self.embedding_table = nn.Embedding(n_words, embed_size)
         self.tcn = TemporalConvNet(embed_size, [hidden_size] * n_layers,
-                                   kernel_size)
+                                   kernel_size, dropout_rate)
         self.decoder = nn.Linear(hidden_size, hidden_size)
         self.hidden_proj = nn.Linear(hidden_size, n_layers * hidden_size)
 
@@ -96,7 +122,8 @@ class TextEncoderTCN(nn.Module):
         """tokens (B, S) ids, lengths (B,) -> (outputs (S, B, H),
         hidden (n_layers, B, H))."""
         B, S = tokens.shape
-        emb = self.embedding_table(tokens)                  # (B, S, E)
+        emb = dropout(self.embedding_table(tokens), self.emb_dropout,
+                      self.training)                        # (B, S, E)
         y = self.tcn(emb.transpose(1, 2)).transpose(1, 2)   # (B, S, H)
         outputs = self.decoder(y)
         idx = (lengths.long() - 1).clamp(0, S - 1)

@@ -1,4 +1,4 @@
-"""Part d - text to gesture-token translation (inference).
+"""Part d - text to gesture-token translation.
 
 Port of the JAX package's `models/text2token.py`: a text encoder (the
 TCN, or the masked biGRU with its two directions summed), then an
@@ -23,6 +23,15 @@ stage0_temperature >= 0 overrides the primary token's temperature only.
 Residual-stage heads (`out_layer_r{s}`) read the decoder output; with
 stage_conditional they form the JAX package's `stage_chain`: head s also
 reads embeddings (`stage_embed_{s}`) of the codes chosen before it.
+
+Training mode (`.train()`, masks drawn inside
+`models/layers.dropout_generator`) is the JAX package's train=True: the
+TCN's dropouts (0.1 on the embeddings, 0.3 in each block) or dropout
+between the GRU encoder's layers, the decoder's dropout 0.5 on the token
+embedding and between its GRU layers, and BatchNorm on batch statistics
+(`models/layers.BatchNorm`). The decode is the same loop (teacher tokens
+while t - 1 < n_pre_poses, then the argmax); with stage_conditional the
+chain reads the step's teacher codes (`stage_targets`).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import GRUCellStack, MaskedBiGRU
+from gesture2vec_tpu_torch.models.layers import BatchNorm, dropout
 from gesture2vec_tpu_torch.models.seq_ae import Attn
 from gesture2vec_tpu_torch.models.tcn import TextEncoderTCN
 
@@ -141,11 +151,12 @@ class TextEncoderRNN(nn.Module):
     [l0_fwd, l0_bwd] at 2 layers: the reference's quirk, kept."""
 
     def __init__(self, n_words: int, embed_size: int, hidden_size: int,
-                 n_layers: int):
+                 n_layers: int, dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.embedding_table = nn.Embedding(n_words, embed_size)
-        self.gru = MaskedBiGRU(embed_size, hidden_size, n_layers)
+        self.gru = MaskedBiGRU(embed_size, hidden_size, n_layers,
+                               dropout_rate)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,9 +169,12 @@ class TextEncoderRNN(nn.Module):
 class TokenDecoderStep(nn.Module):
     """One decoder step over gesture tokens."""
 
+    # the reference's dropout on the token embedding (training only)
+    embedding_dropout = 0.5
+
     def __init__(self, hidden_size: int, n_tokens: int, n_layers: int,
                  use_attention: bool = True, n_stage_heads: int = 0,
-                 stage_conditional: bool = False):
+                 stage_conditional: bool = False, dropout_rate: float = 0.0):
         super().__init__()
         self.use_attention = use_attention
         self.n_stage_heads = n_stage_heads
@@ -169,8 +183,9 @@ class TokenDecoderStep(nn.Module):
         in_dim = 2 * hidden_size if use_attention else hidden_size
         self.attn = Attn(hidden_size) if use_attention else None
         self.pre_linear = nn.Linear(in_dim, hidden_size)
-        self.pre_bn = nn.BatchNorm1d(hidden_size, eps=1e-5)
-        self.gru = GRUCellStack(hidden_size, hidden_size, n_layers)
+        self.pre_bn = BatchNorm(hidden_size)
+        self.gru = GRUCellStack(hidden_size, hidden_size, n_layers,
+                                dropout_rate)
         self.out_layer = nn.Linear(hidden_size, n_tokens)
         for s in range(n_stage_heads):
             setattr(self, f"out_layer_r{s + 1}",
@@ -185,7 +200,8 @@ class TokenDecoderStep(nn.Module):
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(logits (B, K) fp32, new hidden (L, B, H), the GRU output
         (B, H) that the stage heads read)."""
-        x = self.token_embedding(token)                        # (B, H)
+        x = dropout(self.token_embedding(token), self.embedding_dropout,
+                    self.training)                             # (B, H)
         if self.use_attention:
             w = self.attn(hidden[-1], encoder_outputs, mask=enc_mask)
             context = torch.einsum("bt,tbh->bh", w, encoder_outputs)
@@ -216,7 +232,8 @@ class Text2Token(nn.Module):
                  n_layers: int, n_steps: int, n_pre_poses: int = 2,
                  word_embed_size: int = 300, encoder_type: str = "tcn",
                  use_attention: bool = True, token_stages: int = 1,
-                 kernel_size: int = 2, stage_conditional: bool = False):
+                 kernel_size: int = 2, stage_conditional: bool = False,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.n_tokens = n_tokens
         self.n_layers = n_layers
@@ -226,17 +243,21 @@ class Text2Token(nn.Module):
         self.token_stages = token_stages
         self.stage_conditional = stage_conditional and token_stages > 1
         if encoder_type == "tcn":
+            # the JAX package builds its TCN with these rates, whatever
+            # the config's dropout
             self.encoder = TextEncoderTCN(n_words, word_embed_size,
-                                          hidden_size, n_layers, kernel_size)
+                                          hidden_size, n_layers, kernel_size,
+                                          dropout_rate=0.3, emb_dropout=0.1)
         elif encoder_type == "gru":
             self.encoder = TextEncoderRNN(n_words, word_embed_size,
-                                          hidden_size, n_layers)
+                                          hidden_size, n_layers,
+                                          dropout_rate)
         else:
             raise ValueError(f"unknown encoder_type {encoder_type!r}")
         self.decoder_step = TokenDecoderStep(
             hidden_size, n_tokens, n_layers, use_attention,
             n_stage_heads=token_stages - 1,
-            stage_conditional=stage_conditional)
+            stage_conditional=stage_conditional, dropout_rate=dropout_rate)
 
     @property
     def n_pre(self) -> int:
@@ -263,15 +284,24 @@ class Text2Token(nn.Module):
                       enc_mask: Optional[torch.Tensor] = None,
                       temperature: float = 0.0, top_k: int = 0,
                       stage0_temperature: float = -1.0,
-                      gumbel: Optional[torch.Tensor] = None
+                      gumbel: Optional[torch.Tensor] = None,
+                      stage_targets: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
         """The autoregressive decode given a text encoding. target_tokens
         (B, n_steps) is the teacher signal (column 0 the seed); enc_mask
         (S,) or (B, S). Returns "logits" (B, n_steps, K), "tokens"
         (B, n_steps), and with residual stages "stage_logits" (B,
-        n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1)."""
+        n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1).
+        stage_targets (B, n_steps, token_stages), column 0 the primary
+        code, drives the stage chain of a stage_conditional model in
+        training (its teacher codes); training such a model needs it."""
         check_noise(self.token_stages, temperature, stage0_temperature,
                     gumbel)
+        if self.stage_conditional and self.training \
+                and stage_targets is None:
+            raise ValueError("stage_conditional training needs "
+                             "stage_targets (B, n_steps, token_stages)")
+        teach = self.stage_conditional and stage_targets is not None
         multi = self.token_stages > 1
         step = self.decoder_step
         seed = target_tokens[:, 0]
@@ -282,9 +312,15 @@ class Text2Token(nn.Module):
             token_in = (target_tokens[:, t - 1] if t - 1 < self.n_pre_poses
                         else prev)
             lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
-            prev, slg, stok = choose_step(
-                step, lg, out, temperature, top_k, stage0_temperature,
-                None if gumbel is None else gumbel[:, t - 1])
+            if teach:
+                st = stage_targets[:, t]
+                prev = torch.argmax(lg, dim=-1)
+                slg, stok = stage_chain(step, out, st[:, 0],
+                                        lambda _, s: st[:, s + 1])
+            else:
+                prev, slg, stok = choose_step(
+                    step, lg, out, temperature, top_k, stage0_temperature,
+                    None if gumbel is None else gumbel[:, t - 1])
             logits.append(lg)
             tokens.append(prev)
             if multi:

@@ -37,8 +37,8 @@ from torch import nn
 
 from gesture2vec_tpu_torch.models.text2token import check_noise, choose_step
 
-_TRAIN = "train mode is not ported yet (the training slice of the PyTorch " \
-         "port)"
+_TRAIN = "train mode is not ported yet (ROADMAP.md queue A item 3.1, the " \
+         "next training slice of the PyTorch port)"
 # flax's LayerNorm epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
 # the JAX package's fill for masked scores

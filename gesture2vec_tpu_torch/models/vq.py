@@ -1,4 +1,4 @@
-"""Sequence-level vector quantizers, eval forward (the tokenizer's).
+"""Sequence-level vector quantizers (the tokenizer's).
 
 Port of the JAX package's `models/vq.py` pieces the Part-c path runs:
 `codebook_distances`, `gssoft_probs` (log-space, log-smoothing clamped
@@ -9,7 +9,13 @@ variables (`codebook`, `codebook_r{s}`, `mean_layer`, `logvar_layer`).
 GS-Soft tokens are the argmax of the soft assignment softmax(logp),
 with per-code smoothing: no argmin of distances computes them. The
 residual stages' hard assignments are argmins and go through
-`ops/vq_kernel.vq_argmin`.
+`ops/vq_kernel.vq_argmin`; an argmin needs no gradient, so training
+differentiates through the gathered codebook rows.
+
+The losses have the JAX package's training form, whose values are the
+eval values too: q_latent + beta * e_latent with e_latent = mse(sg(q), x)
+and q_latent = mse(q, sg(x)) (sg: detach), and the straight-through
+output x + sg(q - x); the residual stages quantize resid - sg(q).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ __all__ = ["VQOutput", "VQGSSoft", "VQResidual", "codebook_distances",
 
 class VQOutput(NamedTuple):
     loss: torch.Tensor        # scalar codebook/commitment loss
-    quantized: torch.Tensor   # x + (quantized - x), the straight-through value
+    quantized: torch.Tensor   # x + sg(quantized - x), the straight-through value
     perplexity: torch.Tensor  # codebook-usage perplexity
     encodings: torch.Tensor   # (N, K) assignment weights (hard or soft)
 
@@ -53,9 +59,11 @@ def gssoft_probs(distances: torch.Tensor,
 
 
 def _losses(q: torch.Tensor, x: torch.Tensor, beta: float) -> torch.Tensor:
-    # eval values of q_latent + beta * e_latent (both are mse(q, x))
-    mse = torch.mean((q - x) ** 2)
-    return mse + beta * mse
+    """q_latent + beta * e_latent: the codebook term moves q, the
+    commitment term x."""
+    e_latent = torch.mean((q.detach() - x) ** 2)
+    q_latent = torch.mean((q - x.detach()) ** 2)
+    return q_latent + beta * e_latent
 
 
 class VQGSSoft(nn.Module):
@@ -84,7 +92,7 @@ class VQGSSoft(nn.Module):
         probs = torch.softmax(self.logp(flat), dim=1)
         quantized = torch.matmul(probs, self.codebook).reshape(x.shape)
         loss = _losses(quantized, x, self.commitment_cost)
-        st = x + (quantized - x)
+        st = x + (quantized - x).detach()
         return VQOutput(loss, st, perplexity_of(probs), probs)
 
     @staticmethod
@@ -134,8 +142,8 @@ class VQResidual(nn.Module):
             if s == 0:
                 out0 = torch.nn.functional.one_hot(
                     idx, cb.shape[0]).to(flat.dtype)
-            resid = resid - q
-        st = (flat + (total_q - flat)).reshape(x.shape)
+            resid = resid - q.detach()
+        st = (flat + (total_q - flat).detach()).reshape(x.shape)
         return VQOutput(loss, st, perplexity_of(out0), out0)
 
     @staticmethod

@@ -24,6 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"chunk_decoder": "chunk_decoder.cu",
            "gru_sequence": "gru_sequence.cu",
+           "gru_sequence_backward": "gru_sequence_backward.cu",
            "vq_argmin": "vq_argmin.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -15,6 +15,17 @@ returns (outputs (T, B, H), last hidden (B, H)): the math of
 kept at their time positions (`lax.scan(reverse=True)`). On a CUDA
 tensor it launches the kernel (or raises); on a CPU tensor it runs
 `gru_sequence_plain`, a plain loop over the same gate math.
+
+The gradient: `GRUSequenceFn` (a torch.autograd.Function) runs the
+forward and saves x_proj, h0, w_hh, b_hh and the outputs;
+its backward runs `gru_sequence_backward`, the backward pass through
+time of `csrc/gru_sequence_backward.cu` (the TPU kernel has none: JAX
+differentiates its lax.scan), which gives d x_proj, the hidden-side gate
+gradients dgh and d h0, and finishes the weight gradients with two large
+products over all steps, dW_hh = dgh^T h_prev and db_hh = sum dgh.
+`gru_sequence` goes through the Function whenever grad is enabled and an
+input requires it: on a CUDA tensor both directions run the kernels (or
+raise), on a CPU tensor the plain forward and `gru_sequence_backward_plain`.
 """
 from __future__ import annotations
 
@@ -77,6 +88,80 @@ def gru_sequence_plain(x_proj: torch.Tensor, h0: torch.Tensor,
     return torch.stack(ys, dim=0), h
 
 
+def backward_launch_shape(B: int, H: int,
+                          max_clusters: int = H100_MAX_CLUSTERS) -> dict:
+    """The backward kernel's launch (`csrc/gru_sequence_backward.cu`'s
+    `threads_for`, `smem_bytes`): the forward's tile and threads, with
+    shared memory for the w_hh slice, two h_prev tiles, two rounds of the
+    cluster's partial sums, the step's dgh rows and the carried dh.
+    Raises ValueError above 232,448 bytes a block, which happens above
+    H=216."""
+    U = -(-H // CLUSTER)
+    q = -(-H // 4)
+    HP = 4 * (q if q % 2 else q + 1)
+    threads = -(-U * (ROWS // ROWS_PER_THREAD) // 32) * 32
+    smem = 4 * (3 * U * HP + 2 * ROWS * HP + 2 * CLUSTER * ROWS * U
+                + ROWS * 3 * U + ROWS * U + 3 * U)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"H={H} needs {smem} B of shared memory per block "
+                         f"for the GRU backward (its w_hh slice, two h_prev "
+                         f"tiles, the cluster's partial sums), more than "
+                         f"{_SMEM_LIMIT}")
+    clusters = -(-B // ROWS)
+    return {"rows": ROWS, "cluster": CLUSTER, "threads": threads,
+            "smem_bytes": smem, "clusters": clusters,
+            "blocks": clusters * CLUSTER,
+            "waves": -(-clusters // max_clusters)}
+
+
+def h_prev_stack(ys: torch.Tensor, h0: torch.Tensor,
+                 reverse: bool) -> torch.Tensor:
+    """(T, B, H): the state each step t started from (ys of the step taken
+    before it, h0 for the first step taken)."""
+    if reverse:
+        return torch.cat([ys[1:], h0[None]], dim=0)
+    return torch.cat([h0[None], ys[:-1]], dim=0)
+
+
+def gru_sequence_backward_plain(x_proj: torch.Tensor, h0: torch.Tensor,
+                                w_hh: torch.Tensor, b_hh: torch.Tensor,
+                                ys: torch.Tensor, dys: torch.Tensor,
+                                dh_last: torch.Tensor, reverse: bool = False
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The backward kernel's math as a plain PyTorch loop: the gradients
+    dys (T, B, H) of the outputs and dh_last (B, H) of the last hidden ->
+    (d x_proj (T, B, 3H), dgh (T, B, 3H), d h0 (B, H))."""
+    T = x_proj.shape[0]
+    H = h0.shape[-1]
+    prev = h_prev_stack(ys, h0, reverse)
+    dxp = torch.empty_like(x_proj)
+    dgh = torch.empty_like(x_proj)
+    dh = dh_last
+    for t in (range(T) if reverse else reversed(range(T))):
+        xp, hp = x_proj[t], prev[t]
+        gh = torch.addmm(b_hh, hp, w_hh.t())
+        r = torch.sigmoid(xp[:, :H] + gh[:, :H])
+        z = torch.sigmoid(xp[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(xp[:, 2 * H:] + r * gh[:, 2 * H:])
+        dh = dh + dys[t]
+        dpn = dh * (1.0 - z) * (1.0 - n * n)
+        dpr = dpn * gh[:, 2 * H:] * r * (1.0 - r)
+        dpz = dh * (hp - n) * z * (1.0 - z)
+        dxp[t] = torch.cat([dpr, dpz, dpn], dim=1)
+        dgh[t] = torch.cat([dpr, dpz, dpn * r], dim=1)
+        dh = dh * z + dgh[t] @ w_hh
+    return dxp, dgh, dh
+
+
+def _dtype(x_proj: torch.Tensor) -> torch.dtype:
+    """float32; the plain versions on the CPU also take float64 (the
+    gradient checks)."""
+    if x_proj.device.type == "cpu" and x_proj.dtype == torch.float64:
+        return torch.float64
+    return torch.float32
+
+
 def _check(x_proj, h0, w_hh, b_hh) -> None:
     if x_proj.dim() != 3:
         raise ValueError(f"x_proj: shape {tuple(x_proj.shape)}, want "
@@ -88,8 +173,9 @@ def _check(x_proj, h0, w_hh, b_hh) -> None:
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: dtype {t.dtype}, want float32")
+        if t.dtype != _dtype(x_proj):
+            raise ValueError(f"{name}: dtype {t.dtype}, want "
+                             f"{_dtype(x_proj)}")
         if t.device != x_proj.device:
             raise ValueError(f"{name} is on {t.device}, x_proj on "
                              f"{x_proj.device}")
@@ -122,18 +208,115 @@ def _launch(x_proj, h0, w_hh, b_hh, reverse):
     return ys, h_last
 
 
-def gru_sequence(x_proj: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor,
-                 b_hh: torch.Tensor, reverse: bool = False
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(outputs (T, B, H), last hidden (B, H)). CUDA tensors launch the
-    kernel (counted in `gru_sequence.launches`); CPU tensors take the
-    plain version."""
-    _check(x_proj, h0, w_hh, b_hh)
+def _forward(x_proj, h0, w_hh, b_hh, reverse):
     if x_proj.device.type == "cpu":
         return gru_sequence_plain(x_proj, h0, w_hh, b_hh, reverse)
     if x_proj.device.type != "cuda":
         raise ValueError(f"no GRU kernel for device {x_proj.device}")
     return _launch(x_proj, h0, w_hh, b_hh, reverse)
+
+
+def _launch_backward(x_proj, h0, w_hh, b_hh, ys, dys, dh_last, reverse):
+    from gesture2vec_tpu_torch.ops.build import load
+
+    fn = load("gru_sequence_backward").g2v_gru_sequence_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    T, B, H3 = x_proj.shape
+    H = H3 // 3
+    backward_launch_shape(B, H)
+    dxp = torch.empty_like(x_proj)
+    dgh = torch.empty_like(x_proj)
+    dh0 = torch.empty_like(h0)
+    stream = torch.cuda.current_stream(x_proj.device).cuda_stream
+    err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
+             b_hh.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+             dh_last.data_ptr(), dxp.data_ptr(), dgh.data_ptr(),
+             dh0.data_ptr(), T, B, H, int(reverse), stream)
+    if err != 0:
+        raise RuntimeError(f"gru_sequence_backward kernel launch failed: "
+                           f"CUDA error {err}")
+    count_launch(gru_sequence_backward)
+    return dxp, dgh, dh0
+
+
+def gru_sequence_backward(x_proj: torch.Tensor, h0: torch.Tensor,
+                          w_hh: torch.Tensor, b_hh: torch.Tensor,
+                          ys: torch.Tensor, dys: torch.Tensor,
+                          dh_last: torch.Tensor, reverse: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """(d x_proj (T, B, 3H), dgh (T, B, 3H), d h0 (B, H)) from the
+    forward's inputs, its outputs ys and the gradients dys, dh_last. CUDA
+    tensors launch the kernel (counted in
+    `gru_sequence_backward.launches`); CPU tensors take the plain
+    version."""
+    _check(x_proj, h0, w_hh, b_hh)
+    T, B, H3 = x_proj.shape
+    for name, t, shape in (("ys", ys, (T, B, H3 // 3)),
+                           ("dys", dys, (T, B, H3 // 3)),
+                           ("dh_last", dh_last, (B, H3 // 3))):
+        if tuple(t.shape) != shape or t.dtype != x_proj.dtype \
+                or t.device != x_proj.device or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {x_proj.dtype} "
+                             f"{shape} "
+                             f"on {x_proj.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if x_proj.device.type == "cpu":
+        return gru_sequence_backward_plain(x_proj, h0, w_hh, b_hh, ys, dys,
+                                           dh_last, reverse)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"no GRU kernel for device {x_proj.device}")
+    return _launch_backward(x_proj, h0, w_hh, b_hh, ys, dys, dh_last,
+                            reverse)
+
+
+gru_sequence_backward.launches = 0
+
+
+class GRUSequenceFn(torch.autograd.Function):
+    """The GRU sequence with its gradient: forward `gru_sequence`'s kernel
+    (or plain version on the CPU), backward `gru_sequence_backward`'s,
+    then dW_hh = dgh^T h_prev and db_hh = sum dgh over all steps. A CUDA
+    forward checks first that the backward kernel takes the shape."""
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, w_hh, b_hh, reverse):
+        if x_proj.device.type == "cuda":
+            backward_launch_shape(x_proj.shape[1], h0.shape[-1])
+        ys, h_last = _forward(x_proj, h0, w_hh, b_hh, reverse)
+        ctx.save_for_backward(x_proj, h0, w_hh, b_hh, ys)
+        ctx.reverse = reverse
+        return ys, h_last
+
+    @staticmethod
+    def backward(ctx, dys, dh_last):
+        x_proj, h0, w_hh, b_hh, ys = ctx.saved_tensors
+        dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
+        dh_last = (torch.zeros_like(h0) if dh_last is None
+                   else dh_last.contiguous())
+        dxp, dgh, dh0 = gru_sequence_backward(
+            x_proj, h0, w_hh, b_hh, ys, dys, dh_last, ctx.reverse)
+        T, B, H3 = dgh.shape
+        prev = h_prev_stack(ys, h0, ctx.reverse)
+        dw_hh = dgh.reshape(T * B, H3).t() @ prev.reshape(T * B, -1)
+        return dxp, dh0, dw_hh, dgh.sum(dim=(0, 1)), None
+
+
+def gru_sequence(x_proj: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh: torch.Tensor, reverse: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(outputs (T, B, H), last hidden (B, H)). CUDA tensors launch the
+    kernel (counted in `gru_sequence.launches`); CPU tensors take the
+    plain version. With grad enabled and an input that requires it, the
+    call goes through `GRUSequenceFn`, whose backward is the backward
+    kernel."""
+    _check(x_proj, h0, w_hh, b_hh)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_proj, h0, w_hh, b_hh)):
+        return GRUSequenceFn.apply(x_proj, h0, w_hh, b_hh, reverse)
+    return _forward(x_proj, h0, w_hh, b_hh, reverse)
 
 
 gru_sequence.launches = 0

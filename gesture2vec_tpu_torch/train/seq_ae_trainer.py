@@ -1,0 +1,239 @@
+"""Part b trainer: the gesture tokenizer (sequence VQ autoencoder).
+
+Port of the JAX package's `train/seq_ae_trainer.py`:
+  loss = custom_loss(outputs, windows) + vq_loss / 400
+over the teacher-forced decode of a train-mode forward
+(`models/seq_ae.SeqVQAutoencoder`), with Adam(0.5, 0.999) after
+global-norm clipping at 5. On the card the BiGRU encoder's four
+recurrences run the GRU-sequence kernel forward and its backward kernel
+backward, and the residual quantizer's hard assignments the VQ-argmin
+kernel; validation (eval BatchNorm, no dropout) decodes through the
+chunk-decoder kernel, so on the card a decoder the kernel cannot run is
+refused before the first step. `rvq_reestimate_every` re-fits each residual
+stage's codebook with K-Means (`cluster/kmeans`, assignments through the
+VQ-argmin kernel) over the current encoder latents.
+
+Refused, each naming the ROADMAP.md queue A item that ports it:
+`seq_arch: transformer` training (3.2), `use_derivative` and
+`autoencoder_vae` (3.4), the similarity-supervised step (3.5),
+`compute_dtype: bfloat16` (3.7), the streaming window source (3.8).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from gesture2vec_tpu_torch.cluster.kmeans import lloyd, plusplus_init
+from gesture2vec_tpu_torch.compat.from_jax import to_jax_variables
+from gesture2vec_tpu_torch.device import resolve_device
+from gesture2vec_tpu_torch.models.layers import dropout_generator
+from gesture2vec_tpu_torch.models.seq_ae import (SeqVQAutoencoder,
+                                                 _flatten_hidden)
+from gesture2vec_tpu_torch.ops.vq_kernel import vq_argmin
+from gesture2vec_tpu_torch.train import checkpoints
+from gesture2vec_tpu_torch.train.config import Config
+from gesture2vec_tpu_torch.train.dae_trainer import init_model
+from gesture2vec_tpu_torch.train.losses import custom_loss
+from gesture2vec_tpu_torch.train.optim import Adam, Step
+from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
+                                                    to_device)
+from gesture2vec_tpu_torch.utils.meters import AverageMeter
+
+_LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
+
+
+def make_seq_ae(config: Config) -> SeqVQAutoencoder:
+    """The tokenizer the JAX package's make_seq_ae builds (per_sample
+    flattening, the trainers' default)."""
+    refused = (
+        (config.extras.get("seq_arch", "bigru") == "transformer",
+         "seq_arch: transformer training", "3.2"),
+        (config.use_derivative, "use_derivative", "3.4"),
+        (config.autoencoder_vae, "autoencoder_vae", "3.4"),
+        (not config.autoencoder_vq,
+         "the plain sequence autoencoder (autoencoder_vq: false)", "3.4"),
+        (config.autoencoder_att, "decoder attention (autoencoder_att)",
+         "6, reconstruction"),
+        (config.use_similarity, "similarity-supervised training "
+         "(use_similarity)", "3.5"),
+        (config.compute_dtype != "float32", "compute_dtype: bfloat16",
+         "3.7"))
+    for cond, what, item in refused:
+        if cond:
+            raise NotImplementedError(_LATER.format(what, item))
+    return SeqVQAutoencoder(
+        rep_dim=config.rep_learning_dim, hidden_size=config.hidden_size,
+        n_layers=config.n_layers, n_frames=config.n_poses,
+        vq_components=config.autoencoder_vq_components,
+        n_pre_poses=config.n_pre_poses,
+        vq_variant=config.autoencoder_vq_variant,
+        rvq_stages=config.rvq_stages,
+        commitment_cost=config.autoencoder_vq_commitment_cost,
+        conditioned=config.autoencoder_conditioned,
+        dropout_rate=config.dropout_prob)
+
+
+class TrainStep(Step):
+    """The Part-b step on a batch of windows (B, n_poses, rep_dim); its
+    loss comes with the quantizer's perplexity."""
+
+    def __init__(self, config: Config, model: SeqVQAutoencoder, opt: Adam):
+        self.config, self.model, self.opt = config, model, opt
+
+    def loss(self, batch: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        c = self.config
+        res = self.model(batch, batch)
+        rec = custom_loss(res["outputs"], batch,
+                          l1_weight=c.loss_l1_weight,
+                          cont_weight=c.loss_cont_weight,
+                          var_weight=c.loss_var_weight)
+        return rec + res["vq"].loss / 400.0, res["vq"].perplexity
+
+
+@torch.no_grad()
+def eval_step(config: Config, model: SeqVQAutoencoder,
+              batch: torch.Tensor) -> torch.Tensor:
+    """The validation loss (eval mode: the decode goes through the
+    chunk-decoder kernel where it is eligible)."""
+    res = model(batch, batch)
+    return custom_loss(res["outputs"], batch,
+                       l1_weight=config.loss_l1_weight,
+                       cont_weight=config.loss_cont_weight,
+                       var_weight=config.loss_var_weight)
+
+
+def _plusplus(resid: torch.Tensor, k: int, stage: int) -> torch.Tensor:
+    gen = torch.Generator(device=resid.device).manual_seed(stage)
+    return plusplus_init(resid, k, gen)
+
+
+@torch.no_grad()
+def reestimate_rvq_codebooks(
+        model: SeqVQAutoencoder, windows: np.ndarray, k: int, stages: int,
+        batch: int = 512, max_rows: int = 20000,
+        seed_centers: Optional[Callable[[torch.Tensor, int, int],
+                                        torch.Tensor]] = None) -> None:
+    """K-Means re-fit of every residual-VQ stage codebook over the
+    current encoder latents, in place (the JAX package's
+    reestimate_rvq_codebooks): stage 0 fits the flattened
+    decoder-initial hiddens of (at most max_rows, a sorted subsample
+    drawn by np.random.default_rng(0)) windows in full batches, stage s
+    the residual left by stages < s; 100 Lloyd steps at most.
+    seed_centers(resid, k, stage) gives each stage's initial centers
+    (default: k-means++ from a generator seeded with the stage)."""
+    dev = model.vq_layer.codebook.device
+    was_training = model.training
+    model.eval()
+    sub = windows
+    if windows.shape[0] > max_rows:
+        pick = np.random.default_rng(0).permutation(
+            windows.shape[0])[:max_rows]
+        sub = windows[np.sort(pick)]
+    starts = list(range(0, sub.shape[0] - batch + 1, batch)) or [None]
+    rows = []
+    for s in starts:
+        x = sub if s is None else sub[s:s + batch]
+        h = model.encode_hidden(to_device(x, dev))
+        rows.append(_flatten_hidden(h, model.vq_flatten))
+    resid = torch.cat(rows, dim=0).float().contiguous()
+    seed_centers = seed_centers or _plusplus
+    for s, cb in enumerate(model.vq_layer.codebooks()[:stages]):
+        centers, _, _, _ = lloyd(resid, seed_centers(resid, k, s).to(dev),
+                                 max_iter=100)
+        cb.copy_(centers)
+        idx, _ = vq_argmin(resid, centers.contiguous())
+        resid = (resid - centers[idx]).contiguous()
+    logging.info("RVQ codebooks re-estimated from %d latents (%d stages, "
+                 "k=%d)", resid.shape[0], stages, k)
+    model.train(was_training)
+
+
+def train_seq_ae(config: Config, train_windows: np.ndarray,
+                 val_windows: np.ndarray, save_dir: Optional[str] = None,
+                 save_every: int = 20, log_every: int = 50,
+                 resume_from: Optional[str] = None,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> Tuple[SeqVQAutoencoder, Dict[str, list]]:
+    """The Part-b loop over frozen-DAE latent windows (N, n_poses,
+    rep_dim); returns (model, history). resume_from as in
+    dae_trainer.train_dae. Runs on CUDA unless device says otherwise."""
+    if hasattr(train_windows, "batches"):
+        raise NotImplementedError(_LATER.format(
+            "the streaming window source (data/streaming)", "3.8"))
+    dev = resolve_device(device)
+    seed = max(config.random_seed, 0)
+    model = init_model(make_seq_ae(config), seed, dev)
+    reason = model.decoder.kernel_reason()
+    if dev.type == "cuda" and reason:
+        raise ValueError(f"validation decodes through the chunk-decoder "
+                         f"kernel on the card: {reason}")
+    opt = Adam(model.parameters(), config.learning_rate)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    start_epoch = 0
+    if resume_from:
+        start_epoch, _ = checkpoints.restore_for_resume(model, opt, gen,
+                                                        resume_from)
+    step = TrainStep(config, model, opt)
+    n, bs = train_windows.shape[0], config.batch_size
+    require_full_batch(n, bs, config.name)
+    history: Dict[str, list] = {"train_loss": [], "val_loss": [],
+                                "perplexity": []}
+    meter = AverageMeter("loss", ":.4f")
+    rvq_every = (config.rvq_reestimate_every
+                 if config.autoencoder_vq_variant == "rvq" else 0)
+    for epoch in range(start_epoch, config.epochs):
+        if rvq_every and epoch and epoch % rvq_every == 0:
+            reestimate_rvq_codebooks(model, train_windows,
+                                     config.autoencoder_vq_components,
+                                     config.rvq_stages)
+        meter.reset()
+        t0 = time.time()
+        perm = np.random.default_rng(seed + epoch).permutation(n)
+        model.train()
+        losses, perps = [], []
+        for b in range(n // bs):
+            batch = to_device(train_windows[perm[b * bs:(b + 1) * bs]], dev)
+            with dropout_generator(gen):
+                loss, perp = step(batch)
+            losses.append(loss)
+            perps.append(perp)
+            if (b + 1) % log_every == 0:
+                meter.update(float(torch.stack(losses[-log_every:]).mean()),
+                             bs * log_every)
+                logging.info("EP %d (%d/%d) %s, %.0f samples/s", epoch,
+                             b + 1, n // bs, meter,
+                             (b + 1) * bs / (time.time() - t0))
+        meter.avg = (float(torch.stack(losses).mean()) if losses
+                     else float("nan"))
+        history["train_loss"].append(meter.avg)
+        if losses and "first_step_loss" not in history:
+            history["first_step_loss"] = [float(losses[0])]
+        history["perplexity"].append(float(torch.stack(perps).mean())
+                                     if perps else float("nan"))
+        model.eval()
+        val = [float(eval_step(config, model,
+                               to_device(val_windows[s:s + bs], dev)))
+               for s in range(0, val_windows.shape[0] - bs + 1, bs)]
+        history["val_loss"].append(float(np.mean(val)) if val
+                                   else float("nan"))
+        logging.info("EP %d done: train %.5f val %.5f perp %.1f", epoch,
+                     meter.avg, history["val_loss"][-1],
+                     history["perplexity"][-1])
+        if save_dir and ((epoch + 1) % save_every == 0
+                         or epoch + 1 == config.epochs):
+            path = checkpoints.checkpoint_filename(save_dir, config.name,
+                                                   epoch + 1)
+            v = to_jax_variables(model)
+            checkpoints.save_checkpoint(
+                path, config=config, epoch=epoch + 1, params=v["params"],
+                pose_dim=model.rep_dim,
+                extra={"batch_stats": v["batch_stats"], "parity": False,
+                       **checkpoints.resume_extra(model, opt, gen, config)},
+                kind="autoencoder_vq")
+            logging.info("saved checkpoint %s", path)
+    return model, history

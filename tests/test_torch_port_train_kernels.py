@@ -1,0 +1,195 @@
+"""PyTorch port vs the JAX package: the gradient of the GRU sequence.
+
+`ops/gru_kernel.gru_sequence_backward_plain` (the backward kernel's
+plain version) and `GRUSequenceFn` against `jax.vjp` of the JAX
+package's `gru_layer` and `masked_gru_layer`, forward and reverse, on
+the same numpy inputs and output gradients: every gradient within 1e-5
+of the JAX gradient's largest magnitude (fp32 sums in another order over
+a few steps). `torch.autograd.gradcheck` holds the Function's plain
+backward against finite differences in float64. The `gpu`-marked test
+holds the backward kernel against autograd through the plain forward on
+the card, within 1e-4 of each tensor's largest magnitude, and a second
+one that the Part-b eval decode raises there for a decoder the
+chunk-decoder kernel cannot run. The JAX package's
+GRU module (it imports flax) is imported inside the CPU tests, so the
+file also collects on a machine with the card and without flax.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gesture2vec_tpu_torch.models import gru as pgru
+from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+TOL = 1e-5
+T, B, IN, H = 7, 5, 6, 16
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    b = 1.0 / np.sqrt(H)
+    f = np.float32
+    return {"xs": rng.normal(size=(T, B, IN)).astype(f),
+            "h0": (0.5 * rng.normal(size=(B, H))).astype(f),
+            "w_ih": rng.uniform(-b, b, (3 * H, IN)).astype(f),
+            "w_hh": rng.uniform(-b, b, (3 * H, H)).astype(f),
+            "b_ih": rng.uniform(-b, b, (3 * H,)).astype(f),
+            "b_hh": rng.uniform(-b, b, (3 * H,)).astype(f),
+            "dys": rng.normal(size=(T, B, H)).astype(f),
+            "dh": rng.normal(size=(B, H)).astype(f),
+            "lengths": np.array([7, 3, 1, 0, 5], np.int32)}
+
+
+def _close(got, want, name):
+    got = np.asarray(got)
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= TOL, f"{name}: {err} of the largest magnitude"
+
+
+NAMES = ("xs", "h0", "w_ih", "w_hh", "b_ih", "b_hh")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_gradients_match_jax_vjp(reverse, masked):
+    """All six gradients of a GRU layer (through the Function's plain
+    backward and autograd of the input projection) against jax.vjp."""
+    from gesture2vec_tpu.models import gru as jgru
+    d = _inputs(3 + 2 * reverse + masked)
+    args = [d[n] for n in NAMES]
+    if masked:
+        def jfn(xs, h0, w_ih, w_hh, b_ih, b_hh):
+            return jgru.masked_gru_layer(xs, jnp.asarray(d["lengths"]), h0,
+                                         w_ih, w_hh, b_ih, b_hh, reverse)
+    else:
+        def jfn(xs, h0, w_ih, w_hh, b_ih, b_hh):
+            return jgru.gru_layer(xs, h0, w_ih, w_hh, b_ih, b_hh, reverse)
+    (ys_j, h_j), vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+    want = vjp((jnp.asarray(d["dys"]), jnp.asarray(d["dh"])))
+
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    if masked:
+        ys, h = pgru.masked_gru_layer(
+            leaves[0], torch.from_numpy(d["lengths"]), *leaves[1:], reverse)
+    else:
+        ys, h = pgru.gru_layer(*leaves, reverse)
+    _close(ys.detach(), ys_j, "ys")
+    _close(h.detach(), h_j, "h_last")
+    got = torch.autograd.grad((ys, h), leaves, (torch.from_numpy(d["dys"]),
+                                                torch.from_numpy(d["dh"])))
+    for name, g, w in zip(NAMES, got, want):
+        _close(g, w, name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_plain_matches_jax_recurrence_vjp(reverse):
+    """gru_sequence_backward_plain's d x_proj and d h0 against jax.vjp of
+    the JAX recurrence over x_proj, and its dgh through dW_hh, db_hh."""
+    from gesture2vec_tpu.models import gru as jgru
+    d = _inputs(11 + reverse)
+    xp = np.einsum("tbi,gi->tbg", d["xs"], d["w_ih"]) + d["b_ih"]
+    xp = xp.astype(np.float32)
+    eye_in = np.eye(3 * H, dtype=np.float32)
+
+    def jfn(xp_, h0, w_hh, b_hh):
+        # x_proj through an identity input projection
+        return jgru.gru_layer(xp_, h0, eye_in, w_hh,
+                              jnp.zeros(3 * H), b_hh, reverse)
+    _, vjp = jax.vjp(jfn, *map(jnp.asarray, (xp, d["h0"], d["w_hh"],
+                                             d["b_hh"])))
+    want = vjp((jnp.asarray(d["dys"]), jnp.asarray(d["dh"])))
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    xp_t = torch.from_numpy(xp)
+    ys, _ = gk.gru_sequence_plain(xp_t, t["h0"], t["w_hh"], t["b_hh"],
+                                  reverse)
+    dxp, dgh, dh0 = gk.gru_sequence_backward_plain(
+        xp_t, t["h0"], t["w_hh"], t["b_hh"], ys, t["dys"], t["dh"], reverse)
+    prev = gk.h_prev_stack(ys, t["h0"], reverse)
+    dw = dgh.reshape(-1, 3 * H).t() @ prev.reshape(-1, H)
+    for name, g, w in (("dx_proj", dxp, want[0]), ("dh0", dh0, want[1]),
+                       ("dw_hh", dw, want[2]),
+                       ("db_hh", dgh.sum((0, 1)), want[3])):
+        _close(g, w, name)
+    # dgh differs from d x_proj only in the n gate
+    np.testing.assert_array_equal(dgh[..., :2 * H].numpy(),
+                                  dxp[..., :2 * H].numpy())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_function_gradcheck_float64(reverse):
+    """The Function's plain forward and backward against finite
+    differences (float64 on the CPU)."""
+    g = torch.Generator().manual_seed(5 + reverse)
+    Tn, Bn, Hn = 4, 3, 5
+    args = [torch.randn(s, generator=g, dtype=torch.float64,
+                        requires_grad=True)
+            for s in ((Tn, Bn, 3 * Hn), (Bn, Hn), (3 * Hn, Hn), (3 * Hn,))]
+    assert torch.autograd.gradcheck(
+        lambda *a: gk.GRUSequenceFn.apply(*a, reverse), args)
+
+
+def test_gru_sequence_takes_the_function_only_with_grad():
+    """With grad enabled and a leaf that requires it, gru_sequence's
+    outputs carry the Function's backward; under no_grad they do not."""
+    d = _inputs(2)
+    xp = torch.randn(T, B, 3 * H)
+    w = torch.from_numpy(d["w_hh"]).requires_grad_()
+    ys, _ = gk.gru_sequence(xp, torch.from_numpy(d["h0"]), w,
+                            torch.from_numpy(d["b_hh"]))
+    assert type(ys.grad_fn).__name__ == "GRUSequenceFnBackward"
+    with torch.no_grad():
+        ys, _ = gk.gru_sequence(xp, torch.from_numpy(d["h0"]), w,
+                                torch.from_numpy(d["b_hh"]))
+    assert ys.grad_fn is None
+
+
+def test_backward_launch_shape_limit():
+    """The backward kernel's shared memory mirror: H=200 fits (203,640
+    bytes a block), H=217 does not; the forward's limit is H=232."""
+    assert gk.backward_launch_shape(128, 200)["smem_bytes"] == 203640
+    assert gk.backward_launch_shape(117, 216)["clusters"] == 6
+    with pytest.raises(ValueError, match="GRU backward"):
+        gk.backward_launch_shape(128, 217)
+    gk.launch_shape(128, 232)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_on_card_matches_autograd_of_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Hc = 200
+    for Tc, Bc in ((20, 128), (48, 37)):
+        for reverse in (False, True):
+            leaves = [torch.randn(s, device="cuda", generator=g) * sc
+                      for s, sc in (((Tc, Bc, 3 * Hc), 1.0), ((Bc, Hc), 0.5),
+                                    ((3 * Hc, Hc), Hc ** -0.5),
+                                    ((3 * Hc,), Hc ** -0.5))]
+            leaves = [t.requires_grad_() for t in leaves]
+            dys = torch.randn(Tc, Bc, Hc, device="cuda", generator=g)
+            dh = torch.randn(Bc, Hc, device="cuda", generator=g)
+            ys, h = gk.GRUSequenceFn.apply(*leaves, reverse)
+            got = torch.autograd.grad((ys, h), leaves, (dys, dh))
+            ys_p, h_p = gk.gru_sequence_plain(*leaves, reverse)
+            want = torch.autograd.grad((ys_p, h_p), leaves, (dys, dh))
+            for a, b in zip(got, want):
+                err = (a - b).abs().max() / b.abs().max()
+                assert err.item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_ineligible_eval_decode_raises_on_card():
+    """On the card the Part-b eval decode runs the chunk-decoder kernel or
+    raises: it never takes the plain loop unasked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
+
+    dec = SeqDecoder(8, H, 2, 6, 16, n_pre_poses=2).cuda().eval()
+    with pytest.raises(ValueError, match="one seed frame"):
+        dec.decode(torch.zeros(2, 4, H, device="cuda"),
+                   torch.zeros(4, 6, 8, device="cuda"))

@@ -142,15 +142,19 @@ configs/VQ-VAE_rvq.yml's 4-stage tokenizer), weights through the bridge:
            within 1e-4), request seconds and stages, idle share at 60 s;
            then exemplar mode at 60 s over Part c's residual-VQ bank;
 Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
-  kernel   the GRU-sequence backward kernel against its plain version and
-           against autograd through the plain forward, at T=20 with B=128
-           and 512, T=48 with B=128 and a ragged B=117 (H=200, both
-           directions; each output's error relative to the reference's
-           largest magnitude), CUDA-event means of 20 launches after 3
-           warm-ups, the bound, and cuDNN's backward of one GRU layer with
-           the same weights (torch.autograd.grad) as its yardstick; the
-           forward of GRUSequenceFn at the same shapes against the plain
-           recurrence;
+  kernel   at T=20 with B=128 and 512, T=48 with B=128 and a ragged
+           B=117 (H=200, both directions; each output's error relative to
+           the reference's largest magnitude): the GRU forward's training
+           variant (which saves the gates) against the inference launch,
+           outputs bitwise equal and the two timed in turns, its gates
+           against the gates recomputed from its outputs; the backward
+           kernel against its plain version on the same gates and
+           GRUSequenceFn's gradients against autograd through the plain
+           forward; CUDA-event means of 20 launches after 3 warm-ups, the
+           bounds (the backward's also as the recomputing design had it),
+           cuDNN's backward of one GRU layer with the same weights
+           (torch.autograd.grad) as the yardstick of the Function's whole
+           backward, and cuDNN's forward + backward against gru_layer's;
   train    a synthetic store 135 wide (4 clips x 13,000 frames, a word
            every 0.4 s; one 3,000-frame validation clip) and configs
            written from configs/DAE.yml, VQ-VAE.yml, VQ-VAE_rvq.yml
@@ -169,10 +173,11 @@ Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
            losses, the last epoch's mean below the first step's,
            the launches per step (GRU 4 forward and 4 backward in Part b
            and the GRU encoder's Part d, 4 argmins under residual VQ, no
-           chunk decoder) and >= 1 chunk-decoder launch per Part-b
-           validation batch, one train step per run on the card against
-           the CPU from the same weights (loss and every gradient within
-           1e-4), and each Part-d checkpoint through
+           chunk decoder), one launch of the GRU forward's training
+           variant for each backward launch, >= 1 chunk-decoder launch
+           per Part-b validation batch, one train step per run on the
+           card against the CPU from the same weights (loss and every
+           gradient within 1e-4), and each Part-d checkpoint through
            `cli/_common.build_generator` to finite frames of a 6 s
            transcript with one chunk-decoder launch;
 then the kernels line (each kernel's launches on its first path, on the
@@ -900,11 +905,29 @@ def gru_kernel_rows(w_ih, w_hh, b_ih, b_hh) -> list:
 
 
 def gru_backward_bound_ms(T: int, B: int, H: int) -> dict:
-    """The recomputed gh and dgh @ w_hh, 4*T*B*H*3H; x_proj, h0, w_hh,
-    b_hh, ys, dys and dh_last in, d x_proj, dgh and d h0 out."""
+    """The backward's one product a step, dgh @ w_hh, 2*T*B*3H*H; the
+    saved gates, h0, w_hh, ys, dys and dh_last in, d x_proj, dgh and d h0
+    out."""
+    return bound(2.0 * T * B * 3 * H * H,
+                 4.0 * (T * B * 4 * H + 2 * B * H + 3 * H * H
+                        + 2 * T * B * H + 2 * T * B * 3 * H + B * H))
+
+
+def gru_backward_recompute_bound_ms(T: int, B: int, H: int) -> dict:
+    """The bound of the backward that recomputes the gates from x_proj:
+    the recomputed gh and dgh @ w_hh, 4*T*B*H*3H; x_proj, h0, w_hh, b_hh,
+    ys, dys and dh_last in, d x_proj, dgh and d h0 out. Kept so that times
+    of that design can be read against the bound they had."""
     return bound(4.0 * T * B * H * 3 * H,
                  4.0 * (3 * T * B * 3 * H + 2 * B * H + 3 * H * H + 3 * H
                         + 2 * T * B * H + B * H))
+
+
+def gru_gates_bound_ms(T: int, B: int, H: int) -> dict:
+    """The forward's training variant: `gru_bound_ms`'s work, with the
+    gates (T, B, 4H) among the bytes written."""
+    fwd = gru_bound_ms(T, B, H)
+    return bound(fwd["flops"], fwd["bytes"] + 4.0 * T * B * 4 * H)
 
 
 def rel_err(got, ref) -> float:
@@ -914,13 +937,19 @@ def rel_err(got, ref) -> float:
 
 
 def gru_backward_rows() -> list:
-    """The GRU-sequence backward kernel against its plain version and
-    against autograd through the plain forward, at the training path's
-    shapes (T=20 at B=128 and 512, T=48 at B=128, and a ragged B=117,
-    H=200, both directions), with cuDNN's backward of one GRU layer with
-    the same weights (torch.autograd.grad) as its yardstick."""
+    """The GRU-sequence training kernels at the training path's shapes
+    (T=20 at B=128 and 512, T=48 at B=128, and a ragged B=117, H=200,
+    both directions): the forward's training variant against the
+    inference launch (outputs bitwise equal, times side by side) and its
+    gates against the gates recomputed from its outputs; the backward
+    kernel against its plain version on the same gates and the
+    Function's gradients against autograd through the plain forward; and
+    cuDNN's backward of one GRU layer with the same weights
+    (torch.autograd.grad) and its forward + backward round trip as the
+    yardsticks of the Function's."""
     import torch
 
+    from gesture2vec_tpu_torch.models.gru import gru_layer
     from gesture2vec_tpu_torch.ops import gru_kernel as gk
 
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -943,9 +972,14 @@ def gru_backward_rows() -> list:
         dys = torch.randn(T, B, H, device="cuda", generator=g)
         dhl = torch.randn(B, H, device="cuda", generator=g)
         for reverse in (False, True):
+            fwd = (x_proj, h0, w_hh, b_hh, reverse)
             with torch.no_grad():
-                ys, _ = gk.gru_sequence(x_proj, h0, w_hh, b_hh, reverse)
-            args = (x_proj, h0, w_hh, b_hh, ys, dys, dhl, reverse)
+                ys_i, h_i = gk.gru_sequence(*fwd)
+                ys, h_l, gates = gk.gru_sequence_gates(*fwd)
+                gates_ref = gk.gates_from_ys(*fwd[:4], ys, reverse)
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(ys, ys_i) and torch.equal(h_l, h_i))
+            args = (gates, h0, w_hh, ys, dys, dhl, reverse)
             got = gk.gru_sequence_backward(*args)
             ref = gk.gru_sequence_backward_plain(*args)
             # the Function's gradients against autograd of the plain loop
@@ -956,27 +990,46 @@ def gru_backward_rows() -> list:
             ys_p, h_p = gk.gru_sequence_plain(*leaves, reverse)
             auto = torch.autograd.grad((ys_p, h_p), leaves, (dys, dhl))
             torch.cuda.synchronize()
-            # the Function's forward (the forward kernel at the training
-            # shapes) against the plain recurrence, and the gradients
+            # the Function's forward (the training variant) against the
+            # plain recurrence, the saved gates, and the gradients
             errs = {"ys": rel_err(ys_f, ys_p), "h_last": rel_err(h_f, h_p),
+                    "gates": rel_err(gates, gates_ref),
                     "dx_proj": rel_err(got[0], ref[0]),
                     "dgh": rel_err(got[1], ref[1]),
                     "dh0": rel_err(got[2], ref[2])}
             auto_errs = {n: rel_err(a, b) for n, a, b in zip(
                 ("dx_proj", "dh0", "dw_hh", "db_hh"), fn_grads, auto)}
+            # the two forwards in turns: inference, variant, variant,
+            # inference
+            with torch.no_grad():
+                f_ms = [cuda_ms(lambda: fn(*fwd), 20) for fn in (
+                    gk.gru_sequence, gk.gru_sequence_gates,
+                    gk.gru_sequence_gates, gk.gru_sequence)]
             row = {"phase": "kernel", "kernel": "gru_sequence_backward",
                    "T": T, "B": B, "H": H, "reverse": reverse,
                    "launch": gru_backward_launch(B, H),
+                   "ys_bitwise_equal_to_inference": bitwise,
                    "rel_err_vs_plain": errs,
                    "rel_err_vs_autograd": auto_errs,
                    "max_abs_err": max((a - b).abs().max().item()
                                       for a, b in zip(got, ref)),
                    "tol": TOL,
+                   "forward_ms": (f_ms[0] + f_ms[3]) / 2,
+                   "forward_gates_ms": (f_ms[1] + f_ms[2]) / 2,
+                   "forward_ms_in_turns": f_ms,
+                   "gates_max_abs_err": (gates - gates_ref).abs().max()
+                   .item(),
+                   "forward_gates_plain_ms": cuda_ms(
+                       lambda: gk.gru_sequence_gates_plain(*fwd), 5),
+                   "forward_bound_ms": gru_bound_ms(T, B, H)["bound_ms"],
+                   "forward_gates_bound": gru_gates_bound_ms(T, B, H),
                    "ms": cuda_ms(lambda: gk.gru_sequence_backward(*args),
                                  20),
                    "plain_ms": cuda_ms(
                        lambda: gk.gru_sequence_backward_plain(*args), 5),
-                   **gru_backward_bound_ms(T, B, H)}
+                   **gru_backward_bound_ms(T, B, H),
+                   "recompute_bound_ms": gru_backward_recompute_bound_ms(
+                       T, B, H)["bound_ms"]}
             if not reverse:
                 # the Function's whole backward (kernel + dW_hh, db_hh)
                 # and cuDNN's backward of one layer on the same weights
@@ -993,13 +1046,35 @@ def gru_backward_rows() -> list:
                     lambda: torch.autograd.grad(
                         (y_c, h_c), params, (dys, dhl[None]),
                         retain_graph=True), 20)
+                # forward + backward of one layer, input product included:
+                # gru_layer (matmul, the training variant, the backward
+                # kernel, dW_hh, db_hh, autograd of the matmul) against
+                # cuDNN's
+                layer = [t.clone().requires_grad_() for t in (
+                    xs, h0, w_ih, w_hh, b_ih, b_hh)]
+
+                def port_round():
+                    out = gru_layer(*layer, reverse)
+                    return torch.autograd.grad(out, layer, (dys, dhl))
+
+                def cudnn_round():
+                    out = cudnn(xs_l, h0_l)
+                    return torch.autograd.grad(out, params,
+                                               (dys, dhl[None]))
+                # cuDNN's forward with grad (it keeps its own gates for
+                # the backward), input product included
+                row["library_forward_ms"] = cuda_ms(
+                    lambda: cudnn(xs_l, h0_l), 20)
+                row["function_round_trip_ms"] = cuda_ms(port_round, 20)
+                row["library_round_trip_ms"] = cuda_ms(cudnn_round, 20)
             emit(row)
             rows.append(row)
             worst = max(*errs.values(), *auto_errs.values())
-            if not np.isfinite(worst) or worst > TOL:
+            if not np.isfinite(worst) or worst > TOL or not bitwise:
                 raise AssertionError(f"gru_sequence_backward T={T} B={B} "
                                      f"reverse={reverse}: {errs} "
-                                     f"{auto_errs}")
+                                     f"{auto_errs}, ys bitwise equal to "
+                                     f"the inference launch: {bitwise}")
     return rows
 
 
@@ -2962,9 +3037,10 @@ def fresh_model(part: str, cfg, n_words: int, device: str):
 @contextlib.contextmanager
 def kernel_shapes():
     """Counts every kernel launch made inside by its shape: chunk_decoder
-    (B, steps), gru_sequence and its backward (T, B, H), vq_argmin (N, K,
-    D). It wraps the wrappers' private launch functions, so the wrappers'
-    own launch counts stay as they are."""
+    (B, steps), gru_sequence, its training variant (gru_sequence_gates,
+    also counted in gru_sequence's launches) and its backward (T, B, H),
+    vq_argmin (N, K, D). It wraps the wrappers' private launch functions,
+    so the wrappers' own launch counts stay as they are."""
     import collections
 
     from gesture2vec_tpu_torch.ops import decoder_kernel as dk
@@ -2974,11 +3050,14 @@ def kernel_shapes():
     def gru_key(x_proj, *_):
         return (*x_proj.shape[:2], x_proj.shape[2] // 3)
 
-    shapes = {name: collections.Counter() for name in launch_counters()}
+    shapes = {name: collections.Counter()
+              for name in (*launch_counters(), "gru_sequence_gates")}
     hooks = ((dk, "_launch", "chunk_decoder",
               lambda x0, h0, w, n: (x0.shape[0], n)),
              (gk, "_launch", "gru_sequence", gru_key),
-             (gk, "_launch_backward", "gru_sequence_backward", gru_key),
+             (gk, "_launch_gates", "gru_sequence_gates", gru_key),
+             (gk, "_launch_backward", "gru_sequence_backward",
+              lambda gates, *_: (*gates.shape[:2], gates.shape[2] // 4)),
              (vk, "_launch", "vq_argmin",
               lambda x, cb: (x.shape[0], cb.shape[0], x.shape[1])))
     saved = []
@@ -3003,7 +3082,7 @@ def compared_shapes() -> dict:
     gru |= {(MAXW, B, HID) for B in GRU_T48_BATCHES}
     bwd = {(T, B, HID) for T, B in GRU_BWD_SHAPES}
     return {"chunk_decoder": set(DECODER_SHAPES), "gru_sequence": gru | bwd,
-            "gru_sequence_backward": bwd,
+            "gru_sequence_gates": bwd, "gru_sequence_backward": bwd,
             "vq_argmin": {(N, Kc, VQ_D) for N, Kc in VQ_SHAPES}}
 
 
@@ -3185,7 +3264,7 @@ def train_path(smi: str, tmp: str) -> tuple:
     bwd_rows = gru_backward_rows()
     root = os.path.join(tmp, "training")
     stores = write_train_store(root, np.random.default_rng(9))
-    ckpts, runs, counts = {}, {}, {}
+    ckpts, runs, counts, gates_launches = {}, {}, {}, {}
     # the command's own data (cli/train.build_arrays) and the re-fit's
     # Lloyd steps, recorded as the command runs
     build, built = cli_train.build_arrays, {}
@@ -3216,6 +3295,7 @@ def train_path(smi: str, tmp: str) -> tuple:
             cli_train.build_arrays, st.lloyd = recording_build, \
                 recording_lloyd
             reset_launches()
+            gates_before = sum(shapes["gru_sequence_gates"].values())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
@@ -3225,6 +3305,9 @@ def train_path(smi: str, tmp: str) -> tuple:
                 cli_train.build_arrays, st.lloyd = build, lloyd
             wall = time.perf_counter() - t0
             counts[run] = read_launches()
+            # the forward's training variant: one launch for each backward
+            gates_launches[run] = sum(
+                shapes["gru_sequence_gates"].values()) - gates_before
             ckpts[run] = sorted(glob.glob(os.path.join(save, "*.bin")))[-1]
             cfg, (train, val), kw = built.pop("out")
             if part == "d":
@@ -3238,6 +3321,7 @@ def train_path(smi: str, tmp: str) -> tuple:
             row = {"phase": "train", "run": run, "part": part,
                    "config": f"configs/{shipped}", "cuts": cuts,
                    "cli_s": wall, "launches": counts[run],
+                   "gates_launches": gates_launches[run],
                    "want_launches": train_want_launches(
                        part, run, cfg, train[0].shape[0], val[0].shape[0],
                        lloyd_steps),
@@ -3262,6 +3346,12 @@ def train_path(smi: str, tmp: str) -> tuple:
                 problems.append(f"{run}: the command launched "
                                 f"{row['launches']}, want "
                                 f"{row['want_launches']}")
+            if row["gates_launches"] != \
+                    row["launches"]["gru_sequence_backward"]:
+                problems.append(f"{run}: {row['gates_launches']} launches "
+                                f"of the forward's training variant for "
+                                f"{row['launches']['gru_sequence_backward']}"
+                                f" of the backward")
             want = {name: 0 for name in launch_counters()}
             want.update(TRAIN_STEP_LAUNCHES[run])
             if row["launches_per_step"] != want:
@@ -3313,12 +3403,16 @@ def train_path(smi: str, tmp: str) -> tuple:
         raise AssertionError(f"train check failed: {problems}")
     main_row = next(r for r in bwd_rows if r["T"] == 20 and r["B"] == 128
                     and not r["reverse"])
+    gates_row = main_row["forward_gates_bound"]
     entry = {"name": "gru_sequence_backward", "route": "cuda",
              "source": "gesture2vec_tpu_torch/csrc/gru_sequence_backward.cu",
              "replaces": "gesture2vec_tpu/ops/gru_pallas.py:60",
              "replaces_note": "its gradient: the JAX package has no "
                               "Pallas backward and differentiates the "
                               "lax.scan",
+             "status": "ported, then redesigned: reads the gates the "
+                       "forward's training variant saved, one product a "
+                       "step",
              "launches": sum(c["gru_sequence_backward"]
                              for c in counts.values()),
              "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
@@ -3329,10 +3423,29 @@ def train_path(smi: str, tmp: str) -> tuple:
              "bound_ms": main_row["bound_ms"],
              "bound_by": main_row["bound_by"],
              "library_ms": main_row["library_ms"],
+             "recompute_bound_ms": main_row["recompute_bound_ms"],
              "by_shape": {f"T{r['T']}_B{r['B']}": {k: r.get(k) for k in (
-                 "ms", "plain_ms", "bound_ms", "library_ms",
-                 "function_backward_ms")}
-                 for r in bwd_rows if not r["reverse"]}}
+                 "ms", "plain_ms", "bound_ms", "recompute_bound_ms",
+                 "library_ms", "function_backward_ms",
+                 "function_round_trip_ms", "library_round_trip_ms",
+                 "forward_ms", "forward_gates_ms")}
+                 for r in bwd_rows if not r["reverse"]},
+             # the forward's training variant (csrc/gru_sequence.cu's
+             # g2v_gru_sequence_gates), whose launches the train path also
+             # counts as gru_sequence's
+             "forward_variant": {
+                 "name": "gru_sequence_gates", "route": "cuda",
+                 "source": "gesture2vec_tpu_torch/csrc/gru_sequence.cu",
+                 "replaces": "gesture2vec_tpu/ops/gru_pallas.py:60",
+                 "launches": sum(gates_launches.values()),
+                 "max_abs_err": max(r["gates_max_abs_err"]
+                                    for r in bwd_rows),
+                 "ms": main_row["forward_gates_ms"],
+                 "plain_ms": main_row["forward_gates_plain_ms"],
+                 "bound_ms": gates_row["bound_ms"],
+                 "bound_by": gates_row["bound_by"],
+                 "library_ms": main_row["library_forward_ms"],
+                 "inference_ms": main_row["forward_ms"]}}
     return entry, counts
 
 

@@ -47,6 +47,15 @@
 // latency of a step's dependent chain (dot products, gate math, remote
 // stores, cluster barrier) rather than FMA throughput sets the pace.
 //
+// Training variant (g2v_gru_sequence_gates): the same kernel with
+// kGates set also writes, for its own units and rows, the step's gates
+// r, z, n and gh_n = (h @ w_hh^T + b_hh)_n into gates (T, B, 4H), so that
+// the backward (csrc/gru_sequence_backward.cu) needs no recompute. The
+// values are the ones the step computes anyway; the stores are the only
+// new work (4*T*B*H floats), and ys comes out bit-identical to the
+// inference launch's (same products, same order of sums). The inference
+// instantiation (kGates false) compiles to the code it ran before.
+//
 // Eligibility: the block's shared memory, 4 * (3*U*HP + 2*R*HP + 2*R*3U +
 // 3U) bytes with HP the padded row (see smem_bytes), must fit 232,448 B:
 // H <= 232 (gru_kernel.launch_shape mirrors this formula). A block then
@@ -128,6 +137,7 @@ __device__ __forceinline__ void stage(float* dst, int ld_dst, const float* src,
   }
 }
 
+template <bool kGates>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_sequence_kernel(const float* __restrict__ xp,   // (T, B, 3H)
                     const float* __restrict__ h0,   // (B, H)
@@ -135,6 +145,7 @@ gru_sequence_kernel(const float* __restrict__ xp,   // (T, B, 3H)
                     const float* __restrict__ bhh,  // (3H)
                     float* __restrict__ ys,         // (T, B, H)
                     float* __restrict__ hlast,      // (B, H)
+                    float* __restrict__ gates,      // (T, B, 4H) if kGates
                     int T, int B, int H, int reverse, int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -218,14 +229,22 @@ gru_sequence_kernel(const float* __restrict__ xp,   // (T, B, 3H)
       const int r = grp * RT + i, b = row0 + r;
       if (!unit_ok || b >= B) continue;
       const float* x = xcur + r * 3 * U + j;
+      const float ghn = acc[i][2] + bs[2 * U + j];
       const float rg = sigmoid_f(x[0] + (acc[i][0] + bs[j]));
       const float zg = sigmoid_f(x[U] + (acc[i][1] + bs[U + j]));
-      const float ng = tanhf(x[2 * U] + rg * (acc[i][2] + bs[2 * U + j]));
+      const float ng = tanhf(x[2 * U] + rg * ghn);
       const float h = (1.f - zg) * ng + zg * hc[r * HP + u];
 #pragma unroll
       for (int c = 0; c < C; ++c)
         cluster.map_shared_rank(hn, c)[r * HP + u] = h;
       ys[((size_t)t * B + b) * H + u] = h;
+      if (kGates) {
+        float* gt = gates + ((size_t)t * B + b) * 4 * H + u;
+        gt[0] = rg;
+        gt[H] = zg;
+        gt[2 * H] = ng;
+        gt[3 * H] = ghn;
+      }
     }
     // publishes the new state; after it the old buffer is free again
     cluster.sync();
@@ -257,45 +276,42 @@ cudaLaunchConfig_t launch_config(int B, int H, cudaStream_t stream,
 
 // sets the shared-memory attribute and checks that one cluster of this
 // shape fits the card
+template <bool kGates>
 cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
   *max_clusters = 0;
   const size_t smem = smem_bytes(H);
   if (smem > kSmemLimit || threads_for(H) > kMaxThreads)
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      gru_sequence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gru_sequence_kernel<kGates>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(B, H, stream, &attr);
-  e = cudaOccupancyMaxActiveClusters(max_clusters, gru_sequence_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(max_clusters,
+                                     gru_sequence_kernel<kGates>, &cfg);
   if (e != cudaSuccess) return e;
   return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// the H prepare() last succeeded for, under prepare_mutex: a server's
-// threads launch concurrently
+// the H prepare() last succeeded for, per variant, under prepare_mutex: a
+// server's threads launch concurrently
 std::mutex prepare_mutex;
-int checked_H = -1;
+int checked_H[2] = {-1, -1};
 
-}  // namespace
-
-// Plain C entry point for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays, w_hh in the torch layout (3H, H); `stream` is a
-// cudaStream_t. Returns a cudaError_t code (0 = launched).
-extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
-                                const float* whh, const float* bhh,
-                                float* ys, float* hlast, int T, int B, int H,
-                                int reverse, void* stream) {
+template <bool kGates>
+int launch(const float* xp, const float* h0, const float* whh,
+           const float* bhh, float* ys, float* hlast, float* gates, int T,
+           int B, int H, int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   {
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    if (H != checked_H) {
+    if (H != checked_H[kGates]) {
       int n = 0;
-      const cudaError_t e = prepare(B, H, st, &n);
+      const cudaError_t e = prepare<kGates>(B, H, st, &n);
       if (e != cudaSuccess) return (int)e;
-      checked_H = H;
+      checked_H[kGates] = H;
     }
   }
   const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0 &&
@@ -303,10 +319,33 @@ extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(B, H, st, &attr);
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gru_sequence_kernel, xp, h0, whh, bhh, ys, hlast, T, B, H,
-      reverse, (int)vec);
+      &cfg, gru_sequence_kernel<kGates>, xp, h0, whh, bhh, ys, hlast, gates,
+      T, B, H, reverse, (int)vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Pointers are device pointers to
+// contiguous fp32 arrays, w_hh in the torch layout (3H, H); `stream` is a
+// cudaStream_t. Return a cudaError_t code (0 = launched).
+extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
+                                const float* whh, const float* bhh,
+                                float* ys, float* hlast, int T, int B, int H,
+                                int reverse, void* stream) {
+  return launch<false>(xp, h0, whh, bhh, ys, hlast, nullptr, T, B, H,
+                       reverse, stream);
+}
+
+// The training variant: also writes the gates (T, B, 4H), r | z | n | gh_n.
+extern "C" int g2v_gru_sequence_gates(const float* xp, const float* h0,
+                                      const float* whh, const float* bhh,
+                                      float* ys, float* hlast, float* gates,
+                                      int T, int B, int H, int reverse,
+                                      void* stream) {
+  return launch<true>(xp, h0, whh, bhh, ys, hlast, gates, T, B, H, reverse,
+                      stream);
 }
 
 // The launch shape for (B, H), so callers can check their mirror of it:
@@ -320,8 +359,8 @@ extern "C" int g2v_gru_sequence_shape(int B, int H, long long* out) {
     // prepare() sets the kernel's shared-memory attribute for this H: a
     // launch re-prepares for its own H afterwards
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    e = prepare(B, H, nullptr, &n);
-    checked_H = e == cudaSuccess ? H : -1;
+    e = prepare<false>(B, H, nullptr, &n);
+    checked_H[0] = e == cudaSuccess ? H : -1;
   }
   out[0] = R;
   out[1] = C;

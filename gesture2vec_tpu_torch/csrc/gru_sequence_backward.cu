@@ -11,10 +11,10 @@
 //   r  = sigmoid(xp_r + gh_r),  z = sigmoid(xp_z + gh_z)
 //   n  = tanh(xp_n + r * gh_n), h = (1 - z) * n + z * h_prev
 // walking the steps in the opposite order from the forward (t = T-1 .. 0,
-// or 0 .. T-1 for `reverse`). At each step it recomputes gh and the gates
-// from h_prev (the previous step's output, read back from ys, or h0), adds
-// the step's output gradient to the carried one (dh = dys[t] + carry) and
-// writes
+// or 0 .. T-1 for `reverse`). It reads the gates r, z, n and gh_n that the
+// forward's training variant saved (g2v_gru_sequence_gates, (T, B, 4H)),
+// adds the step's output gradient to the carried one (dh = dys[t] + carry)
+// and writes
 //   d x_proj[t] = (dpre_r, dpre_z, dpre_n)
 //   dgh[t]      = (dpre_r, dpre_z, dpre_n * r)     (the hidden-side gates)
 // with dpre_n = dh (1 - z)(1 - n^2), dpre_r = dpre_n gh_n r (1 - r),
@@ -25,42 +25,72 @@
 // the caller (ops/gru_kernel.GRUSequenceFn), as the JAX package leaves
 // them to XLA.
 //
-// Bound at the tokenizer's width (T=20, B=128, H=200): the recomputed gh
-// and dgh @ w_hh are 4*T*B*H*3H = 1.23 GFLOP, 0.018 ms at the card's 67
-// TFLOP/s fp32 peak; the bytes (x_proj, h0, w_hh, b_hh, ys, dys, dh_last
-// in; d x_proj, dgh, d h0 out: 22 MB) take 0.007 ms at 3.35 TB/s. So it
-// is bound by operations. Like the forward, each step is a dependent chain
+// What held the first design back. It took x_proj instead of the gates
+// and cost 0.479 ms at T=20, B=128 (26x its bound), 0.55 ms at B=512 and
+// 1.27 ms at T=48 on an H100 80GB HBM3 at 700 W (PERF.md): ~24 us a step
+// against the forward's ~8.6 us.
+//  1. Every step recomputed the forward's gates: gh = h_prev @ w_hh^T, 600
+//     FMAs a thread at H=200, with the whole R x H h_prev tile staged each
+//     step. That doubled the step's FLOPs and sat in the serial chain,
+//     though the gates do not depend on the carried dh.
+//  2. The gate math then loaded x_proj and dys from global memory on the
+//     dependent chain, with no prefetch.
+//  3. The partial product dgh @ w_hh ran out of scalar shared-memory loads:
+//     5*H items over 8 warps (4 rounds), each walking the 3U rows with one
+//     w_hh load and four dgh loads for four FMAs (~2,400 FMAs and ~3,000
+//     loads a thread a step).
+//
+// Bound at the tokenizer's width (T=20, B=128, H=200): the one product a
+// step, dgh @ w_hh, is 2*T*B*3H*H = 0.61 GFLOP, 0.0092 ms at the card's
+// 67 TFLOP/s fp32 peak; the bytes (gates, h0, w_hh, ys, dys, dh_last in;
+// d x_proj, dgh, d h0 out: 25 MB) take 0.0076 ms at 3.35 TB/s. So it is
+// bound by operations, barely. As in the forward, each step is a
+// dependent chain (gate math, product, remote stores, cluster barrier)
 // and its latency, not the FMA rate, sets the pace.
 //
-// Design. It keeps the forward's layout: a cluster of C=4 blocks owns R=20
-// batch rows, block `rank` owns the hidden units [rank*U, rank*U + U),
-// U = ceil(H/C), and holds its r, z, n rows of w_hh (3U x H) and its b_hh
-// slice in shared memory for the whole launch.
-//  - gh and the gates of its own units need the full h_prev tile (R x H):
-//    every block stages it from ys (or h0) with cp.async, double-buffered
-//    so the next step's tile lands during this step;
-//  - dh_prev needs w_hh's columns (dgh @ w_hh sums over all 3H rows), and
-//    a second, transposed copy of the block's rows would not fit beside
-//    the first (2 x 120 KB at H=200). So each block forms the partial sum
-//    over its own 3U rows for every column k, and sends the part for
-//    units owned by block c into c's receive slot through distributed
-//    shared memory; after one cluster barrier a block adds its C partials
-//    in rank order (a fixed order, so the result does not depend on
-//    timing) and the carried dh*z;
+// Design. A cluster of C=4 blocks owns R=20 batch rows, block `rank` owns
+// the hidden units [rank*U, rank*U + U), U = ceil(H/C), and holds its r, z,
+// n rows of w_hh (3U x H) in shared memory for the whole launch.
+//  - gate items: a thread owns RT=4 rows x 1 unit. The step's inputs of
+//    its item (the four saved gates, dys and h_prev of its own unit) are
+//    loaded into registers a step ahead, so they land while the previous
+//    step's product runs; the carried dh stays in registers. No h_prev
+//    tile and no product for gh: the gate math is ~20 flops a row.
+//    (cp.async into shared-memory slots, the forward's way, would need
+//    2 x R x 6 x U floats double-buffered: 239,328 B a block at H=216,
+//    past the card's 232,448. Registers cost no shared memory.)
+//  - the step's dgh rows are stored transposed ([3U][R], one float4 of a
+//    thread's 4 rows a gate), so the product's items read them as
+//    broadcast float4s;
+//  - one product a step, the partial dgh @ w_hh over the block's 3U rows
+//    for every column k: a thread owns an item of RT rows x 4 columns
+//    (16 sums in registers), walks the 3U rows in order with one float4
+//    of dgh and one float4 of w_hh (neighbouring threads on neighbouring
+//    columns: no bank conflicts) for 16 FMAs. There are (R/RT) x
+//    ceil(H/4) = (R/RT) x U items, one round for the block's threads;
+//  - the part for units owned by block c goes into c's receive slot
+//    through distributed shared memory, one float4 (the item's 4 rows) a
+//    column: the slots are laid out [C][U][R], so the gate item that owns
+//    a unit reads its 4 rows of a partial as one float4 too (4 remote
+//    stores and 4 loads a thread a step instead of 16 scalar ones; PERF.md
+//    has the step's time both ways). After one cluster barrier a block
+//    adds its C partials in rank order (a fixed order, so the result does
+//    not depend on timing) to dh * z;
 //  - the receive slots are double-buffered by step parity: a block cannot
 //    write slot s&1 again before every block has passed step s+1's
 //    barrier, which follows its reads of step s. One cluster barrier a
 //    step suffices;
-//  - a thread's gate item is RT=4 rows x 1 unit x 3 gates, the forward's;
-//    its partial-sum items are RT rows x 1 column, neighbouring threads on
-//    neighbouring columns (conflict-free rows of w_hh);
-//  - ragged batches: rows past B read zeros, their gradients are zero,
+//  - ragged batches: rows past B read nothing, their gradients are zero,
 //    and they write nothing.
+// What holds it back now: a step costs about what a forward step costs
+// (PERF.md), far above its share of the bound: the latency of its
+// dependent chain (gate math, block barrier, the product's 3U rows in
+// order, remote stores, cluster barrier), as in the forward.
 //
-// Eligibility: the block's shared memory, 4 * (3*U*HP + 2*R*HP + 2*C*R*U
-// + R*3U + R*U + 3U) bytes with HP the padded row (see smem_bytes), must
-// fit 232,448 B: H <= 216 (gru_kernel.backward_launch_shape mirrors the
-// formula).
+// Eligibility: the block's shared memory, 4 * (3U*W + 2*C*R*U + 3U*R)
+// bytes with W = H rounded up to a multiple of 4 (see smem_bytes), must
+// fit 232,448 B: H <= 244 (gru_kernel.backward_launch_shape mirrors the
+// formula); the forward's H <= 232 is the tighter limit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -74,29 +104,22 @@ namespace {
 constexpr int R = 20;   // batch rows per cluster
 constexpr int C = 4;    // blocks per cluster
 constexpr int RT = 4;   // rows per thread
-constexpr int kMaxThreads = 512;
+constexpr int kMaxThreads = 320;  // the launch bound; H <= 244 takes <= 320
 constexpr int kSmemLimit = 232448;
-static_assert(R % RT == 0, "tile");
+constexpr int kIn = 6;  // a gate item's inputs a row: r, z, n, gh_n, dy, h_prev
+static_assert(R % RT == 0 && RT == 4, "tile: a float4 of rows");
 
 __host__ __device__ __forceinline__ int units(int H) {
   return (H + C - 1) / C;
 }
-// row stride in floats: an odd number of float4s, so the 32 units a warp
-// reads at once fall in distinct banks
-__host__ __device__ __forceinline__ int padded(int H) {
-  const int q = (H + 3) / 4;
-  return 4 * (q % 2 ? q : q + 1);
-}
+// w_hh row stride in floats: H rounded up to a float4 (the product reads
+// neighbouring float4s of one row, so no padding is needed for banks)
+__host__ __device__ __forceinline__ int row4(int H) { return (H + 3) / 4 * 4; }
 // one thread per gate item (a unit and RT rows)
 int threads_for(int H) { return (units(H) * (R / RT) + 31) / 32 * 32; }
 size_t smem_bytes(int H) {
-  const size_t U = units(H), HP = padded(H);
-  return sizeof(float) * (3 * U * HP + 2 * R * HP + 2 * C * R * U +
-                          R * 3 * U + R * U + 3 * U);
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+  const size_t U = units(H), W = row4(H);
+  return sizeof(float) * (3 * U * W + 2 * C * R * U + 3 * U * R);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -114,9 +137,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // copies n_rows x width floats from `src` (row stride ld_src) to `dst`
@@ -141,10 +163,9 @@ __device__ __forceinline__ void stage(float* dst, int ld_dst, const float* src,
 
 __global__ void __launch_bounds__(kMaxThreads)
 gru_sequence_backward_kernel(
-    const float* __restrict__ xp,     // (T, B, 3H) forward input
+    const float* __restrict__ gates,  // (T, B, 4H) r | z | n | gh_n
     const float* __restrict__ h0,     // (B, H)
     const float* __restrict__ whh,    // (3H, H)
-    const float* __restrict__ bhh,    // (3H)
     const float* __restrict__ ys,     // (T, B, H) forward outputs
     const float* __restrict__ dys,    // (T, B, H) output gradients
     const float* __restrict__ dhl,    // (B, H) last-hidden gradient
@@ -154,157 +175,154 @@ gru_sequence_backward_kernel(
     int T, int B, int H, int reverse, int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int U = units(H), HP = padded(H), q4 = (H + 3) / 4;
+  const int U = units(H), W = row4(H), Q = W / 4;
   const int u0 = rank * U, row0 = (blockIdx.x / C) * R;
 
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [3U][HP] w_hh slice
-  float* hp = ws + 3 * U * HP;                  // [2][R][HP] h_prev tiles
-  float* recv = hp + 2 * R * HP;                // [2][C][R][U] partials
-  float* dg = recv + 2 * C * R * U;             // [R][3U] this step's dgh
-  float* dhc = dg + R * 3 * U;                  // [R][U] carried dh
-  float* bs = dhc + R * U;                      // [3U] b_hh slice
-
-  // the step order of the backward and the h_prev each step reads
-  auto t_of = [&](int s) { return reverse ? s : T - 1 - s; };
-  auto h_prev_src = [&](int t) -> const float* {
-    const int tp = reverse ? t + 1 : t - 1;
-    const float* base = (tp >= 0 && tp < T) ? ys + (size_t)tp * B * H : h0;
-    return base + (size_t)row0 * H;
-  };
+  float* ws = reinterpret_cast<float*>(smem4);  // [3U][W] w_hh slice
+  float* recv = ws + 3 * U * W;                 // [2][C][U][R] partials
+  float* dgt = recv + 2 * C * R * U;            // [3U][R] step's dgh
 
   for (int g = 0; g < 3; ++g)
-    stage(ws + g * U * HP, HP, whh + ((size_t)g * H + u0) * H, H, U, HP,
+    stage(ws + g * U * W, W, whh + ((size_t)g * H + u0) * H, H, U, W,
           H - u0, H, whh, vec);
-  stage(hp, HP, h_prev_src(t_of(0)), H, R, HP, B - row0, H, whh, vec);
   cp_async_commit();
-  for (int i = threadIdx.x; i < 3 * U; i += blockDim.x) {
-    const int g = i / U, u = u0 + i % U;
-    bs[i] = u < H ? bhh[g * H + u] : 0.f;
-  }
 
   // this thread's gate item: unit u0 + j and rows grp*RT .. grp*RT + RT-1
   const int grp = threadIdx.x / U, j = threadIdx.x % U, u = u0 + j;
   const bool active = grp < R / RT, unit_ok = active && u < H;
-  for (int i = threadIdx.x; i < R * U; i += blockDim.x) {
-    const int r = i / U, uu = u0 + i % U, b = row0 + r;
-    dhc[i] = (uu < H && b < B) ? dhl[(size_t)b * H + uu] : 0.f;
+  auto t_of = [&](int s) { return reverse ? s : T - 1 - s; };
+  // the item's inputs of step t: the saved gates, dys and h_prev (the
+  // output of the step taken before, or h0), zeros for absent rows
+  auto fetch = [&](int t, float (&v)[RT][kIn]) {
+    const int tp = reverse ? t + 1 : t - 1;
+    const float* hsrc = (tp >= 0 && tp < T) ? ys + (size_t)tp * B * H : h0;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int b = row0 + grp * RT + i;
+      if (unit_ok && b < B) {
+        const float* g = gates + ((size_t)t * B + b) * 4 * H + u;
+        v[i][0] = g[0];
+        v[i][1] = g[H];
+        v[i][2] = g[2 * H];
+        v[i][3] = g[3 * H];
+        v[i][4] = dys[((size_t)t * B + b) * H + u];
+        v[i][5] = hsrc[(size_t)b * H + u];
+      } else {
+#pragma unroll
+        for (int k = 0; k < kIn; ++k) v[i][k] = 0.f;
+      }
+    }
+  };
+  float nxt[RT][kIn], dh[RT];
+  fetch(t_of(0), nxt);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int b = row0 + grp * RT + i;
+    dh[i] = (unit_ok && b < B) ? dhl[(size_t)b * H + u] : 0.f;
   }
-  cp_async_wait<0>();
+  cp_async_wait_all();
   // every block's buffers are ready before any peer writes them
   cluster.sync();
 
-  const int n_items = (R / RT) * H;
+  const int n_items = (R / RT) * Q;
   for (int s = 0; s < T; ++s) {
     const int t = t_of(s);
-    if (s + 1 < T)
-      stage(hp + ((s + 1) & 1) * R * HP, HP, h_prev_src(t_of(s + 1)), H, R,
-            HP, B - row0, H, whh, vec);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's h_prev tile has landed
-    __syncthreads();
-    const float* hcur = hp + (s & 1) * R * HP;
-
-    // gh = h_prev @ w_hh^T for this item's rows, k in order
-    float acc[RT][3];
+    float cur[RT][kIn];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
-    if (active) {
-      const float* wr = ws + j * HP;
-      const float* hr = hcur + grp * RT * HP;
-#pragma unroll 2
-      for (int q = 0; q < q4; ++q) {
-        float4 w[3];
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int g = 0; g < 3; ++g)
-          w[g] = *reinterpret_cast<const float4*>(wr + g * U * HP + 4 * q);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float4 h = *reinterpret_cast<const float4*>(hr + i * HP + 4 * q);
-#pragma unroll
-          for (int g = 0; g < 3; ++g) {
-            acc[i][g] = fmaf(h.x, w[g].x, acc[i][g]);
-            acc[i][g] = fmaf(h.y, w[g].y, acc[i][g]);
-            acc[i][g] = fmaf(h.z, w[g].z, acc[i][g]);
-            acc[i][g] = fmaf(h.w, w[g].w, acc[i][g]);
-          }
-        }
-      }
-    }
+      for (int k = 0; k < kIn; ++k) cur[i][k] = nxt[i][k];
+    if (s + 1 < T) fetch(t_of(s + 1), nxt);
 
     // the gates' gradients of this item's rows
-    float dhz[RT];
+    float dr[RT], dz[RT], dn[RT], dhz[RT];
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      dhz[i] = 0.f;
-      if (!active) continue;
-      const int r = grp * RT + i, b = row0 + r;
-      float* d = dg + r * 3 * U + j;
-      if (!unit_ok || b >= B) {
-        d[0] = d[U] = d[2 * U] = 0.f;
-        continue;
-      }
-      const size_t o3 = ((size_t)t * B + b) * 3 * H + u;
-      const float ghn = acc[i][2] + bs[2 * U + j];
-      const float rg = sigmoid_f(xp[o3] + (acc[i][0] + bs[j]));
-      const float zg = sigmoid_f(xp[o3 + H] + (acc[i][1] + bs[U + j]));
-      const float ng = tanhf(xp[o3 + 2 * H] + rg * ghn);
-      const float hprev = hcur[r * HP + u];
-      const float dh = dys[((size_t)t * B + b) * H + u] + dhc[r * U + j];
-      const float dpn = dh * (1.f - zg) * (1.f - ng * ng);
+      dr[i] = dz[i] = dn[i] = dhz[i] = 0.f;
+      const int b = row0 + grp * RT + i;
+      if (!unit_ok || b >= B) continue;
+      const float rg = cur[i][0], zg = cur[i][1], ng = cur[i][2];
+      const float ghn = cur[i][3], hprev = cur[i][5];
+      const float d = cur[i][4] + dh[i];
+      const float dpn = d * (1.f - zg) * (1.f - ng * ng);
       const float dpr = dpn * ghn * rg * (1.f - rg);
-      const float dpz = dh * (hprev - ng) * zg * (1.f - zg);
+      const float dpz = d * (hprev - ng) * zg * (1.f - zg);
+      const size_t o3 = ((size_t)t * B + b) * 3 * H + u;
       dxp[o3] = dpr;
       dxp[o3 + H] = dpz;
       dxp[o3 + 2 * H] = dpn;
       dgh[o3] = dpr;
       dgh[o3 + H] = dpz;
       dgh[o3 + 2 * H] = dpn * rg;
-      d[0] = dpr;
-      d[U] = dpz;
-      d[2 * U] = dpn * rg;
-      dhz[i] = dh * zg;
+      dr[i] = dpr;
+      dz[i] = dpz;
+      dn[i] = dpn * rg;
+      dhz[i] = d * zg;
+    }
+    if (active) {
+      float* d = dgt + j * R + grp * RT;
+      *reinterpret_cast<float4*>(d) = make_float4(dr[0], dr[1], dr[2], dr[3]);
+      *reinterpret_cast<float4*>(d + U * R) =
+          make_float4(dz[0], dz[1], dz[2], dz[3]);
+      *reinterpret_cast<float4*>(d + 2 * U * R) =
+          make_float4(dn[0], dn[1], dn[2], dn[3]);
     }
     __syncthreads();  // this block's dgh rows are complete
 
-    // partial dgh @ w_hh over this block's 3U rows, for every column k,
-    // sent to the block that owns unit k
+    // partial dgh @ w_hh over this block's 3U rows for RT rows x 4
+    // columns, sent to the blocks that own those units
     float* slot = recv + (s & 1) * C * R * U + rank * R * U;
     for (int it = threadIdx.x; it < n_items; it += blockDim.x) {
-      const int pg = it / H, k = it % H;
-      float p[RT];
+      const int pg = it / Q, k0 = 4 * (it % Q);
+      float acc[RT][4];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) p[i] = 0.f;
-      const float* dr = dg + pg * RT * 3 * U;
+      for (int i = 0; i < RT; ++i)
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      const float* dcol = dgt + pg * RT;
+      const float* wcol = ws + k0;
+#pragma unroll 4
       for (int m = 0; m < 3 * U; ++m) {
-        const float w = ws[m * HP + k];
+        const float4 dv = *reinterpret_cast<const float4*>(dcol + m * R);
+        const float4 wv = *reinterpret_cast<const float4*>(wcol + m * W);
+        const float d4[RT] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-        for (int i = 0; i < RT; ++i) p[i] = fmaf(dr[i * 3 * U + m], w, p[i]);
+        for (int i = 0; i < RT; ++i) {
+          acc[i][0] = fmaf(d4[i], wv.x, acc[i][0]);
+          acc[i][1] = fmaf(d4[i], wv.y, acc[i][1]);
+          acc[i][2] = fmaf(d4[i], wv.z, acc[i][2]);
+          acc[i][3] = fmaf(d4[i], wv.w, acc[i][3]);
+        }
       }
-      float* dst = cluster.map_shared_rank(slot, k / U);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) dst[(pg * RT + i) * U + k % U] = p[i];
+      for (int c = 0; c < 4; ++c) {
+        const int k = k0 + c;
+        if (k >= H) break;
+        float* dst = cluster.map_shared_rank(slot, k / U);
+        *reinterpret_cast<float4*>(dst + (k % U) * R + pg * RT) =
+            make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
+      }
     }
-    // publishes the partials; every read of this step's tile is done
+    // publishes the partials; every read of this step's dgh rows is done
     cluster.sync();
 
     // dh_prev of this item's rows: dh * z plus the C partials in order
-    const float* got = recv + (s & 1) * C * R * U;
+    if (unit_ok) {
+      const float* got = recv + (s & 1) * C * R * U + j * R + grp * RT;
+      float4 p[C];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = grp * RT + i, b = row0 + r;
-      if (!unit_ok || b >= B) continue;
-      float v = dhz[i];
-#pragma unroll
-      for (int c = 0; c < C; ++c) v += got[(c * R + r) * U + j];
-      dhc[r * U + j] = v;
+      for (int c = 0; c < C; ++c)
+        p[c] = *reinterpret_cast<const float4*>(got + c * U * R);
+      dh[0] = dhz[0] + p[0].x + p[1].x + p[2].x + p[3].x;
+      dh[1] = dhz[1] + p[0].y + p[1].y + p[2].y + p[3].y;
+      dh[2] = dhz[2] + p[0].z + p[1].z + p[2].z + p[3].z;
+      dh[3] = dhz[3] + p[0].w + p[1].w + p[2].w + p[3].w;
     }
   }
-  cp_async_wait<0>();
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
-    const int r = grp * RT + i, b = row0 + r;
-    if (unit_ok && b < B) dh0[(size_t)b * H + u] = dhc[r * U + j];
+    const int b = row0 + grp * RT + i;
+    if (unit_ok && b < B) dh0[(size_t)b * H + u] = dh[i];
   }
 }
 
@@ -349,12 +367,13 @@ int checked_H = -1;
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays, w_hh in the torch layout (3H, H); `stream` is a
+// contiguous fp32 arrays: the gates the forward's training variant saved
+// (T, B, 4H), w_hh in the torch layout (3H, H); `stream` is a
 // cudaStream_t. Returns a cudaError_t code (0 = launched).
 extern "C" int g2v_gru_sequence_backward(
-    const float* xp, const float* h0, const float* whh, const float* bhh,
-    const float* ys, const float* dys, const float* dhl, float* dxp,
-    float* dgh, float* dh0, int T, int B, int H, int reverse, void* stream) {
+    const float* gates, const float* h0, const float* whh, const float* ys,
+    const float* dys, const float* dhl, float* dxp, float* dgh, float* dh0,
+    int T, int B, int H, int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   {
@@ -366,14 +385,12 @@ extern "C" int g2v_gru_sequence_backward(
       checked_H = H;
     }
   }
-  const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(h0) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(ys) % 16 == 0;
+  const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(B, H, st, &attr);
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gru_sequence_backward_kernel, xp, h0, whh, bhh, ys, dys, dhl,
-      dxp, dgh, dh0, T, B, H, reverse, (int)vec);
+      &cfg, gru_sequence_backward_kernel, gates, h0, whh, ys, dys, dhl, dxp,
+      dgh, dh0, T, B, H, reverse, (int)vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -17,15 +17,21 @@ tensor it launches the kernel (or raises); on a CPU tensor it runs
 `gru_sequence_plain`, a plain loop over the same gate math.
 
 The gradient: `GRUSequenceFn` (a torch.autograd.Function) runs the
-forward and saves x_proj, h0, w_hh, b_hh and the outputs;
-its backward runs `gru_sequence_backward`, the backward pass through
-time of `csrc/gru_sequence_backward.cu` (the TPU kernel has none: JAX
-differentiates its lax.scan), which gives d x_proj, the hidden-side gate
-gradients dgh and d h0, and finishes the weight gradients with two large
-products over all steps, dW_hh = dgh^T h_prev and db_hh = sum dgh.
-`gru_sequence` goes through the Function whenever grad is enabled and an
-input requires it: on a CUDA tensor both directions run the kernels (or
-raise), on a CPU tensor the plain forward and `gru_sequence_backward_plain`.
+forward's training variant, `gru_sequence_gates` (the same kernel, which
+also writes every step's gates r | z | n | gh_n, (T, B, 4H)), and saves
+the gates, h0, w_hh and the outputs; its backward runs
+`gru_sequence_backward`, the backward pass through time of
+`csrc/gru_sequence_backward.cu` (the TPU kernel has none: JAX
+differentiates its lax.scan), which reads the saved gates instead of
+recomputing them and gives d x_proj, the hidden-side gate gradients dgh
+and d h0, and finishes the weight gradients with two large products
+over all steps, dW_hh = dgh^T h_prev and db_hh = sum dgh. `gru_sequence`
+goes through the Function whenever grad is enabled and an input
+requires it: on a CUDA tensor both directions run the kernels (or
+raise), on a CPU tensor `gru_sequence_gates_plain` and
+`gru_sequence_backward_plain`. `gru_sequence_backward_recompute`, which
+recomputes the gates from x_proj, is the oracle the tests hold the
+saved-gate path against.
 """
 from __future__ import annotations
 
@@ -68,45 +74,66 @@ def launch_shape(B: int, H: int,
             "waves": -(-clusters // max_clusters)}
 
 
+def _step(xp: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor,
+          b_hh: torch.Tensor):
+    """One step of the kernel's math: (h', (r, z, n, gh_n))."""
+    H = h.shape[-1]
+    gh = torch.addmm(b_hh, h, w_hh.t())
+    r = torch.sigmoid(xp[:, :H] + gh[:, :H])
+    z = torch.sigmoid(xp[:, H:2 * H] + gh[:, H:2 * H])
+    ghn = gh[:, 2 * H:]
+    n = torch.tanh(xp[:, 2 * H:] + r * ghn)
+    return (1.0 - z) * n + z * h, (r, z, n, ghn)
+
+
+def _recurrence(x_proj, h0, w_hh, b_hh, reverse, keep_gates):
+    h = h0
+    T = x_proj.shape[0]
+    ys, gates = [None] * T, [None] * T
+    for t in (reversed(range(T)) if reverse else range(T)):
+        h, g = _step(x_proj[t], h, w_hh, b_hh)
+        ys[t] = h
+        if keep_gates:
+            gates[t] = torch.cat(g, dim=1)
+    out = (torch.stack(ys, dim=0), h)
+    return out + (torch.stack(gates, dim=0),) if keep_gates else out
+
+
 def gru_sequence_plain(x_proj: torch.Tensor, h0: torch.Tensor,
                        w_hh: torch.Tensor, b_hh: torch.Tensor,
                        reverse: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's math as a plain PyTorch loop."""
-    H = h0.shape[-1]
-    h = h0
-    ys = [None] * x_proj.shape[0]
-    steps = range(x_proj.shape[0])
-    for t in (reversed(steps) if reverse else steps):
-        xp = x_proj[t]
-        gh = torch.addmm(b_hh, h, w_hh.t())
-        r = torch.sigmoid(xp[:, :H] + gh[:, :H])
-        z = torch.sigmoid(xp[:, H:2 * H] + gh[:, H:2 * H])
-        n = torch.tanh(xp[:, 2 * H:] + r * gh[:, 2 * H:])
-        h = (1.0 - z) * n + z * h
-        ys[t] = h
-    return torch.stack(ys, dim=0), h
+    return _recurrence(x_proj, h0, w_hh, b_hh, reverse, keep_gates=False)
+
+
+def gru_sequence_gates_plain(x_proj: torch.Tensor, h0: torch.Tensor,
+                             w_hh: torch.Tensor, b_hh: torch.Tensor,
+                             reverse: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The training variant's math as a plain PyTorch loop: (outputs,
+    last hidden, gates (T, B, 4H) = r | z | n | gh_n of every step)."""
+    return _recurrence(x_proj, h0, w_hh, b_hh, reverse, keep_gates=True)
 
 
 def backward_launch_shape(B: int, H: int,
                           max_clusters: int = H100_MAX_CLUSTERS) -> dict:
     """The backward kernel's launch (`csrc/gru_sequence_backward.cu`'s
     `threads_for`, `smem_bytes`): the forward's tile and threads, with
-    shared memory for the w_hh slice, two h_prev tiles, two rounds of the
-    cluster's partial sums, the step's dgh rows and the carried dh.
+    shared memory for the w_hh slice (rows of H rounded up to a float4),
+    two rounds of the cluster's partial sums and the step's dgh rows.
     Raises ValueError above 232,448 bytes a block, which happens above
-    H=216."""
+    H=244."""
     U = -(-H // CLUSTER)
-    q = -(-H // 4)
-    HP = 4 * (q if q % 2 else q + 1)
+    W = 4 * -(-H // 4)
     threads = -(-U * (ROWS // ROWS_PER_THREAD) // 32) * 32
-    smem = 4 * (3 * U * HP + 2 * ROWS * HP + 2 * CLUSTER * ROWS * U
-                + ROWS * 3 * U + ROWS * U + 3 * U)
+    smem = 4 * (3 * U * W + 2 * CLUSTER * ROWS * U + 3 * U * ROWS)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"H={H} needs {smem} B of shared memory per block "
-                         f"for the GRU backward (its w_hh slice, two h_prev "
-                         f"tiles, the cluster's partial sums), more than "
-                         f"{_SMEM_LIMIT}")
+                         f"for the GRU backward (its w_hh slice, the "
+                         f"cluster's partial sums, the step's dgh rows), "
+                         f"more than {_SMEM_LIMIT}")
     clusters = -(-B // ROWS)
     return {"rows": ROWS, "cluster": CLUSTER, "threads": threads,
             "smem_bytes": smem, "clusters": clusters,
@@ -123,15 +150,57 @@ def h_prev_stack(ys: torch.Tensor, h0: torch.Tensor,
     return torch.cat([h0[None], ys[:-1]], dim=0)
 
 
-def gru_sequence_backward_plain(x_proj: torch.Tensor, h0: torch.Tensor,
-                                w_hh: torch.Tensor, b_hh: torch.Tensor,
-                                ys: torch.Tensor, dys: torch.Tensor,
-                                dh_last: torch.Tensor, reverse: bool = False
+def gates_from_ys(x_proj: torch.Tensor, h0: torch.Tensor,
+                  w_hh: torch.Tensor, b_hh: torch.Tensor, ys: torch.Tensor,
+                  reverse: bool = False) -> torch.Tensor:
+    """The gates (T, B, 4H) of every step recomputed from the forward's
+    inputs and outputs, one product over all steps: what the training
+    variant saves, up to rounding."""
+    T, B, H3 = x_proj.shape
+    H = H3 // 3
+    prev = h_prev_stack(ys, h0, reverse).reshape(T * B, H)
+    _, g = _step(x_proj.reshape(T * B, H3), prev, w_hh, b_hh)
+    return torch.cat(g, dim=1).reshape(T, B, 4 * H)
+
+
+def gru_sequence_backward_plain(gates: torch.Tensor, h0: torch.Tensor,
+                                w_hh: torch.Tensor, ys: torch.Tensor,
+                                dys: torch.Tensor, dh_last: torch.Tensor,
+                                reverse: bool = False
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
-    """The backward kernel's math as a plain PyTorch loop: the gradients
-    dys (T, B, H) of the outputs and dh_last (B, H) of the last hidden ->
-    (d x_proj (T, B, 3H), dgh (T, B, 3H), d h0 (B, H))."""
+    """The backward kernel's math as a plain PyTorch loop: from the gates
+    the forward saved, its outputs ys and the gradients dys (T, B, H) of
+    the outputs and dh_last (B, H) of the last hidden -> (d x_proj (T, B,
+    3H), dgh (T, B, 3H), d h0 (B, H)). One product a step, dgh @ w_hh."""
+    T = gates.shape[0]
+    H = h0.shape[-1]
+    prev = h_prev_stack(ys, h0, reverse)
+    dxp = gates.new_empty((T, h0.shape[0], 3 * H))
+    dgh = torch.empty_like(dxp)
+    dh = dh_last
+    for t in (range(T) if reverse else reversed(range(T))):
+        r, z, n, ghn = gates[t].split(H, dim=1)
+        dh = dh + dys[t]
+        dpn = dh * (1.0 - z) * (1.0 - n * n)
+        dpr = dpn * ghn * r * (1.0 - r)
+        dpz = dh * (prev[t] - n) * z * (1.0 - z)
+        dxp[t] = torch.cat([dpr, dpz, dpn], dim=1)
+        dgh[t] = torch.cat([dpr, dpz, dpn * r], dim=1)
+        dh = dh * z + dgh[t] @ w_hh
+    return dxp, dgh, dh
+
+
+def gru_sequence_backward_recompute(x_proj: torch.Tensor, h0: torch.Tensor,
+                                    w_hh: torch.Tensor, b_hh: torch.Tensor,
+                                    ys: torch.Tensor, dys: torch.Tensor,
+                                    dh_last: torch.Tensor,
+                                    reverse: bool = False
+                                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """The same gradients from x_proj instead of saved gates, recomputing
+    each step's gates from h_prev: the oracle the tests hold the saved-gate
+    path against."""
     T = x_proj.shape[0]
     H = h0.shape[-1]
     prev = h_prev_stack(ys, h0, reverse)
@@ -186,54 +255,76 @@ def _check(x_proj, h0, w_hh, b_hh) -> None:
     launch_shape(B, H)
 
 
-def _launch(x_proj, h0, w_hh, b_hh, reverse):
+def _run(fn_name, n_out, x_proj, h0, w_hh, b_hh, reverse):
     from gesture2vec_tpu_torch.ops.build import load
 
-    fn = load("gru_sequence").g2v_gru_sequence
+    fn = getattr(load("gru_sequence"), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     T, B, H3 = x_proj.shape
     H = H3 // 3
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device)
-    h_last = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
+    outs = [torch.empty(shape, dtype=torch.float32, device=x_proj.device)
+            for shape in ((T, B, H), (B, H), (T, B, 4 * H))[:n_out]]
     stream = torch.cuda.current_stream(x_proj.device).cuda_stream
     err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
-             b_hh.data_ptr(), ys.data_ptr(), h_last.data_ptr(), T, B, H,
+             b_hh.data_ptr(), *(o.data_ptr() for o in outs), T, B, H,
              int(reverse), stream)
     if err != 0:
-        raise RuntimeError(f"gru_sequence kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"gru_sequence kernel launch failed ({fn_name}): "
+                           f"CUDA error {err}")
     count_launch(gru_sequence)
-    return ys, h_last
+    return tuple(outs)
 
 
-def _forward(x_proj, h0, w_hh, b_hh, reverse):
+def _launch(x_proj, h0, w_hh, b_hh, reverse):
+    return _run("g2v_gru_sequence", 2, x_proj, h0, w_hh, b_hh, reverse)
+
+
+def _launch_gates(x_proj, h0, w_hh, b_hh, reverse):
+    return _run("g2v_gru_sequence_gates", 3, x_proj, h0, w_hh, b_hh, reverse)
+
+
+def _forward(x_proj, h0, w_hh, b_hh, reverse, gates=False):
     if x_proj.device.type == "cpu":
-        return gru_sequence_plain(x_proj, h0, w_hh, b_hh, reverse)
+        plain = gru_sequence_gates_plain if gates else gru_sequence_plain
+        return plain(x_proj, h0, w_hh, b_hh, reverse)
     if x_proj.device.type != "cuda":
         raise ValueError(f"no GRU kernel for device {x_proj.device}")
-    return _launch(x_proj, h0, w_hh, b_hh, reverse)
+    return (_launch_gates if gates else _launch)(x_proj, h0, w_hh, b_hh,
+                                                 reverse)
 
 
-def _launch_backward(x_proj, h0, w_hh, b_hh, ys, dys, dh_last, reverse):
+def gru_sequence_gates(x_proj: torch.Tensor, h0: torch.Tensor,
+                       w_hh: torch.Tensor, b_hh: torch.Tensor,
+                       reverse: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training variant: (outputs (T, B, H), last hidden (B, H), gates
+    (T, B, 4H) = r | z | n | gh_n of every step). Outputs are bitwise
+    those of `gru_sequence`. CUDA tensors launch the kernel's variant
+    (counted in `gru_sequence.launches`); CPU tensors take
+    `gru_sequence_gates_plain`. No autograd: `GRUSequenceFn` calls it."""
+    _check(x_proj, h0, w_hh, b_hh)
+    return _forward(x_proj, h0, w_hh, b_hh, reverse, gates=True)
+
+
+def _launch_backward(gates, h0, w_hh, ys, dys, dh_last, reverse):
     from gesture2vec_tpu_torch.ops.build import load
 
     fn = load("gru_sequence_backward").g2v_gru_sequence_backward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
-    T, B, H3 = x_proj.shape
-    H = H3 // 3
+    T, B, H = ys.shape
     backward_launch_shape(B, H)
-    dxp = torch.empty_like(x_proj)
-    dgh = torch.empty_like(x_proj)
+    dxp = gates.new_empty((T, B, 3 * H))
+    dgh = torch.empty_like(dxp)
     dh0 = torch.empty_like(h0)
-    stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-    err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
-             b_hh.data_ptr(), ys.data_ptr(), dys.data_ptr(),
-             dh_last.data_ptr(), dxp.data_ptr(), dgh.data_ptr(),
-             dh0.data_ptr(), T, B, H, int(reverse), stream)
+    stream = torch.cuda.current_stream(gates.device).cuda_stream
+    err = fn(gates.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
+             ys.data_ptr(), dys.data_ptr(), dh_last.data_ptr(),
+             dxp.data_ptr(), dgh.data_ptr(), dh0.data_ptr(), T, B, H,
+             int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"gru_sequence_backward kernel launch failed: "
                            f"CUDA error {err}")
@@ -241,63 +332,68 @@ def _launch_backward(x_proj, h0, w_hh, b_hh, ys, dys, dh_last, reverse):
     return dxp, dgh, dh0
 
 
-def gru_sequence_backward(x_proj: torch.Tensor, h0: torch.Tensor,
-                          w_hh: torch.Tensor, b_hh: torch.Tensor,
-                          ys: torch.Tensor, dys: torch.Tensor,
-                          dh_last: torch.Tensor, reverse: bool = False
+def gru_sequence_backward(gates: torch.Tensor, h0: torch.Tensor,
+                          w_hh: torch.Tensor, ys: torch.Tensor,
+                          dys: torch.Tensor, dh_last: torch.Tensor,
+                          reverse: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """(d x_proj (T, B, 3H), dgh (T, B, 3H), d h0 (B, H)) from the
-    forward's inputs, its outputs ys and the gradients dys, dh_last. CUDA
-    tensors launch the kernel (counted in
-    `gru_sequence_backward.launches`); CPU tensors take the plain
-    version."""
-    _check(x_proj, h0, w_hh, b_hh)
-    T, B, H3 = x_proj.shape
-    for name, t, shape in (("ys", ys, (T, B, H3 // 3)),
-                           ("dys", dys, (T, B, H3 // 3)),
-                           ("dh_last", dh_last, (B, H3 // 3))):
-        if tuple(t.shape) != shape or t.dtype != x_proj.dtype \
-                or t.device != x_proj.device or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous {x_proj.dtype} "
-                             f"{shape} "
-                             f"on {x_proj.device}, got {t.dtype} "
+    """(d x_proj (T, B, 3H), dgh (T, B, 3H), d h0 (B, H)) from the gates
+    the training variant saved (T, B, 4H), the forward's h0, w_hh and
+    outputs ys, and the gradients dys, dh_last. CUDA tensors launch the
+    kernel (counted in `gru_sequence_backward.launches`); CPU tensors take
+    the plain version."""
+    if gates.dim() != 3 or gates.shape[2] % 4:
+        raise ValueError(f"gates: shape {tuple(gates.shape)}, want "
+                         f"(T, B, 4H)")
+    T, B, H4 = gates.shape
+    H = H4 // 4
+    dtype = _dtype(gates)
+    for name, t, shape in (("gates", gates, (T, B, 4 * H)),
+                           ("h0", h0, (B, H)), ("w_hh", w_hh, (3 * H, H)),
+                           ("ys", ys, (T, B, H)), ("dys", dys, (T, B, H)),
+                           ("dh_last", dh_last, (B, H))):
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or t.device != gates.device or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} {shape} "
+                             f"on {gates.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if x_proj.device.type == "cpu":
-        return gru_sequence_backward_plain(x_proj, h0, w_hh, b_hh, ys, dys,
-                                           dh_last, reverse)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"no GRU kernel for device {x_proj.device}")
-    return _launch_backward(x_proj, h0, w_hh, b_hh, ys, dys, dh_last,
-                            reverse)
+    if T == 0 or B == 0 or H == 0:
+        raise ValueError("empty sequence, batch or hidden")
+    if gates.device.type == "cpu":
+        return gru_sequence_backward_plain(gates, h0, w_hh, ys, dys, dh_last,
+                                           reverse)
+    if gates.device.type != "cuda":
+        raise ValueError(f"no GRU kernel for device {gates.device}")
+    return _launch_backward(gates, h0, w_hh, ys, dys, dh_last, reverse)
 
 
 gru_sequence_backward.launches = 0
 
 
 class GRUSequenceFn(torch.autograd.Function):
-    """The GRU sequence with its gradient: forward `gru_sequence`'s kernel
-    (or plain version on the CPU), backward `gru_sequence_backward`'s,
-    then dW_hh = dgh^T h_prev and db_hh = sum dgh over all steps. A CUDA
-    forward checks first that the backward kernel takes the shape."""
+    """The GRU sequence with its gradient: forward `gru_sequence_gates`'s
+    kernel variant (or plain version on the CPU), which saves every step's
+    gates; backward `gru_sequence_backward`'s from those gates, then dW_hh
+    = dgh^T h_prev and db_hh = sum dgh over all steps. The backward kernel
+    takes every shape the forward takes (H <= 244 against 232)."""
 
     @staticmethod
     def forward(ctx, x_proj, h0, w_hh, b_hh, reverse):
-        if x_proj.device.type == "cuda":
-            backward_launch_shape(x_proj.shape[1], h0.shape[-1])
-        ys, h_last = _forward(x_proj, h0, w_hh, b_hh, reverse)
-        ctx.save_for_backward(x_proj, h0, w_hh, b_hh, ys)
+        ys, h_last, gates = _forward(x_proj, h0, w_hh, b_hh, reverse,
+                                     gates=True)
+        ctx.save_for_backward(gates, h0, w_hh, ys)
         ctx.reverse = reverse
         return ys, h_last
 
     @staticmethod
     def backward(ctx, dys, dh_last):
-        x_proj, h0, w_hh, b_hh, ys = ctx.saved_tensors
+        gates, h0, w_hh, ys = ctx.saved_tensors
         dys = torch.zeros_like(ys) if dys is None else dys.contiguous()
         dh_last = (torch.zeros_like(h0) if dh_last is None
                    else dh_last.contiguous())
         dxp, dgh, dh0 = gru_sequence_backward(
-            x_proj, h0, w_hh, b_hh, ys, dys, dh_last, ctx.reverse)
+            gates, h0, w_hh, ys, dys, dh_last, ctx.reverse)
         T, B, H3 = dgh.shape
         prev = h_prev_stack(ys, h0, ctx.reverse)
         dw_hh = dgh.reshape(T * B, H3).t() @ prev.reshape(T * B, -1)

@@ -1,16 +1,22 @@
 """PyTorch port vs the JAX package: the gradient of the GRU sequence.
 
 `ops/gru_kernel.gru_sequence_backward_plain` (the backward kernel's
-plain version) and `GRUSequenceFn` against `jax.vjp` of the JAX
+plain version, which reads the gates that `gru_sequence_gates_plain`
+saved), the recompute-based `gru_sequence_backward_recompute` and
+`GRUSequenceFn` (the saved-gate path) against `jax.vjp` of the JAX
 package's `gru_layer` and `masked_gru_layer`, forward and reverse, on
 the same numpy inputs and output gradients: every gradient within 1e-5
 of the JAX gradient's largest magnitude (fp32 sums in another order over
-a few steps). `torch.autograd.gradcheck` holds the Function's plain
-backward against finite differences in float64. The `gpu`-marked test
-holds the backward kernel against autograd through the plain forward on
-the card, within 1e-4 of each tensor's largest magnitude, and a second
-one that the Part-b eval decode raises there for a decoder the
-chunk-decoder kernel cannot run. The JAX package's
+a few steps). The saved-gate backward equals the recompute-based one
+within 1e-6, and the saved gates equal the gates recomputed from the
+outputs. `torch.autograd.gradcheck` holds the Function's plain backward
+(the saved-gate path) against finite differences in float64. The
+`gpu`-marked test holds, on the card, the forward's training variant
+against the inference launch (outputs bitwise) and its gates against the
+recomputed ones (1e-6), and the Function's gradients against autograd
+through the plain forward, within 1e-4 of each tensor's largest
+magnitude; a second one checks that the Part-b eval decode raises there
+for a decoder the chunk-decoder kernel cannot run. The JAX package's
 GRU module (it imports flax) is imported inside the CPU tests, so the
 file also collects on a machine with the card and without flax.
 """
@@ -85,10 +91,13 @@ def test_gru_gradients_match_jax_vjp(reverse, masked):
         _close(g, w, name)
 
 
+@pytest.mark.parametrize("saved", ["recompute", "gates"])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_backward_plain_matches_jax_recurrence_vjp(reverse):
-    """gru_sequence_backward_plain's d x_proj and d h0 against jax.vjp of
-    the JAX recurrence over x_proj, and its dgh through dW_hh, db_hh."""
+def test_backward_plain_matches_jax_recurrence_vjp(reverse, saved):
+    """The plain backward's d x_proj and d h0 against jax.vjp of the JAX
+    recurrence over x_proj, and its dgh through dW_hh, db_hh: from the
+    gates the plain forward saved (the kernel's plain version) and from
+    x_proj, recomputing them (the oracle)."""
     from gesture2vec_tpu.models import gru as jgru
     d = _inputs(11 + reverse)
     xp = np.einsum("tbi,gi->tbg", d["xs"], d["w_ih"]) + d["b_ih"]
@@ -104,10 +113,15 @@ def test_backward_plain_matches_jax_recurrence_vjp(reverse):
     want = vjp((jnp.asarray(d["dys"]), jnp.asarray(d["dh"])))
     t = {k: torch.from_numpy(v) for k, v in d.items()}
     xp_t = torch.from_numpy(xp)
-    ys, _ = gk.gru_sequence_plain(xp_t, t["h0"], t["w_hh"], t["b_hh"],
-                                  reverse)
-    dxp, dgh, dh0 = gk.gru_sequence_backward_plain(
-        xp_t, t["h0"], t["w_hh"], t["b_hh"], ys, t["dys"], t["dh"], reverse)
+    ys, _, gates = gk.gru_sequence_gates_plain(xp_t, t["h0"], t["w_hh"],
+                                               t["b_hh"], reverse)
+    if saved == "gates":
+        dxp, dgh, dh0 = gk.gru_sequence_backward_plain(
+            gates, t["h0"], t["w_hh"], ys, t["dys"], t["dh"], reverse)
+    else:
+        dxp, dgh, dh0 = gk.gru_sequence_backward_recompute(
+            xp_t, t["h0"], t["w_hh"], t["b_hh"], ys, t["dys"], t["dh"],
+            reverse)
     prev = gk.h_prev_stack(ys, t["h0"], reverse)
     dw = dgh.reshape(-1, 3 * H).t() @ prev.reshape(-1, H)
     for name, g, w in (("dx_proj", dxp, want[0]), ("dh0", dh0, want[1]),
@@ -119,15 +133,58 @@ def test_backward_plain_matches_jax_recurrence_vjp(reverse):
                                   dxp[..., :2 * H].numpy())
 
 
+def _torch_inputs(seed):
+    d = _inputs(seed)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    xp = np.einsum("tbi,gi->tbg", d["xs"], d["w_ih"]) + d["b_ih"]
+    return torch.from_numpy(xp.astype(np.float32)), t
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_plain_matches_recompute(reverse):
+    """The saved-gate plain backward equals the recompute-based one within
+    1e-6 of each tensor's largest magnitude."""
+    xp, t = _torch_inputs(21 + reverse)
+    ys, _, gates = gk.gru_sequence_gates_plain(xp, t["h0"], t["w_hh"],
+                                               t["b_hh"], reverse)
+    got = gk.gru_sequence_backward_plain(gates, t["h0"], t["w_hh"], ys,
+                                         t["dys"], t["dh"], reverse)
+    want = gk.gru_sequence_backward_recompute(xp, t["h0"], t["w_hh"],
+                                              t["b_hh"], ys, t["dys"],
+                                              t["dh"], reverse)
+    for name, a, b in zip(("dx_proj", "dgh", "dh0"), got, want):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 1e-6, f"{name}: {err}"
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_gates_match_gates_from_ys(reverse):
+    """The gates the plain forward returns equal the gates recomputed from
+    its outputs (one product over all steps), and its outputs are those of
+    gru_sequence_plain, bitwise."""
+    xp, t = _torch_inputs(31 + reverse)
+    args = (xp, t["h0"], t["w_hh"], t["b_hh"], reverse)
+    ys, h, gates = gk.gru_sequence_gates_plain(*args)
+    ys_i, h_i = gk.gru_sequence_plain(*args)
+    assert torch.equal(ys, ys_i) and torch.equal(h, h_i)
+    assert gates.shape == (T, B, 4 * H)
+    want = gk.gates_from_ys(*args[:4], ys, reverse)
+    err = float((gates - want).abs().max() / want.abs().max())
+    assert err <= 1e-6, err
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_function_gradcheck_float64(reverse):
-    """The Function's plain forward and backward against finite
-    differences (float64 on the CPU)."""
+    """The Function's plain forward and backward, the saved-gate path,
+    against finite differences (float64 on the CPU)."""
     g = torch.Generator().manual_seed(5 + reverse)
     Tn, Bn, Hn = 4, 3, 5
     args = [torch.randn(s, generator=g, dtype=torch.float64,
                         requires_grad=True)
             for s in ((Tn, Bn, 3 * Hn), (Bn, Hn), (3 * Hn, Hn), (3 * Hn,))]
+    ys, _ = gk.GRUSequenceFn.apply(*args, reverse)
+    # the Function saved the gates (T, B, 4H), not x_proj
+    assert ys.grad_fn.saved_tensors[0].shape == (Tn, Bn, 4 * Hn)
     assert torch.autograd.gradcheck(
         lambda *a: gk.GRUSequenceFn.apply(*a, reverse), args)
 
@@ -148,17 +205,25 @@ def test_gru_sequence_takes_the_function_only_with_grad():
 
 
 def test_backward_launch_shape_limit():
-    """The backward kernel's shared memory mirror: H=200 fits (203,640
-    bytes a block), H=217 does not; the forward's limit is H=232."""
-    assert gk.backward_launch_shape(128, 200)["smem_bytes"] == 203640
+    """The backward kernel's shared memory mirror: H=200 fits (164,000
+    bytes a block), H=244 fits, H=245 does not; the forward's limit,
+    H=232, is the tighter one."""
+    assert gk.backward_launch_shape(128, 200)["smem_bytes"] == 164000
     assert gk.backward_launch_shape(117, 216)["clusters"] == 6
+    assert gk.backward_launch_shape(1, 244)["threads"] == 320
     with pytest.raises(ValueError, match="GRU backward"):
-        gk.backward_launch_shape(128, 217)
+        gk.backward_launch_shape(128, 245)
     gk.launch_shape(128, 232)
+    with pytest.raises(ValueError):
+        gk.launch_shape(128, 233)
 
 
 @pytest.mark.gpu
 def test_backward_kernel_on_card_matches_autograd_of_plain():
+    """On the card: the forward's training variant gives outputs bitwise
+    equal to the inference launch's and gates within 1e-6 of the gates
+    recomputed from those outputs; the Function's gradients (variant and
+    backward kernel) match autograd through the plain forward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -169,6 +234,12 @@ def test_backward_kernel_on_card_matches_autograd_of_plain():
                       for s, sc in (((Tc, Bc, 3 * Hc), 1.0), ((Bc, Hc), 0.5),
                                     ((3 * Hc, Hc), Hc ** -0.5),
                                     ((3 * Hc,), Hc ** -0.5))]
+            ys_i, h_i = gk.gru_sequence(*leaves, reverse)
+            ys_g, h_g, gates = gk.gru_sequence_gates(*leaves, reverse)
+            assert torch.equal(ys_g, ys_i) and torch.equal(h_g, h_i)
+            want = gk.gates_from_ys(*leaves, ys_g, reverse)
+            err = (gates - want).abs().max() / want.abs().max()
+            assert err.item() <= 1e-6
             leaves = [t.requires_grad_() for t in leaves]
             dys = torch.randn(Tc, Bc, Hc, device="cuda", generator=g)
             dh = torch.randn(Bc, Hc, device="cuda", generator=g)

@@ -6,6 +6,10 @@
     python -m gesture2vec_tpu_torch.cli.train -c configs/seq2seqtxt.yml \\
         --part d --rep-checkpoint ... --autoencoder-checkpoint ...
 
+The recommended recipe is `configs/VQ-VAE_rvq.yml` for part b (the
+4-stage residual VQ), then `configs/seq2seqtxt_recommended.yml` for part
+d (the transformer, 4 chained stages) over that tokenizer.
+
 The port of the JAX package's `cli/train.py` for parts a, b and d: Part
 b trains on the frozen Part-a DAE's latents of the pose windows, Part d
 on the sentence windows tokenized by the frozen Part-a and Part-b

@@ -362,7 +362,8 @@ def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
 # Initialisers are the JAX package's for that layer (flax's Dense:
 # lecun_normal kernel and zero bias; nn.Embed: normal(1/sqrt(features));
 # the GRUs' U(+-1/sqrt(H)); the TCN's normal(0.01) kernels, WeightNorm
-# scale 1; BatchNorm scale 1, bias 0; the codebooks' normal(1)).
+# scale 1; BatchNorm and LayerNorm scale 1, bias 0; the codebooks'
+# normal(1)).
 Entry = Tuple[Tuple[str, ...], torch.Tensor, str, str]
 
 
@@ -378,7 +379,8 @@ def _gru_entries(path, mod: nn.Module, hidden: int) -> List[Entry]:
             for name, p in mod.named_parameters()]
 
 
-def _bn_entries(path, mod: nn.BatchNorm1d) -> List[Entry]:
+def _norm_entries(path, mod: nn.Module) -> List[Entry]:
+    """A BatchNorm's or LayerNorm's scale (ones) and bias (zeros)."""
     return [(path + ("scale",), mod.weight, "same", "ones"),
             (path + ("bias",), mod.bias, "same", "zeros")]
 
@@ -391,9 +393,38 @@ def _embed(path, mod: nn.Embedding) -> Entry:
 def _decoder_step_entries(d: nn.Module, hidden: int) -> List[Entry]:
     p = ("decoder_step",)
     out = _dense_entries(p + ("pre_linear",), d.pre_linear) \
-        + _bn_entries(p + ("pre_bn",), d.pre_bn) \
+        + _norm_entries(p + ("pre_bn",), d.pre_bn) \
         + _gru_entries(p + ("gru",), d.gru, hidden) \
         + _dense_entries(p + ("out_layer",), d.out_layer)
+    return out
+
+
+def _blocks_entries(path, mod: nn.Module) -> List[Entry]:
+    """A transformer stack's `layer_{i}` blocks and its final_ln."""
+    out: List[Entry] = []
+    for i in range(mod.n_layers):
+        b, p = getattr(mod, f"layer_{i}"), path + (f"layer_{i}",)
+        attns = ("self_attn", "cross_attn") if b.cross else ("self_attn",)
+        for ln in ("ln_self", "ln_mlp") + (("ln_cross",) if b.cross
+                                           else ()):
+            out += _norm_entries(p + (ln,), getattr(b, ln))
+        for attn in attns:
+            for proj in "qkvo":
+                out += _dense_entries(p + (attn, proj),
+                                      getattr(getattr(b, attn), proj))
+        out += _dense_entries(p + ("mlp_in",), b.mlp_in)
+        out += _dense_entries(p + ("mlp_out",), b.mlp_out)
+    return out + _norm_entries(path + ("final_ln",), mod.final_ln)
+
+
+def _stage_head_entries(path, d: nn.Module) -> List[Entry]:
+    out: List[Entry] = []
+    for s in range(d.n_stage_heads):
+        out += _dense_entries(path + (f"out_layer_r{s + 1}",),
+                              getattr(d, f"out_layer_r{s + 1}"))
+        if d.stage_conditional:
+            out.append(_embed(path + (f"stage_embed_{s}", "embedding"),
+                              getattr(d, f"stage_embed_{s}")))
     return out
 
 
@@ -405,15 +436,14 @@ def dae_entries(model: DAE) -> List[Entry]:
 
 
 def seq_ae_entries(model: SeqVQAutoencoder) -> List[Entry]:
-    """A BiGRU tokenizer's parameters (the transformer encoder does not
-    train in the port yet)."""
-    if model.encoder_arch != "bigru":
-        raise NotImplementedError(
-            "seq_arch: transformer training is not ported yet (ROADMAP.md "
-            "queue A item 3.2)")
-    H = model.hidden_size
-    out = _dense_entries(("encoder", "in_layer"), model.encoder.in_layer) \
-        + _gru_entries(("encoder", "gru"), model.encoder.gru, H)
+    """A tokenizer's parameters, BiGRU or transformer encoder."""
+    H, e = model.hidden_size, model.encoder
+    out = _dense_entries(("encoder", "in_layer"), e.in_layer)
+    if model.encoder_arch == "bigru":
+        out += _gru_entries(("encoder", "gru"), e.gru, H)
+    else:
+        out += _blocks_entries(("encoder",), e)
+        out += _dense_entries(("encoder", "hidden_proj"), e.hidden_proj)
     q = model.vq_layer
     if model.vq_variant == "rvq":
         out += [(("vq_layer", name), p, "same", "normal:1.0")
@@ -460,25 +490,35 @@ def text2token_entries(model: Text2Token) -> List[Entry]:
         out += _dense_entries(p + ("attn", "attn"), d.attn.attn)
         out.append((p + ("attn", "v"), d.attn.v, "same",
                     f"normal:{1.0 / np.sqrt(H)}"))
-    out += _decoder_step_entries(d, H)
-    for s in range(d.n_stage_heads):
-        out += _dense_entries(p + (f"out_layer_r{s + 1}",),
-                              getattr(d, f"out_layer_r{s + 1}"))
-        if d.stage_conditional:
-            out.append(_embed(p + (f"stage_embed_{s}", "embedding"),
-                              getattr(d, f"stage_embed_{s}")))
-    return out
+    return out + _decoder_step_entries(d, H) + _stage_head_entries(p, d)
+
+
+def transformer_text2token_entries(model: TransformerText2Token
+                                   ) -> List[Entry]:
+    """A transformer Part d's parameters; the embedding table keeps the
+    values it has, as in text2token_entries."""
+    e, d = model.encoder, model.decoder
+    out: List[Entry] = [(("encoder", "embedding_table"),
+                         e.embedding_table.weight, "same", "keep")]
+    out += _dense_entries(("encoder", "embed_proj"), e.embed_proj)
+    out += _blocks_entries(("encoder",), e)
+    out.append(_embed(("decoder", "token_embedding", "embedding"),
+                      d.token_embedding))
+    out += _blocks_entries(("decoder",), d)
+    out += _dense_entries(("decoder", "out_layer"), d.out_layer)
+    return out + _stage_head_entries(("decoder",), d)
 
 
 def param_entries(model: nn.Module) -> List[Entry]:
-    """The entries of a trainable port model (DAE, BiGRU tokenizer, GRU
-    Part d)."""
+    """The entries of a trainable port model (DAE, tokenizer, Part d)."""
     if isinstance(model, DAE):
         return dae_entries(model)
     if isinstance(model, SeqVQAutoencoder):
         return seq_ae_entries(model)
     if isinstance(model, Text2Token):
         return text2token_entries(model)
+    if isinstance(model, TransformerText2Token):
+        return transformer_text2token_entries(model)
     raise NotImplementedError(f"no JAX layout for {type(model).__name__}")
 
 

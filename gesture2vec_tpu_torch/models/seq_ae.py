@@ -9,7 +9,7 @@ quantizer (`SeqVQAutoencoder.encode` / `quantize` / `tokens_from_hidden`
 / `stage_tokens`), with `_flatten_hidden` in both `vq_flatten` modes.
 With encoder_arch="transformer" (the JAX package's `seq_arch:
 transformer`) the encoder is `models/seq_encoder.TransformerSeqEncoder`;
-decoder and quantizer are the same.
+decoder and quantizer are the same, and it trains as the BiGRU does.
 
 The decoder-initial hidden is the encoder hidden sliced to its first
 n_layers entries, which for the bidirectional GRU is [l0_fwd, l0_bwd]
@@ -19,7 +19,8 @@ Eval mode (`.eval()`) is the JAX package's eval with
 `eval_step_dropout=False`: BatchNorm reads its running statistics and
 no dropout is applied. Training mode (`.train()`, masks drawn inside
 `models/layers.dropout_generator`) is its train=True: dropout on the
-encoder's input and between the BiGRU's layers, the reference's 0.95
+encoder's input (either encoder), between the BiGRU's layers or at the
+transformer encoder's sites, the reference's 0.95
 dropout on the decoder's input at every step, dropout between the
 decoder's GRU layers, and BatchNorm on batch statistics, updated once a
 step (`models/layers.BatchNorm`).
@@ -277,8 +278,8 @@ class SeqVQAutoencoder(nn.Module):
             # imported here: models/transformer imports this module
             from gesture2vec_tpu_torch.models.seq_encoder import \
                 TransformerSeqEncoder
-            self.encoder = TransformerSeqEncoder(rep_dim, hidden_size,
-                                                 n_layers)
+            self.encoder = TransformerSeqEncoder(
+                rep_dim, hidden_size, n_layers, dropout_rate=dropout_rate)
         else:
             self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers,
                                       dropout_rate)

@@ -1,5 +1,5 @@
 """Part b, transformer encoder variant - the chunk encoder of a
-`seq_arch: transformer` gesture tokenizer (inference).
+`seq_arch: transformer` gesture tokenizer.
 
 Port of the JAX package's `models/seq_encoder.py`: in_layer -> sinusoidal
 positions -> pre-LN blocks (`models/transformer.Block`, no mask) ->
@@ -8,7 +8,9 @@ frames and `hidden_proj` to the (n_layers, B, H) hidden that the
 quantizer reads. Contract of `seq_ae.SeqEncoder`: (T, B, D) time-major
 frames -> (outputs (T, B, H), hidden (n_layers, B, H)); the tokenizer's
 `[:n_layers]` slice of the hidden is then the identity. The JAX package
-builds it with 4 heads.
+builds it with 4 heads. In training mode dropout (the tokenizer's
+dropout_prob) acts after the positions and on each block's residual
+branches, as in JAX (masks drawn inside `models/layers.dropout_generator`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from gesture2vec_tpu_torch.models.layers import dropout
 from gesture2vec_tpu_torch.models.transformer import (LN_EPS, add_blocks,
                                                       position_table)
 
@@ -25,19 +28,23 @@ class TransformerSeqEncoder(nn.Module):
     """Chunk frames -> contextual frame embeddings + pooled hidden."""
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
-                 n_heads: int = 4):
+                 n_heads: int = 4, dropout_rate: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
+        self.dropout_rate = dropout_rate
         self.in_layer = nn.Linear(input_size, hidden_size)
-        add_blocks(self, n_layers, hidden_size, n_heads)
+        add_blocks(self, n_layers, hidden_size, n_heads,
+                   dropout_rate=dropout_rate)
         self.final_ln = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.hidden_proj = nn.Linear(hidden_size, n_layers * hidden_size)
 
     def forward(self, xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """xs (T, B, D) -> (outputs (T, B, H), hidden (n_layers, B, H))."""
         x = self.in_layer(xs).transpose(0, 1)                  # (B, T, H)
-        x = x + position_table(x.shape[1], self.hidden_size, x.device)
+        x = dropout(x + position_table(x.shape[1], self.hidden_size,
+                                       x.device),
+                    self.dropout_rate, self.training)
         for i in range(self.n_layers):
             x, _ = getattr(self, f"layer_{i}")(x, None)
         x = self.final_ln(x)

@@ -71,9 +71,10 @@ def sample_logits(logits: torch.Tensor, temperature: float, top_k: int,
 
 
 def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
-    """Standard Gumbel draws on the CPU, -log(-log(u)) with u uniform in
-    [tiny, 1), as jax.random.gumbel draws them."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    """Standard Gumbel draws on the generator's device, -log(-log(u)) with
+    u uniform in [tiny, 1), as jax.random.gumbel draws them."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
@@ -313,10 +314,13 @@ class Text2Token(nn.Module):
                         else prev)
             lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
             if teach:
+                # the chain reads the teacher codes; the tokens reported
+                # are the argmaxes, as in JAX
                 st = stage_targets[:, t]
                 prev = torch.argmax(lg, dim=-1)
-                slg, stok = stage_chain(step, out, st[:, 0],
-                                        lambda _, s: st[:, s + 1])
+                slg, _ = stage_chain(step, out, st[:, 0],
+                                     lambda _, s: st[:, s + 1])
+                stok = torch.argmax(slg, dim=-1)
             else:
                 prev, slg, stok = choose_step(
                     step, lg, out, temperature, top_k, stage0_temperature,

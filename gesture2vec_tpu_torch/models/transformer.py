@@ -1,5 +1,4 @@
-"""Part d, transformer variant - text to gesture-token translation
-(inference).
+"""Part d, transformer variant - text to gesture-token translation.
 
 Port of the JAX package's `models/transformer.py`: a pre-LN transformer
 encoder over the words (`_TextEncoder`: embedding table -> embed_proj ->
@@ -18,11 +17,20 @@ choices (greedy, sampled on given Gumbel noise, the residual-stage heads
 and their chain) are `models/text2token.choose_step`'s, on the decoder
 output at position t - 1; beam search keeps K buffers on the batch axis.
 
+Training mode (`.train()`) is the JAX package's train=True: the decoder
+runs once over the teacher tokens in parallel (position j reads
+target_tokens[:, j] and predicts step j + 1; with stage_conditional the
+stage chain reads the teacher codes stage_targets[:, 1:]), and dropout
+(masks drawn inside `models/layers.dropout_generator`) acts where JAX
+puts it: after the word embeddings + positions, after the token
+embeddings + positions, and on the three residual branches of each
+block. The eval-mode rollout stays differentiable, so the
+feedback-matched finetune trains through it.
+
 Kept from flax: LayerNorm epsilon 1e-6, the tanh approximation of GELU,
 and masked attention scores set to -1e30 (a fully masked row attends
 uniformly instead of giving NaN). Scores and softmax are fp32 matmuls, as
-the JAX einsums are. Train mode (dropout, the teacher-forced parallel
-pass) is not ported yet.
+the JAX einsums are.
 """
 from __future__ import annotations
 
@@ -35,10 +43,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gesture2vec_tpu_torch.models.text2token import check_noise, choose_step
+from gesture2vec_tpu_torch.models.layers import dropout
+from gesture2vec_tpu_torch.models.text2token import (check_noise, choose_step,
+                                                     stage_chain,
+                                                     stage_logits)
 
-_TRAIN = "train mode is not ported yet (ROADMAP.md queue A item 3.1, the " \
-         "next training slice of the PyTorch port)"
 # flax's LayerNorm epsilon (torch's default is 1e-5)
 LN_EPS = 1e-6
 # the JAX package's fill for masked scores
@@ -109,10 +118,13 @@ class MHA(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block; cross-attention optional."""
+    """Pre-LN transformer block; cross-attention optional; in training,
+    dropout on each residual branch."""
 
-    def __init__(self, hidden_size: int, n_heads: int, cross: bool = False):
+    def __init__(self, hidden_size: int, n_heads: int, cross: bool = False,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.ln_self = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.self_attn = MHA(hidden_size, n_heads)
         self.cross = cross
@@ -129,14 +141,17 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """x (B, T, H) -> (x (B, T, H), cross-attention weights (B, T, S)
         or None)."""
+        def drop(y):
+            return dropout(y, self.dropout_rate, self.training)
+
         h = self.ln_self(x)
-        x = x + self.self_attn(h, h, self_mask)[0]
+        x = x + drop(self.self_attn(h, h, self_mask)[0])
         cross_w = None
         if self.cross:
             a, cross_w = self.cross_attn(self.ln_cross(x), enc, enc_mask)
-            x = x + a
+            x = x + drop(a)
         h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
-        return x + self.mlp_out(h), cross_w
+        return x + drop(self.mlp_out(h)), cross_w
 
 
 def add_blocks(module: nn.Module, n_layers: int, *args, **kw) -> None:
@@ -149,12 +164,14 @@ class _TextEncoder(nn.Module):
     """Word ids -> contextual embeddings + masked mean-pool."""
 
     def __init__(self, n_words: int, word_embed_size: int, hidden_size: int,
-                 n_layers: int, n_heads: int):
+                 n_layers: int, n_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout_rate = dropout_rate
         self.embedding_table = nn.Embedding(n_words, word_embed_size)
         self.embed_proj = nn.Linear(word_embed_size, hidden_size)
-        add_blocks(self, n_layers, hidden_size, n_heads)
+        add_blocks(self, n_layers, hidden_size, n_heads,
+                   dropout_rate=dropout_rate)
         self.final_ln = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
@@ -162,7 +179,8 @@ class _TextEncoder(nn.Module):
         """(B, S) ids, (B,) lengths -> (enc (B, S, H), pooled (B, H))."""
         S = tokens.shape[1]
         x = self.embed_proj(self.embedding_table(tokens))
-        x = x + position_table(S, x.shape[-1], x.device)
+        x = dropout(x + position_table(S, x.shape[-1], x.device),
+                    self.dropout_rate, self.training)
         valid = torch.arange(S, device=tokens.device)[None, :] \
             < lengths[:, None]                                 # (B, S)
         mask = valid[:, None, None, :]
@@ -180,13 +198,15 @@ class _TokenDecoder(nn.Module):
 
     def __init__(self, n_tokens: int, hidden_size: int, n_layers: int,
                  n_heads: int, n_stage_heads: int = 0,
-                 stage_conditional: bool = False):
+                 stage_conditional: bool = False, dropout_rate: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout_rate = dropout_rate
         self.n_stage_heads = n_stage_heads
         self.stage_conditional = stage_conditional and n_stage_heads > 0
         self.token_embedding = nn.Embedding(n_tokens, hidden_size)
-        add_blocks(self, n_layers, hidden_size, n_heads, cross=True)
+        add_blocks(self, n_layers, hidden_size, n_heads, cross=True,
+                   dropout_rate=dropout_rate)
         self.final_ln = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.out_layer = nn.Linear(hidden_size, n_tokens)
         for s in range(n_stage_heads):
@@ -204,8 +224,10 @@ class _TokenDecoder(nn.Module):
         layer's cross-attention weights (B, T, S), the decoder output
         (B, T, H) that the stage heads read)."""
         T = buf.shape[1]
-        x = self.token_embedding(buf)
-        x = x + position_table(T, x.shape[-1], x.device)
+        x = dropout(self.token_embedding(buf)
+                    + position_table(T, self.token_embedding.embedding_dim,
+                                   buf.device),
+                    self.dropout_rate, self.training)
         causal = _causal(T, x.device)
         em = None
         if enc_mask is not None:
@@ -219,7 +241,8 @@ class _TokenDecoder(nn.Module):
 
 class TransformerText2Token(nn.Module):
     """Sentence -> n_steps gesture tokens (and residual-stage codes),
-    transformer encoder-decoder, with Text2Token's inference API."""
+    transformer encoder-decoder, with Text2Token's API; dropout_rate is
+    the config's dropout_prob (training only)."""
 
     # cross-attention is structural (the field gates attention plots)
     use_attention = True
@@ -231,7 +254,8 @@ class TransformerText2Token(nn.Module):
     def __init__(self, n_words: int, n_tokens: int, hidden_size: int,
                  n_layers: int, n_steps: int, n_pre_poses: int = 2,
                  word_embed_size: int = 300, n_heads: int = 4,
-                 token_stages: int = 1, stage_conditional: bool = False):
+                 token_stages: int = 1, stage_conditional: bool = False,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.n_tokens = n_tokens
         self.n_layers = n_layers
@@ -241,10 +265,11 @@ class TransformerText2Token(nn.Module):
         self.token_stages = token_stages
         self.stage_conditional = stage_conditional and token_stages > 1
         self.encoder = _TextEncoder(n_words, word_embed_size, hidden_size,
-                                    n_layers, n_heads)
+                                    n_layers, n_heads, dropout_rate)
         self.decoder = _TokenDecoder(n_tokens, hidden_size, n_layers,
                                      n_heads, n_stage_heads=token_stages - 1,
-                                     stage_conditional=stage_conditional)
+                                     stage_conditional=stage_conditional,
+                                     dropout_rate=dropout_rate)
 
     @property
     def n_pre(self) -> int:
@@ -279,17 +304,22 @@ class TransformerText2Token(nn.Module):
                       temperature: float = 0.0, top_k: int = 0,
                       stage0_temperature: float = -1.0,
                       gumbel: Optional[torch.Tensor] = None,
-                      train: bool = False) -> Dict[str, torch.Tensor]:
-        """The autoregressive decode given a text encoding (dec_hidden is
-        accepted for the API and unused). target_tokens (B, n_steps) is
-        the teacher signal (column 0 the seed); enc_mask (S,) or (B, S);
-        gumbel (B, n_steps - 1, token_stages, K) a sampled decode's noise.
-        Returns "logits" (B, n_steps, K), "tokens" (B, n_steps),
-        "attentions" (n_steps - 1, B, S), and with residual stages
-        "stage_logits" (B, n_steps - 1, S-1, K) and "stage_tokens"
+                      stage_targets: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """The decode given a text encoding (dec_hidden is accepted for
+        the API and unused): in eval mode the autoregressive rollout, in
+        training mode the teacher-forced parallel pass (`_teacher_forced`).
+        target_tokens (B, n_steps) is the teacher signal (column 0 the
+        seed); enc_mask (S,) or (B, S); gumbel (B, n_steps - 1,
+        token_stages, K) a sampled rollout's noise; stage_targets (B,
+        n_steps, token_stages) the teacher codes a stage_conditional model
+        trains on. Returns "logits" (B, n_steps, K), "tokens" (B,
+        n_steps), "attentions" (n_steps - 1, B, S), and with residual
+        stages "stage_logits" (B, n_steps - 1, S-1, K) and "stage_tokens"
         (B, n_steps - 1, S-1)."""
-        if train:
-            raise NotImplementedError(_TRAIN)
+        if self.training:
+            return self._teacher_forced(enc_outs, target_tokens, enc_mask,
+                                        stage_targets)
         check_noise(self.token_stages, temperature, stage0_temperature,
                     gumbel)
         enc = enc_outs.transpose(0, 1)                         # (B, S, H)
@@ -298,7 +328,7 @@ class TransformerText2Token(nn.Module):
         seed = target_tokens[:, 0]
         buf = self._buffer(target_tokens)
         logits = [F.one_hot(seed, self.n_tokens).to(enc.dtype)]
-        tokens, attns, stage_logits, stage_tokens = [seed], [], [], []
+        tokens, attns, slgs, stoks = [seed], [], [], []
         for t in range(1, T):
             lg_all, cross_w, out = self.decoder(buf, enc, enc_mask)
             lg = lg_all[:, t - 1]
@@ -307,19 +337,56 @@ class TransformerText2Token(nn.Module):
                 stage0_temperature,
                 None if gumbel is None else gumbel[:, t - 1])
             if n_pre <= t < T - 1:
+                # a new buffer, not a write in place: under autograd (the
+                # feedback finetune) each embedding keeps its ids for the
+                # backward
+                buf = buf.clone()
                 buf[:, t] = best
             logits.append(lg)
             tokens.append(best)
             attns.append(cross_w[:, t - 1])
             if multi:
-                stage_logits.append(slg)
-                stage_tokens.append(stok)
+                slgs.append(slg)
+                stoks.append(stok)
         res = {"logits": torch.stack(logits, dim=1),
                "tokens": torch.stack(tokens, dim=1),
                "attentions": torch.stack(attns)}
         if multi:
-            res["stage_logits"] = torch.stack(stage_logits, dim=1)
-            res["stage_tokens"] = torch.stack(stage_tokens, dim=1)
+            res["stage_logits"] = torch.stack(slgs, dim=1)
+            res["stage_tokens"] = torch.stack(stoks, dim=1)
+        return res
+
+    def _teacher_forced(self, enc_outs: torch.Tensor,
+                        target_tokens: torch.Tensor,
+                        enc_mask: Optional[torch.Tensor],
+                        stage_targets: Optional[torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """The training pass (the JAX decode_tokens with train=True): one
+        decoder pass over target_tokens[:, :n_steps - 1], position j
+        predicting step j + 1, its logits after the seed's one-hot; the
+        stage chain reads the teacher codes of steps 1.. . Tokens and
+        stage tokens are the argmaxes."""
+        if self.stage_conditional and stage_targets is None:
+            raise ValueError("stage_conditional training needs stage_targets "
+                             "(B, n_steps, token_stages)")
+        seed = target_tokens[:, 0]
+        lg_all, cross_w, out = self.decoder(
+            target_tokens[:, :self.n_steps - 1], enc_outs.transpose(0, 1),
+            enc_mask)
+        res = {"logits": torch.cat([F.one_hot(seed, self.n_tokens).to(
+                   lg_all.dtype)[:, None], lg_all], dim=1),
+               "tokens": torch.cat([seed[:, None], lg_all.argmax(dim=-1)],
+                                   dim=1),
+               "attentions": cross_w.transpose(0, 1)}
+        if self.token_stages > 1:
+            if self.stage_conditional:
+                st = stage_targets[:, 1:]
+                slg, _ = stage_chain(self.decoder, out, st[..., 0],
+                                     lambda _, s: st[..., s + 1])
+            else:
+                slg = stage_logits(self.decoder, out)
+            res["stage_logits"] = slg
+            res["stage_tokens"] = slg.argmax(dim=-1)
         return res
 
     def beam_decode(self, enc_outs: torch.Tensor, dec_hidden: torch.Tensor,
@@ -379,12 +446,10 @@ class TransformerText2Token(nn.Module):
         return res
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                target_tokens: torch.Tensor, train: bool = False,
-                **decode_kw) -> Dict[str, torch.Tensor]:
+                target_tokens: torch.Tensor, **decode_kw
+                ) -> Dict[str, torch.Tensor]:
         """Encode + decode, each sentence attending over its own words.
         decode_kw as in decode_tokens."""
-        if train:
-            raise NotImplementedError(_TRAIN)
         enc_outs, dec_hidden = self.encode_text(tokens, lengths)
         enc_mask = (torch.arange(tokens.shape[1], device=tokens.device)[
             None, :] < lengths[:, None])

@@ -3,20 +3,22 @@
 Port of the JAX package's `train/seq_ae_trainer.py`:
   loss = custom_loss(outputs, windows) + vq_loss / 400
 over the teacher-forced decode of a train-mode forward
-(`models/seq_ae.SeqVQAutoencoder`), with Adam(0.5, 0.999) after
-global-norm clipping at 5. On the card the BiGRU encoder's four
+(`models/seq_ae.SeqVQAutoencoder`, with the BiGRU or, for `seq_arch:
+transformer`, the transformer chunk encoder), with Adam(0.5, 0.999)
+after global-norm clipping at 5. On the card the BiGRU encoder's four
 recurrences run the GRU-sequence kernel forward and its backward kernel
-backward, and the residual quantizer's hard assignments the VQ-argmin
-kernel; validation (eval BatchNorm, no dropout) decodes through the
-chunk-decoder kernel, so on the card a decoder the kernel cannot run is
-refused before the first step. `rvq_reestimate_every` re-fits each residual
-stage's codebook with K-Means (`cluster/kmeans`, assignments through the
-VQ-argmin kernel) over the current encoder latents.
+backward (the transformer encoder runs no kernel), and the residual
+quantizer's hard assignments the VQ-argmin kernel; validation (eval
+BatchNorm, no dropout) decodes through the chunk-decoder kernel, so on
+the card a decoder the kernel cannot run is refused before the first
+step. `rvq_reestimate_every` re-fits each residual stage's codebook with
+K-Means (`cluster/kmeans`, assignments through the VQ-argmin kernel)
+over the current encoder latents.
 
 Refused, each naming the ROADMAP.md queue A item that ports it:
-`seq_arch: transformer` training (3.2), `use_derivative` and
-`autoencoder_vae` (3.4), the similarity-supervised step (3.5),
-`compute_dtype: bfloat16` (3.7), the streaming window source (3.8).
+`use_derivative` and `autoencoder_vae` (3.4), the similarity-supervised
+step (3.5), `compute_dtype: bfloat16` (3.7), the streaming window source
+(3.8).
 """
 from __future__ import annotations
 
@@ -48,10 +50,8 @@ _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 def make_seq_ae(config: Config) -> SeqVQAutoencoder:
     """The tokenizer the JAX package's make_seq_ae builds (per_sample
-    flattening, the trainers' default)."""
+    flattening, the trainers' default; the encoder from `seq_arch`)."""
     refused = (
-        (config.extras.get("seq_arch", "bigru") == "transformer",
-         "seq_arch: transformer training", "3.2"),
         (config.use_derivative, "use_derivative", "3.4"),
         (config.autoencoder_vae, "autoencoder_vae", "3.4"),
         (not config.autoencoder_vq,
@@ -74,6 +74,7 @@ def make_seq_ae(config: Config) -> SeqVQAutoencoder:
         rvq_stages=config.rvq_stages,
         commitment_cost=config.autoencoder_vq_commitment_cost,
         conditioned=config.autoencoder_conditioned,
+        encoder_arch=config.extras.get("seq_arch", "bigru"),
         dropout_rate=config.dropout_prob)
 
 

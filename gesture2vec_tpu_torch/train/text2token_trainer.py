@@ -1,19 +1,28 @@
 """Part d trainer: text -> gesture-token translation.
 
-Port of the JAX package's `train/text2token_trainer.py` for the GRU
-Part d (`t2t_arch: gru`, the TCN or the GRU text encoder): the loss is
-the gesture-token cross-entropy over positions 1.. (with
-`label_smoothing` in training) of a train-mode forward, plus the
-residual-stage heads' CE when token_stages > 1 (the stage chain reads
-the teacher codes with stage_conditional); validation reports the plain
-CE and the stage-0 accuracy. With `text_encoder: gru` the masked BiGRU's
+Port of the JAX package's `train/text2token_trainer.py`, both
+architectures: the GRU Part d (`t2t_arch: gru`, the TCN or the GRU text
+encoder) and the transformer (`t2t_arch: transformer`, `t2t_heads`
+heads, the recommended recipe's). The loss is the gesture-token
+cross-entropy over positions 1.. (with `label_smoothing` in training) of
+a train-mode forward, plus the residual-stage heads' CE when
+token_stages > 1 (the stage chain reads the teacher codes with
+stage_conditional); the transformer's train-mode forward is its
+teacher-forced parallel pass. Validation reports the plain CE and the
+stage-0 accuracy. With `text_encoder: gru` the masked BiGRU's
 recurrences run the GRU-sequence kernel and its backward kernel on the
 card. The epoch loop is `train/token_loop.run_token_training`
 (`keep_best` included).
 
-Refused, each naming the ROADMAP.md queue A item that ports it:
-`t2t_arch: transformer` training (3.1), `feedback_finetune_epochs` > 0
-(3.6), `compute_dtype: bfloat16` (3.7).
+`feedback_finetune_epochs` N > 0 trains the last N epochs with
+`FeedbackTrainStep` (JAX `make_feedback_train_step`): the decode-time
+rollout in eval mode (no dropout, BatchNorm on its running statistics)
+with grad enabled, each step feeding back the model's own argmax, or at
+`feedback_temperature` > 0 a sample whose Gumbel noise is drawn from the
+trainer's generator, and the CE against the ground-truth codes.
+
+Refused, naming the ROADMAP.md queue A item that ports it:
+`compute_dtype: bfloat16` (3.7).
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import torch
 from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
                                                    to_jax_variables)
 from gesture2vec_tpu_torch.device import resolve_device
-from gesture2vec_tpu_torch.models.text2token import Text2Token
+from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
+from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.train import checkpoints
 from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.losses import stage_ce, token_cross_entropy
@@ -35,25 +45,32 @@ from gesture2vec_tpu_torch.train.token_loop import run_token_training
 _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 
-def make_text2token(config: Config, n_words: int) -> Text2Token:
+Part = Union[Text2Token, TransformerText2Token]
+
+
+def make_text2token(config: Config, n_words: int) -> Part:
     """The Part-d model of make_text2token in the JAX package
     (n_steps = sentence_frame_length // n_poses, tokens = the codebook
-    size)."""
-    refused = (
-        (config.extras.get("t2t_arch", "gru") == "transformer",
-         "t2t_arch: transformer training", "3.1"),
-        (config.feedback_finetune_epochs > 0, "feedback_finetune_epochs",
-         "3.6"),
-        (config.compute_dtype != "float32", "compute_dtype: bfloat16",
-         "3.7"))
-    for cond, what, item in refused:
-        if cond:
-            raise NotImplementedError(_LATER.format(what, item))
+    size): the transformer for `t2t_arch: transformer`, else the GRU
+    model."""
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(_LATER.format("compute_dtype: bfloat16",
+                                                "3.7"))
+    n_steps = config.sentence_frame_length // config.n_poses
+    if config.extras.get("t2t_arch", "gru") == "transformer":
+        return TransformerText2Token(
+            n_words=n_words, n_tokens=config.autoencoder_vq_components,
+            hidden_size=config.hidden_size, n_layers=config.n_layers,
+            n_steps=n_steps, n_pre_poses=config.n_pre_poses,
+            word_embed_size=config.wordembed_dim,
+            n_heads=int(config.extras.get("t2t_heads", 4)),
+            token_stages=config.token_stages,
+            stage_conditional=config.stage_conditional,
+            dropout_rate=config.dropout_prob)
     return Text2Token(
         n_words=n_words, n_tokens=config.autoencoder_vq_components,
         hidden_size=config.hidden_size, n_layers=config.n_layers,
-        n_steps=config.sentence_frame_length // config.n_poses,
-        n_pre_poses=config.n_pre_poses,
+        n_steps=n_steps, n_pre_poses=config.n_pre_poses,
         word_embed_size=config.wordembed_dim,
         encoder_type=config.extras.get("text_encoder", "tcn"),
         use_attention=config.autoencoder_att,
@@ -63,9 +80,9 @@ def make_text2token(config: Config, n_words: int) -> Text2Token:
 
 
 @torch.no_grad()
-def init_text2token(model: Text2Token, seed: int, device: torch.device,
+def init_text2token(model: Part, seed: int, device: torch.device,
                     embedding_weights: Optional[np.ndarray] = None
-                    ) -> Text2Token:
+                    ) -> Part:
     """The JAX package's initialisers; the word table is the vocabulary's
     vectors, or normal(1) without them."""
     gen = torch.Generator().manual_seed(seed)
@@ -80,9 +97,10 @@ def init_text2token(model: Text2Token, seed: int, device: torch.device,
 
 
 class TrainStep(Step):
-    """The Part-d step on (word_ids, lengths, tokens[, stage_tokens])."""
+    """The Part-d step on (word_ids, lengths, tokens[, stage_tokens]),
+    either architecture (the transformer has no BatchNorm)."""
 
-    def __init__(self, model: Text2Token, opt: Adam,
+    def __init__(self, model: Part, opt: Adam,
                  label_smoothing: float = 0.0):
         self.model, self.opt = model, opt
         self.label_smoothing = label_smoothing
@@ -90,15 +108,53 @@ class TrainStep(Step):
     def loss(self, word_ids, lengths, targets, stage=None) -> torch.Tensor:
         m = self.model
         kw = {"stage_targets": stage} if m.stage_conditional else {}
-        res = m(word_ids, lengths, targets, **kw)
+        return self.ce(m(word_ids, lengths, targets, **kw), targets, stage)
+
+    def ce(self, res: Dict[str, torch.Tensor], targets: torch.Tensor,
+           stage: Optional[torch.Tensor]) -> torch.Tensor:
         loss = token_cross_entropy(res["logits"], targets,
                                    label_smoothing=self.label_smoothing)
-        if m.token_stages > 1:
+        if self.model.token_stages > 1:
             loss = loss + stage_ce(res, stage)
         return loss
 
 
-def make_eval_step(model: Text2Token):
+class FeedbackTrainStep(TrainStep):
+    """The feedback-matched finetune step (JAX make_feedback_train_step):
+    the decode-time rollout, the model in eval mode with grad enabled,
+    its own argmax fed back after the teacher prefix (and the stage chain
+    conditioned on its own choices), the CE against the ground-truth
+    codes; the integer feedback carries no gradient. At temperature > 0
+    the feedback is sampled: gumbel (B, n_steps - 1, token_stages, K) is
+    its noise, drawn from generator (on its device) when not given."""
+
+    def __init__(self, model: Part, opt: Adam, label_smoothing: float = 0.0,
+                 temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(model, opt, label_smoothing)
+        self.temperature, self.generator = temperature, generator
+
+    def loss(self, word_ids, lengths, targets, stage=None,
+             gumbel=None) -> torch.Tensor:
+        m = self.model
+        kw = {}
+        if self.temperature > 0.0:
+            if gumbel is None:
+                gumbel = gumbel_noise((targets.shape[0], m.n_steps - 1,
+                                       m.token_stages, m.n_tokens),
+                                      self.generator)
+            kw = {"temperature": self.temperature,
+                  "gumbel": gumbel.to(targets.device)}
+        was = m.training
+        m.eval()
+        try:
+            res = m(word_ids, lengths, targets, **kw)
+        finally:
+            m.train(was)
+        return self.ce(res, targets, stage)
+
+
+def make_eval_step(model: Part):
     @torch.no_grad()
     def step(word_ids, lengths, targets, stage=None):
         res = model(word_ids, lengths, targets)
@@ -118,7 +174,7 @@ def train_text2token(config: Config, data: Dict[str, np.ndarray],
                      save_dir: Optional[str] = None, save_every: int = 20,
                      log_every: int = 50, resume_from: Optional[str] = None,
                      device: Optional[Union[str, torch.device]] = None
-                     ) -> Tuple[Text2Token, Dict[str, list]]:
+                     ) -> Tuple[Part, Dict[str, list]]:
     """The Part-d loop over build_sentence_dataset's arrays; returns
     (model, history). Runs on CUDA unless device says otherwise."""
     dev = resolve_device(device)
@@ -154,8 +210,14 @@ def train_text2token(config: Config, data: Dict[str, np.ndarray],
                              "emit_stage_tokens=True over a residual-VQ "
                              "Part-b tokenizer)")
         fields = fields + ("stage_tokens",)
+    late, late_from = None, None
+    if config.feedback_finetune_epochs > 0:
+        late_from = max(0, config.epochs - config.feedback_finetune_epochs)
+        late = FeedbackTrainStep(model, opt, config.label_smoothing,
+                                 config.feedback_temperature, gen)
     history = run_token_training(
         config, model, opt, gen, start_epoch, fields, data, val_data,
         TrainStep(model, opt, config.label_smoothing), make_eval_step(model),
-        dev, save, save_every, log_every)
+        dev, save, save_every, log_every, train_step_late=late,
+        late_from_epoch=late_from)
     return model, history

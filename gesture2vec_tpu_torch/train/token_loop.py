@@ -5,14 +5,17 @@ in JAX, so both packages see the same batches; the trailing partial
 batch is dropped; losses stay on the device until the epoch's mean;
 validation sweeps the full batches of the validation set; keep_best
 snapshots the best-validation-loss state, saves it under the "best" tag
-and returns it instead of the final epoch's.
+and returns it instead of the final epoch's. A second step
+(`train_step_late`, the feedback-matched finetune) takes over from epoch
+`late_from_epoch` on, a run resumed inside that phase included; the
+switch is logged once a run.
 """
 from __future__ import annotations
 
 import copy
 import logging
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -69,9 +72,12 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
                        train_step: Callable, eval_step: Callable,
                        device: torch.device,
                        save_checkpoint: Callable[..., None],
-                       save_every: int, log_every: int
+                       save_every: int, log_every: int,
+                       train_step_late: Optional[Callable] = None,
+                       late_from_epoch: Optional[int] = None
                        ) -> Dict[str, List[float]]:
-    """train_step(*batch) -> loss tensor (one optimizer step);
+    """train_step(*batch) -> loss tensor (one optimizer step), and
+    train_step_late the same from epoch late_from_epoch on;
     eval_step(*batch) -> (loss, acc, pred); save_checkpoint(epoch_1based,
     tag=None) writes the live state. Leaves the model in the returned
     state (the best epoch's with keep_best) and returns the history."""
@@ -84,7 +90,15 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
     keep_best = bool(config.keep_best)
     best_loss, best, best_epoch = float("inf"), None, -1
 
+    switched = False
     for epoch in range(start_epoch, config.epochs):
+        step_fn = train_step
+        if train_step_late is not None and epoch >= late_from_epoch:
+            if not switched:
+                logging.info("EP %d: switching to the feedback-matched "
+                             "finetune step", epoch)
+                switched = True
+            step_fn = train_step_late
         perm = np.random.default_rng(seed + epoch).permutation(n)
         meter.reset()
         t0 = time.time()
@@ -93,8 +107,8 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
         for b in range(n // bs):
             take = perm[b * bs:(b + 1) * bs]
             with dropout_generator(generator):
-                loss = train_step(*(to_device(data[f][take], device)
-                                    for f in fields))
+                loss = step_fn(*(to_device(data[f][take], device)
+                                 for f in fields))
             losses.append(loss)
             if (b + 1) % log_every == 0:
                 block = float(torch.stack(losses[-log_every:]).mean())

@@ -15,7 +15,11 @@ outside `models/layers.dropout_generator`.
   the same JAX-initialised weights and batch: the loss within 1e-5
   relative, every gradient within 1e-4 of the JAX gradient's largest
   magnitude, the BatchNorm statistics within 1e-5; then three steps of
-  each with the real optimizers, losses within 1e-4 relative.
+  each with the real optimizers, losses within 1e-4 relative and the
+  parameters after the first within 1e-5. The parts include the
+  transformer Part d (one stage; the recommended recipe's 4 chained
+  stages with label smoothing; 4 independent heads) and the `seq_arch:
+  transformer` tokenizer (GS-Soft, residual VQ).
 - Validation: the eval-mode teacher-forced decode through the
   chunk-decoder path against the JAX decode, and against the rollout from
   the seed; a decoder the kernel cannot run names why.
@@ -83,7 +87,31 @@ PARTS = {
     "d_gru": {**T2T_CFG, "text_encoder": "gru"},
     "d_stage4_cond": {**T2T_CFG, "text_encoder": "tcn", "token_stages": 4,
                       "stage_conditional": True},
+    # the transformer Part d (t2t_arch: transformer, 2 heads): one stage;
+    # the recommended recipe's settings (4 chained stages, label smoothing
+    # 0.1, teacher prefix 1); 4 independent stage heads
+    "d_tf": {**T2T_CFG, "t2t_arch": "transformer", "t2t_heads": 2},
+    "d_tf_recipe": {**T2T_CFG, "t2t_arch": "transformer", "t2t_heads": 2,
+                    "token_stages": 4, "stage_conditional": True,
+                    "label_smoothing": 0.1, "n_pre_poses": 1},
+    "d_tf_stage4": {**T2T_CFG, "t2t_arch": "transformer", "t2t_heads": 2,
+                    "token_stages": 4},
+    # the transformer chunk encoder (seq_arch: transformer)
+    "b_tf_gssoft": {**VQ_CFG, "seq_arch": "transformer"},
+    "b_tf_rvq": {**VQ_CFG, "seq_arch": "transformer",
+                 "autoencoder_vq_variant": "rvq", "rvq_stages": 3},
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """torch on one thread for this file's tests and fixtures: at these
+    widths threads only cost, and the suite's workers share the cores
+    (each worker's default of one thread a core oversubscribes them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -117,11 +145,17 @@ def _leaves(tree, prefix=()):
 # the batch mean: zero in exact arithmetic), and the TCN's output bias,
 # whose attention-context path the same BatchNorm removes (what is left,
 # through the attention scores, is ~1e-5 of the tree's largest
-# gradient). Their fp32 gradients are mostly rounding, so they are held
-# to the tree's largest magnitude, and Adam, which normalises any
-# gradient to a step of ~lr, may move them by up to 2 lr.
+# gradient). So is an attention's key bias (q . b_k shifts a query's
+# scores by one constant, which the softmax removes). Their fp32
+# gradients are mostly rounding, so they are held to the tree's largest
+# magnitude, and Adam, which normalises any gradient to a step of ~lr,
+# may move them by up to 2 lr.
 CANCELLED = (("decoder_step", "pre_linear", "bias"),
              ("encoder", "decoder", "bias"))
+
+
+def _cancelled(path):
+    return path in CANCELLED or path[-2:] == ("k", "bias")
 
 
 def _close_trees(got, want, tol, what, lr=None):
@@ -132,12 +166,31 @@ def _close_trees(got, want, tol, what, lr=None):
     top = max(float(np.abs(v).max()) for v in w.values())
     for path, wv in w.items():
         err = float(np.abs(g[path] - wv).max())
-        if path in CANCELLED and lr is not None:
+        if _cancelled(path) and lr is not None:
             assert err <= 2 * lr, f"{what} {'/'.join(path)}: {err}"
             continue
-        scale = top if path in CANCELLED else float(np.abs(wv).max())
+        scale = top if _cancelled(path) else float(np.abs(wv).max())
         err /= max(scale, 1e-30)
         assert err <= tol, f"{what} {'/'.join(path)}: {err}"
+
+
+def _close_after_adam(got, want, grads, lr):
+    """Parameters after one Adam step from the same start. The step is lr
+    * g / (|g| + 1e-8) an element, so gradients within d = GRAD_TOL of
+    the tensor's largest magnitude of each other may move an element by
+    up to 2 lr d / (|g| + 1e-8) apart (2 lr where |g| <= d: there
+    rounding decides the sign); beyond that, 1e-5 of the tensor's
+    largest magnitude (or of lr)."""
+    g, w, gr = dict(_leaves(got)), dict(_leaves(want)), dict(_leaves(grads))
+    top = max(float(np.abs(v).max()) for v in gr.values())
+    for path, wv in w.items():
+        scale = top if _cancelled(path) else float(np.abs(gr[path]).max())
+        d = GRAD_TOL * scale
+        allowed = np.minimum(2 * lr, 1e-5 * max(float(np.abs(wv).max()), lr)
+                             + 2 * lr * d / (np.abs(gr[path]) + 1e-8))
+        err = np.abs(g[path] - wv)
+        assert (err <= allowed).all(), \
+            f"params after one Adam step {'/'.join(path)}: {err.max()}"
 
 
 def _rel(a, b):
@@ -264,6 +317,11 @@ def test_train_step_matches_jax(part, no_jax_dropout):
         assert _rel(got, metrics["loss"]) <= STEPS_RTOL, (i, float(got),
                                                           float(metrics[
                                                               "loss"]))
+        if i == 0:
+            _close_after_adam(jax_tree(param_entries(model)),
+                              _np(state.params),
+                              _np(new_state.opt_state["g"]),
+                              cfg.learning_rate)
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -459,10 +517,12 @@ def test_reestimate_rvq_codebooks_matches_jax():
             atol=1e-4)
 
 
-@pytest.mark.parametrize("part", ["a", "b_gssoft"])
+@pytest.mark.parametrize("part", ["a", "b_gssoft", "b_tf_rvq",
+                                  "d_tf_recipe"])
 def test_jax_checkpoint_resumes_in_port(part, tmp_path, no_jax_dropout):
     """A JAX-written checkpoint (after one real step, with optax's state)
-    resumes in the port: its next step matches JAX's resumed step."""
+    resumes in the port: its next step matches JAX's resumed step (the
+    transformer Part d's with an empty batch_stats and n_words)."""
     cfg, jcfg = load_config(PARTS[part]), jax_load_config(PARTS[part])
     batches = _batches(part, PARTS[part], 9, 2)
     opt = make_optimizer(cfg.learning_rate)
@@ -470,11 +530,13 @@ def test_jax_checkpoint_resumes_in_port(part, tmp_path, no_jax_dropout):
     state, _ = jstep(state, batches[0], jax.random.PRNGKey(0))
     path = str(tmp_path / "jax.bin")
     rng = jax.random.PRNGKey(4)
+    kind = {"a": "DAE", "b": "autoencoder_vq", "d": "text2embedding"}
     jckpt.save_checkpoint(path, config=jcfg, epoch=1,
                           params=_np(state.params),
                           extra={"batch_stats": _np(state.batch_stats),
+                                 "n_words": NWORDS,
                                  **jckpt.resume_extra(state, rng, jcfg)},
-                          kind="DAE" if part == "a" else "autoencoder_vq")
+                          kind=kind[part[0]])
     restored, _, epoch, _ = jckpt.restore_for_resume(state, rng, path)
     restored, metrics = jstep(restored, batches[1], jax.random.PRNGKey(1))
 
@@ -658,14 +720,13 @@ def test_port_resume_continues_the_run(trained, tmp_path):
 
 def test_refused_options_name_their_queue_items():
     from gesture2vec_tpu_torch.cli import train as ptrain
-    with pytest.raises(NotImplementedError, match="item 3.1"):
-        pt2t.make_text2token(load_config({**T2T_CFG,
-                                          "t2t_arch": "transformer"}), 10)
-    with pytest.raises(NotImplementedError, match="item 3.6"):
-        pt2t.make_text2token(load_config({**T2T_CFG,
-                                          "feedback_finetune_epochs": 2}), 10)
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        pseq.make_seq_ae(load_config({**VQ_CFG, "seq_arch": "transformer"}))
+    with pytest.raises(NotImplementedError, match="item 3.7"):
+        pt2t.make_text2token(load_config({
+            **T2T_CFG, "t2t_arch": "transformer",
+            "compute_dtype": "bfloat16"}), 10)
+    with pytest.raises(NotImplementedError, match="item 3.4"):
+        pseq.make_seq_ae(load_config({**VQ_CFG, "seq_arch": "transformer",
+                                      "use_derivative": True}))
     with pytest.raises(NotImplementedError, match="item 3.3"):
         pdae.make_frame_model(load_config({**DAE_CFG,
                                            "autoencoder_vq": True}))

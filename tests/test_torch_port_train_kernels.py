@@ -16,7 +16,10 @@ against the inference launch (outputs bitwise) and its gates against the
 recomputed ones (1e-6), and the Function's gradients against autograd
 through the plain forward, within 1e-4 of each tensor's largest
 magnitude; a second one checks that the Part-b eval decode raises there
-for a decoder the chunk-decoder kernel cannot run. The JAX package's
+for a decoder the chunk-decoder kernel cannot run, and a third holds one
+train step of the transformer models (the recipe's Part d, its feedback
+step, the `seq_arch: transformer` tokenizer) on the card against the
+CPU. The JAX package's
 GRU module (it imports flax) is imported inside the CPU tests, so the
 file also collects on a machine with the card and without flax.
 """
@@ -264,3 +267,77 @@ def test_ineligible_eval_decode_raises_on_card():
     with pytest.raises(ValueError, match="one seed frame"):
         dec.decode(torch.zeros(2, 4, H, device="cuda"),
                    torch.zeros(4, 6, 8, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", ["d_tf_recipe", "d_tf_recipe_feedback",
+                                 "b_tf_rvq"])
+def test_transformer_train_step_on_card_matches_cpu(run):
+    """One train step of the transformer models on the card against the
+    CPU from the same weights and batch, dropout off: the recipe's Part d
+    (4 chained stages, label smoothing), its feedback-matched finetune
+    step, and the `seq_arch: transformer` residual-VQ tokenizer (its
+    argmins through the VQ kernel): the loss and every gradient within
+    1e-4 of each tensor's largest magnitude (an attention's key bias,
+    whose gradient the softmax cancels, and pre_linear's bias in front of
+    the batch-statistics BatchNorm, of the model's largest)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train import text2token_trainer as tt
+    from gesture2vec_tpu_torch.train.config import load_config
+    from gesture2vec_tpu_torch.train.dae_trainer import init_model
+    from gesture2vec_tpu_torch.train.optim import Adam
+
+    rng = np.random.default_rng(3)
+    bs, n_words, steps = 16, 40, 6
+    if run.startswith("d"):
+        cfg = load_config({
+            "hidden_size": 32, "n_layers": 2, "autoencoder_vq_components": 16,
+            "n_poses": 5, "sentence_frame_length": 5 * steps,
+            "n_pre_poses": 1, "wordembed_dim": 12, "t2t_arch": "transformer",
+            "t2t_heads": 2, "token_stages": 4, "stage_conditional": True,
+            "label_smoothing": 0.1})
+        cpu = tt.init_text2token(tt.make_text2token(cfg, n_words), 0,
+                                 torch.device("cpu"))
+        step_cls = (tt.FeedbackTrainStep if run.endswith("feedback")
+                    else tt.TrainStep)
+        lengths = rng.integers(3, 12, bs)
+        ids = rng.integers(4, n_words, (bs, 11))
+        ids[np.arange(11)[None, :] >= lengths[:, None]] = 0
+        stages = rng.integers(0, 16, (bs, steps, 4))
+        batch = [torch.from_numpy(a) for a in (ids, lengths, stages[:, :, 0],
+                                               stages)]
+    else:
+        cfg = load_config({
+            "hidden_size": 32, "n_layers": 2, "rep_learning_dim": 8,
+            "n_poses": 10, "n_pre_poses": 1, "autoencoder_vq": True,
+            "autoencoder_vq_components": 16, "autoencoder_vq_variant": "rvq",
+            "rvq_stages": 4, "seq_arch": "transformer"})
+        cpu = init_model(st.make_seq_ae(cfg), 0, torch.device("cpu"))
+        batch = [torch.from_numpy(rng.normal(size=(bs, 10, 8)).astype(
+            np.float32))]
+    cpu.train()
+    card = copy.deepcopy(cpu).cuda().train()
+    grads, losses = [], []
+    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt = Adam(m.parameters(), 1e-3)
+        step = (st.TrainStep(cfg, m, opt) if run.startswith("b")
+                else step_cls(m, opt, cfg.label_smoothing))
+        loss = step.loss(*(a.to(dev) for a in batch))
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss.backward()
+        losses.append(float(loss))
+        grads.append({path: (p.grad if p.grad is not None
+                             else torch.zeros_like(p)).detach().cpu()
+                      for path, p, _, _ in param_entries(m)})
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    top = max(float(g.abs().max()) for g in grads[0].values())
+    for path, g in grads[0].items():
+        cancelled = path[-2:] in (("k", "bias"), ("pre_linear", "bias"))
+        scale = top if cancelled else max(float(g.abs().max()), 1e-30)
+        err = float((grads[1][path] - g).abs().max()) / scale
+        assert err <= 1e-4, f"{'/'.join(path)}: {err}"

@@ -401,12 +401,35 @@ def test_beam_decode_matches_jax(rng, width, stages, cond):
         assert torch.equal(got["tokens"], greedy["tokens"])
 
 
-def test_train_mode_is_refused():
-    port = _t2t()[2]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port(torch.zeros(1, MAXW, dtype=torch.long),
-             torch.ones(1, dtype=torch.long),
-             torch.zeros(1, N_STEPS, dtype=torch.long), train=True)
+def test_train_mode_is_refused(rng, monkeypatch):
+    """Train mode is no longer refused: it is the teacher-forced parallel
+    pass of JAX's train=True (dropout off on both sides, flax's patched to
+    the identity), 4 chained stages on the teacher codes: logits, stage
+    logits and attentions within 1e-5, the argmax tokens equal; without
+    stage_targets it raises JAX's error."""
+    import flax.linen as fnn
+
+    monkeypatch.setattr(fnn.Dropout, "__call__",
+                        lambda self, inputs, *a, **k: inputs)
+    m, variables, port = _t2t(4, True, 1)
+    ids, lengths = _text_batch(rng)
+    stages = rng.integers(0, K, (len(ids), N_STEPS, 4)).astype(np.int32)
+    args = (jnp.asarray(ids), jnp.asarray(lengths),
+            jnp.asarray(stages[:, :, 0]))
+    want = _apply(m, variables, *args, train=True,
+                  stage_targets=jnp.asarray(stages))
+    targs = (_t(ids, torch.long), _t(lengths, torch.long),
+             _t(stages[:, :, 0], torch.long))
+    port.train()
+    with torch.no_grad():
+        got = port(*targs, stage_targets=_t(stages, torch.long))
+    for key in ("logits", "stage_logits", "attentions"):
+        _close(got[key], want[key])
+    for key in ("tokens", "stage_tokens"):
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]))
+    with pytest.raises(ValueError, match="needs stage_targets"):
+        port(*targs)
 
 
 # -- the generator end to end --------------------------------------------
@@ -691,16 +714,53 @@ def test_cluster_cli_on_transformer_tokenizer_matches_jax(files, monkeypatch):
 
 
 # -- the recipe's decode on the card --------------------------------------
+def _recipe_generator(device):
+    """The recipe at this file's widths from the port's own modules (the
+    card's machine has no flax): a 4-stage stage-conditional transformer
+    Part d with teacher prefix 1 over a 4-stage residual-VQ tokenizer's
+    decoder and a DAE, initialised by `flax_init` from a seeded
+    torch.Generator (the Part d's weights then perturbed), in decode
+    mode."""
+    from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
+    from gesture2vec_tpu_torch.models.dae import DAE
+    from gesture2vec_tpu_torch.models.seq_ae import SeqVQAutoencoder
+
+    gen = torch.Generator().manual_seed(7)
+    t2t = port_tf.TransformerText2Token(
+        n_words=N_WORDS, n_tokens=K, hidden_size=HID, n_layers=L,
+        n_steps=N_STEPS, n_pre_poses=1, word_embed_size=WORDEMBED,
+        n_heads=HEADS, token_stages=4, stage_conditional=True)
+    seq = SeqVQAutoencoder(rep_dim=REP, hidden_size=HID, n_layers=L,
+                           n_frames=NF, vq_components=K, vq_variant="rvq",
+                           rvq_stages=4)
+    dae = DAE(DIM, REP)
+    with torch.no_grad():
+        for m in (t2t, seq, dae):
+            fj.flax_init(m, gen)
+        table = t2t.encoder.embedding_table.weight
+        table.copy_(torch.randn(table.shape, generator=gen))
+        # moved off the init, so the tokens vary
+        for p in t2t.parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=gen))
+    rng = np.random.default_rng(8)
+    return GestureGenerator(
+        t2t_model=t2t, seq_decoder=seq.decoder, dae_model=dae,
+        vocab=_vocab(), pose_mean=rng.normal(size=DIM).astype(np.float32),
+        pose_std=np.abs(rng.normal(size=DIM)).astype(np.float32),
+        n_frames=NF, sentence_frame_length=SENT, fps=FPS, max_words=MAXW,
+        mode="decode", device=device)
+
+
 @pytest.mark.gpu
-def test_recipe_decode_on_card_matches_cpu(request):
+def test_recipe_decode_on_card_matches_cpu():
     """Decode mode with the chunk-decoder kernel on the card against the
     CPU path: tokens identical, frames within 1e-4 (fp32 sums in another
     order over 20 steps)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the chunk-decoder kernel has no CPU "
                     "mode)")
-    g = request.getfixturevalue("recipe_gen")
-    card = _port(g, device="cuda", mode="decode").generate(_words(7.0), 7.0)
-    cpu = _port(g, mode="decode").generate(_words(7.0), 7.0)
+    card = _recipe_generator("cuda").generate(_words(7.0), 7.0)
+    cpu = _recipe_generator("cpu").generate(_words(7.0), 7.0)
+    assert len(np.unique(cpu[1])) > 1
     np.testing.assert_array_equal(card[1], cpu[1])
     np.testing.assert_allclose(card[0], cpu[0], atol=1e-4)

@@ -30,7 +30,8 @@ The Part-c path (corpus tokenizer sweep and K-Means):
   kernel   the GRU-sequence kernel (T=20, H=200, B 300 and 512, forward
            and reverse) and the VQ-argmin kernel (D=400, (N, K) = (128,
            512) and (5,120, 512) of the training path, (300, 300), (58,488,
-           300), (2^20, 512)) against their plain versions,
+           300), (2^20, 512); D=40, the Part-a VQFrame's (128, 80) and its
+           K-Means re-fit's (52,000, 80)) against their plain versions,
            with cuDNN's GRU as the GRU's yardstick, and each launch shape
            as the kernel reports it, held against the wrapper's mirror;
   kernel_edges  the chunk decoder at every edge of its tiles (B 1 to
@@ -142,8 +143,9 @@ configs/VQ-VAE_rvq.yml's 4-stage tokenizer), weights through the bridge:
            within 1e-4), request seconds and stages, idle share at 60 s;
            then exemplar mode at 60 s over Part c's residual-VQ bank;
 Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
-  kernel   at T=20 with B=128 and 512, T=48 with B=128 and a ragged
-           B=117 (H=200, both directions; each output's error relative to
+  kernel   at T=20 with B=128 and 512, T=48 with B=128, a ragged B=117
+           and the similarity step's pairs, B=3 (H=200, both directions;
+           each output's error relative to
            the reference's largest magnitude): the GRU forward's training
            variant (which saves the gates) against the inference launch,
            outputs bitwise equal and the two timed in turns, its gates
@@ -154,41 +156,59 @@ Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
            bounds (the backward's also as the recomputing design had it),
            cuDNN's backward of one GRU layer with the same weights
            (torch.autograd.grad) as the yardstick of the Function's whole
-           backward, and cuDNN's forward + backward against gru_layer's;
+           backward, and cuDNN's forward + backward against gru_layer's
+           (the VQ-argmin kernel at the VQFrame's D=40 runs in the Part-c
+           phase's kernel rows);
   train    a synthetic store 135 wide (4 clips x 13,000 frames, a word
            every 0.4 s; one 4,500-frame validation clip) and configs
-           written from configs/DAE.yml, VQ-VAE.yml, VQ-VAE_rvq.yml
+           written from configs/DAE.yml (the DAE; the VQFrame, 80 codes;
+           the VAEFrame; the VQFrame with VAE heads through
+           `train_dae(vq_tricks=True)`, its first epoch the delayed-VQ
+           warmup and a K-Means re-fit over the 52,000 frames before its
+           second), VQ-VAE.yml (GS-Soft; the VAE tokenizer over the
+           VQFrame's latents, the plain autoencoder and the
+           similarity-supervised step over a 400-line label file the
+           script writes), VQ-VAE_rvq.yml
            (rvq_reestimate_every 1; then seq_arch: transformer, the
            transformer chunk encoder), seq2seqtxt.yml (text_encoder tcn,
            then gru) and seq2seqtxt_recommended.yml (the recipe's
            transformer Part d over the 4-stage residual VQ, its second
            epoch on the feedback-matched finetune step) at their widths,
-           epochs cut to 1 (2 for the residual VQ and the recipe); one
+           epochs cut to 1 (2 for the residual VQ, the VQFrame,
+           vq_tricks, the VAE tokenizer and the recipe); one
            line a run: the command's launches against those its train
-           steps, validation batches, K-Means re-fit and teacher sweeps
-           must make, and its seconds; then, from a separate loop over
-           the command's own arrays on a fresh model, launches per train
-           step and per validation batch, steps/s and samples/s (10 steps
-           in parts b and d), the forward / backward / optimizer split,
-           the device's idle share and device ops per step over a few
-           profiled steps (for the recipe, of the teacher-forced and of
-           the feedback step); the first step's loss and each epoch's;
+           steps, validation batches, K-Means re-fits and teacher sweeps
+           must make (vq_tricks' by phase: the warmup epoch, the re-fit,
+           the epoch after), and its seconds; then, from a separate loop
+           over the command's own arrays on a fresh model, launches per
+           train step and per validation batch, steps/s and samples/s
+           (10 steps in parts b and d), the forward / backward /
+           optimizer split, the device's idle share and device ops per
+           step over a few profiled steps (for the recipe, of the
+           teacher-forced and of the feedback step; for vq_tricks, of the
+           VQ and of the warmup step); the first step's loss and each
+           epoch's;
   check    the command's launches, every kernel launch's shape (each
            held against the plain version in a kernel phase), finite
            losses, the last epoch's mean below the first step's,
            the launches per step (GRU 4 forward and 4 backward in the
-           BiGRU's Part b and the GRU encoder's Part d, 4 argmins under
-           residual VQ, no chunk decoder, none in the recipe's steps),
-           one launch of the GRU forward's training variant for each
-           backward launch, >= 1 chunk-decoder launch per Part-b
-           validation batch, one train step per run (and the recipe's
-           feedback step) on the card against the CPU from the same
-           weights (loss and every gradient within 1e-4; a feedback step
-           whose choices differ only at a near-tie is counted as one),
-           and each Part-d checkpoint through
-           `cli/_common.build_generator` (over its own tokenizer) to
-           finite frames of a 6 s transcript with one chunk-decoder
-           launch;
+           BiGRU's Part b and the GRU encoder's Part d, 12 and 12 in the
+           similarity step, 4 argmins under residual VQ, 1 in the
+           VQFrame's step and validation batch, no chunk decoder, none in
+           the recipe's steps), one launch of the GRU forward's training
+           variant for each backward launch, >= 1 chunk-decoder launch
+           per Part-b validation batch, one train step per run (and the
+           recipe's feedback step, vq_tricks' warmup step) on the card
+           against the CPU from the same weights (loss, every gradient
+           and every buffer the step updates - BatchNorm statistics, the
+           EMA state - within 1e-4; a feedback step whose choices, or a
+           VQFrame step whose codes, differ only at a near-tie is counted
+           as one, and so are gradients where a ReLU's or an |x|'s input
+           lies on another side of 0 on the card only within 1e-5 of its
+           call's largest magnitude), and each Part-d checkpoint through
+           `cli/_common.build_generator` (over its own tokenizer, and
+           d_tcn's over the VQFrame DAE and the VAE tokenizer) to finite
+           frames of a 6 s transcript with one chunk-decoder launch;
 then the kernels line (each kernel's launches on its first path, on the
 later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
@@ -250,25 +270,58 @@ GRU_EDGE_BATCHES = (1, 17, 300, 512)
 TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_VAL_FRAMES = 4, 13000, 4500
 # (run, part, shipped config, what is cut or set beside the paths): the
 # epochs cut to 1 (Part a: 406 steps) or, for the residual VQ, 2 with the
-# re-fit every epoch so its K-Means runs once; the two text encoders; the
-# residual-VQ tokenizer with the transformer chunk encoder; the
-# recommended recipe's Part d over 2 epochs, the second on the
-# feedback-matched finetune step
+# re-fit every epoch so its K-Means runs once; Part a's VQ frame model
+# over 2 epochs (its EMA codebook starts from ema_w ~ N(0, 1) over a zero
+# cluster size, so the first epoch's loss climbs before it falls), its
+# VAE, and both with the vq_tricks loop over 2 epochs (the first the
+# delayed-VQ warmup, the K-Means re-fit before the second); the two text
+# encoders; the residual-VQ tokenizer with the transformer chunk encoder;
+# the VAE tokenizer over 2 epochs (its loss falls slowly over the VQ
+# frame model's wider latents), the plain and the similarity-supervised
+# tokenizers over every other window (stride 10); the recommended
+# recipe's Part d over 2 epochs, the second on the feedback-matched
+# finetune step
 TRAIN_RUNS = (
     ("a", "a", "DAE.yml", {"epochs": 1}),
+    ("a_vq", "a", "DAE.yml", {"epochs": 2, "autoencoder_vq": True}),
+    ("a_vae", "a", "DAE.yml", {"epochs": 1, "autoencoder_vae": True}),
+    ("a_vqvae_tricks", "a", "DAE.yml", {"epochs": 2, "autoencoder_vq": True,
+                                        "autoencoder_vae": True}),
     ("b_gssoft", "b", "VQ-VAE.yml", {"epochs": 1}),
     ("b_rvq", "b", "VQ-VAE_rvq.yml", {"epochs": 2,
                                       "rvq_reestimate_every": 1}),
     ("b_tf", "b", "VQ-VAE_rvq.yml", {"epochs": 1,
                                      "seq_arch": "transformer"}),
+    ("b_vae", "b", "VQ-VAE.yml", {"epochs": 2, "autoencoder_vae": True}),
+    ("b_plain", "b", "VQ-VAE.yml", {"epochs": 1, "autoencoder_vq": False,
+                                    "subdivision_stride": 10}),
+    ("b_ssl", "b", "VQ-VAE.yml", {"epochs": 1, "use_similarity": True,
+                                  "loss_label_weight": 0.1,
+                                  "subdivision_stride": 10}),
     ("d_tcn", "d", "seq2seqtxt.yml", {"epochs": 1, "text_encoder": "tcn"}),
     ("d_gru", "d", "seq2seqtxt.yml", {"epochs": 1, "text_encoder": "gru"}),
     ("d_recipe", "d", "seq2seqtxt_recommended.yml",
      {"epochs": 2, "feedback_finetune_epochs": 1}))
+# the runs that call the trainer itself (the command has no vq_tricks
+# flag) with these arguments
+TRAIN_TRICKS = {"a_vqvae_tricks": {"vq_tricks": True, "vq_start_epoch": 1,
+                                   "vq_reestimate_every": 1}}
+# each Part-b or Part-d run's frozen Part-a model (--rep-checkpoint):
+# a_vq's VQFrame for the VAE tokenizer, else the DAE
+TRAIN_REPS = {"b_vae": "a_vq"}
 # each Part-d run's tokenizer (--autoencoder-checkpoint): the recipe's
 # 4 stages need the 4-stage residual VQ
 TRAIN_TEACHERS = {"d_tcn": "b_gssoft", "d_gru": "b_gssoft",
                   "d_recipe": "b_rvq"}
+# the generators the train path builds from its checkpoints: (name, Part
+# d, Part a, Part b); each Part-d run over its tokenizer, and d_tcn's
+# Part d over a VQFrame DAE and the VAE tokenizer
+TRAIN_GENERATORS = tuple((run, run, "a", tok)
+                         for run, tok in TRAIN_TEACHERS.items()) + (
+    ("d_tcn_a_vq_b_vae", "d_tcn", "a_vq", "b_vae"),)
+# the similarity labels b_ssl writes in the reference's format
+# (annotator,left,middle,right,label,time): lines over its windows
+SSL_LABEL_LINES = 400
 # steps timed for steps/s, and steps under torch.profiler for the idle
 # share, per part
 TRAIN_TIMED_STEPS = {"a": 200, "b": 10, "d": 10}
@@ -276,15 +329,22 @@ TRAIN_PROFILED_STEPS = {"a": 50, "b": 1, "d": 3}
 # kernel launches a train step (the others 0): the BiGRUs' 2 layers x 2
 # directions forward and backward, the 4 residual stages' argmins
 TRAIN_STEP_LAUNCHES = {
-    "a": {}, "b_gssoft": {"gru_sequence": 4, "gru_sequence_backward": 4},
+    "a": {}, "a_vq": {"vq_argmin": 1}, "a_vae": {},
+    "a_vqvae_tricks": {"vq_argmin": 1}, "a_vqvae_tricks_warmup": {},
+    "b_gssoft": {"gru_sequence": 4, "gru_sequence_backward": 4},
+    "b_vae": {"gru_sequence": 4, "gru_sequence_backward": 4},
+    "b_plain": {"gru_sequence": 4, "gru_sequence_backward": 4},
+    # the main batch and the two pair forwards, each through the BiGRU
+    "b_ssl": {"gru_sequence": 12, "gru_sequence_backward": 12},
     "b_rvq": {"gru_sequence": 4, "gru_sequence_backward": 4,
               "vq_argmin": 4},
     "b_tf": {"vq_argmin": 4},
     "d_tcn": {}, "d_gru": {"gru_sequence": 4, "gru_sequence_backward": 4},
     "d_recipe": {}, "d_recipe_feedback": {}}
 # the GRU backward's (T, B): the tokenizer's steps at the training batch
-# (128) and at 512, the text encoder's word window, and a ragged batch
-GRU_BWD_SHAPES = ((20, 128), (20, 512), (48, 128), (20, 117))
+# (128) and at 512, the text encoder's word window, a ragged batch, and
+# the similarity step's pair forwards (3 windows)
+GRU_BWD_SHAPES = ((20, 128), (20, 512), (48, 128), (20, 117), (20, 3))
 # the residual VQ's K-Means re-fit in the training path: 10 full batches
 # of 512 of its 5,196 windows
 TRAIN_REFIT_ROWS = 5120
@@ -293,11 +353,24 @@ TRAIN_REFIT_ROWS = 5120
 VQ_D, VQ_SHAPES = 400, ((128, 512), (300, 300), (512, 512),
                         (TRAIN_REFIT_ROWS, 512), (58488, 300),
                         (1 << 20, 512))
+# (N, K) at D=40, the Part-a VQFrame's (configs/DAE.yml: 80 codes): a
+# train step or validation batch, and vq_tricks' K-Means re-fit over
+# every training frame
+FRAME_CODES = 80
+VQ_FRAME_D, VQ_FRAME_SHAPES = REP, ((128, FRAME_CODES),
+                                    (TRAIN_CLIPS * TRAIN_FRAMES,
+                                     FRAME_CODES))
 # near-ties: kernel and plain may pick different codes only where the
 # plain distances of the two differ by at most NEAR_TIE (GS-Soft: where
 # the plain log-assignments differ by at most GSSOFT_TIE); dmin and the
 # VQ distances carry fp32 sums over 400 terms in another order
 NEAR_TIE, GSSOFT_TIE, DMIN_TOL = 1e-3, 1e-4, 1e-3
+# card against CPU on a train step: a ReLU's or an |x|'s input on the
+# other side of 0 on the card (a kink of the subgradient) moves the
+# gradients by that element's share. Such an input may flip only where
+# its CPU value lies within KINK_TIE of the largest magnitude of its
+# call; the CPU step is then run again on the card's sides of 0
+KINK_TIE = 1e-5
 CPU_WINDOWS = 2048
 # card against CPU and kernel against module path on the decode policies:
 # a token may differ only where the reference's two best decision scores
@@ -1144,9 +1217,10 @@ def vq_kernel_rows() -> list:
 
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for N, Kc in VQ_SHAPES:
-        x = torch.randn(N, VQ_D, device="cuda", generator=g)
-        cb = torch.randn(Kc, VQ_D, device="cuda", generator=g)
+    for N, Kc, D in ([(N, Kc, VQ_D) for N, Kc in VQ_SHAPES]
+                     + [(N, Kc, VQ_FRAME_D) for N, Kc in VQ_FRAME_SHAPES]):
+        x = torch.randn(N, D, device="cuda", generator=g)
+        cb = torch.randn(Kc, D, device="cuda", generator=g)
         idx, dmin = vk.vq_argmin(x, cb)
         d = vk.codebook_distances(x, cb)
         dmin_p, idx_p = d.min(dim=1)
@@ -1155,17 +1229,18 @@ def vq_kernel_rows() -> list:
         err = (dmin - dmin_p).abs().max().item()
         del d
         row = {"phase": "kernel", "kernel": "vq_argmin", "N": N, "K": Kc,
-               "D": VQ_D, "launch": vq_launch(N, VQ_D),
+               "D": D, "launch": vq_launch(N, D),
                "rows_differing": differ, "near_ties": ties,
                "near_tie_gap": NEAR_TIE, "max_abs_err": err,
                "tol": DMIN_TOL,
                "ms": cuda_ms(lambda: vk.vq_argmin(x, cb), 20),
                "plain_ms": cuda_ms(lambda: vk.vq_argmin_plain(x, cb), 10),
-               "library_ms": None, **vq_bound_ms(N, Kc, VQ_D)}
+               "library_ms": None, **vq_bound_ms(N, Kc, D)}
         emit(row)
         rows.append(row)
         if differ != ties or not np.isfinite(err) or err > DMIN_TOL:
-            raise AssertionError(f"vq_argmin N={N} K={Kc}: {differ} rows "
+            raise AssertionError(f"vq_argmin N={N} K={Kc} D={D}: {differ} "
+                                 f"rows "
                                  f"differ, {ties} near-ties; dmin error "
                                  f"{err}")
     return rows
@@ -1558,7 +1633,7 @@ def part_c_path(smi: str, tmp: str) -> tuple:
                 "bound_by": main_row["bound_by"], "library_ms": library_ms}
 
     g512 = next(r for r in gru_rows if r["B"] == 512 and not r["reverse"])
-    v_main = next(r for r in vq_rows if r["N"] == 58488)
+    v_main = next(r for r in vq_rows if r["N"] == 58488 and r["D"] == VQ_D)
     files = {"dae": ckpt["dae"], "vq": ckpt["vq"], "train": train,
              "bank": os.path.join(out, "org_latent_clustering_data.npz"),
              # the residual-VQ sweep's windows: the recipe's exemplar bank
@@ -1577,10 +1652,14 @@ def part_c_path(smi: str, tmp: str) -> tuple:
                  None),
          "replaces": "gesture2vec_tpu/ops/vq_pallas.py:54", "N": 58488,
          "K": PC_KMEANS, "launch": v_main["launch"],
-         # the training path's shapes: a residual-VQ batch, the re-fit
-         "train_shapes": {f"N{r['N']}_K{r['K']}": {key: r[key] for key in (
-             "ms", "plain_ms", "bound_ms", "bound_by")}
-             for r in vq_rows if r["N"] in (128, TRAIN_REFIT_ROWS)}}]
+         # the training path's shapes: a residual-VQ batch, the re-fit;
+         # the VQFrame's step and its vq_tricks re-fit (D=40)
+         "train_shapes": {f"N{r['N']}_K{r['K']}_D{r['D']}": {
+             key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err",
+                                     "rows_differing", "near_ties")}
+             for r in vq_rows if r["N"] in (128, TRAIN_REFIT_ROWS)
+             or r["D"] == VQ_FRAME_D}}]
 
 
 # -- exemplar mode and the decode policies --------------------------------
@@ -3029,21 +3108,59 @@ def write_train_config(path: str, shipped: str, overrides: dict) -> dict:
     return cfg
 
 
-def train_step_of(part: str, cfg, model, opt, feedback: bool = False):
-    """The trainer's own step object for a part (for Part d with feedback,
-    the feedback-matched finetune step)."""
+def train_step_of(part: str, cfg, model, opt, variant: str = ""):
+    """The trainer's own step object for a part: Part a's (variant
+    "warmup": vq_tricks' delayed-VQ step), Part b's (the similarity step
+    under use_similarity with labels), Part d's (variant "feedback": the
+    feedback-matched finetune step)."""
     from gesture2vec_tpu_torch.train import dae_trainer as dt
     from gesture2vec_tpu_torch.train import seq_ae_trainer as st
     from gesture2vec_tpu_torch.train import text2token_trainer as tt
 
     if part == "a":
-        return dt.TrainStep(model, opt)
+        return dt.TrainStep(model, opt, skip_vq=variant == "warmup")
     if part == "b":
-        return st.TrainStep(cfg, model, opt)
-    if feedback:
+        cls = st.SSLTrainStep if is_ssl(cfg) else st.TrainStep
+        return cls(cfg, model, opt)
+    if variant == "feedback":
         return tt.FeedbackTrainStep(model, opt, cfg.label_smoothing,
                                     cfg.feedback_temperature)
     return tt.TrainStep(model, opt, cfg.label_smoothing)
+
+
+def is_ssl(cfg) -> bool:
+    """Whether Part b trains the similarity-supervised step."""
+    return bool(cfg.use_similarity and cfg.similarity_labels)
+
+
+def write_labels(path: str, n_windows: int, rng: np.random.Generator) -> str:
+    """SSL_LABEL_LINES similarity labels in the reference's format
+    (annotator,left,middle,right,label,time) over n_windows windows, with
+    every label."""
+    with open(path, "w") as f:
+        for i in range(SSL_LABEL_LINES):
+            left, middle, right = rng.integers(0, n_windows, 3)
+            label = ("left", "right", "neither")[i % 3]
+            f.write(f"annotator{i % 4},{left},{middle},{right},{label},"
+                    f"{rng.uniform(1, 9):.2f}\n")
+    return path
+
+
+def step_inputs(cfg, arrays, rows: np.ndarray, b: int) -> list:
+    """A train step's inputs (numpy): the arrays' rows and, for the
+    similarity step, 3 labelled pairs drawn as the trainer draws batch b's
+    in epoch 0."""
+    from gesture2vec_tpu_torch.data.similarity import (read_gesture_labels,
+                                                       sample_pairs)
+
+    out = [a[rows] for a in arrays]
+    if is_ssl(cfg):
+        pa, pb, pl = sample_pairs(
+            read_gesture_labels(cfg.similarity_labels), 3,
+            np.random.default_rng(max(cfg.random_seed, 0) + b),
+            arrays[0].shape[0])
+        out += [arrays[0][pa], arrays[0][pb], pl]
+    return out
 
 
 def fresh_model(part: str, cfg, n_words: int, device: str):
@@ -3060,6 +3177,65 @@ def fresh_model(part: str, cfg, n_words: int, device: str):
     if part == "b":
         return dt.init_model(st.make_seq_ae(cfg), 0, dev)
     return tt.init_text2token(tt.make_text2token(cfg, n_words), 0, dev)
+
+
+@contextlib.contextmanager
+def kink_inputs(force: list | None = None):
+    """Records, call by call, the inputs of torch.relu and torch.abs made
+    inside (the kinks of a train step's subgradient) as (side of 0, |x|)
+    on the host. With `force` (another run's records, call by call) each
+    call takes that run's side of 0 instead of its own: relu(x) is x
+    where the recorded side is positive, else 0, and |x| is x times the
+    recorded sign, so values and subgradients follow the other run's
+    choices."""
+    import torch
+
+    calls = []
+    saved = torch.relu, torch.abs
+
+    def recording(fn, side, forced):
+        def wrapped(x, *a, **k):
+            v = x.detach()
+            calls.append((side(v).cpu(), v.abs().float().cpu()))
+            if force is None:
+                return fn(x, *a, **k)
+            if len(calls) > len(force):
+                raise AssertionError(f"more kink calls than the "
+                                     f"{len(force)} to force")
+            given = force[len(calls) - 1][0]
+            if given.shape != v.shape:
+                raise AssertionError(f"kink call {len(calls)}: shape "
+                                     f"{tuple(v.shape)}, forced "
+                                     f"{tuple(given.shape)}")
+            return forced(x, given.to(x.device))
+        return wrapped
+    torch.relu = recording(
+        saved[0], lambda v: v > 0,
+        lambda x, pos: torch.where(pos, x, torch.zeros_like(x)))
+    torch.abs = recording(saved[1], torch.sign,
+                          lambda x, sign: x * sign.to(x.dtype))
+    try:
+        yield calls
+    finally:
+        torch.relu, torch.abs = saved
+
+
+def kink_flips(cpu_calls: list, card_calls: list) -> dict:
+    """Elements whose kink input lies on another side of 0 on the card
+    than on the CPU, and the largest of their CPU values relative to the
+    largest magnitude of its call."""
+    if len(cpu_calls) != len(card_calls):
+        raise AssertionError(f"{len(cpu_calls)} kink calls on the CPU, "
+                             f"{len(card_calls)} on the card")
+    flips, worst = 0, 0.0
+    for (side_a, mag), (side_b, _) in zip(cpu_calls, card_calls):
+        diff = side_a != side_b
+        n = int(diff.sum())
+        if n:
+            flips += n
+            worst = max(worst, float(mag[diff].max())
+                        / max(float(mag.max()), 1e-30))
+    return {"kink_flips": flips, "kink_max_ratio": worst}
 
 
 @contextlib.contextmanager
@@ -3111,15 +3287,19 @@ def compared_shapes() -> dict:
     bwd = {(T, B, HID) for T, B in GRU_BWD_SHAPES}
     return {"chunk_decoder": set(DECODER_SHAPES), "gru_sequence": gru | bwd,
             "gru_sequence_gates": bwd, "gru_sequence_backward": bwd,
-            "vq_argmin": {(N, Kc, VQ_D) for N, Kc in VQ_SHAPES}}
+            "vq_argmin": {(N, Kc, VQ_D) for N, Kc in VQ_SHAPES}
+            | {(N, Kc, VQ_FRAME_D) for N, Kc in VQ_FRAME_SHAPES}}
 
 
 def train_want_launches(part: str, run: str, cfg, n: int, m: int,
                         lloyd_steps: list) -> dict:
     """The launches a `cli/train` command must make, from its n train and
-    m validation samples (full batches only) over its epochs: Part b's
-    BiGRU 4 forward a train step and a validation batch and 4 backward a
-    train step (the transformer encoder none), one chunk_decoder a
+    m validation samples (full batches only) over its epochs: Part a's
+    VQFrame one argmin a train step (none in vq_tricks' warmup epochs)
+    and a validation batch, and a re-fit's Lloyd fit its steps + 1; Part
+    b's BiGRU 4 forward a train step (12 in the similarity step) and a
+    validation batch and 4 backward a train step (12), the transformer
+    encoder none; one chunk_decoder a
     validation batch, the residual VQ's argmins (one a stage) a step and
     a batch; a re-fit runs the BiGRU's layer 0 (2 launches) per 512
     windows and, per stage, a Lloyd fit (its steps + 1 argmins) and the
@@ -3134,12 +3314,22 @@ def train_want_launches(part: str, run: str, cfg, n: int, m: int,
     bigru = part == "b" and cfg.extras.get("seq_arch") != "transformer"
     recurrent = bigru or (cfg.extras.get("text_encoder") == "gru"
                           and cfg.extras.get("t2t_arch") != "transformer")
+    # the similarity step's forwards: the batch and two pairs
+    forwards = 3 if part == "b" and is_ssl(cfg) else 1
     if recurrent:
-        want["gru_sequence"] = 4 * (steps + val) * epochs
-        want["gru_sequence_backward"] = 4 * steps * epochs
+        want["gru_sequence"] = 4 * (forwards * steps + val) * epochs
+        want["gru_sequence_backward"] = 4 * forwards * steps * epochs
+    if part == "a" and cfg.autoencoder_vq:
+        # one argmin a VQ step (not in vq_tricks' warmup epochs) and a
+        # validation batch; the re-fit's Lloyd fit its steps + 1
+        start = TRAIN_TRICKS.get(run, {}).get("vq_start_epoch", 0)
+        want["vq_argmin"] = steps * sum(1 for e in range(epochs)
+                                        if e >= start) + val * epochs \
+            + sum(s + 1 for s in lloyd_steps)
     if part == "b":
         want["chunk_decoder"] = val * epochs
-    if part == "b" and cfg.autoencoder_vq_variant == "rvq":
+    if part == "b" and cfg.autoencoder_vq \
+            and cfg.autoencoder_vq_variant == "rvq":
         every = cfg.rvq_reestimate_every
         refits = sum(1 for e in range(1, epochs) if e % every == 0)
         if bigru:
@@ -3156,9 +3346,9 @@ def train_want_launches(part: str, run: str, cfg, n: int, m: int,
 
 
 def train_measure(run: str, part: str, cfg, arrays, val_arrays,
-                  n_words: int, feedback: bool = False) -> dict:
+                  n_words: int, variant: str = "") -> dict:
     """The trainer's steps (its first epoch's batches) on a fresh model
-    (with feedback, the feedback-matched finetune step): launches per
+    (the variant's step: see train_step_of): launches per
     step and per validation batch, steps/s and samples/s over
     TRAIN_TIMED_STEPS steps, the forward / backward / optimizer split over
     5 steps, and the device's idle share and device ops per step over
@@ -3176,14 +3366,14 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
 
     model = fresh_model(part, cfg, n_words, "cuda").train()
     opt = Adam(model.parameters(), cfg.learning_rate)
-    step = train_step_of(part, cfg, model, opt, feedback)
+    step = train_step_of(part, cfg, model, opt, variant)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bs = cfg.batch_size
     n = arrays[0].shape[0]
     perm = np.random.default_rng(0).permutation(n)
     n_timed, n_prof = TRAIN_TIMED_STEPS[part], TRAIN_PROFILED_STEPS[part]
-    epoch = [tuple(to_device(a[perm[b * bs:(b + 1) * bs]], "cuda")
-                   for a in arrays)
+    epoch = [tuple(to_device(a, "cuda") for a in step_inputs(
+                 cfg, arrays, perm[b * bs:(b + 1) * bs], b))
              for b in range(min(n // bs, n_timed + n_prof + 6))]
     # an epoch shorter than the steps measured (the recipe's 13) starts
     # over
@@ -3251,59 +3441,120 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
 
 
 def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
-                      feedback: bool = False) -> dict:
-    """One train step (with feedback, the feedback-matched finetune step)
-    from the same initial weights and batch on the card and on the CPU,
-    every dropout off: the loss (relative) and each gradient against the
-    CPU's largest magnitude of that tensor (the tensors whose gradient is
-    rounding against the largest gradient of the model: the biases that
-    the decoder's batch-statistics BatchNorm cancels, and an attention's
-    key bias, which its softmax cancels). The feedback step feeds back
-    the rollout's own choices: where the card's and the CPU's differ, the
-    step is a near-tie when the CPU's two best scores of some decision
-    lie within LOGIT_TIE (then its loss and gradients need not agree)."""
+                      variant: str = "") -> dict:
+    """One train step (the variant's: see train_step_of) from the same
+    initial weights and batch on the card and on the CPU, every dropout
+    off (a VAE samples its mean): the loss (relative), each gradient
+    against the CPU's largest magnitude of that tensor (the tensors whose
+    gradient is rounding against the largest gradient of the model: the
+    biases that a batch-statistics BatchNorm cancels - the decoder's
+    pre_linear, the VQFrame's encoder - and an attention's key bias,
+    which its softmax cancels), and every buffer the step updates (the
+    BatchNorm statistics, a VQFrame's EMA state) against the larger of 1
+    and its largest magnitude. A VQFrame's codes may differ only at a
+    near-tie of the CPU's distances (NEAR_TIE), and then the EMA state
+    need not agree. The feedback step feeds back the rollout's own
+    choices: where the card's and the CPU's differ, the step is a
+    near-tie when the CPU's two best scores of some decision lie within
+    LOGIT_TIE (then its loss and gradients need not agree). A ReLU's or an
+    |x|'s input (custom_loss, the decoders) that lies on another side of
+    0 on the card than on the CPU changes that element's subgradient:
+    every such input's CPU value must lie within KINK_TIE of its call's
+    largest magnitude, and the CPU step is then run again, from the same
+    weights, on the card's sides of 0 (kink_inputs(force=...)); that
+    run is held to the card as above ("grad_rel_err_unforced" keeps the
+    first run's gradient error)."""
     import copy
 
     import torch
 
     from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.models.dae import VQFrame
+    from gesture2vec_tpu_torch.ops.vq_kernel import codebook_distances
     from gesture2vec_tpu_torch.train.optim import Adam
     from gesture2vec_tpu_torch.train.token_loop import to_device
 
+    feedback = variant == "feedback"
     cpu = fresh_model(part, cfg, n_words, "cpu").train()
     card = copy.deepcopy(cpu).cuda().train()
-    batch = [a[:cfg.batch_size] for a in arrays]
-    losses, grads, choices = [], [], []
-    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+    rerun = copy.deepcopy(cpu)
+    vq_frame = isinstance(cpu, VQFrame)
+    batch = step_inputs(cfg, arrays, np.arange(cfg.batch_size), 0)
+
+    def run(m, dev: str, force: list | None = None) -> dict:
         step = train_step_of(part, cfg, m, Adam(m.parameters(), 1e-3),
-                             feedback)
+                             variant)
         inputs = [to_device(a, dev) for a in batch]
-        loss = step.loss(*inputs)
+        got = {}
+        if vq_frame:
+            # the quantizer's input and codes, before the EMA update
+            cb = m.vq.codebook.detach().cpu().clone()
+            def keep(mod, inp, out, cb=cb):
+                got.setdefault("codes", (inp[0].detach().cpu(), cb,
+                                         out.encodings.argmax(-1).cpu()))
+            hook = m.vq.register_forward_hook(keep)
+        with kink_inputs(force) as calls:
+            loss = step.loss(*inputs)
+        if vq_frame:
+            hook.remove()
         loss = loss[0] if isinstance(loss, tuple) else loss
         loss.backward()
-        losses.append(float(loss))
-        grads.append({path: (p.grad if p.grad is not None
-                             else torch.zeros_like(p)).detach().cpu()
-                      for path, p, _, _ in param_entries(m)})
+        got.update(
+            loss=float(loss), kinks=calls,
+            grads={path: (p.grad if p.grad is not None
+                          else torch.zeros_like(p)).detach().cpu()
+                   for path, p, _, _ in param_entries(m)},
+            buffers={name: b.detach().cpu()
+                     for name, b in m.named_buffers()})
         if feedback:
             with torch.no_grad():
                 res = m.eval()(*inputs[:3])
             m.train()
-            choices.append({k: res[k].cpu() for k in res
-                            if k in ("tokens", "stage_tokens", "logits",
-                                     "stage_logits")})
-    top = max(float(g.abs().max()) for g in grads[0].values())
-    worst, where = 0.0, ""
-    for path, g in grads[0].items():
-        cancelled = path[-2:] in (("pre_linear", "bias"), ("k", "bias")) \
-            or path == ("encoder", "decoder", "bias")
-        scale = top if cancelled else float(g.abs().max())
-        err = float((grads[1][path] - g).abs().max()) / max(scale, 1e-30)
-        if err > worst:
-            worst, where = err, "/".join(path)
+            got["choices"] = {k: res[k].cpu() for k in res
+                              if k in ("tokens", "stage_tokens", "logits",
+                                       "stage_logits")}
+        return got
+
+    def grad_err(ref: dict, other: dict) -> tuple:
+        top = max(float(g.abs().max()) for g in ref.values())
+        worst, where = 0.0, ""
+        for path, g in ref.items():
+            cancelled = path[-2:] in (("pre_linear", "bias"),
+                                      ("k", "bias")) \
+                or path == ("encoder", "decoder", "bias") \
+                or (vq_frame and path == ("encoder", "bias"))
+            scale = top if cancelled else float(g.abs().max())
+            err = float((other[path] - g).abs().max()) / max(scale, 1e-30)
+            if err > worst:
+                worst, where = err, "/".join(path)
+        return worst, where
+
+    first, on_card = run(cpu, "cpu"), run(card, "cuda")
+    flips = kink_flips(first["kinks"], on_card["kinks"])
+    unforced = grad_err(first["grads"], on_card["grads"])[0]
+    host = run(rerun, "cpu", on_card["kinks"]) if flips["kink_flips"] \
+        else first
+    worst, where = grad_err(host["grads"], on_card["grads"])
+    buf_worst, buf_where = 0.0, ""
+    for name, b in host["buffers"].items():
+        if b.dtype.is_floating_point:
+            err = float((on_card["buffers"][name] - b).abs().max()) / max(
+                1.0, float(b.abs().max()))
+            if err > buf_worst:
+                buf_worst, buf_where = err, name
+    losses = host["loss"], on_card["loss"]
     out = {"loss_cpu": losses[0], "loss_card": losses[1],
            "loss_rel_err": abs(losses[1] - losses[0]) / abs(losses[0]),
-           "grad_rel_err": worst, "grad_worst": where}
+           "grad_rel_err": worst, "grad_worst": where,
+           "buffer_rel_err": buf_worst, "buffer_worst": buf_where,
+           **flips, "grad_rel_err_unforced": unforced}
+    codes = [r["codes"] for r in (host, on_card) if "codes" in r]
+    choices = [r["choices"] for r in (host, on_card) if "choices" in r]
+    if codes:
+        (x, cb, a), (_, _, b) = codes
+        differ, ties = near_ties(codebook_distances(x, cb), a, b)
+        out.update(codes_differing=differ, code_near_ties=ties,
+                   near_tie=differ > 0 and differ == ties)
     if feedback:
         same = all(torch.equal(choices[0][k], choices[1][k])
                    for k in ("tokens", "stage_tokens") if k in choices[0])
@@ -3317,8 +3568,11 @@ def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
 
 
 def train_path(smi: str, tmp: str) -> tuple:
-    """`cli/train.main()` for part a, part b (GS-Soft, residual VQ, then
-    residual VQ with the transformer chunk encoder) and part d (TCN, GRU
+    """`cli/train.main()` for part a (the DAE, the VQFrame, the VAEFrame,
+    and the VQFrame with VAE heads through `train_dae(vq_tricks=True)`),
+    part b (GS-Soft, residual VQ, residual VQ with the transformer chunk
+    encoder, the VAE tokenizer over the VQFrame's latents, the plain
+    autoencoder, the similarity-supervised step) and part d (TCN, GRU
     encoder, then the recommended recipe's transformer with its feedback
     epoch) at the shipped configs' widths, each run's launches, speed and
     losses; then the checks."""
@@ -3329,16 +3583,20 @@ def train_path(smi: str, tmp: str) -> tuple:
     from gesture2vec_tpu_torch.cli import train as cli_train
     from gesture2vec_tpu_torch.cli._common import build_generator
     from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.train import dae_trainer as dt
     from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train.config import load_config
 
     bwd_rows = gru_backward_rows()
     root = os.path.join(tmp, "training")
     stores = write_train_store(root, np.random.default_rng(9))
     ckpts, runs, counts, gates_launches = {}, {}, {}, {}
-    # the command's own data (cli/train.build_arrays) and the re-fit's
-    # Lloyd steps, recorded as the command runs
+    # the command's own data (cli/train.build_arrays), the re-fits' Lloyd
+    # steps and the launches before and during a Part-a re-fit, recorded
+    # as the command runs
     build, built = cli_train.build_arrays, {}
     lloyd, lloyd_steps = st.lloyd, []
+    refit, refit_launches = dt.reestimate_codebook, []
 
     def recording_build(*args):
         built["out"] = build(*args)
@@ -3349,31 +3607,60 @@ def train_path(smi: str, tmp: str) -> tuple:
         lloyd_steps.append(out[3])
         return out
 
+    def recording_refit(*args, **kw):
+        torch.cuda.synchronize()
+        before = read_launches()
+        refit(*args, **kw)
+        torch.cuda.synchronize()
+        after = read_launches()
+        refit_launches.append((before, {k: after[k] - before[k]
+                                        for k in after}))
+
     with kernel_shapes() as shapes:
         for run, part, shipped, cuts in TRAIN_RUNS:
             cfg_path = os.path.join(root, f"{run}.yml")
             save = os.path.join(root, "out", run)
+            labels = {}
+            if cuts.get("use_similarity"):
+                # over the run's windows
+                n_win = TRAIN_CLIPS * ((TRAIN_FRAMES - N_FRAMES)
+                                       // cuts["subdivision_stride"] + 1)
+                labels["similarity_labels"] = write_labels(
+                    os.path.join(root, "gesture_labels.txt"), n_win,
+                    np.random.default_rng(10))
             write_train_config(cfg_path, shipped, {
                 "train_data_path": stores[0], "val_data_path": stores[1],
-                "model_save_path": save, **cuts})
+                "model_save_path": save, **cuts, **labels})
             argv = ["-c", cfg_path, "--part", part, "--save-dir", save]
             if part in "bd":
-                argv += ["--rep-checkpoint", ckpts["a"]]
+                argv += ["--rep-checkpoint", ckpts[TRAIN_REPS.get(run, "a")]]
             if part == "d":
                 argv += ["--autoencoder-checkpoint",
                          ckpts[TRAIN_TEACHERS[run]]]
             lloyd_steps.clear()
-            cli_train.build_arrays, st.lloyd = recording_build, \
-                recording_lloyd
+            refit_launches.clear()
+            cli_train.build_arrays, st.lloyd, dt.lloyd = recording_build, \
+                recording_lloyd, recording_lloyd
+            dt.reestimate_codebook = recording_refit
             reset_launches()
             gates_before = sum(shapes["gru_sequence_gates"].values())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
-                _, hist = cli_train.main(argv)
+                if run in TRAIN_TRICKS:
+                    # the command has no vq_tricks flag: its data step,
+                    # then the trainer
+                    tcfg, (tr, va), _ = cli_train.build_arrays(
+                        load_config(cfg_path), part, torch.device("cuda"))
+                    _, hist = dt.train_dae(tcfg, tr, va, save_dir=save,
+                                           device="cuda", **TRAIN_TRICKS[run])
+                else:
+                    _, hist = cli_train.main(argv)
                 torch.cuda.synchronize()
             finally:
-                cli_train.build_arrays, st.lloyd = build, lloyd
+                cli_train.build_arrays, st.lloyd, dt.lloyd = build, lloyd, \
+                    lloyd
+                dt.reestimate_codebook = refit
             wall = time.perf_counter() - t0
             counts[run] = read_launches()
             # the forward's training variant: one launch for each backward
@@ -3407,13 +3694,25 @@ def train_path(smi: str, tmp: str) -> tuple:
                    **train_measure(run, part, cfg, train, val, n_words),
                    "card_vs_cpu": train_card_vs_cpu(part, cfg, train,
                                                     n_words)}
-            if cfg.feedback_finetune_epochs:
-                # the feedback-matched finetune step, measured alike
-                row["feedback"] = {
+            if refit_launches:
+                # vq_tricks: the launches of the warmup epochs (and their
+                # validation), of the re-fit, and of the epochs after it
+                before, during = refit_launches[0]
+                total = counts[run]
+                row["epoch_launches"] = {
+                    "before_refit": before, "refit": during,
+                    "after_refit": {k: total[k] - before[k] - during[k]
+                                    for k in total}}
+            variants = (("feedback",) if cfg.feedback_finetune_epochs
+                        else ("warmup",) if run in TRAIN_TRICKS else ())
+            for variant in variants:
+                # the feedback-matched finetune step, or vq_tricks' warmup
+                # step, measured alike
+                row[variant] = {
                     **train_measure(run, part, cfg, train, val, n_words,
-                                    feedback=True),
+                                    variant=variant),
                     "card_vs_cpu": train_card_vs_cpu(part, cfg, train,
-                                                     n_words, feedback=True)}
+                                                     n_words, variant)}
             emit(row)
             runs[run] = row
 
@@ -3431,8 +3730,9 @@ def train_path(smi: str, tmp: str) -> tuple:
                                 f"{row['launches']['gru_sequence_backward']}"
                                 f" of the backward")
             steps = {run: row}
-            if "feedback" in row:
-                steps[f"{run}_feedback"] = row["feedback"]
+            for variant in ("feedback", "warmup"):
+                if variant in row:
+                    steps[f"{run}_{variant}"] = row[variant]
             for name, measured in steps.items():
                 want = {k: 0 for k in launch_counters()}
                 want.update(TRAIN_STEP_LAUNCHES[name])
@@ -3444,31 +3744,54 @@ def train_path(smi: str, tmp: str) -> tuple:
                 if cvc.get("near_tie"):
                     continue
                 if not cvc["loss_rel_err"] <= TOL or \
-                        not cvc["grad_rel_err"] <= TOL:
+                        not cvc["grad_rel_err"] <= TOL or \
+                        not cvc["buffer_rel_err"] <= TOL or \
+                        not cvc["kink_max_ratio"] <= KINK_TIE:
                     problems.append(f"{name}: card vs CPU {cvc}")
             if row["part"] == "b" and row["launches_per_val_batch"][
                     "chunk_decoder"] < 1:
                 problems.append(f"{run}: validation launched no "
                                 f"chunk_decoder")
+            if row["part"] == "a" and row["launches_per_val_batch"][
+                    "vq_argmin"] != int("vq_argmin" in TRAIN_STEP_LAUNCHES[
+                        run]):
+                problems.append(f"{run}: launches per validation batch "
+                                f"{row['launches_per_val_batch']}")
+            if run in TRAIN_TRICKS:
+                cfg = load_config(os.path.join(root, f"{run}.yml"))
+                n, m = row["train_samples"], row["val_samples"]
+                val_b, steps_b = m // cfg.batch_size, n // cfg.batch_size
+                want_epochs = {
+                    "before_refit": val_b, "refit": sum(
+                        s + 1 for s in row["lloyd_steps"]),
+                    "after_refit": steps_b + val_b}
+                got_epochs = {k: v["vq_argmin"] for k, v in row.get(
+                    "epoch_launches", {}).items()}
+                if got_epochs != want_epochs:
+                    problems.append(f"{run}: vq_argmin launches by phase "
+                                    f"{got_epochs}, want {want_epochs}")
             losses = [row["first_step_loss"], *row["epoch_loss"],
                       *row["val_loss"]]
             if not all(np.isfinite(losses)) or not \
                     row["epoch_loss"][-1] < row["first_step_loss"]:
                 problems.append(f"{run}: losses {losses}")
         gens = {}
-        for run, teacher in TRAIN_TEACHERS.items():
-            gen, _ = build_generator(ckpts[run], ckpts["a"], ckpts[teacher],
-                                     ClipStore(stores[0]), mode="decode")
+        for name, t2t_run, dae_run, tok_run in TRAIN_GENERATORS:
+            gen, _ = build_generator(ckpts[t2t_run], ckpts[dae_run],
+                                     ckpts[tok_run], ClipStore(stores[0]),
+                                     mode="decode")
             reset_launches()
             frames, tokens = gen.generate(words(6.0), 6.0)
             torch.cuda.synchronize()
             got = read_launches()
-            gens[run] = {"frames": list(frames.shape),
-                         "finite": bool(np.isfinite(frames).all()),
-                         "launches": got}
+            gens[name] = {"checkpoints": [t2t_run, dae_run, tok_run],
+                          "dae": type(gen.dae_model).__name__,
+                          "frames": list(frames.shape),
+                          "finite": bool(np.isfinite(frames).all()),
+                          "launches": got}
             if frames.shape != (int(6.0 * FPS), DIM) or not \
-                    gens[run]["finite"] or got["chunk_decoder"] != 1:
-                problems.append(f"{run}: generator {gens[run]}")
+                    gens[name]["finite"] or got["chunk_decoder"] != 1:
+                problems.append(f"{name}: generator {gens[name]}")
     # every shape the path gave a kernel, held against its plain version
     # in a kernel phase
     compared = compared_shapes()
@@ -3483,6 +3806,9 @@ def train_path(smi: str, tmp: str) -> tuple:
           "feedback_card_vs_cpu": {r: row["feedback"]["card_vs_cpu"]
                                    for r, row in runs.items()
                                    if "feedback" in row},
+          "warmup_card_vs_cpu": {r: row["warmup"]["card_vs_cpu"]
+                                 for r, row in runs.items()
+                                 if "warmup" in row},
           "kernel_shapes": {name: [[list(k), v] for k, v in c]
                             for name, c in seen.items()},
           "tol": TOL, "problems": problems})

@@ -10,8 +10,12 @@ The recommended recipe is `configs/VQ-VAE_rvq.yml` for part b (the
 4-stage residual VQ), then `configs/seq2seqtxt_recommended.yml` for part
 d (the transformer, 4 chained stages) over that tokenizer.
 
-The port of the JAX package's `cli/train.py` for parts a, b and d: Part
-b trains on the frozen Part-a DAE's latents of the pose windows, Part d
+The port of the JAX package's `cli/train.py` for parts a, b and d, with
+every model their configs select (Part a's DAE, VQ and VAE frame models;
+Part b's GS-Soft, residual-VQ, VAE, plain and similarity-supervised
+tokenizers; `vq_tricks` only through `train/dae_trainer.train_dae`, as
+in JAX, whose command has no such flag): Part b trains on the frozen
+Part-a model's latents of the pose windows, Part d
 on the sentence windows tokenized by the frozen Part-a and Part-b
 models; the checkpoints are the JAX package's files, which either
 package loads. `--device` (default cuda; cpu on a machine without a

@@ -8,12 +8,18 @@ one flax msgpack tree:
 `load_checkpoint` reads it with `utils/mpack` (no flax, msgpack or yaml)
 and merges `extras` into the config, as the JAX loader does. The
 constructors mirror the JAX registry for the kinds the Part-c path loads:
-  DAE             `dae_trainer.make_frame_model`: a plain DAE
-                  (motion_dim = input_motion_dim, latent = hidden_size);
+  DAE             `dae_trainer.make_frame_model`: a VQFrame
+                  (autoencoder_vq; with the VAE heads under
+                  autoencoder_vae; batch_stats and extra["vq_state"] when
+                  the file holds them), else a VAEFrame (autoencoder_vae),
+                  else a plain DAE (motion_dim = input_motion_dim, latent
+                  = hidden_size);
   autoencoder_vq  `seq_ae_trainer.make_seq_ae`: the gesture tokenizer,
   (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32; the
                   BiGRU or (extras "seq_arch: transformer") the transformer
-                  chunk encoder;
+                  chunk encoder; the VAE heads and the input width
+                  (use_derivative) as the weights hold them; a tokenizer
+                  without a quantizer is refused (it gives no tokens);
   text2embedding  `text2token_trainer._build_t2t` / `make_text2token`: the
                   Part-d model, n_words from extra, the architecture
                   (extras "t2t_arch": the GRU model, or the transformer
@@ -32,7 +38,7 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.compat.from_jax import (
-    dae_from_jax, is_transformer_text2token, seq_ae_from_jax,
+    frame_model_from_jax, is_transformer_text2token, seq_ae_from_jax,
     text2token_from_jax, transformer_text2token_from_jax)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
@@ -53,24 +59,22 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def dae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
-    cfg = payload["config"]
-    if cfg.get("autoencoder_vq", False) or cfg.get("autoencoder_vae", False):
-        raise NotImplementedError(
-            "VQFrame / VAEFrame Part-a models are "
-            + _LATER.format("3.3"))
-    return dae_from_jax({"params": payload["params"]},
-                        motion_dim=int(cfg["input_motion_dim"]),
-                        latent_dim=int(cfg["hidden_size"]))
+    cfg, extra = payload["config"], payload["extra"]
+    vq = bool(cfg.get("autoencoder_vq", False))
+    return frame_model_from_jax(
+        {"params": payload["params"],
+         "batch_stats": extra.get("batch_stats", {})},
+        motion_dim=int(cfg["input_motion_dim"]),
+        latent_dim=int(cfg["hidden_size"]),
+        vq_components=int(cfg.get("autoencoder_vq_components", 512)) if vq
+        else 0, vae=bool(cfg.get("autoencoder_vae", False)),
+        commitment_cost=float(cfg.get("autoencoder_vq_commitment_cost",
+                                      0.25)),
+        vq_state=extra.get("vq_state"))
 
 
 def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     cfg = payload["config"]
-    if cfg.get("use_derivative", False):
-        raise NotImplementedError(
-            "use_derivative is " + _LATER.format("3.4"))
-    if cfg.get("autoencoder_vae", False):
-        raise NotImplementedError(
-            "autoencoder_vae is " + _LATER.format("3.4"))
     if cfg.get("autoencoder_att", False):
         raise NotImplementedError(
             "autoencoder_att (decoder attention) is "

@@ -30,7 +30,11 @@ The other way, for training: `param_entries` lists a trainable port
 model's parameters with their JAX path, layout and initialiser;
 `to_jax_variables` / `load_jax_variables` carry params and batch_stats
 across, `jax_tree` any per-parameter tensors (gradients, Adam moments),
-and `flax_init` initialises a model as the JAX package would.
+and `flax_init` initialises a model as the JAX package would. The
+Part-a models cover the DAE, `VAEFrame` and `VQFrame` (its BatchNorm
+`bn` in batch_stats; its EMA state, the JAX package's `VQEmaState` dict
+{"codebook", "cluster_size", "ema_w"} in a checkpoint's
+extra["vq_state"], through `ema_state_to_jax` / `load_ema_state`).
 Shapes (widths, layers, vocabulary, codes, stages, the text encoder, the
 stage chain, attention, the architecture) are read from the arrays; what
 the arrays cannot say (steps, teacher prefix, flatten mode, attention
@@ -47,10 +51,11 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
-from gesture2vec_tpu_torch.models.dae import DAE
+from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder, SeqVQAutoencoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
+from gesture2vec_tpu_torch.models.vq import VQEmaState, init_ema_state
 from gesture2vec_tpu_torch.text.vocab import Vocab
 
 Tree = Mapping[str, object]
@@ -274,36 +279,27 @@ def seq_ae_from_jax(variables: Tree, *, n_frames: int,
                     n_pre_poses: int = 1, conditioned: bool = True,
                     vq_flatten: str = "per_sample",
                     commitment_cost: float = 0.25) -> SeqVQAutoencoder:
-    """A whole JAX SeqVQAutoencoder (BiGRU or transformer encoder, GS-Soft
-    or residual quantizer, decoder). The encoder, the variant and the
-    stage count come from the variables."""
+    """A whole JAX SeqVQAutoencoder (BiGRU or transformer encoder, GS-Soft,
+    residual or no quantizer, the VAE heads, decoder). The encoder, the
+    quantizer, its stage count and the VAE heads come from the
+    variables."""
     p = variables["params"]
-    enc, vq = p["encoder"], p["vq_layer"]
+    enc = p["encoder"]
     rep_dim, hidden = np.shape(enc["in_layer"]["kernel"])
     arch = "bigru" if "gru" in enc else "transformer"
     n_layers = _n_layers(enc["gru"]) if arch == "bigru" else _n_blocks(enc)
-    rvq = "mean_layer" not in vq
+    vq = p.get("vq_layer")
+    rvq = vq is not None and "mean_layer" not in vq
     model = SeqVQAutoencoder(
         rep_dim=rep_dim, hidden_size=hidden, n_layers=n_layers,
-        n_frames=n_frames, vq_components=np.shape(vq["codebook"])[0],
+        n_frames=n_frames,
+        vq_components=np.shape(vq["codebook"])[0] if vq else 1,
         n_pre_poses=n_pre_poses, vq_variant="rvq" if rvq else "gssoft",
-        rvq_stages=_n_stages(vq), commitment_cost=commitment_cost,
-        conditioned=conditioned, vq_flatten=vq_flatten, encoder_arch=arch)
-    _dense(model.encoder.in_layer, enc["in_layer"])
-    if arch == "bigru":
-        _gru(model.encoder.gru, enc["gru"])
-    else:
-        _fill_blocks(model.encoder, enc)
-        _dense(model.encoder.hidden_proj, enc["hidden_proj"])
-    q = model.vq_layer
-    if rvq:
-        for name, param in q.named_parameters():
-            _set(param, _t(vq[name]))
-    else:
-        _set(q.codebook, _t(vq["codebook"]))
-        _dense(q.mean_layer, vq["mean_layer"])
-        _dense(q.logvar_layer, vq["logvar_layer"])
-    _fill_seq_decoder(model.decoder, variables)
+        rvq_stages=_n_stages(vq) if rvq else 1,
+        commitment_cost=commitment_cost, conditioned=conditioned,
+        vq_flatten=vq_flatten, encoder_arch=arch, use_vq=vq is not None,
+        use_vae="vae_mean" in p)
+    load_jax_variables(model, p, variables.get("batch_stats"))
     return model.eval()
 
 
@@ -316,6 +312,41 @@ def dae_from_jax(variables: Tree, *, motion_dim: int,
         _dense(model.encoder, p["encoder"])
         _dense(model.decoder, p["decoder"])
     return model.eval()
+
+
+def frame_model_from_jax(variables: Tree, *, motion_dim: int,
+                         latent_dim: int, vq_components: int = 0,
+                         vae: bool = False, commitment_cost: float = 0.25,
+                         vq_state: Optional[Tree] = None) -> nn.Module:
+    """A Part-a model from JAX variables, chosen as the JAX package's
+    make_frame_model does: vq_components > 0 a VQFrame (vae: with its
+    VAE heads; vq_state its EMA state, where given), else vae a VAEFrame,
+    else a DAE."""
+    if vq_components > 0:
+        model = VQFrame(motion_dim, latent_dim, vq_components, vae=vae,
+                        commitment_cost=commitment_cost)
+        if vq_state:
+            load_ema_state(model, vq_state)
+    elif vae:
+        model = VAEFrame(motion_dim, latent_dim)
+    else:
+        return dae_from_jax(variables, motion_dim=motion_dim,
+                            latent_dim=latent_dim)
+    load_jax_variables(model, variables["params"],
+                       variables.get("batch_stats"))
+    return model.eval()
+
+
+def ema_state_to_jax(model: VQFrame) -> Dict[str, np.ndarray]:
+    """A VQFrame's EMA state as the JAX package's VQEmaState dict."""
+    return {k: v.detach().cpu().numpy().astype(np.float32)
+            for k, v in model.vq.state()._asdict().items()}
+
+
+def load_ema_state(model: VQFrame, state: Tree) -> None:
+    """Set a VQFrame's EMA buffers from a VQEmaState dict (copies)."""
+    model.vq.load_state(VQEmaState(*(_t(state[k]) for k in
+                                     VQEmaState._fields)))
 
 
 def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
@@ -435,6 +466,20 @@ def dae_entries(model: DAE) -> List[Entry]:
         + _dense_entries(("decoder",), model.decoder)
 
 
+def frame_entries(model: Union[VAEFrame, VQFrame]) -> List[Entry]:
+    """A VAEFrame's or VQFrame's parameters (the VQFrame's encoder and
+    decoder kernels xavier-normal, as flax declares them)."""
+    vq = isinstance(model, VQFrame)
+    kernel = "xavier" if vq else "lecun"
+    out = _dense_entries(("encoder",), model.encoder, kernel)
+    if vq:
+        out += _norm_entries(("bn",), model.bn)
+    if not vq or model.vae:
+        for name in ("fc_mean", "fc_std", "fc_decoder"):
+            out += _dense_entries((name,), getattr(model, name))
+    return out + _dense_entries(("decoder",), model.decoder, kernel)
+
+
 def seq_ae_entries(model: SeqVQAutoencoder) -> List[Entry]:
     """A tokenizer's parameters, BiGRU or transformer encoder."""
     H, e = model.hidden_size, model.encoder
@@ -445,13 +490,18 @@ def seq_ae_entries(model: SeqVQAutoencoder) -> List[Entry]:
         out += _blocks_entries(("encoder",), e)
         out += _dense_entries(("encoder", "hidden_proj"), e.hidden_proj)
     q = model.vq_layer
-    if model.vq_variant == "rvq":
+    if q is None:
+        pass
+    elif model.vq_variant == "rvq":
         out += [(("vq_layer", name), p, "same", "normal:1.0")
                 for name, p in q.named_parameters()]
     else:
         out += [(("vq_layer", "codebook"), q.codebook, "same", "normal:1.0")]
         out += _dense_entries(("vq_layer", "mean_layer"), q.mean_layer)
         out += _dense_entries(("vq_layer", "logvar_layer"), q.logvar_layer)
+    if model.use_vae:
+        for name in ("vae_mean", "vae_std", "vae_dec"):
+            out += _dense_entries((name,), getattr(model, name))
     return out + _decoder_step_entries(model.decoder.decoder_step, H)
 
 
@@ -513,6 +563,8 @@ def param_entries(model: nn.Module) -> List[Entry]:
     """The entries of a trainable port model (DAE, tokenizer, Part d)."""
     if isinstance(model, DAE):
         return dae_entries(model)
+    if isinstance(model, (VAEFrame, VQFrame)):
+        return frame_entries(model)
     if isinstance(model, SeqVQAutoencoder):
         return seq_ae_entries(model)
     if isinstance(model, Text2Token):
@@ -528,6 +580,8 @@ def batch_norms(model: nn.Module) -> Dict[Tuple[str, ...], nn.Module]:
         return {("decoder_step", "pre_bn"): model.decoder.decoder_step.pre_bn}
     if isinstance(model, Text2Token):
         return {("decoder_step", "pre_bn"): model.decoder_step.pre_bn}
+    if isinstance(model, VQFrame):
+        return {("bn",): model.bn}
     return {}
 
 
@@ -611,11 +665,12 @@ def flax_init(model: nn.Module, generator: torch.Generator) -> None:
             v = torch.zeros(shape)
         elif init == "ones":
             v = torch.ones(shape)
-        elif init == "lecun":
-            # flax's lecun_normal: a normal truncated at 2 sigma, rescaled
-            # so the std is 1/sqrt(fan_in)
-            fan_in = shape[1]
-            std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+        elif init in ("lecun", "xavier"):
+            # flax's lecun_normal (xavier_normal): a normal truncated at 2
+            # sigma, rescaled so the std is 1/sqrt(fan_in) (sqrt(2 /
+            # (fan_in + fan_out)))
+            fan = shape[1] if init == "lecun" else (shape[0] + shape[1]) / 2
+            std = (1.0 / fan) ** 0.5 / .87962566103423978
             v = torch.empty(shape)
             torch.nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std,
                                         generator=generator)
@@ -629,3 +684,6 @@ def flax_init(model: nn.Module, generator: torch.Generator) -> None:
         param.copy_(v.to(param.device))
     for bn in batch_norms(model).values():
         bn.reset_running_stats()
+    if isinstance(model, VQFrame):
+        model.vq.load_state(init_ema_state(model.vq_components,
+                                           model.latent_dim, generator))

@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from gesture2vec_tpu_torch.data.datasets import unnormalize
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.infer.exemplar import ExemplarBank
-from gesture2vec_tpu_torch.models.dae import DAE
+from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
@@ -87,7 +87,7 @@ def bucket_windows(n_windows: int) -> int:
 class GestureGenerator:
     t2t_model: Union[Text2Token, TransformerText2Token]
     seq_decoder: SeqDecoder
-    dae_model: DAE
+    dae_model: Union[DAE, VAEFrame, VQFrame]
     vocab: Vocab
     pose_mean: np.ndarray
     pose_std: np.ndarray

@@ -7,6 +7,9 @@ from the "dropout" rng stream. Outside the context, or in eval mode,
 dropout is the identity; the CPU parity tests train with dropout off
 that way. A mask keeps each value with probability 1 - rate and scales
 it by 1 / (1 - rate) (flax's nn.Dropout); rate 1 zeroes everything.
+The VAEs' reparameterisation noise (flax's "reparam" stream) comes from
+the same generator (`reparam_noise`); outside the context it is zero, so
+a train-mode VAE samples z = mean there.
 
 BatchNorm. `BatchNorm` is a BatchNorm1d whose training mode is flax's
 nn.BatchNorm(use_running_average=False): it normalises with the batch
@@ -52,6 +55,24 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     keep = torch.rand(x.shape, generator=gen, device=x.device,
                       dtype=x.dtype) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
+
+
+def reparam_noise(like: torch.Tensor) -> torch.Tensor:
+    """eps ~ N(0, 1) of like's shape for z = mean + exp(logvar / 2) * eps,
+    from the current generator; zeros outside `dropout_generator`."""
+    gen = _GENERATOR.get()
+    if gen is None:
+        return torch.zeros_like(like)
+    return torch.randn(like.shape, generator=gen, device=like.device,
+                       dtype=like.dtype)
+
+
+def reparameterize(mean: torch.Tensor, logvar: torch.Tensor,
+                   training: bool) -> torch.Tensor:
+    """The VAE's latent: a sample in training, the mean in eval."""
+    if not training:
+        return mean
+    return mean + torch.exp(logvar / 2) * reparam_noise(mean)
 
 
 class BatchNorm(nn.BatchNorm1d):

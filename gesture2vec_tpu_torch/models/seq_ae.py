@@ -10,6 +10,12 @@ quantizer (`SeqVQAutoencoder.encode` / `quantize` / `tokens_from_hidden`
 With encoder_arch="transformer" (the JAX package's `seq_arch:
 transformer`) the encoder is `models/seq_encoder.TransformerSeqEncoder`;
 decoder and quantizer are the same, and it trains as the BiGRU does.
+use_vq=False is the plain sequence autoencoder (no quantizer, no
+tokens); use_vae adds the VAE heads (vae_mean, vae_std, vae_dec) over
+the flattened (B, L*H) hidden after the quantizer, their sample the
+decoder's initial hidden. Generation and the teacher sweeps read tokens
+and hiddens from the codebook and the encoder, never through the VAE
+heads, as in JAX.
 
 The decoder-initial hidden is the encoder hidden sliced to its first
 n_layers entries, which for the bidirectional GRU is [l0_fwd, l0_bwd]
@@ -33,11 +39,9 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import BiGRU, GRUCellStack
-from gesture2vec_tpu_torch.models.layers import BatchNorm, dropout
+from gesture2vec_tpu_torch.models.layers import (BatchNorm, dropout,
+                                                 reparameterize)
 from gesture2vec_tpu_torch.models.vq import VQGSSoft, VQOutput, VQResidual
-
-# the queue item that ports each refused option
-_LATER = "not ported yet (ROADMAP.md queue A item {})"
 
 
 class Attn(nn.Module):
@@ -247,9 +251,10 @@ def _unflatten_hidden(flat: torch.Tensor, shape: Tuple[int, int, int],
 class SeqVQAutoencoder(nn.Module):
     """The gesture tokenizer: encoder, quantizer and the token decoder
     (`SeqDecoder`, whose codebook is the quantizer's stage-0 codebook).
-    vq_variant "gssoft" (the reference's) or "rvq". The decoder's stage-0
-    codebook is the quantizer's own parameter (and for "rvq" every
-    stage's), so training moves one tensor for both."""
+    vq_variant "gssoft" (the reference's) or "rvq"; use_vq False has no
+    quantizer (and the decoder no codebook), use_vae the VAE heads. The
+    decoder's stage-0 codebook is the quantizer's own parameter (and for
+    "rvq" every stage's), so training moves one tensor for both."""
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, vq_components: int = 512,
@@ -257,13 +262,10 @@ class SeqVQAutoencoder(nn.Module):
                  rvq_stages: int = 2, commitment_cost: float = 0.25,
                  conditioned: bool = True, vq_flatten: str = "per_sample",
                  encoder_arch: str = "bigru", use_vae: bool = False,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, use_vq: bool = True):
         super().__init__()
         if encoder_arch not in ("bigru", "transformer"):
             raise ValueError(f"unknown encoder_arch {encoder_arch!r}")
-        if use_vae:
-            raise NotImplementedError(
-                "use_vae (autoencoder_vae) is " + _LATER.format("3.4"))
         if vq_flatten not in ("per_sample", "torch_view"):
             raise ValueError(f"unknown vq_flatten mode {vq_flatten!r}")
         self.rep_dim = rep_dim
@@ -274,6 +276,7 @@ class SeqVQAutoencoder(nn.Module):
         self.vq_variant = vq_variant
         self.encoder_arch = encoder_arch
         self.dropout_rate = dropout_rate
+        self.use_vq, self.use_vae = use_vq, use_vae
         if encoder_arch == "transformer":
             # imported here: models/transformer imports this module
             from gesture2vec_tpu_torch.models.seq_encoder import \
@@ -284,24 +287,32 @@ class SeqVQAutoencoder(nn.Module):
             self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers,
                                       dropout_rate)
         d = hidden_size * n_layers
-        if vq_variant == "rvq":
+        if vq_variant not in ("rvq", "gssoft"):
+            raise ValueError(f"unknown vq_variant {vq_variant!r}")
+        self.vq_layer = None
+        if use_vq and vq_variant == "rvq":
             self.vq_layer = VQResidual(vq_components, d, rvq_stages,
                                        commitment_cost)
-        elif vq_variant == "gssoft":
+        elif use_vq:
             self.vq_layer = VQGSSoft(vq_components, d, commitment_cost)
-        else:
-            raise ValueError(f"unknown vq_variant {vq_variant!r}")
+        if use_vae:
+            # over the (B, L*H) hidden, after the quantizer
+            self.vae_mean = nn.Linear(d, d)
+            self.vae_std = nn.Linear(d, d)
+            self.vae_dec = nn.Linear(d, d)
         self.decoder = SeqDecoder(
             rep_dim, hidden_size, n_layers, n_frames, vq_components,
             n_pre_poses, conditioned,
-            stages=rvq_stages if vq_variant == "rvq" else 1,
+            stages=rvq_stages if use_vq and vq_variant == "rvq" else 1,
             dropout_rate=dropout_rate)
-        # one tensor for each codebook: the quantizer's
-        for s, cb in enumerate(self.vq_layer.codebooks()
-                               if vq_variant == "rvq"
-                               else [self.vq_layer.codebook]):
+        # one tensor for each codebook: the quantizer's (none without one)
+        cbs = ([] if not use_vq else self.vq_layer.codebooks()
+               if vq_variant == "rvq" else [self.vq_layer.codebook])
+        for s, cb in enumerate(cbs):
             setattr(self.decoder, "codebook" if s == 0
                     else f"codebook_r{s}", cb)
+        if not use_vq:
+            self.decoder.codebook = None
 
     def set_use_kernels(self, on: bool) -> "SeqVQAutoencoder":
         """Route the BiGRU encoder's recurrences, the residual argmins and
@@ -328,13 +339,24 @@ class SeqVQAutoencoder(nn.Module):
     def forward(self, in_poses: torch.Tensor, out_poses: torch.Tensor
                 ) -> Dict[str, object]:
         """The JAX package's `SeqVQAutoencoder.__call__`: encode,
-        quantize, teacher-forced decode. Returns {"outputs" (B, n_frames,
-        D), "first_hidden" (L, B, H) the quantized decoder-initial
-        hidden, "vq" the quantizer's VQOutput}."""
+        quantize (use_vq), the VAE heads (use_vae), teacher-forced decode.
+        Returns {"outputs" (B, n_frames, D), "first_hidden" (L, B, H) the
+        decoder-initial hidden after the quantizer and the VAE heads,
+        "vq" the quantizer's VQOutput (None without one), "mean" and
+        "logvar" (B, L*H) of the VAE heads (None without them)}."""
         _, dec_hidden = self.encode(in_poses)
-        vq_out, dec_hidden = self.quantize(dec_hidden)
+        vq_out = mean = logvar = None
+        if self.use_vq:
+            vq_out, dec_hidden = self.quantize(dec_hidden)
+        if self.use_vae:
+            L, B, H = dec_hidden.shape
+            flat = dec_hidden.transpose(0, 1).reshape(B, L * H)
+            mean, logvar = self.vae_mean(flat), self.vae_std(flat)
+            flat = self.vae_dec(reparameterize(mean, logvar, self.training))
+            dec_hidden = flat.reshape(B, L, H).transpose(0, 1)
         return {"outputs": self.decoder.decode(dec_hidden, out_poses),
-                "first_hidden": dec_hidden, "vq": vq_out}
+                "first_hidden": dec_hidden, "vq": vq_out, "mean": mean,
+                "logvar": logvar}
 
     def encode_hidden(self, in_poses: torch.Tensor) -> torch.Tensor:
         """The decoder-initial hidden of `encode` alone. The BiGRU runs
@@ -347,15 +369,22 @@ class SeqVQAutoencoder(nn.Module):
         _, enc_hidden = self.encoder(in_poses.transpose(0, 1), n_run=n_run)
         return enc_hidden[: self.n_layers]
 
+    def _need_vq(self) -> None:
+        if self.vq_layer is None:
+            raise ValueError("the tokenizer has no quantizer "
+                             "(autoencoder_vq is false): it gives no tokens")
+
     def quantize(self, dec_hidden: torch.Tensor
                  ) -> Tuple[VQOutput, torch.Tensor]:
+        self._need_vq()
         flat = _flatten_hidden(dec_hidden.float(), self.vq_flatten)
         vq_out = self.vq_layer(flat)
         return vq_out, _unflatten_hidden(vq_out.quantized, dec_hidden.shape,
                                          self.vq_flatten)
 
     def tokens_from_hidden(self, dec_hidden: torch.Tensor) -> torch.Tensor:
-        """(L, B, H) -> (B,) gesture-token ids."""
+        """(L, B, H) -> (B,) gesture-token ids (the quantizer's; the VAE
+        heads play no part, as in JAX)."""
         vq_out, _ = self.quantize(dec_hidden)
         return self.vq_layer.tokens(vq_out.encodings)
 

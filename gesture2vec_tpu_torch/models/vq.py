@@ -1,10 +1,13 @@
-"""Sequence-level vector quantizers (the tokenizer's).
+"""Vector quantizers: the tokenizer's and the frame model's.
 
-Port of the JAX package's `models/vq.py` pieces the Part-c path runs:
-`codebook_distances`, `gssoft_probs` (log-space, log-smoothing clamped
-to +-30), `VQGSSoft` (the reference's Part-b quantizer) and `VQResidual`
-(the opt-in residual quantizer). Parameter names match the JAX
-variables (`codebook`, `codebook_r{s}`, `mean_layer`, `logvar_layer`).
+Port of the JAX package's `models/vq.py`: `codebook_distances`,
+`gssoft_probs` (log-space, log-smoothing clamped to +-30), `VQGSSoft`
+(the reference's Part-b quantizer) and `VQResidual` (the opt-in
+residual quantizer), with parameter names matching the JAX variables
+(`codebook`, `codebook_r{s}`, `mean_layer`, `logvar_layer`); and the
+frame-level quantizers: `vq_ema` (the Part-a `VQFrame`'s, behind the
+`VQEma` module that keeps its state as buffers), `vq_st` and
+`vq_gumbel`.
 
 GS-Soft tokens are the argmax of the soft assignment softmax(logp),
 with per-code smoothing: no argmin of distances computes them. The
@@ -19,16 +22,19 @@ output x + sg(q - x); the residual stages quantize resid - sg(q).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gesture2vec_tpu_torch.ops.vq_kernel import (codebook_distances,
                                                  vq_argmin, vq_argmin_plain)
 
-__all__ = ["VQOutput", "VQGSSoft", "VQResidual", "codebook_distances",
-           "gssoft_logp", "gssoft_probs", "perplexity_of"]
+__all__ = ["VQEma", "VQEmaState", "VQOutput", "VQGSSoft", "VQResidual",
+           "codebook_distances", "gssoft_logp", "gssoft_probs",
+           "init_ema_state", "perplexity_of", "vq_ema", "vq_gumbel",
+           "vq_st"]
 
 
 class VQOutput(NamedTuple):
@@ -169,3 +175,144 @@ class VQResidual(nn.Module):
         for s in range(1, tokens.shape[-1]):
             total = total + cbs[s][tokens[..., s]]
         return total
+
+
+# -- the frame-level quantizers (Part a) ----------------------------------
+class VQEmaState(NamedTuple):
+    """The EMA codebook state."""
+
+    codebook: torch.Tensor      # (K, D)
+    cluster_size: torch.Tensor  # (K,)
+    ema_w: torch.Tensor         # (K, D)
+
+
+def init_ema_state(num_codes: int, dim: int,
+                   generator: torch.Generator) -> VQEmaState:
+    """codebook ~ U(-1/K, 1/K), ema_w ~ N(0, 1), cluster_size 0 (the
+    reference's init), drawn on the CPU from generator."""
+    codebook = (torch.rand(num_codes, dim, generator=generator) * 2 - 1) \
+        / num_codes
+    ema_w = torch.randn(num_codes, dim, generator=generator)
+    return VQEmaState(codebook, torch.zeros(num_codes), ema_w)
+
+
+def _hard_assign(flat: torch.Tensor, codebook: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(indices, one-hot (N, K)) of the nearest codes (first index on
+    ties), through vq_argmin."""
+    idx = vq_argmin(flat.detach().contiguous(),
+                    codebook.detach().contiguous())[0]
+    return idx, F.one_hot(idx, codebook.shape[0]).to(flat.dtype)
+
+
+def vq_st(x: torch.Tensor, codebook: torch.Tensor,
+          commitment_cost: float = 0.25) -> VQOutput:
+    """Plain straight-through VQ: loss = mse(q, sg(x)) + beta mse(sg(q),
+    x); the gradient reaches the codebook through the gathered rows."""
+    flat = x.reshape(-1, codebook.shape[-1])
+    idx, onehot = _hard_assign(flat, codebook)
+    quantized = codebook[idx].reshape(x.shape)
+    st = x + (quantized - x).detach()
+    return VQOutput(_losses(quantized, x, commitment_cost), st,
+                    perplexity_of(onehot), onehot)
+
+
+@torch.no_grad()
+def _ema_update(state: VQEmaState, flat: torch.Tensor, onehot: torch.Tensor,
+                decay: float, epsilon: float) -> VQEmaState:
+    counts = onehot.sum(dim=0)
+    dw = onehot.t() @ flat
+    cluster_size = state.cluster_size * decay + (1 - decay) * counts
+    n = cluster_size.sum()
+    cluster_size = (cluster_size + epsilon) \
+        / (n + state.codebook.shape[0] * epsilon) * n
+    ema_w = state.ema_w * decay + (1 - decay) * dw
+    return VQEmaState(ema_w / cluster_size[:, None], cluster_size, ema_w)
+
+
+def vq_ema(x: torch.Tensor, state: VQEmaState, *,
+           commitment_cost: float = 0.25, decay: float = 0.99,
+           epsilon: float = 1e-5, train: bool = True,
+           axis_name: Optional[str] = None
+           ) -> Tuple[VQOutput, VQEmaState]:
+    """EMA-codebook VQ: (VQOutput, the new state). loss = beta *
+    mse(sg(q), x) (the codebook learns by the EMA, not by gradients); the
+    quantized value uses the pre-update codebook. In training the state
+    decays towards the batch's counts and assigned-vector sums (fp32),
+    cluster_size Laplace-smoothed with epsilon, codebook = ema_w /
+    cluster_size; in eval the state is returned as it is."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "the data-parallel psum of the EMA statistics (axis_name) is "
+            "not ported yet (ROADMAP.md queue A item 5, scale-out)")
+    flat = x.reshape(-1, state.codebook.shape[-1])
+    idx, onehot = _hard_assign(flat, state.codebook)
+    quantized = state.codebook[idx].reshape(x.shape)
+    new_state = state
+    if train:
+        new_state = _ema_update(state, flat.detach(), onehot, decay, epsilon)
+    loss = commitment_cost * torch.mean((quantized.detach() - x) ** 2)
+    st = x + (quantized - x).detach()
+    return VQOutput(loss, st, perplexity_of(onehot), onehot), new_state
+
+
+class VQEma(nn.Module):
+    """vq_ema with its state as the module's buffers (`codebook`,
+    `cluster_size`, `ema_w`): training mode replaces them by the updated
+    state in place, eval mode leaves them."""
+
+    def __init__(self, num_codes: int, dim: int,
+                 commitment_cost: float = 0.25, decay: float = 0.99):
+        super().__init__()
+        self.commitment_cost, self.decay = commitment_cost, decay
+        self.register_buffer("codebook", torch.zeros(num_codes, dim))
+        self.register_buffer("cluster_size", torch.zeros(num_codes))
+        self.register_buffer("ema_w", torch.zeros(num_codes, dim))
+
+    def state(self) -> VQEmaState:
+        return VQEmaState(self.codebook, self.cluster_size, self.ema_w)
+
+    @torch.no_grad()
+    def load_state(self, state: VQEmaState) -> None:
+        """Copy a state in (the buffers never alias its tensors)."""
+        for buf, value in zip(self.state(), state):
+            buf.copy_(value)
+
+    def forward(self, x: torch.Tensor) -> VQOutput:
+        out, new = vq_ema(x, self.state(),
+                          commitment_cost=self.commitment_cost,
+                          decay=self.decay, train=self.training)
+        if self.training:
+            self.load_state(new)
+        return out
+
+
+def vq_gumbel(x: torch.Tensor, codebook: torch.Tensor, *,
+              temperature: float = 0.5, train: bool = True,
+              gumbel: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> VQOutput:
+    """Relaxed one-hot (Gumbel-softmax) VQ. Training: encodings =
+    softmax((-d + g) / temperature), g the Gumbel noise (N, K) given, or
+    drawn from generator; eval: the hard argmin (through vq_argmin). The
+    loss is the KL of softmax(-d) to the uniform prior."""
+    flat = x.reshape(-1, codebook.shape[-1])
+    d = codebook_distances(flat, codebook)
+    log_probs = torch.log_softmax(-d, dim=-1)
+    probs = torch.exp(log_probs)
+    if train:
+        if gumbel is None:
+            u = torch.rand(d.shape, generator=generator, device=d.device,
+                           dtype=d.dtype)
+            gumbel = -torch.log(-torch.log(u.clamp_min(
+                torch.finfo(d.dtype).tiny)))
+        encodings = torch.softmax(-d / temperature + gumbel / temperature,
+                                  dim=-1)
+    else:
+        encodings = _hard_assign(flat, codebook)[1]
+    quantized = torch.matmul(encodings, codebook).reshape(x.shape)
+    kl_el = probs * (log_probs + torch.log(torch.tensor(
+        float(codebook.shape[0]))))
+    kl_el = torch.where(probs == 0, torch.zeros_like(kl_el), kl_el)
+    kl = torch.mean(torch.sum(kl_el, dim=0))
+    st = x + (quantized - x).detach()
+    return VQOutput(kl, st, perplexity_of(encodings), encodings)

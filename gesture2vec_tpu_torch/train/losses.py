@@ -1,7 +1,8 @@
 """Loss functions of the trainers (the port's copy of the JAX package's
 `train/losses.py`): the reference's weighted L1 + continuity + variance
-loss, MSE, and the gesture-token cross-entropy over positions 1.. with
-optional label smoothing (optax.smooth_labels: (1 - a) * onehot + a / K).
+loss, MSE, the two KLD forms of the VAEs, and the gesture-token
+cross-entropy over positions 1.. with optional label smoothing
+(optax.smooth_labels: (1 - a) * onehot + a / K).
 """
 from __future__ import annotations
 
@@ -30,6 +31,18 @@ def custom_loss(output: torch.Tensor, target: torch.Tensor, *,
 
 def mse_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((output - target) ** 2)
+
+
+def kld_loss(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """-0.5 * mean_b mean_d (1 + logvar - exp(logvar) - mu^2)."""
+    return -0.5 * torch.mean(torch.mean(
+        1 + logvar - torch.exp(logvar) - mean ** 2, dim=1))
+
+
+def kld_loss_standard(mean: torch.Tensor,
+                      logvar: torch.Tensor) -> torch.Tensor:
+    """0.5 * mean(exp(logvar) - logvar - 1 + mu^2)."""
+    return 0.5 * torch.mean(torch.exp(logvar) - logvar - 1 + mean ** 2)
 
 
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

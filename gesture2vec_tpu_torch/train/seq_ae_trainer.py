@@ -2,23 +2,30 @@
 
 Port of the JAX package's `train/seq_ae_trainer.py`:
   loss = custom_loss(outputs, windows) + vq_loss / 400
+         (+ kld_loss_standard * 0.1 * (epoch + 1) / epochs with the VAE
+         heads)
 over the teacher-forced decode of a train-mode forward
 (`models/seq_ae.SeqVQAutoencoder`, with the BiGRU or, for `seq_arch:
-transformer`, the transformer chunk encoder), with Adam(0.5, 0.999)
-after global-norm clipping at 5. On the card the BiGRU encoder's four
-recurrences run the GRU-sequence kernel forward and its backward kernel
-backward (the transformer encoder runs no kernel), and the residual
-quantizer's hard assignments the VQ-argmin kernel; validation (eval
-BatchNorm, no dropout) decodes through the chunk-decoder kernel, so on
-the card a decoder the kernel cannot run is refused before the first
-step. `rvq_reestimate_every` re-fits each residual stage's codebook with
-K-Means (`cluster/kmeans`, assignments through the VQ-argmin kernel)
-over the current encoder latents.
+transformer`, the transformer chunk encoder; without a quantizer under
+`autoencoder_vq: false`, with the VAE heads under `autoencoder_vae`;
+`use_derivative` doubles the window width the model takes), with
+Adam(0.5, 0.999) after global-norm clipping at 5. The similarity-
+supervised step (`use_similarity` with a `similarity_labels` file,
+`SSLTrainStep`) adds loss_label_weight * sum(+-cos) over 3 labelled
+window pairs a step, each pair member through its own train-mode
+forward. On the card the BiGRU encoder's four recurrences run the
+GRU-sequence kernel forward and its backward kernel backward (the
+transformer encoder runs no kernel), and the residual quantizer's hard
+assignments the VQ-argmin kernel; validation (eval BatchNorm, no
+dropout, the VAE heads' mean) decodes through the chunk-decoder kernel,
+so on the card a decoder the kernel cannot run is refused before the
+first step. `rvq_reestimate_every` re-fits each residual stage's
+codebook with K-Means (`cluster/kmeans`, assignments through the
+VQ-argmin kernel) over the current encoder latents.
 
 Refused, each naming the ROADMAP.md queue A item that ports it:
-`use_derivative` and `autoencoder_vae` (3.4), the similarity-supervised
-step (3.5), `compute_dtype: bfloat16` (3.7), the streaming window source
-(3.8).
+`compute_dtype: bfloat16` (3.7), the streaming window source (3.8),
+decoder attention (6).
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import torch
 
 from gesture2vec_tpu_torch.cluster.kmeans import lloyd, plusplus_init
 from gesture2vec_tpu_torch.compat.from_jax import to_jax_variables
+from gesture2vec_tpu_torch.data.similarity import (read_gesture_labels,
+                                                   sample_pairs)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.layers import dropout_generator
 from gesture2vec_tpu_torch.models.seq_ae import (SeqVQAutoencoder,
@@ -39,7 +48,8 @@ from gesture2vec_tpu_torch.ops.vq_kernel import vq_argmin
 from gesture2vec_tpu_torch.train import checkpoints
 from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.dae_trainer import init_model
-from gesture2vec_tpu_torch.train.losses import custom_loss
+from gesture2vec_tpu_torch.train.losses import (custom_loss, kld_loss,
+                                                kld_loss_standard)
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
                                                     to_device)
@@ -50,23 +60,19 @@ _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 def make_seq_ae(config: Config) -> SeqVQAutoencoder:
     """The tokenizer the JAX package's make_seq_ae builds (per_sample
-    flattening, the trainers' default; the encoder from `seq_arch`)."""
+    flattening, the trainers' default; the encoder from `seq_arch`;
+    `use_derivative` doubles rep_dim)."""
     refused = (
-        (config.use_derivative, "use_derivative", "3.4"),
-        (config.autoencoder_vae, "autoencoder_vae", "3.4"),
-        (not config.autoencoder_vq,
-         "the plain sequence autoencoder (autoencoder_vq: false)", "3.4"),
         (config.autoencoder_att, "decoder attention (autoencoder_att)",
          "6, reconstruction"),
-        (config.use_similarity, "similarity-supervised training "
-         "(use_similarity)", "3.5"),
         (config.compute_dtype != "float32", "compute_dtype: bfloat16",
          "3.7"))
     for cond, what, item in refused:
         if cond:
             raise NotImplementedError(_LATER.format(what, item))
+    rep_dim = config.rep_learning_dim * (2 if config.use_derivative else 1)
     return SeqVQAutoencoder(
-        rep_dim=config.rep_learning_dim, hidden_size=config.hidden_size,
+        rep_dim=rep_dim, hidden_size=config.hidden_size,
         n_layers=config.n_layers, n_frames=config.n_poses,
         vq_components=config.autoencoder_vq_components,
         n_pre_poses=config.n_pre_poses,
@@ -75,25 +81,85 @@ def make_seq_ae(config: Config) -> SeqVQAutoencoder:
         commitment_cost=config.autoencoder_vq_commitment_cost,
         conditioned=config.autoencoder_conditioned,
         encoder_arch=config.extras.get("seq_arch", "bigru"),
-        dropout_rate=config.dropout_prob)
+        dropout_rate=config.dropout_prob, use_vq=config.autoencoder_vq,
+        use_vae=config.autoencoder_vae)
+
+
+def _rec(config: Config, res: dict, batch: torch.Tensor) -> torch.Tensor:
+    return custom_loss(res["outputs"], batch,
+                       l1_weight=config.loss_l1_weight,
+                       cont_weight=config.loss_cont_weight,
+                       var_weight=config.loss_var_weight)
+
+
+def _vq_terms(model: SeqVQAutoencoder, res: dict
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the quantizer's loss / 400, its perplexity); zeros without one."""
+    if not model.use_vq:
+        zero = res["outputs"].new_zeros(())
+        return zero, zero
+    return res["vq"].loss / 400.0, res["vq"].perplexity
 
 
 class TrainStep(Step):
-    """The Part-b step on a batch of windows (B, n_poses, rep_dim); its
-    loss comes with the quantizer's perplexity."""
+    """The Part-b step on a batch of windows (B, n_poses, rep_dim) in a
+    0-indexed epoch (the VAE's KLD weight anneals over config.epochs); its
+    loss comes with the quantizer's perplexity (0 without one)."""
 
     def __init__(self, config: Config, model: SeqVQAutoencoder, opt: Adam):
         self.config, self.model, self.opt = config, model, opt
 
-    def loss(self, batch: torch.Tensor
+    def loss(self, batch: torch.Tensor, epoch: float = 0.0
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        c = self.config
         res = self.model(batch, batch)
-        rec = custom_loss(res["outputs"], batch,
-                          l1_weight=c.loss_l1_weight,
-                          cont_weight=c.loss_cont_weight,
-                          var_weight=c.loss_var_weight)
-        return rec + res["vq"].loss / 400.0, res["vq"].perplexity
+        loss = _rec(self.config, res, batch)
+        if self.model.use_vae:
+            # the reference's 1-indexed epochs: weight 0.1 * 1 / N from
+            # the first
+            loss = loss + kld_loss_standard(res["mean"], res["logvar"]) \
+                * 0.1 * (epoch + 1.0) / self.config.epochs
+        vq_loss, perp = _vq_terms(self.model, res)
+        return loss + vq_loss, perp
+
+
+def pair_latents(model: SeqVQAutoencoder, windows: torch.Tensor
+                 ) -> torch.Tensor:
+    """A train-mode forward's first_hidden, one (L*H) row per window."""
+    h = model(windows, windows)["first_hidden"]
+    L, B, H = h.shape
+    return h.transpose(0, 1).reshape(B, L * H)
+
+
+class SSLTrainStep(Step):
+    """The similarity-supervised Part-b step (the JAX package's
+    make_ssl_train_step): the main batch, then pair_a, then pair_b, each
+    through a train-mode forward in that order (the BatchNorm statistics
+    update in that order); cos = <a, b> / (|a| |b| + 1e-8) of each pair's
+    latents, sim = sum(label > 0.5 ? -cos : cos), loss = rec +
+    loss_label_weight * sim (+ the VQ term; with the VAE heads +
+    kld_loss * 0.1 * (epoch + 1 - 10) / epochs once epoch + 1 > 10).
+    Returns (loss, perplexity, rec, sim)."""
+
+    def __init__(self, config: Config, model: SeqVQAutoencoder, opt: Adam):
+        self.config, self.model, self.opt = config, model, opt
+
+    def loss(self, batch: torch.Tensor, pair_a: torch.Tensor,
+             pair_b: torch.Tensor, pair_label: torch.Tensor,
+             epoch: float = 0.0) -> Tuple[torch.Tensor, ...]:
+        c, m = self.config, self.model
+        res = m(batch, batch)
+        rec = _rec(c, res, batch)
+        la, lb = pair_latents(m, pair_a), pair_latents(m, pair_b)
+        cos = torch.sum(la * lb, dim=-1) / (
+            torch.linalg.vector_norm(la, dim=-1)
+            * torch.linalg.vector_norm(lb, dim=-1) + 1e-8)
+        sim = torch.sum(torch.where(pair_label > 0.5, -cos, cos))
+        loss = rec + c.loss_label_weight * sim
+        if m.use_vae and epoch + 1.0 > 10.0:
+            loss = loss + kld_loss(res["mean"], res["logvar"]) * 0.1 \
+                * (epoch + 1.0 - 10.0) / c.epochs
+        vq_loss, perp = _vq_terms(m, res)
+        return loss + vq_loss, perp, rec, sim
 
 
 @torch.no_grad()
@@ -101,11 +167,7 @@ def eval_step(config: Config, model: SeqVQAutoencoder,
               batch: torch.Tensor) -> torch.Tensor:
     """The validation loss (eval mode: the decode goes through the
     chunk-decoder kernel where it is eligible)."""
-    res = model(batch, batch)
-    return custom_loss(res["outputs"], batch,
-                       l1_weight=config.loss_l1_weight,
-                       cont_weight=config.loss_cont_weight,
-                       var_weight=config.loss_var_weight)
+    return _rec(config, model(batch, batch), batch)
 
 
 def _plusplus(resid: torch.Tensor, k: int, stage: int) -> torch.Tensor:
@@ -162,13 +224,26 @@ def train_seq_ae(config: Config, train_windows: np.ndarray,
                  ) -> Tuple[SeqVQAutoencoder, Dict[str, list]]:
     """The Part-b loop over frozen-DAE latent windows (N, n_poses,
     rep_dim); returns (model, history). resume_from as in
-    dae_trainer.train_dae. Runs on CUDA unless device says otherwise."""
+    dae_trainer.train_dae. With use_similarity and a similarity_labels
+    file every step is the SSLTrainStep, its 3 pairs drawn by
+    np.random.default_rng(seed + epoch * 65536 + b) among the windows (as
+    in JAX; use_similarity without labels trains the plain step). Runs on
+    CUDA unless device says otherwise."""
     if hasattr(train_windows, "batches"):
         raise NotImplementedError(_LATER.format(
             "the streaming window source (data/streaming)", "3.8"))
     dev = resolve_device(device)
     seed = max(config.random_seed, 0)
     model = init_model(make_seq_ae(config), seed, dev)
+    if train_windows.shape[-1] != model.rep_dim:
+        # use_derivative: the JAX package's trainer fails the same way
+        # (a parameter-shape error at its first step): neither package's
+        # Part-b data appends the derivative
+        raise ValueError(
+            f"the windows are {train_windows.shape[-1]} wide, the model "
+            f"takes {model.rep_dim} (rep_learning_dim "
+            f"{config.rep_learning_dim}"
+            f"{', doubled by use_derivative' if config.use_derivative else ''})")
     reason = model.decoder.kernel_reason()
     if dev.type == "cuda" and reason:
         raise ValueError(f"validation decodes through the chunk-decoder "
@@ -179,14 +254,21 @@ def train_seq_ae(config: Config, train_windows: np.ndarray,
     if resume_from:
         start_epoch, _ = checkpoints.restore_for_resume(model, opt, gen,
                                                         resume_from)
-    step = TrainStep(config, model, opt)
+    pairs = None
+    if config.use_similarity and config.similarity_labels:
+        pairs = read_gesture_labels(config.similarity_labels)
+        logging.info("similarity-supervised: %d labelled pairs from %s",
+                     len(pairs), config.similarity_labels)
+    step = (SSLTrainStep if pairs is not None else TrainStep)(
+        config, model, opt)
     n, bs = train_windows.shape[0], config.batch_size
     require_full_batch(n, bs, config.name)
     history: Dict[str, list] = {"train_loss": [], "val_loss": [],
                                 "perplexity": []}
     meter = AverageMeter("loss", ":.4f")
     rvq_every = (config.rvq_reestimate_every
-                 if config.autoencoder_vq_variant == "rvq" else 0)
+                 if config.autoencoder_vq
+                 and config.autoencoder_vq_variant == "rvq" else 0)
     for epoch in range(start_epoch, config.epochs):
         if rvq_every and epoch and epoch % rvq_every == 0:
             reestimate_rvq_codebooks(model, train_windows,
@@ -198,9 +280,15 @@ def train_seq_ae(config: Config, train_windows: np.ndarray,
         model.train()
         losses, perps = [], []
         for b in range(n // bs):
-            batch = to_device(train_windows[perm[b * bs:(b + 1) * bs]], dev)
+            batch = (to_device(train_windows[perm[b * bs:(b + 1) * bs]],
+                               dev),)
+            if pairs is not None:
+                pa, pb, pl = sample_pairs(pairs, 3, np.random.default_rng(
+                    seed + epoch * 65536 + b), n)
+                batch += tuple(to_device(a, dev) for a in (
+                    train_windows[pa], train_windows[pb], pl))
             with dropout_generator(gen):
-                loss, perp = step(batch)
+                loss, perp = step(*batch, float(epoch))[:2]
             losses.append(loss)
             perps.append(perp)
             if (b + 1) % log_every == 0:
@@ -235,6 +323,6 @@ def train_seq_ae(config: Config, train_windows: np.ndarray,
                 pose_dim=model.rep_dim,
                 extra={"batch_stats": v["batch_stats"], "parity": False,
                        **checkpoints.resume_extra(model, opt, gen, config)},
-                kind="autoencoder_vq")
+                kind="autoencoder_vq" if model.use_vq else "autoencoder")
             logging.info("saved checkpoint %s", path)
     return model, history

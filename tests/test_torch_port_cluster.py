@@ -346,16 +346,37 @@ def test_unported_options_raise(corpus, tmp_path):
         with pytest.raises(NotImplementedError, match=what):
             port_cli.main(common + extra)
     payload = load_checkpoint(corpus["gssoft"])
-    for kw, what in ((dict(use_derivative=True), "use_derivative"),
-                     (dict(autoencoder_vae=True), "autoencoder_vae"),
-                     (dict(autoencoder_att=True), "autoencoder_att")):
-        path = str(tmp_path / f"{what}.bin")
+    path = str(tmp_path / "autoencoder_att.bin")
+    checkpoints.save_checkpoint(
+        path, config=_seq_cfg("gssoft", autoencoder_att=True), epoch=1,
+        params=payload["params"], extra=payload["extra"],
+        kind="autoencoder_vq")
+    with pytest.raises(NotImplementedError, match="autoencoder_att"):
+        load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
+    # use_derivative and autoencoder_vae tokenizers load and tokenize as
+    # JAX's do (the VAE heads play no part in the tokens)
+    from gesture2vec_tpu.data.teacher import tokenize_windows as jax_tok
+    from gesture2vec_tpu.train.seq_ae_trainer import make_seq_ae
+
+    for kw in (dict(use_derivative=True), dict(autoencoder_vae=True)):
+        cfg = _seq_cfg("gssoft", **kw)
+        jm = make_seq_ae(cfg)
+        dummy = jnp.zeros((2, NP, jm.rep_dim))
+        variables = perturb(jax.tree_util.tree_map(np.asarray, jax.jit(
+            lambda k: jm.init(k, dummy, dummy, train=False))(
+            jax.random.PRNGKey(5))), np.random.default_rng(5), 0.1)
+        path = str(tmp_path / f"{next(iter(kw))}.bin")
         checkpoints.save_checkpoint(
-            path, config=_seq_cfg("gssoft", **kw), epoch=1,
-            params=payload["params"], extra=payload["extra"],
-            kind="autoencoder_vq")
-        with pytest.raises(NotImplementedError, match=what):
-            load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
+            path, config=cfg, epoch=1, params=variables["params"],
+            extra={"batch_stats": variables["batch_stats"],
+                   "parity": False}, kind="autoencoder_vq")
+        model, _ = load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
+        lat = np.random.default_rng(6).normal(
+            size=(30, NP, jm.rep_dim)).astype(np.float32)
+        got, want = tokenize_windows(model, lat), jax_tok(jm, variables,
+                                                          lat)
+        np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+        np.testing.assert_allclose(got[1], np.asarray(want[1]), atol=ATOL)
     # seq_arch: transformer loads (the transformer chunk encoder), its
     # tokens JAX's; under BiGRU weights the config is refused
     from gesture2vec_tpu.data.teacher import tokenize_windows as jax_tok
@@ -389,15 +410,34 @@ def test_unported_options_raise(corpus, tmp_path):
         epoch=1, params=payload["params"], extra=payload["extra"])
     with pytest.raises(ValueError, match="no quantizer"):
         load_checkpoint_and_model(path, "autoencoder_vq", "cpu")
-    dae_payload = load_checkpoint(corpus["dae"])
-    vq_dae = str(tmp_path / "vq_dae.bin")
+    # a VQFrame DAE (its BatchNorm statistics and EMA state in the file)
+    # encodes frames as JAX's: the raw encoder output
+    from gesture2vec_tpu.data.teacher import encode_frames_with_dae as jenc
+    from gesture2vec_tpu.train import dae_trainer
     from gesture2vec_tpu.train.config import load_config
+    from gesture2vec_tpu.train.optim import make_optimizer
+
+    dae_payload = load_checkpoint(corpus["dae"])
+    cfg = load_config({**dae_payload["config"], "autoencoder_vq": True,
+                       "autoencoder_vq_components": 16})
+    jm = dae_trainer.make_frame_model(cfg)
+    st = dae_trainer.init_state(cfg, jm, jax.random.PRNGKey(7),
+                                make_optimizer(1e-3))
+    variables = perturb({"params": st.params,
+                         "batch_stats": st.batch_stats},
+                        np.random.default_rng(7))
+    vq_dae = str(tmp_path / "vq_dae.bin")
     checkpoints.save_checkpoint(
-        vq_dae, config=load_config({**dae_payload["config"],
-                                    "autoencoder_vq": True}),
-        epoch=1, params=dae_payload["params"], kind="DAE")
-    with pytest.raises(NotImplementedError, match="VQFrame"):
-        load_checkpoint_and_model(vq_dae, "DAE", "cpu")
+        vq_dae, config=cfg, epoch=1, params=variables["params"],
+        extra={"batch_stats": variables["batch_stats"],
+               "vq_state": jax.tree_util.tree_map(
+                   np.asarray, st.vq_state._asdict())}, kind="DAE")
+    vq_frame, _ = load_checkpoint_and_model(vq_dae, "DAE", "cpu")
+    frames = np.random.default_rng(8).normal(size=(50, DIM)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        encode_frames_with_dae(vq_frame, frames),
+        np.asarray(jenc(jm, variables, frames)), atol=ATOL)
     with pytest.raises(KeyError, match="unknown checkpoint kind"):
         load_checkpoint_and_model(corpus["dae"], "c2g", "cpu")
     dae, _ = load_checkpoint_and_model(corpus["dae"], "DAE", "cpu")

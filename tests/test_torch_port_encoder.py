@@ -301,8 +301,12 @@ def test_unported_options_raise():
                       TransformerSeqEncoder)
     with pytest.raises(ValueError, match="encoder_arch"):
         SeqVQAutoencoder(8, 16, 2, 8, encoder_arch="conv")
-    with pytest.raises(NotImplementedError, match="use_vae"):
-        SeqVQAutoencoder(8, 16, 2, 8, use_vae=True)
+    # the VAE heads are ported (over the L*H hidden); an unknown
+    # quantizer is refused
+    vae = SeqVQAutoencoder(8, 16, 2, 8, use_vae=True)
+    assert vae.vae_mean.weight.shape == (32, 32)
+    with pytest.raises(ValueError, match="vq_variant"):
+        SeqVQAutoencoder(8, 16, 2, 8, vq_variant="bogus")
     with pytest.raises(ValueError, match="vq_flatten"):
         SeqVQAutoencoder(8, 16, 2, 8, vq_flatten="bogus")
     with pytest.raises(ValueError, match="vq_flatten"):

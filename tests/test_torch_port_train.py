@@ -724,12 +724,18 @@ def test_refused_options_name_their_queue_items():
         pt2t.make_text2token(load_config({
             **T2T_CFG, "t2t_arch": "transformer",
             "compute_dtype": "bfloat16"}), 10)
-    with pytest.raises(NotImplementedError, match="item 3.4"):
+    with pytest.raises(NotImplementedError, match="item 3.7"):
         pseq.make_seq_ae(load_config({**VQ_CFG, "seq_arch": "transformer",
-                                      "use_derivative": True}))
-    with pytest.raises(NotImplementedError, match="item 3.3"):
-        pdae.make_frame_model(load_config({**DAE_CFG,
-                                           "autoencoder_vq": True}))
+                                      "compute_dtype": "bfloat16"}))
+
+    class Streaming:
+        """A streaming window source (it has `batches`)."""
+        def batches(self, epoch, bs):
+            return iter(())
+    with pytest.raises(NotImplementedError, match="item 3.8"):
+        pseq.train_seq_ae(load_config(VQ_CFG), Streaming(),
+                          np.zeros((8, NF + 1, REP), np.float32),
+                          device="cpu")
     for argv, item in ((["--part", "gan"], "item 6"),
                        (["--part", "a", "--mesh", "dp=2"], "item 5"),
                        (["--part", "audio"], "item 3.9")):

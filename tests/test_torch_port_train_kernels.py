@@ -19,7 +19,9 @@ magnitude; a second one checks that the Part-b eval decode raises there
 for a decoder the chunk-decoder kernel cannot run, and a third holds one
 train step of the transformer models (the recipe's Part d, its feedback
 step, the `seq_arch: transformer` tokenizer) on the card against the
-CPU. The JAX package's
+CPU, and a fourth one step of the Part-a VQ frame model with VAE heads
+and of the similarity-supervised Part-b step (its pair forwards at B=3).
+The JAX package's
 GRU module (it imports flax) is imported inside the CPU tests, so the
 file also collects on a machine with the card and without flax.
 """
@@ -341,3 +343,78 @@ def test_transformer_train_step_on_card_matches_cpu(run):
         scale = top if cancelled else max(float(g.abs().max()), 1e-30)
         err = float((grads[1][path] - g).abs().max()) / scale
         assert err <= 1e-4, f"{'/'.join(path)}: {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", ["a_vqvae", "b_ssl"])
+def test_frame_and_similarity_steps_on_card_match_cpu(run):
+    """One train step on the card against the CPU from the same weights
+    and batch, dropout off (the VAEs sample their mean): the VQ frame
+    model with VAE heads at the shipped widths (135 -> 40, 80 codes, its
+    argmin through the VQ kernel, once) and the similarity step of a VAE
+    tokenizer (its BiGRU through the GRU kernels at B=16 and, for the
+    pairs, B=3): the loss and every gradient within 1e-4 of each tensor's
+    largest magnitude (a bias in front of a batch-statistics BatchNorm, of
+    the model's largest), and every buffer the step updates (BatchNorm
+    statistics, the EMA state) within 1e-4 of the larger of 1 and its
+    largest magnitude."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.ops.vq_kernel import vq_argmin
+    from gesture2vec_tpu_torch.train import dae_trainer as dt
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train.config import load_config
+    from gesture2vec_tpu_torch.train.optim import Adam
+
+    rng = np.random.default_rng(4)
+    if run == "a_vqvae":
+        cfg = load_config({"hidden_size": 40, "input_motion_dim": 135,
+                           "autoencoder_vq": True, "autoencoder_vae": True,
+                           "autoencoder_vq_components": 80})
+        cpu = dt.init_model(dt.make_frame_model(cfg), 0, torch.device("cpu"))
+        batch = [torch.from_numpy(rng.normal(size=(128, 135)).astype(
+            np.float32))]
+        cancelled = {("encoder", "bias")}
+    else:
+        cfg = load_config({
+            "hidden_size": 32, "n_layers": 2, "rep_learning_dim": 8,
+            "n_poses": 10, "n_pre_poses": 1, "autoencoder_vq": True,
+            "autoencoder_vq_components": 16, "autoencoder_vae": True,
+            "use_similarity": True, "loss_label_weight": 0.1,
+            "epochs": 20})
+        cpu = dt.init_model(st.make_seq_ae(cfg), 0, torch.device("cpu"))
+        batch = [torch.from_numpy(rng.normal(size=(n, 10, 8)).astype(
+            np.float32)) for n in (16, 3, 3)]
+        batch += [torch.tensor([1.0, 0.0, 1.0]), torch.tensor(12.0)]
+        cancelled = {("decoder_step", "pre_linear", "bias")}
+    cpu.train()
+    card = copy.deepcopy(cpu).cuda().train()
+    grads, losses, buffers = [], [], []
+    before = vq_argmin.launches
+    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+        opt = Adam(m.parameters(), 1e-3)
+        step = (dt.TrainStep(m, opt) if run == "a_vqvae"
+                else st.SSLTrainStep(cfg, m, opt))
+        loss = step.loss(*(a.to(dev) for a in batch))
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss.backward()
+        losses.append(float(loss))
+        grads.append({path: p.grad.detach().cpu()
+                      for path, p, _, _ in param_entries(m)
+                      if p.grad is not None})
+        buffers.append({n: b.detach().cpu() for n, b in m.named_buffers()
+                        if b.dtype.is_floating_point})
+    torch.cuda.synchronize()
+    assert vq_argmin.launches == before + (run == "a_vqvae")
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    top = max(float(g.abs().max()) for g in grads[0].values())
+    for path, g in grads[0].items():
+        scale = top if path in cancelled else float(g.abs().max())
+        err = float((grads[1][path] - g).abs().max())
+        assert err <= 1e-4 * max(scale, 1e-30), ("/".join(path), err)
+    for name, b in buffers[0].items():
+        err = float((buffers[1][name] - b).abs().max())
+        assert err <= 1e-4 * max(1.0, float(b.abs().max())), (name, err)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives nine paths of the port, each with every kernel launch counter
+It drives ten paths of the port, each with every kernel launch counter
 set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -118,7 +118,7 @@ The decode policies at the bench widths:
   policy   one line per policy (sampled at top_k 0 and 50, stage0 greedy
            on a 4-stage model, beam 4, soft 1.0, overlap 4,
            chunk_continuity, 4-stage stage_conditional, the GRU encoder)
-           on the 60 s and 1800 s requests: launches per request, the
+           on the 60 s request: launches per request, the
            kernel path against the module path on the card and the card
            against the CPU at 60 s (tokens identical, frames within 1e-4,
            a first differing window counted only as a near-tie of the
@@ -136,13 +136,36 @@ The recommended recipe (configs/seq2seqtxt_recommended.yml: the
 transformer Part d, 4 heads, 4 chained stages, teacher prefix 1, over
 configs/VQ-VAE_rvq.yml's 4-stage tokenizer), weights through the bridge:
   recipe   one line per policy (greedy; temperature 0 with
-           stage0_temperature 1, the recipe's; beam 4) on the 6 s, 60 s
-           and 1800 s requests: launches per request, the kernel path
+           stage0_temperature 1, the recipe's; beam 4) on the 60 s
+           request: launches per request, the kernel path
            against the module path on the card and the card against the
            CPU at 60 s (tokens identical or a counted near-tie, frames
            within 1e-4), request seconds and stages, idle share at 60 s;
            then exemplar mode at 60 s over Part c's residual-VQ bank;
-Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
+The audio-context family (configs/audio.yml's Audio2Token, random, written
+as an audio2token checkpoint and loaded through compat/from_jax, over
+Part c's DAE and GS-Soft tokenizer, in the Part-c phase's directory;
+synthetic speech from seeds):
+  kernel   the GRU sequence at T=6 (a step a second of a 6 s window) for
+           B 1, 10, 128 and 300 and at T=48 (the fusion encoder's word
+           window) for B=10, and the chunk decoder at B 60 and 1800 (20
+           steps; 24 at B=60, decode_overlap 4), against their plain
+           versions, with cuDNN's layer beside the GRU;
+  audio    one line a run: decode mode at 6 s, 60 s and 1800 s (4
+           `gru_sequence` and 1 `chunk_decoder` launches a request, the
+           kernel path against the module path on the card, the card
+           against the CPU at 60 s, request seconds and stages - the mel
+           frontend on the host, the encode, the tokens, the decode and
+           DAE - and the idle share at 1800 s); exemplar mode over the
+           cluster CLI's bank with and without continuity at 60 s (4 and
+           0); at 60 s sampled (temperature 1, top_k 50), beam 4, soft
+           1.0, overlap 4 and `audio_fusion: both` with words, each
+           against the module path and the CPU; 8
+           AudioStreamingGestureSessions sharing one step over 60 s of
+           speech each, every stream's windows against `generate`;
+           `cli/infer_audio.main` at 60 s to a BVH through the ingest's
+           data_pipe.json; every kernel shape among those compared;
+Training, `g2v-train` parts a, b, d and audio (`cli/train.main()`):
   kernel   at T=20 with B=128 and 512, T=48 with B=128, a ragged B=117
            and the similarity step's pairs, B=3 (H=200, both directions;
            each output's error relative to
@@ -171,7 +194,10 @@ Training, `g2v-train` parts a, b and d (the port's `cli/train.main()`):
            script writes), VQ-VAE_rvq.yml
            (rvq_reestimate_every 1; then seq_arch: transformer, the
            transformer chunk encoder), seq2seqtxt.yml (text_encoder tcn,
-           then gru) and seq2seqtxt_recommended.yml (the recipe's
+           then gru), audio.yml (the audio Part d: mel chunks of each
+           clip's synthetic 16 kHz speech; its checkpoint through an
+           AudioGestureGenerator to 6 s of motion) and
+           seq2seqtxt_recommended.yml (the recipe's
            transformer Part d over the 4-stage residual VQ, its second
            epoch on the feedback-matched finetune step) at their widths,
            epochs cut to 1 (2 for the residual VQ, the VQFrame,
@@ -241,9 +267,10 @@ CLI_CORPUS = (4, 3600)
 # every chunk batch the paths send: a continuity chunk (1); 6 s, 60 s,
 # three 60 s transcripts in one g2v-infer call, ragged, 1800 s; the serve
 # path's stream-step buckets 2-16 (12-96) and fused /generate buckets 2-32
-# of 60 s requests (192-3072)
-KERNEL_BATCHES = (1, 6, 12, 24, 48, 96, 192, 288, 293, 384, 768, 1536, 1824,
-                  3072)
+# of 60 s requests (192-3072); the audio path's unbucketed 60 s and 1800 s
+# requests (60, 1800)
+KERNEL_BATCHES = (1, 6, 12, 24, 48, 60, 96, 192, 288, 293, 384, 768, 1536,
+                  1800, 1824, 3072)
 # chunk-decoder batches at the edges of its tiles: a single row, one
 # round of 1-row tiles (the card holds 7 clusters), 2-row tiles, several
 # rounds of 8-row tiles, and every batch the paths send
@@ -301,7 +328,8 @@ TRAIN_RUNS = (
     ("d_tcn", "d", "seq2seqtxt.yml", {"epochs": 1, "text_encoder": "tcn"}),
     ("d_gru", "d", "seq2seqtxt.yml", {"epochs": 1, "text_encoder": "gru"}),
     ("d_recipe", "d", "seq2seqtxt_recommended.yml",
-     {"epochs": 2, "feedback_finetune_epochs": 1}))
+     {"epochs": 2, "feedback_finetune_epochs": 1}),
+    ("d_audio", "audio", "audio.yml", {"epochs": 1}))
 # the runs that call the trainer itself (the command has no vq_tricks
 # flag) with these arguments
 TRAIN_TRICKS = {"a_vqvae_tricks": {"vq_tricks": True, "vq_start_epoch": 1,
@@ -312,20 +340,21 @@ TRAIN_REPS = {"b_vae": "a_vq"}
 # each Part-d run's tokenizer (--autoencoder-checkpoint): the recipe's
 # 4 stages need the 4-stage residual VQ
 TRAIN_TEACHERS = {"d_tcn": "b_gssoft", "d_gru": "b_gssoft",
-                  "d_recipe": "b_rvq"}
+                  "d_recipe": "b_rvq", "d_audio": "b_gssoft"}
 # the generators the train path builds from its checkpoints: (name, Part
 # d, Part a, Part b); each Part-d run over its tokenizer, and d_tcn's
 # Part d over a VQFrame DAE and the VAE tokenizer
 TRAIN_GENERATORS = tuple((run, run, "a", tok)
-                         for run, tok in TRAIN_TEACHERS.items()) + (
+                         for run, tok in TRAIN_TEACHERS.items()
+                         if run != "d_audio") + (
     ("d_tcn_a_vq_b_vae", "d_tcn", "a_vq", "b_vae"),)
 # the similarity labels b_ssl writes in the reference's format
 # (annotator,left,middle,right,label,time): lines over its windows
 SSL_LABEL_LINES = 400
 # steps timed for steps/s, and steps under torch.profiler for the idle
 # share, per part
-TRAIN_TIMED_STEPS = {"a": 200, "b": 10, "d": 10}
-TRAIN_PROFILED_STEPS = {"a": 50, "b": 1, "d": 3}
+TRAIN_TIMED_STEPS = {"a": 200, "b": 10, "d": 10, "audio": 10}
+TRAIN_PROFILED_STEPS = {"a": 50, "b": 1, "d": 3, "audio": 3}
 # kernel launches a train step (the others 0): the BiGRUs' 2 layers x 2
 # directions forward and backward, the 4 residual stages' argmins
 TRAIN_STEP_LAUNCHES = {
@@ -340,11 +369,15 @@ TRAIN_STEP_LAUNCHES = {
               "vq_argmin": 4},
     "b_tf": {"vq_argmin": 4},
     "d_tcn": {}, "d_gru": {"gru_sequence": 4, "gru_sequence_backward": 4},
-    "d_recipe": {}, "d_recipe_feedback": {}}
+    "d_recipe": {}, "d_recipe_feedback": {},
+    # the audio encoder's BiGRU
+    "d_audio": {"gru_sequence": 4, "gru_sequence_backward": 4}}
 # the GRU backward's (T, B): the tokenizer's steps at the training batch
-# (128) and at 512, the text encoder's word window, a ragged batch, and
-# the similarity step's pair forwards (3 windows)
-GRU_BWD_SHAPES = ((20, 128), (20, 512), (48, 128), (20, 117), (20, 3))
+# (128) and at 512, the text encoder's word window, a ragged batch, the
+# similarity step's pair forwards (3 windows), and the audio encoder's 6
+# one-second steps
+GRU_BWD_SHAPES = ((20, 128), (20, 512), (48, 128), (20, 117), (20, 3),
+                  (6, 128))
 # the residual VQ's K-Means re-fit in the training path: 10 full batches
 # of 512 of its 5,196 windows
 TRAIN_REFIT_ROWS = 5120
@@ -397,7 +430,9 @@ POLICIES = (
     ("chunk_continuity", "tcn", {"chunk_continuity": True}),
     ("stage_conditional_4stage", "stage4_cond", {}),
     ("gru_encoder", "gru", {}))
-POLICY_REQUESTS_S = (60.0, 1800.0)
+# 60 s only since the audio path came in: the 1800 s batches stay in the
+# kernel phases (policy_kernel_rows), held against the plain versions
+POLICY_REQUESTS_S = (60.0,)
 # the checkpoints' configs, as the JAX trainer saves them (the fields of
 # configs/DAE.yml, configs/VQ-VAE.yml and configs/VQ-VAE_rvq.yml that
 # the loaders read)
@@ -426,6 +461,8 @@ RECIPE_POLICIES = (
     ("beam4", {"beam_width": 4}))
 # the exemplar request's policy: the recipe's
 RECIPE_POLICY = dict(RECIPE_POLICIES)["recipe_t0_stage0_t1"]
+# the recipe's requests: 60 s only since the audio path came in
+RECIPE_REQUESTS_S = (60.0,)
 # the serve path: 60 s requests; /generate from 8 sequential clients, then
 # 16 and 32 at once (fused up to 32); one 6 s BVH answer; /stream from
 # (sessions, stream_batch); the served command's start-up limit
@@ -441,6 +478,37 @@ SERVE_GRU_STREAMS, SERVE_GRU_CLIENTS = 8, 4
 # 1800 s request (303 windows, 304 in the bucket)
 GRU_T48_BATCHES = (1, 2, 4, 8, 16, 32, 64, 303, 304)
 SERVE_CLI_START_S = 120.0
+# the audio path (configs/audio.yml: hidden 200, 2 layers, 512 codes,
+# n_pre_poses 2, attention; 120-frame windows at 20 fps of 6 one-second
+# mel chunks): decode requests of 6 s, 60 s and 1800 s (1, 10 and 300
+# windows: chunk batches 6, 60, 1800, no bucketing, as in JAX); at 60 s
+# the policies, exemplar mode and 8 streams
+AUDIO_SR = 16000
+AUDIO_REQUESTS_S = (6.0, 60.0, 1800.0)
+AUDIO_POLICY_S = 60.0
+AUDIO_POLICIES = (
+    ("sampled_t1_top_k50", "audio", {"temperature": 1.0, "top_k": 50}),
+    ("beam4", "audio", {"beam_width": 4}),
+    ("soft1", "audio", {"soft_decode": 1.0}),
+    ("overlap4", "audio", {"decode_overlap": 4}),
+    ("fusion_both", "both", {}))
+AUDIO_STREAMS = 8
+# the GRU sequence's (T, B) there: T = 6 (a second a step) at B = 1 (a
+# window: 6 s requests, streams), 10 (60 s), 128 (a training batch), 300
+# (1800 s); T = 48, the fusion encoder's word window, at B = 10
+AUDIO_GRU_SHAPES = ((6, 1), (6, 10), (6, 128), (6, 300), (48, 10))
+# the chunk decoder's (B, steps): 60 s and 1800 s, and 60 s with
+# decode_overlap 4
+AUDIO_DECODER_SHAPES = ((60, N_FRAMES), (1800, N_FRAMES), (60, N_FRAMES + 4))
+# the audio Part d's checkpoint config, as the JAX trainer saves it
+AUDIO_ARGS = {"name": "audio2token", "model": "seq2seq", "hidden_size": HID,
+              "n_layers": L, "sentence_frame_length": SENT_LEN,
+              "n_poses": N_FRAMES, "n_pre_poses": 2, "autoencoder_att": True,
+              "autoencoder_vq": True, "autoencoder_vq_components": K,
+              "wordembed_dim": WORDEMBED, "motion_resampling_framerate": FPS,
+              "token_stages": 1, "stage_conditional": False,
+              "audio_fusion": "audio", "dropout_prob": 0.2,
+              "batch_size": 128, "extras": {}}
 
 
 _T0 = time.perf_counter()
@@ -544,18 +612,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_busy(fn, wall_s: float) -> dict:
-    """Kernel time on the card during one call of fn (torch.profiler),
-    against the unprofiled wall time of the same call."""
+    """Kernel and copy time on the card during one call of fn
+    (torch.profiler), against the unprofiled wall time of the same call.
+    The profiler records the device's activity only: with the host's
+    too, each operator's row in key_averages carries the device time of
+    the kernels it launched beside the kernels' own rows, so a sum over
+    the rows counted every kernel twice (and "device_ops" counted the
+    launching operators too), and its post-processing took ~3x as
+    long."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages())
-    kernels = sum(e.count for e in prof.key_averages()
+    rows = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in rows)
+    kernels = sum(e.count for e in rows
                   if getattr(e, "self_device_time_total", 0.0) > 0)
     return {"busy_s": busy_us / 1e6, "device_ops": kernels,
             "idle_share": 1.0 - busy_us / 1e6 / wall_s}
@@ -2776,8 +2849,8 @@ def policy_kernel_rows(folded, gru_w) -> dict:
 
 
 def policies_path(smi: str) -> tuple:
-    """Decode mode at the bench widths under each policy, on the 60 s and
-    1800 s requests: launches per request, the kernel path against the
+    """Decode mode at the bench widths under each policy, on the
+    POLICY_REQUESTS_S requests (60 s): launches per request, the kernel path against the
     module path on the card, the card against the CPU at 60 s, request
     seconds and stages."""
     import torch
@@ -2843,9 +2916,9 @@ def policies_path(smi: str) -> tuple:
         timing = {}
         for d in POLICY_REQUESTS_S:
             w = words(d)
-            # one repeat of the long request and no stage split of it
-            # keep the run in its budget
-            long = d == POLICY_REQUESTS_S[-1]
+            # one repeat of a long request and no stage split of it keep
+            # the run in its budget
+            long = d >= 1800
             req_s = best_s(lambda: gen.generate(w, d), reps=1 if long else 2)
             timing[d] = {"seconds": req_s,
                          "frames_per_s": outs[d][0].shape[0] / req_s,
@@ -2922,7 +2995,7 @@ def recipe_trees(rng: np.random.Generator):
 
 def recipe_path(smi: str, bank: dict) -> dict:
     """The recommended recipe through the weight bridge: decode mode on the
-    6 s, 60 s and 1800 s requests under each of RECIPE_POLICIES, and
+    RECIPE_REQUESTS_S requests (60 s) under each of RECIPE_POLICIES, and
     exemplar mode on the 60 s request against Part c's residual-VQ bank.
     At 60 s the kernel path is held against the module path on the card
     and the card against the CPU (fresh generators, first request)."""
@@ -2956,7 +3029,7 @@ def recipe_path(smi: str, bank: dict) -> dict:
         gen = make("cuda", True, **options)
         reset_launches()
         outs, per_request = {}, {}
-        for d in REQUESTS_S:
+        for d in RECIPE_REQUESTS_S:
             before = read_launches()
             outs[d] = gen.generate(words(d), d)
             per_request[d] = {k: v - before[k]
@@ -2964,7 +3037,7 @@ def recipe_path(smi: str, bank: dict) -> dict:
         launches[name] = read_launches()
         want = {d: {"chunk_decoder": 1, "gru_sequence": 0,
                     "gru_sequence_backward": 0, "vq_argmin": 0}
-                for d in REQUESTS_S}
+                for d in RECIPE_REQUESTS_S}
         for d, (frames, toks) in outs.items():
             n_windows = int(np.ceil(d / unit))
             if frames.shape != (n_windows * SENT_LEN, DIM) \
@@ -2984,9 +3057,9 @@ def recipe_path(smi: str, bank: dict) -> dict:
             first, make("cpu", True, **options).generate(words(d60), d60),
             lambda: token_margins(make("cpu", True, **options), [d60])[d60])
         timing = {}
-        for d in REQUESTS_S:
+        for d in RECIPE_REQUESTS_S:
             w = words(d)
-            long = d == REQUESTS_S[-1]
+            long = d >= 1800
             req_s = best_s(lambda: gen.generate(w, d), reps=1 if long else 2)
             timing[d] = {"seconds": req_s,
                          "frames_per_s": outs[d][0].shape[0] / req_s,
@@ -2999,8 +3072,8 @@ def recipe_path(smi: str, bank: dict) -> dict:
               "launches_per_request": per_request, "want": want,
               "kernel_vs_module_60s": vs_module, "card_vs_cpu_60s": vs_cpu,
               "tol": TOL, "near_tie_margin": LOGIT_TIE,
-              "distinct_tokens_1800s": int(len(np.unique(
-                  outs[REQUESTS_S[-1]][1]))), "timing": timing, "card": smi})
+              "distinct_tokens_60s": int(len(np.unique(outs[d60][1]))),
+              "timing": timing, "card": smi})
         if per_request != want or not vs_module["ok"] or not vs_cpu["ok"]:
             raise AssertionError(f"recipe {name} failed its checks")
 
@@ -3064,13 +3137,19 @@ def tf_tokenizer_trees(rng: np.random.Generator):
 # -- training: g2v-train parts a, b and d ---------------------------------
 def write_train_store(root: str, rng: np.random.Generator) -> list:
     """The training stores: smooth synthetic motion (sinusoids plus noise)
-    135 wide with a word every 0.4 s (150 a minute)."""
+    135 wide with a word every 0.4 s (150 a minute), as [train, val]; then
+    a copy of each with every clip's speech-like audio at 16 kHz
+    (synthetic_speech, seeded by the clip), as [train_audio, val_audio],
+    which the audio Part d trains on (the other runs read stores without
+    audio: a clip's 650 s of audio takes ~0.5 s to decompress)."""
     from gesture2vec_tpu_torch.data.store import ClipStoreWriter
 
-    paths = []
-    for name, n_clips, n_frames in (("train", TRAIN_CLIPS, TRAIN_FRAMES),
-                                    ("val", 1, TRAIN_VAL_FRAMES)):
-        w = ClipStoreWriter(os.path.join(root, name))
+    paths = {}
+    for k, (name, n_clips, n_frames) in enumerate((
+            ("train", TRAIN_CLIPS, TRAIN_FRAMES),
+            ("val", 1, TRAIN_VAL_FRAMES))):
+        writers = {sfx: ClipStoreWriter(os.path.join(root, name + sfx))
+                   for sfx in ("", "_audio")}
         clips = []
         for i in range(n_clips):
             t = np.arange(n_frames)[:, None] / FPS
@@ -3079,16 +3158,21 @@ def write_train_store(root: str, rng: np.random.Generator) -> list:
                      + 0.1 * rng.normal(size=(n_frames, DIM))
                      ).astype(np.float32)
             starts = np.arange(0.1, n_frames / FPS - 0.5, 0.4)
-            w.add_clip(f"{name}{i}", poses, [
+            clip_words = [
                 [f"word{rng.integers(VOCAB_WORDS)}", float(s), float(s + 0.3)]
-                for s in starts])
+                for s in starts]
+            writers[""].add_clip(f"{name}{i}", poses, clip_words)
+            writers["_audio"].add_clip(
+                f"{name}{i}", poses, clip_words, audio=synthetic_speech(
+                    n_frames / FPS, 1000 * (k + 1) + i))
             clips.append(poses)
         frames = np.concatenate(clips)
-        w.set_stats(frames.mean(0), frames.std(0))
-        w.set_meta(fps=FPS, feature_dim=DIM)
-        w.finish()
-        paths.append(w.root)
-    return paths
+        for sfx, w in writers.items():
+            w.set_stats(frames.mean(0), frames.std(0))
+            w.set_meta(fps=FPS, feature_dim=DIM)
+            w.finish()
+            paths[name + sfx] = w.root
+    return [paths[n] for n in ("train", "val", "train_audio", "val_audio")]
 
 
 def write_train_config(path: str, shipped: str, overrides: dict) -> dict:
@@ -3122,6 +3206,9 @@ def train_step_of(part: str, cfg, model, opt, variant: str = ""):
     if part == "b":
         cls = st.SSLTrainStep if is_ssl(cfg) else st.TrainStep
         return cls(cfg, model, opt)
+    if part == "audio":
+        from gesture2vec_tpu_torch.train import audio2token_trainer as at
+        return at.TrainStep(model, opt, cfg.label_smoothing)
     if variant == "feedback":
         return tt.FeedbackTrainStep(model, opt, cfg.label_smoothing,
                                     cfg.feedback_temperature)
@@ -3176,6 +3263,9 @@ def fresh_model(part: str, cfg, n_words: int, device: str):
         return dt.init_model(dt.make_frame_model(cfg), 0, dev)
     if part == "b":
         return dt.init_model(st.make_seq_ae(cfg), 0, dev)
+    if part == "audio":
+        from gesture2vec_tpu_torch.train import audio2token_trainer as at
+        return at.init_audio2token(at.make_audio2token(cfg, n_words), 0, dev)
     return tt.init_text2token(tt.make_text2token(cfg, n_words), 0, dev)
 
 
@@ -3284,8 +3374,10 @@ def compared_shapes() -> dict:
     gru = {(GRU_T, B, H) for B in (*GRU_BATCHES, *GRU_EDGE_BATCHES)
            for H in (HID, HID + 1)}
     gru |= {(MAXW, B, HID) for B in GRU_T48_BATCHES}
+    gru |= {(T, B, HID) for T, B in AUDIO_GRU_SHAPES}
     bwd = {(T, B, HID) for T, B in GRU_BWD_SHAPES}
-    return {"chunk_decoder": set(DECODER_SHAPES), "gru_sequence": gru | bwd,
+    return {"chunk_decoder": set(DECODER_SHAPES) | set(AUDIO_DECODER_SHAPES),
+            "gru_sequence": gru | bwd,
             "gru_sequence_gates": bwd, "gru_sequence_backward": bwd,
             "vq_argmin": {(N, Kc, VQ_D) for N, Kc in VQ_SHAPES}
             | {(N, Kc, VQ_FRAME_D) for N, Kc in VQ_FRAME_SHAPES}}
@@ -3297,23 +3389,24 @@ def train_want_launches(part: str, run: str, cfg, n: int, m: int,
     m validation samples (full batches only) over its epochs: Part a's
     VQFrame one argmin a train step (none in vq_tricks' warmup epochs)
     and a validation batch, and a re-fit's Lloyd fit its steps + 1; Part
-    b's BiGRU 4 forward a train step (12 in the similarity step) and a
-    validation batch and 4 backward a train step (12), the transformer
-    encoder none; one chunk_decoder a
+    b's BiGRU (and the audio Part d's encoder BiGRU) 4 forward a train
+    step (12 in the similarity step) and a validation batch and 4
+    backward a train step (12), the transformer encoder none; one chunk_decoder a
     validation batch, the residual VQ's argmins (one a stage) a step and
     a batch; a re-fit runs the BiGRU's layer 0 (2 launches) per 512
     windows and, per stage, a Lloyd fit (its steps + 1 argmins) and the
     residual's argmin. Part d's data runs the BiGRU tokenizer's layer 0
     (2) per 512 chunks of train and validation windows, and a residual
-    one's argmins (one a stage) per 512; its GRU encoder launches as Part
-    b's BiGRU does (the transformer Part d, teacher-forced or feedback,
-    none)."""
+    one's argmins (one a stage) per 512, as does the audio Part d's; its
+    GRU encoder launches as Part b's BiGRU does (the transformer Part d,
+    teacher-forced or feedback, none)."""
     bs, epochs = cfg.batch_size, cfg.epochs
     steps, val = n // bs, m // bs
     want = {name: 0 for name in launch_counters()}
     bigru = part == "b" and cfg.extras.get("seq_arch") != "transformer"
-    recurrent = bigru or (cfg.extras.get("text_encoder") == "gru"
-                          and cfg.extras.get("t2t_arch") != "transformer")
+    recurrent = bigru or part == "audio" or (
+        cfg.extras.get("text_encoder") == "gru"
+        and cfg.extras.get("t2t_arch") != "transformer")
     # the similarity step's forwards: the batch and two pairs
     forwards = 3 if part == "b" and is_ssl(cfg) else 1
     if recurrent:
@@ -3336,7 +3429,7 @@ def train_want_launches(part: str, run: str, cfg, n: int, m: int,
             want["gru_sequence"] += 2 * (min(n, 20000) // 512) * refits
         want["vq_argmin"] = cfg.rvq_stages * (steps + val) * epochs + sum(
             s + 2 for s in lloyd_steps)
-    if part == "d":
+    if part in ("d", "audio"):
         chunks = cfg.sentence_frame_length // cfg.n_poses
         batches = -(-chunks * n // 512) - (-chunks * m // 512)
         want["gru_sequence"] += 2 * batches
@@ -3395,6 +3488,9 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
         dt.eval_step(model, *vb)
     elif part == "b":
         st.eval_step(cfg, model, *vb)
+    elif part == "audio":
+        from gesture2vec_tpu_torch.train import audio2token_trainer as at
+        at.make_eval_step(model)(*vb)
     else:
         tt.make_eval_step(model)(*vb)
     torch.cuda.synchronize()
@@ -3448,8 +3544,9 @@ def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
     against the CPU's largest magnitude of that tensor (the tensors whose
     gradient is rounding against the largest gradient of the model: the
     biases that a batch-statistics BatchNorm cancels - the decoder's
-    pre_linear, the VQFrame's encoder - and an attention's key bias,
-    which its softmax cancels), and every buffer the step updates (the
+    pre_linear, the VQFrame's encoder, the audio mel encoder's fc and
+    bn2, whose outputs reach fc_bn through fc alone - and an attention's
+    key bias, which its softmax cancels), and every buffer the step updates (the
     BatchNorm statistics, a VQFrame's EMA state) against the larger of 1
     and its largest magnitude. A VQFrame's codes may differ only at a
     near-tie of the CPU's distances (NEAR_TIE), and then the EMA state
@@ -3522,7 +3619,9 @@ def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
             cancelled = path[-2:] in (("pre_linear", "bias"),
                                       ("k", "bias")) \
                 or path == ("encoder", "decoder", "bias") \
-                or (vq_frame and path == ("encoder", "bias"))
+                or (vq_frame and path == ("encoder", "bias")) \
+                or path[-3:] in (("wav_encoder", "fc", "bias"),
+                                 ("wav_encoder", "bn2", "bias"))
             scale = top if cancelled else float(g.abs().max())
             err = float((other[path] - g).abs().max()) / max(scale, 1e-30)
             if err > worst:
@@ -3582,7 +3681,11 @@ def train_path(smi: str, tmp: str) -> tuple:
 
     from gesture2vec_tpu_torch.cli import train as cli_train
     from gesture2vec_tpu_torch.cli._common import build_generator
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
     from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.infer.audio2gesture import \
+        AudioGestureGenerator
     from gesture2vec_tpu_torch.train import dae_trainer as dt
     from gesture2vec_tpu_torch.train import seq_ae_trainer as st
     from gesture2vec_tpu_torch.train.config import load_config
@@ -3629,12 +3732,14 @@ def train_path(smi: str, tmp: str) -> tuple:
                     os.path.join(root, "gesture_labels.txt"), n_win,
                     np.random.default_rng(10))
             write_train_config(cfg_path, shipped, {
-                "train_data_path": stores[0], "val_data_path": stores[1],
+                # the audio Part d's stores carry the clips' speech
+                "train_data_path": stores[2 if part == "audio" else 0],
+                "val_data_path": stores[3 if part == "audio" else 1],
                 "model_save_path": save, **cuts, **labels})
             argv = ["-c", cfg_path, "--part", part, "--save-dir", save]
-            if part in "bd":
+            if part != "a":
                 argv += ["--rep-checkpoint", ckpts[TRAIN_REPS.get(run, "a")]]
-            if part == "d":
+            if part in ("d", "audio"):
                 argv += ["--autoencoder-checkpoint",
                          ckpts[TRAIN_TEACHERS[run]]]
             lloyd_steps.clear()
@@ -3668,8 +3773,9 @@ def train_path(smi: str, tmp: str) -> tuple:
                 shapes["gru_sequence_gates"].values()) - gates_before
             ckpts[run] = sorted(glob.glob(os.path.join(save, "*.bin")))[-1]
             cfg, (train, val), kw = built.pop("out")
-            if part == "d":
-                fields = ("word_ids", "lengths", "tokens") + (
+            if part in ("d", "audio"):
+                fields = (("mel", "tokens") if part == "audio" else
+                          ("word_ids", "lengths", "tokens")) + (
                     ("stage_tokens",) if cfg.token_stages > 1 else ())
                 train, val = (tuple(d[f] for f in fields)
                               for d in (train, val))
@@ -3792,6 +3898,30 @@ def train_path(smi: str, tmp: str) -> tuple:
             if frames.shape != (int(6.0 * FPS), DIM) or not \
                     gens[name]["finite"] or got["chunk_decoder"] != 1:
                 problems.append(f"{name}: generator {gens[name]}")
+        # the audio Part d's checkpoint over its tokenizer and DAE, as
+        # cli/infer_audio loads them: 6 s of speech, one window
+        store = ClipStore(stores[0])
+        gen = AudioGestureGenerator(
+            a2t_model=load_checkpoint_and_model(ckpts["d_audio"],
+                                                "audio2token")[0],
+            seq_decoder=load_checkpoint_and_model(
+                ckpts[TRAIN_TEACHERS["d_audio"]], "autoencoder_vq")[0]
+            .decoder,
+            dae_model=load_checkpoint_and_model(ckpts["a"], "DAE")[0],
+            pose_mean=store.pose_mean, pose_std=store.pose_std,
+            n_frames=N_FRAMES, sentence_frame_length=SENT_LEN, fps=FPS)
+        reset_launches()
+        frames, tokens = gen.generate(synthetic_speech(6.0, 3))
+        torch.cuda.synchronize()
+        got = read_launches()
+        gens["d_audio"] = {"checkpoints": ["d_audio", "a",
+                                           TRAIN_TEACHERS["d_audio"]],
+                           "frames": list(frames.shape),
+                           "finite": bool(np.isfinite(frames).all()),
+                           "launches": got}
+        if frames.shape != (SENT_LEN, DIM) or not gens["d_audio"]["finite"] \
+                or got["chunk_decoder"] != 1 or got["gru_sequence"] != 4:
+            problems.append(f"d_audio: generator {gens['d_audio']}")
     # every shape the path gave a kernel, held against its plain version
     # in a kernel phase
     compared = compared_shapes()
@@ -3991,6 +4121,551 @@ def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
     return counts
 
 
+# -- the audio-context family --------------------------------------------
+def synthetic_speech(seconds: float, seed: int = 0) -> np.ndarray:
+    """Speech-like audio at 16 kHz from a seed: two tones and noise,
+    amplitude-modulated at a syllable rate (3-5 Hz), so that the mel
+    chunks differ from second to second."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * AUDIO_SR)
+    f0, f1, syl = rng.uniform(100, 200), rng.uniform(600, 1200), \
+        rng.uniform(3, 5)
+    out = np.empty(n, np.float32)
+    step = 1 << 22
+    for a in range(0, n, step):
+        t = np.arange(a, min(a + step, n)) / AUDIO_SR
+        carrier = np.sin(2 * np.pi * f0 * t) \
+            + 0.5 * np.sin(2 * np.pi * f1 * t) \
+            + 0.3 * rng.normal(size=t.shape)
+        out[a:a + len(t)] = 0.3 * carrier * (
+            0.5 + 0.5 * np.sin(2 * np.pi * syl * t))
+    return out
+
+
+def audio_trees(rng: np.random.Generator, fusion: str = "audio") -> dict:
+    """Random configs/audio.yml-width Audio2Token variables in the JAX
+    package's layout (numpy): the mel encoder (fusion "audio") or the
+    word + raw-chunk encoder ("both", the 5000 x 300 word table), its
+    2-layer BiGRU at hidden 200, and a token decoder drawn as the decode
+    path's (512 codes, attention); uniform in +-1/sqrt(fan_in), BatchNorm
+    scale near 1 and statistics near (0, 1)."""
+    from gesture2vec_tpu_torch.models.audio import (SPECTRAL_SPECS,
+                                                   TRI_SPECS, conv_length)
+
+    def u(shape, fan_in):
+        b = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-b, b, size=shape).astype(np.float32)
+
+    def bn(c):
+        return ({"scale": (1 + 0.1 * rng.normal(size=c)).astype(np.float32),
+                 "bias": (0.1 * rng.normal(size=c)).astype(np.float32)},
+                {"mean": (0.1 * rng.normal(size=c)).astype(np.float32),
+                 "var": rng.uniform(0.5, 1.5, size=c).astype(np.float32)})
+
+    both = fusion == "both"
+    specs, in_ch = (TRI_SPECS, 1) if both else (SPECTRAL_SPECS, 128)
+    wav, stats = {}, {}
+    for i, (ch, k, _, _) in enumerate(specs):
+        wav[f"conv{i}"] = {"kernel": u((k, in_ch, ch), k * in_ch),
+                           "bias": u((ch,), k * in_ch)}
+        if i < 3:
+            wav[f"bn{i}"], stats[f"bn{i}"] = bn(ch)
+        in_ch = ch
+    if both:
+        n_in = conv_length(AUDIO_SR, TRI_SPECS) * in_ch
+        wav["out_layer"] = {"kernel": u((n_in, HID), n_in),
+                            "bias": u((HID,), n_in)}
+    else:
+        n_in = conv_length(32, SPECTRAL_SPECS) * in_ch
+        wav["fc"] = {"kernel": u((n_in, HID), n_in), "bias": u((HID,), n_in)}
+        wav["fc_bn"], stats["fc_bn"] = bn(HID)
+    gru = {}
+    for layer in range(L):
+        d = (WORDEMBED + HID if both else HID) if layer == 0 else 2 * HID
+        for sfx in ("", "_reverse"):
+            gru.update({f"l{layer}_w_ih{sfx}": u((3 * HID, d), HID),
+                        f"l{layer}_w_hh{sfx}": u((3 * HID, HID), HID),
+                        f"l{layer}_b_ih{sfx}": u((3 * HID,), HID),
+                        f"l{layer}_b_hh{sfx}": u((3 * HID,), HID)})
+    enc = {"wav_encoder": wav, "gru": gru}
+    if both:
+        enc["embedding"] = {"embedding": (rng.normal(size=(
+            N_WORDS, WORDEMBED)) / np.sqrt(WORDEMBED)).astype(np.float32)}
+    t2t, _, _ = jax_layout_trees(rng)
+    return {"params": {"encoder": enc,
+                       "decoder_step": t2t["params"]["decoder_step"]},
+            "batch_stats": {"encoder": {"wav_encoder": stats},
+                            "decoder_step": t2t["batch_stats"]
+                            ["decoder_step"]}}
+
+
+def audio_kernel_rows(folded, gru_w) -> dict:
+    """Both kernels at the shapes the audio path gives them, against
+    their plain versions: the GRU sequence at each of AUDIO_GRU_SHAPES
+    (T=6: one step a second of a 6 s window; T=48: the fusion encoder's
+    word window), both directions, with cuDNN's layer and the matmul plus
+    the kernel beside it; the chunk decoder at AUDIO_DECODER_SHAPES (the
+    60 s and 1800 s chunk batches, 20 steps and 24 with decode_overlap
+    4)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = {"chunk_decoder": {}, "gru_sequence": {}}
+    for B, n in AUDIO_DECODER_SHAPES:
+        x0 = torch.randn(B, REP, device="cuda", generator=g)
+        h0 = torch.randn(2, B, HID, device="cuda", generator=g)
+        ys = dk.fused_chunk_decode(x0, h0, folded, n)
+        ref = dk.fused_chunk_decode_plain(x0, h0, folded, n)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "path": "audio", "kernel": "chunk_decoder",
+               "B": B, "H": HID, "D": REP, "n_steps": n,
+               "launch": decoder_launch(B, HID, REP),
+               "max_abs_err": (ys - ref).abs().max().item(), "tol": TOL,
+               "ms": cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
+                                                           n), 20),
+               "plain_ms": cuda_ms(lambda: dk.fused_chunk_decode_plain(
+                   x0, h0, folded, n), 10),
+               "library_ms": None,
+               **chunk_decoder_bound_ms(B, REP, HID, n)}
+        emit(row)
+        rows["chunk_decoder"][f"audio_B{B}_T{n}"] = row
+    w_ih, w_hh, b_ih, b_hh = gru_w
+    cudnn = torch.nn.GRU(w_ih.shape[1], HID, 1).cuda()
+    with torch.no_grad():
+        for prm, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                       (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            prm.copy_(v)
+    with torch.inference_mode():
+        for T, B in AUDIO_GRU_SHAPES:
+            xs = torch.randn(T, B, w_ih.shape[1], device="cuda", generator=g)
+            h0 = torch.zeros(B, HID, device="cuda")
+            xp = (xs.reshape(-1, xs.shape[2]) @ w_ih.t() + b_ih).reshape(
+                T, B, -1)
+            err = 0.0
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(xp, h0, w_hh, b_hh, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(xp, h0, w_hh, b_hh,
+                                                  reverse)
+                torch.cuda.synchronize()
+                err = max(err, (ys - ys_p).abs().max().item(),
+                          (h - h_p).abs().max().item())
+            y_c, h_c = cudnn(xs, h0[None])
+            y_k, h_k = gru_layer(xs, h0, w_ih, w_hh, b_ih, b_hh)
+            row = {"phase": "kernel", "path": "audio",
+                   "kernel": "gru_sequence", "T": T, "B": B, "H": HID,
+                   "directions": 2, "launch": gru_launch(B, HID),
+                   "max_abs_err": err, "tol": TOL,
+                   "ms": cuda_ms(lambda: gk.gru_sequence(xp, h0, w_hh,
+                                                         b_hh), 20),
+                   "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                       xp, h0, w_hh, b_hh), 5),
+                   **gru_bound_ms(T, B, HID),
+                   # cuDNN computes the input product too: its yardstick
+                   # is the matmul plus the kernel
+                   "library_ms": cuda_ms(lambda: cudnn(xs, h0[None]), 20),
+                   "matmul_plus_kernel_ms": cuda_ms(lambda: gru_layer(
+                       xs, h0, w_ih, w_hh, b_ih, b_hh), 20),
+                   "cudnn_max_abs_err": max(
+                       (y_c - y_k).abs().max().item(),
+                       (h_c[0] - h_k).abs().max().item())}
+            emit(row)
+            rows["gru_sequence"][f"T{T}_B{B}"] = row
+    bad = [r for k in rows.values() for r in k.values()
+           if not r["max_abs_err"] <= TOL]
+    if bad:
+        raise AssertionError(f"kernels at the audio path's shapes: {bad}")
+    return rows
+
+
+def decode_margins(model, args, mask, beam: int, temperature: float,
+                   top_k: int, stage0_temperature: float, gumbel):
+    """One window's decode by a token model (args = (encoder outputs,
+    decoder hidden, seed), one row) and its decision margins (n_steps -
+    1,): at each step the smallest gap between the best and the
+    second-best score of any choice made; greedy and sampled scores from
+    the logits through `decision_scores`, beam's from its step scores
+    (the K-th against the (K+1)-th, and at the last step the best
+    hypothesis' lead). Returns (the decode, the margins)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.text2token import decision_scores
+
+    def gap(scores):
+        top = torch.topk(scores, 2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    if beam:
+        res = model.beam_decode(*args, beam, mask)
+        s = res["step_scores"][0]
+        m = s[:, beam - 1] - s[:, beam]
+        if beam > 1:
+            m[-1] = torch.minimum(m[-1], s[-1, 0] - s[-1, 1])
+        return res, m
+    t0 = temperature if stage0_temperature < 0.0 else stage0_temperature
+    res = model.decode_tokens(*args, mask, temperature=temperature,
+                              top_k=top_k,
+                              stage0_temperature=stage0_temperature,
+                              gumbel=gumbel)
+    m = gap(decision_scores(res["logits"][:, 1:], t0, top_k, None
+                            if gumbel is None else gumbel[:, :, 0]))[0]
+    if "stage_logits" in res:
+        m = torch.minimum(m, gap(decision_scores(
+            res["stage_logits"], temperature, top_k,
+            None if gumbel is None else gumbel[:, :, 1:]))[0]
+            .min(dim=-1).values)
+    return res, m
+
+
+def audio_margins(gen, audio: np.ndarray, d: float, words_=None
+                  ) -> np.ndarray:
+    """token_margins for a fresh AudioGestureGenerator's first request:
+    (windows, n_steps - 1), the windows replayed as `generate` decodes
+    them, on the request's own noise."""
+    import torch
+
+    a2t, n_pre = gen.a2t_model, gen.a2t_model.n_pre
+    W = max(int(np.ceil(d / (SENT_LEN / FPS))), 1)
+    with torch.inference_mode():
+        enc_in = gen.encoder_inputs(audio, W, words_)
+        noise = gen._noise(gen._next_generator(), (1, W))
+        eo, dh = a2t.encode_audio(enc_in)
+        seed = torch.zeros((1, gen.n_steps), dtype=torch.long,
+                           device=eo.device)
+        per = []
+        for w in range(W):
+            res, m = decode_margins(
+                a2t, (eo[:, w:w + 1], dh[:, w:w + 1], seed), None,
+                gen._beam, gen.temperature, gen.top_k, -1.0,
+                None if noise is None else noise[:, w])
+            per.append(m)
+            seed = torch.zeros_like(seed)
+            seed[:, :n_pre] = res["tokens"][:, -n_pre:]
+        return torch.stack(per).cpu().numpy()
+
+
+def audio_stage_split(gen, audio: np.ndarray, d: float, reps: int = 2,
+                      words_=None) -> dict:
+    """Host seconds of one request's stages (best of reps, each timed
+    alone on synchronised work): the encoder inputs (the mel frontend on
+    the host, or the raw chunks and word ids, and the copy to the card),
+    the batched encode, the encode with the token decode (noise
+    included), and the chunk rollout with the DAE decode (or the picks,
+    gather and DAE decode) to host frames."""
+    import torch
+
+    W = max(int(np.ceil(d / (SENT_LEN / FPS))), 1)
+    out = {"mel_frontend": best_s(lambda: gen.encoder_inputs(
+        audio, W, words_), reps)}
+    enc_in = gen.encoder_inputs(audio, W, words_)
+    with torch.inference_mode():
+        def tokens():
+            return gen._predict(enc_in, gen._noise(gen._next_generator(),
+                                                   (1, W)))
+        out["encode"] = best_s(lambda: gen.a2t_model.encode_audio(enc_in),
+                               reps)
+        out["encode_and_tokens"] = best_s(tokens, reps)
+        pred = tokens()
+        out["decode_and_dae"] = best_s(lambda: gen._motion(pred), reps)
+    return out
+
+
+def audio_path(smi: str, tmp: str, files: dict) -> tuple:
+    """The audio Part d (configs/audio.yml: hidden 200, 2 layers, 512
+    codes, attention, 6 one-second mel chunks a window) over Part c's DAE
+    and GS-Soft tokenizer: random weights written as an audio2token
+    checkpoint in the JAX package's format and loaded through
+    compat/from_jax; synthetic speech from seeds. Decode mode at 6 s, 60 s
+    and 1800 s; exemplar mode over the cluster CLI's bank with and without
+    continuity at 60 s; at 60 s the decode policies (sampled, beam 4,
+    soft 1.0, overlap 4) and `audio_fusion: both` with words; 8 streaming
+    sessions sharing one step; `cli/infer_audio` to a BVH. Returns (the
+    kernel rows, launches by run)."""
+    import torch
+    from scipy.io import wavfile
+
+    from gesture2vec_tpu_torch.cli import infer_audio
+    from gesture2vec_tpu_torch.cluster.latent_dataset import \
+        load_latent_dataset
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.infer.audio2gesture import \
+        AudioGestureGenerator
+    from gesture2vec_tpu_torch.infer.streaming import (
+        AudioStreamingGestureSession, build_audio_streaming_step)
+    from gesture2vec_tpu_torch.io.bvh import parse_bvh
+    from gesture2vec_tpu_torch.ops.decoder_kernel import fold_decoder_step
+    from gesture2vec_tpu_torch.text.vocab import Vocab
+
+    vocab = Vocab("bench")
+    for i in range(VOCAB_WORDS):
+        vocab.index_word(f"word{i}")
+    rng = np.random.default_rng(21)
+    ckpts = {}
+    for fusion in ("audio", "both"):
+        tree = audio_trees(rng, fusion)
+        ckpts[fusion] = os.path.join(tmp, f"a2t_{fusion}.bin")
+        write_checkpoint(ckpts[fusion], {**AUDIO_ARGS, "audio_fusion": fusion},
+                         tree["params"], tree["batch_stats"], "audio2token",
+                         K, lang_model=vocab.state_dict()
+                         if fusion == "both" else None, n_words=N_WORDS)
+    store = ClipStore(files["train"])
+    bank = load_latent_dataset(files["bank"])
+    models = {}
+
+    def make(device, kernels=True, fusion="audio", mode="decode",
+             **policy):
+        key = (device, fusion)
+        if key not in models:
+            models[key] = (
+                load_checkpoint_and_model(ckpts[fusion], "audio2token",
+                                          device)[0],
+                load_checkpoint_and_model(files["vq"], "autoencoder_vq",
+                                          device)[0].decoder,
+                load_checkpoint_and_model(files["dae"], "DAE", device)[0])
+        a2t, seq, dae = models[key]
+        a2t.set_use_kernels(kernels)
+        return AudioGestureGenerator(
+            a2t_model=a2t, seq_decoder=seq, dae_model=dae,
+            pose_mean=store.pose_mean, pose_std=store.pose_std,
+            n_frames=N_FRAMES, sentence_frame_length=SENT_LEN, fps=FPS,
+            mode=mode, latent_bank=bank if mode == "exemplar" else None,
+            seed=0, vocab=vocab if fusion == "both" else None,
+            max_words=MAXW, use_fused_decoder=kernels, device=device,
+            **policy)
+
+    gen = make("cuda")
+    enc = gen.a2t_model.encoder.gru
+    rows = audio_kernel_rows(fold_decoder_step(gen.seq_decoder.decoder_step),
+                             [t.detach() for t in enc.layer_weights(0,
+                                                                    False)])
+    audios = {d: synthetic_speech(d, 1) for d in AUDIO_REQUESTS_S}
+    d60 = AUDIO_POLICY_S
+    unit = SENT_LEN / FPS
+    launches, problems = {}, []
+
+    def want(mode, n_windows=1):
+        return {"chunk_decoder": int(mode == "decode") * n_windows,
+                "gru_sequence": 4 * n_windows, "gru_sequence_backward": 0,
+                "vq_argmin": 0}
+
+    def check_frames(name, d, out):
+        n_windows = max(int(np.ceil(d / unit)), 1)
+        frames, toks = out
+        if frames.shape != (n_windows * SENT_LEN, DIM) \
+                or toks.shape != (n_windows * SENT_LEN // N_FRAMES,) \
+                or not np.isfinite(frames).all():
+            problems.append(f"{name} {d} s: frames {frames.shape}, tokens "
+                            f"{toks.shape}")
+
+    def request(g, d, name, fusion="audio"):
+        """One request with its launches, and the chunk and GRU shapes."""
+        w = words(d) if fusion == "both" else None
+        torch.cuda.synchronize()
+        reset_launches()
+        out = g.generate(audios[d], d, words=w)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check_frames(name, d, out)
+        return out, got
+
+    with kernel_shapes() as shapes:
+        # -- decode mode at 6 s, 60 s, 1800 s ------------------------------
+        outs, per_request = {}, {}
+        for d in AUDIO_REQUESTS_S:
+            outs[d], per_request[d] = request(gen, d, "decode")
+        launches["decode"] = {k: sum(c[k] for c in per_request.values())
+                              for k in launch_counters()}
+        module = make("cuda", kernels=False)
+        vs_module = {d: compare_runs(
+            outs[d], module.generate(audios[d], d),
+            lambda d=d: audio_margins(make("cuda", kernels=False),
+                                      audios[d], d)) for d in outs}
+        make("cuda")                 # the kernels back on
+        vs_cpu = compare_runs(
+            make("cuda").generate(audios[d60], d60),
+            make("cpu").generate(audios[d60], d60),
+            lambda: audio_margins(make("cpu"), audios[d60], d60))
+        timing = {}
+        for d in AUDIO_REQUESTS_S:
+            long = d >= 1800
+            secs = best_s(lambda: gen.generate(audios[d], d),
+                          reps=1 if long else 2)
+            timing[d] = {"seconds": secs,
+                         "frames_per_s": outs[d][0].shape[0] / secs,
+                         "stages_s": audio_stage_split(
+                             gen, audios[d], d, reps=1 if long else 2)}
+        d_long = AUDIO_REQUESTS_S[-1]
+        timing[d_long]["device_busy"] = device_busy(
+            lambda: gen.generate(audios[d_long], d_long),
+            timing[d_long]["seconds"])
+        want_decode = {d: want("decode") for d in AUDIO_REQUESTS_S}
+        emit({"phase": "audio", "run": "decode", "requests_s":
+              list(AUDIO_REQUESTS_S), "launches_per_request": per_request,
+              "want": want_decode, "kernel_vs_module": vs_module,
+              "card_vs_cpu_60s": vs_cpu, "tol": TOL,
+              "near_tie_margin": LOGIT_TIE,
+              "distinct_tokens_1800s": int(len(np.unique(
+                  outs[d_long][1]))), "timing": timing, "card": smi})
+        if per_request != want_decode or not vs_cpu["ok"] \
+                or not all(c["ok"] for c in vs_module.values()):
+            problems.append("decode mode failed its checks")
+
+        # -- exemplar mode at 60 s -----------------------------------------
+        for cont in (False, True):
+            name = "exemplar_continuity" if cont else "exemplar"
+            g = make("cuda", mode="exemplar", exemplar_continuity=cont)
+            out, got = request(g, d60, name)
+            launches[name] = got
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                gd = make(dev, mode="exemplar", exemplar_continuity=cont)
+                picks, pick = [], gd._picks
+                gd._picks = lambda toks, pick=pick, picks=picks: \
+                    picks.append(pick(toks)) or picks[-1]
+                runs[dev] = (gd.generate(audios[d60], d60), picks[0])
+            cmp = compare_runs(runs["cuda"][0], runs["cpu"][0],
+                               lambda cont=cont: audio_margins(
+                                   make("cpu", mode="exemplar",
+                                        exemplar_continuity=cont),
+                                   audios[d60], d60))
+            cmp["picks_identical"] = bool(np.array_equal(runs["cuda"][1],
+                                                         runs["cpu"][1]))
+            secs = best_s(lambda: g.generate(audios[d60], d60))
+            emit({"phase": "audio", "run": name, "request_s": d60,
+                  "launches": got, "want": want("exemplar"),
+                  "bank_windows": int(bank["tokens"].shape[0]),
+                  "card_vs_cpu_60s": cmp, "tol": TOL,
+                  "timing": {"seconds": secs,
+                             "frames_per_s": out[0].shape[0] / secs,
+                             "stages_s": audio_stage_split(g, audios[d60],
+                                                           d60)},
+                  "card": smi})
+            if got != want("exemplar") or not cmp["ok"] or (
+                    cmp["tokens_identical"] and not cmp["picks_identical"]):
+                problems.append(f"{name} failed its checks")
+
+        # -- the decode policies at 60 s -----------------------------------
+        for name, fusion, policy in AUDIO_POLICIES:
+            g = make("cuda", fusion=fusion, **policy)
+            w = words(d60) if fusion == "both" else None
+            out, got = request(g, d60, name, fusion)
+            launches[name] = got
+            first = make("cuda", fusion=fusion, **policy).generate(
+                audios[d60], d60, words=w)
+            vs_mod = compare_runs(
+                first, make("cuda", False, fusion, **policy).generate(
+                    audios[d60], d60, words=w),
+                lambda: audio_margins(make("cuda", False, fusion, **policy),
+                                      audios[d60], d60, w))
+            make("cuda", fusion=fusion)
+            cpu = compare_runs(
+                first, make("cpu", fusion=fusion, **policy).generate(
+                    audios[d60], d60, words=w),
+                lambda: audio_margins(make("cpu", fusion=fusion, **policy),
+                                      audios[d60], d60, w))
+            secs = best_s(lambda: g.generate(audios[d60], d60, words=w))
+            emit({"phase": "audio", "run": name, "fusion": fusion,
+                  "options": policy, "request_s": d60, "launches": got,
+                  "want": want("decode"), "kernel_vs_module_60s": vs_mod,
+                  "card_vs_cpu_60s": cpu, "tol": TOL,
+                  "near_tie_margin": LOGIT_TIE,
+                  "timing": {"seconds": secs,
+                             "frames_per_s": out[0].shape[0] / secs,
+                             "stages_s": audio_stage_split(
+                                 g, audios[d60], d60, words_=w)},
+                  "card": smi})
+            if got != want("decode") or not vs_mod["ok"] or not cpu["ok"]:
+                problems.append(f"{name} failed its checks")
+
+        # -- 8 streaming sessions sharing one step --------------------------
+        step = build_audio_streaming_step(gen)
+        streams = [synthetic_speech(d60, 100 + s)
+                   for s in range(AUDIO_STREAMS)]
+        sessions = [AudioStreamingGestureSession(gen, step=step)
+                    for _ in streams]
+        emitted = [[] for _ in streams]
+        latencies = []
+        torch.cuda.synchronize()
+        reset_launches()
+        t_all = time.perf_counter()
+        for now in np.arange(2.0, d60 + 1e-9, 2.0):
+            for s, sess in enumerate(sessions):
+                t0 = time.perf_counter()
+                got = sess.push(streams[s][:int(now * AUDIO_SR)], now)
+                if got:
+                    latencies.append((time.perf_counter() - t0) / len(got))
+                emitted[s] += got
+        for s, sess in enumerate(sessions):
+            emitted[s] += sess.finish(d60)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        got = read_launches()
+        launches["streams"] = got
+        n_win = sum(len(e) for e in emitted)
+        worst, same = 0.0, True
+        for s, e in enumerate(emitted):
+            ref = gen.generate(streams[s], d60)
+            frames = np.concatenate([f for f, _ in e])
+            toks = np.concatenate([t for _, t in e])
+            same = same and np.array_equal(toks, ref[1])
+            worst = max(worst, float(np.abs(frames - ref[0]).max()))
+        want_streams = want("decode", n_win)
+        emit({"phase": "audio", "run": "streams", "sessions": AUDIO_STREAMS,
+              "stream_s": d60, "windows": n_win, "launches": got,
+              "want": want_streams, "tokens_equal_generate": same,
+              "frames_vs_generate_max_abs_err": worst, "tol": TOL,
+              "timing": {"seconds": wall, "windows_per_s": n_win / wall,
+                         "window_latency_s": percentiles(latencies)},
+              "card": smi})
+        if got != want_streams or not same or not worst <= TOL:
+            problems.append("streams failed their checks")
+
+        # -- g2v-infer-audio at 60 s ----------------------------------------
+        wav = os.path.join(tmp, "speech_60s.wav")
+        wavfile.write(wav, AUDIO_SR, (audios[d60] * 32767).astype(np.int16))
+        bvh = os.path.join(tmp, "audio_60s.bvh")
+        pipe = os.path.join(tmp, "ingested", "data_pipe.json")
+        reset_launches()
+        t0 = time.perf_counter()
+        frames, toks, path = infer_audio.main(
+            [ckpts["audio"], wav, files["dae"], files["vq"], "--store",
+             files["train"], "--pipeline", pipe, "--out", bvh,
+             "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        got = read_launches()
+        launches["cli"] = got
+        with open(path) as f:
+            parsed = parse_bvh(f.read(), from_text=True)
+        check_frames("cli", d60, (frames, toks))
+        emit({"phase": "audio", "run": "cli", "command":
+              "python -m gesture2vec_tpu_torch.cli.infer_audio a2t.bin "
+              "speech.wav dae.bin vq.bin --store train --pipeline "
+              "data_pipe.json", "request_s": d60, "launches": got,
+              "want": want("decode"), "seconds": cli_s,
+              "bvh_frames": int(parsed.n_frames), "card": smi})
+        if got != want("decode") or parsed.n_frames != frames.shape[0]:
+            problems.append("g2v-infer-audio failed its checks")
+
+    compared = compared_shapes()
+    for name, counter in shapes.items():
+        missing = sorted(set(counter) - compared[name])
+        if missing:
+            problems.append(f"{name}: shapes {missing} not compared with "
+                            f"the plain version")
+    emit({"phase": "check", "path": "audio", "kernel_shapes": {
+        name: [[list(k), v] for k, v in sorted(c.items())]
+        for name, c in shapes.items()}, "problems": problems})
+    if problems:
+        raise AssertionError(f"audio path failed: {problems}")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -4042,6 +4717,9 @@ def main() -> int:
         t0 = time.perf_counter()
         tf_counts = tf_part_c_path(smi, tmp, files)
         secs["tf_part_c_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audio_rows, audio_counts = audio_path(smi, tmp, files)
+        secs["audio_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     policy_rows, policy_counts = policies_path(smi)
     secs["policies_s"] = time.perf_counter() - t0
@@ -4053,7 +4731,8 @@ def main() -> int:
         train_entry, train_counts = train_path(smi, tmp)
     kernels.append(train_entry)
     secs["train_s"] = time.perf_counter() - t0
-    emit({"phase": "paths", **secs})
+    emit({"phase": "paths", **secs,
+          "total_s": time.perf_counter() - _T0})
     for k in kernels:
         # launches: the kernel's first path (decode, Part c or, for the
         # GRU backward, training); the later paths' counts beside it, and
@@ -4065,8 +4744,10 @@ def main() -> int:
             "policies": {p: c[k["name"]] for p, c in policy_counts.items()},
             "tf_part_c": {p: c[k["name"]] for p, c in tf_counts.items()},
             "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()},
+            "audio": {p: c[k["name"]] for p, c in audio_counts.items()},
             "train": {p: c[k["name"]] for p, c in train_counts.items()}}
-        shapes = policy_rows.get(k["name"], {})
+        shapes = {**policy_rows.get(k["name"], {}),
+                  **audio_rows.get(k["name"], {})}
         if shapes:
             k["max_abs_err"] = max(k["max_abs_err"], *(
                 r["max_abs_err"] for r in shapes.values()))

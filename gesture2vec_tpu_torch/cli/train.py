@@ -1,29 +1,34 @@
-"""g2v-train for the port: train Part a, b or d from a YAML config.
+"""g2v-train for the port: train Part a, b, d or audio from a YAML config.
 
     python -m gesture2vec_tpu_torch.cli.train -c configs/DAE.yml --part a
     python -m gesture2vec_tpu_torch.cli.train -c configs/VQ-VAE.yml \\
         --part b --rep-checkpoint out/dae/Frame_Level_H40_checkpoint_020.bin
     python -m gesture2vec_tpu_torch.cli.train -c configs/seq2seqtxt.yml \\
         --part d --rep-checkpoint ... --autoencoder-checkpoint ...
+    python -m gesture2vec_tpu_torch.cli.train -c configs/audio.yml \\
+        --part audio --rep-checkpoint ... --autoencoder-checkpoint ...
 
 The recommended recipe is `configs/VQ-VAE_rvq.yml` for part b (the
 4-stage residual VQ), then `configs/seq2seqtxt_recommended.yml` for part
 d (the transformer, 4 chained stages) over that tokenizer.
 
-The port of the JAX package's `cli/train.py` for parts a, b and d, with
-every model their configs select (Part a's DAE, VQ and VAE frame models;
+The port of the JAX package's `cli/train.py` for parts a, b, d and audio,
+with every model their configs select (Part a's DAE, VQ and VAE frame
+models;
 Part b's GS-Soft, residual-VQ, VAE, plain and similarity-supervised
 tokenizers; `vq_tricks` only through `train/dae_trainer.train_dae`, as
 in JAX, whose command has no such flag): Part b trains on the frozen
 Part-a model's latents of the pose windows, Part d
 on the sentence windows tokenized by the frozen Part-a and Part-b
-models; the checkpoints are the JAX package's files, which either
+models, and the audio Part d on the same windows' audio (one-second mel
+chunks, or with `audio_fusion: both` the word ids and one-second raw
+chunks); the checkpoints are the JAX package's files, which either
 package loads. `--device` (default cuda; cpu on a machine without a
 card) takes the place of `--platform`. The loss history goes to
 `loss_history.json` in the save dir; the JAX package's loss-curve PNG
 waits for `mocap/viz` (ROADMAP.md queue A item 4). Refused, each naming
-the queue item that ports it: the parts audio (3.9), baseline, c2g and
-gan (6), `--mesh` (5) and `--plot-every` (4).
+the queue item that ports it: the parts baseline, c2g and gan (6),
+`--mesh` (5) and `--plot-every` (4).
 """
 from __future__ import annotations
 
@@ -65,8 +70,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    later = {"audio": "3.9, the audio trainer", "baseline": "6",
-             "c2g": "6", "gan": "6"}
+    later = {"baseline": "6", "c2g": "6", "gan": "6"}
     if args.part in later:
         raise NotImplementedError(_LATER.format(f"--part {args.part}",
                                                 later[args.part]))
@@ -96,6 +100,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
     elif args.part == "b":
         from gesture2vec_tpu_torch.train.seq_ae_trainer import \
             train_seq_ae as fit
+    elif args.part == "audio":
+        from gesture2vec_tpu_torch.train.audio2token_trainer import \
+            train_audio2token as fit
     else:
         from gesture2vec_tpu_torch.train.text2token_trainer import \
             train_text2token as fit
@@ -111,7 +118,9 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
     Part-a checkpoint where it is unset, (train, val), the trainer's
     other keyword arguments). Part a: every pose frame; Part b: the
     frozen DAE's latents of the pose windows; Part d: the sentence
-    windows with the frozen Part-a and Part-b models' tokens."""
+    windows with the frozen Part-a and Part-b models' tokens; audio: the
+    same with each window's mel chunks, or with audio_fusion "both" its
+    raw chunks (and the vocabulary's size and state)."""
     from gesture2vec_tpu_torch.compat.checkpoint import \
         load_checkpoint_and_model
     from gesture2vec_tpu_torch.data.datasets import (all_frames,
@@ -127,7 +136,7 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
                      all_frames(val_store, mean, std)), {}
 
     if not cfg.rep_learning_checkpoint:
-        raise ValueError("--rep-checkpoint required (parts b, d)")
+        raise ValueError("--rep-checkpoint required (parts b, d, audio)")
     dae, dae_payload = load_checkpoint_and_model(
         cfg.rep_learning_checkpoint, "DAE", dev)
     if cfg.rep_learning_dim <= 0:
@@ -143,7 +152,8 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
     from gesture2vec_tpu_torch.text.vocab import build_vocab
 
     if not cfg.autoencoder_checkpoint:
-        raise ValueError("--autoencoder-checkpoint required (part d)")
+        raise ValueError("--autoencoder-checkpoint required (parts d, "
+                         "audio)")
     vocab = build_vocab("corpus", [[w[0] for w in c["words"]]
                                    for c in train_store.clips])
     vocab.load_word_vectors(cfg.wordembed_path, cfg.wordembed_dim)
@@ -155,8 +165,16 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
               fps=cfg.motion_resampling_framerate, mean=mean, std=std,
               emit_stage_tokens=cfg.token_stages > 1,
               text_context_s=cfg.text_context_s)
-    return cfg, (build_sentence_dataset(train_store, vocab, **kw),
-                 build_sentence_dataset(val_store, vocab, **kw)), dict(
+    both = part == "audio" and cfg.audio_fusion == "both"
+    if part == "audio":
+        kw.update(include_audio=not both, include_raw_audio=both)
+    arrays = (build_sentence_dataset(train_store, vocab, **kw),
+              build_sentence_dataset(val_store, vocab, **kw))
+    if part == "audio":
+        return cfg, arrays, dict(
+            n_words=vocab.n_words if both else 0,
+            lang_model_state=vocab.state_dict() if both else None)
+    return cfg, arrays, dict(
         n_words=vocab.n_words,
         embedding_weights=vocab.word_embedding_weights,
         lang_model_state=vocab.state_dict())

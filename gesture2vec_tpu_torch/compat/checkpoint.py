@@ -26,7 +26,13 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
                   with "t2t_heads" heads), the text encoder (extras
                   "text_encoder"), token_stages, stage_conditional and
                   autoencoder_att (decoder attention) from the config,
-                  fp32 whatever the training dtype.
+                  fp32 whatever the training dtype;
+  audio2token     `audio2token_trainer._build_a2t`: the audio Part d,
+                  audio_fusion ("both": n_words from extra, and the file
+                  carries the vocabulary in lang_model), token_stages,
+                  stage_conditional and autoencoder_att (the token
+                  decoder's attention, not the Part-b decoder attention
+                  that autoencoder_vq refuses) from the config, fp32.
 Each maker holds what the config says against what the weights hold.
 """
 from __future__ import annotations
@@ -38,8 +44,8 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.compat.from_jax import (
-    frame_model_from_jax, is_transformer_text2token, seq_ae_from_jax,
-    text2token_from_jax, transformer_text2token_from_jax)
+    audio2token_from_jax, frame_model_from_jax, is_transformer_text2token,
+    seq_ae_from_jax, text2token_from_jax, transformer_text2token_from_jax)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
 
@@ -139,10 +145,37 @@ def text2token_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     return model
 
 
+def audio2token_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
+    cfg = {**T2T_CONFIG_DEFAULTS, "audio_fusion": "audio",
+           **payload["config"]}
+    variables = {"params": payload["params"],
+                 "batch_stats": payload["extra"].get("batch_stats", {})}
+    model = audio2token_from_jax(
+        variables, n_steps=int(cfg["sentence_frame_length"])
+        // int(cfg["n_poses"]), n_pre_poses=int(cfg["n_pre_poses"]))
+    stages = int(cfg["token_stages"])
+    both = cfg["audio_fusion"] == "both"
+    want = {"fusion": cfg["audio_fusion"],
+            "n_words": int(payload["extra"].get("n_words", 0)) if both
+            else 0, "token_stages": stages,
+            "stage_conditional": bool(cfg["stage_conditional"])
+            and stages > 1, "autoencoder_att": bool(cfg["autoencoder_att"])}
+    got = {"fusion": model.fusion,
+           "n_words": model.encoder.embedding.num_embeddings if both
+           else 0, "token_stages": model.token_stages,
+           "stage_conditional": model.stage_conditional,
+           "autoencoder_att": model.decoder_step.use_attention}
+    if got != want:
+        raise ValueError(f"the checkpoint's config says {want}, its "
+                         f"weights hold {got}")
+    return model
+
+
 _MAKERS = {"DAE": dae_from_checkpoint,
            "autoencoder_vq": seq_ae_from_checkpoint,
            "autoencoder": seq_ae_from_checkpoint,
-           "text2embedding": text2token_from_checkpoint}
+           "text2embedding": text2token_from_checkpoint,
+           "audio2token": audio2token_from_checkpoint}
 
 
 def load_checkpoint_and_model(path: str, what: str,

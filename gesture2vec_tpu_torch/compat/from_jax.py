@@ -26,6 +26,11 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
                                         -> weight); the transformer Part
                                         d, and the chunk encoder of a
                                         `seq_arch: transformer` tokenizer
+  Audio2Token encoder: wav_encoder conv{i} kernel (k, in, out) + bias,
+  bn{i} / fc_bn (batch_stats too), fc / out_layer, the fusion's
+  embedding, the BiGRU         -> the same names (convs permuted to
+                                  (out, in, k)); the decoder step as the
+                                  text model's
 The other way, for training: `param_entries` lists a trainable port
 model's parameters with their JAX path, layout and initialiser;
 `to_jax_variables` / `load_jax_variables` carry params and batch_stats
@@ -51,6 +56,12 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.infer.text2gesture import GestureGenerator
+from gesture2vec_tpu_torch.models.audio import (AudioContextEncoder,
+                                               AudioTextFusionEncoder,
+                                               WavEncoderRaw,
+                                               WavEncoderSpectral,
+                                               WavEncoderTri)
+from gesture2vec_tpu_torch.models.audio2token import Audio2Token
 from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder, SeqVQAutoencoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token
@@ -386,6 +397,32 @@ def generator_from_jax(t2t_variables: Tree, seq_variables: Tree,
         fps=fps, max_words=max_words, device=device, **gen_kwargs)
 
 
+def audio2token_from_jax(variables: Tree, *, n_steps: int,
+                         n_pre_poses: int = 2) -> Audio2Token:
+    """An Audio2Token from JAX variables: fusion "both" when the encoder
+    holds a word embedding, else "audio"; widths, layers, attention and
+    the stage heads (chained with stage_embed_{s}) from the arrays."""
+    p = variables["params"]
+    enc, dec = p["encoder"], p["decoder_step"]
+    n_tokens, hidden = np.shape(dec["token_embedding"]["embedding"])
+    both = "embedding" in enc
+    n_words, embed = (np.shape(enc["embedding"]["embedding"]) if both
+                      else (0, 300))
+    model = Audio2Token(
+        n_tokens=n_tokens, hidden_size=hidden,
+        n_layers=_n_layers(dec["gru"]), n_steps=n_steps,
+        n_pre_poses=n_pre_poses, use_attention="attn" in dec,
+        fusion="both" if both else "audio", n_words=n_words,
+        embed_size=embed,
+        token_stages=1 + sum(1 for k in dec if k.startswith("out_layer_r")),
+        stage_conditional="stage_embed_0" in dec)
+    if _n_layers(enc["gru"]) != model.n_layers:
+        raise ValueError(f"{_n_layers(enc['gru'])} encoder GRU layers "
+                         f"for {model.n_layers} decoder layers")
+    load_jax_variables(model, p, variables.get("batch_stats"))
+    return model.eval()
+
+
 # -- the port's modules -> the JAX package's layout ----------------------
 # One entry per parameter: (path in the JAX params tree, the port's
 # tensor, layout, initialiser). Layouts: "dense" (Linear weight (out, in)
@@ -533,14 +570,69 @@ def text2token_entries(model: Text2Token) -> List[Entry]:
         out += _dense_entries(("encoder", "decoder"), e.decoder,
                               "normal:0.01")
         out += _dense_entries(("encoder", "hidden_proj"), e.hidden_proj)
+    return out + _token_decoder_entries(d, H)
+
+
+def _token_decoder_entries(d: nn.Module, hidden: int) -> List[Entry]:
+    """A `TokenDecoderStep`'s parameters (Text2Token, Audio2Token)."""
     p = ("decoder_step",)
-    out.append(_embed(p + ("token_embedding", "embedding"),
-                      d.token_embedding))
+    out = [_embed(p + ("token_embedding", "embedding"), d.token_embedding)]
     if d.attn is not None:
         out += _dense_entries(p + ("attn", "attn"), d.attn.attn)
         out.append((p + ("attn", "v"), d.attn.v, "same",
-                    f"normal:{1.0 / np.sqrt(H)}"))
-    return out + _decoder_step_entries(d, H) + _stage_head_entries(p, d)
+                    f"normal:{1.0 / np.sqrt(hidden)}"))
+    return out + _decoder_step_entries(d, hidden) + _stage_head_entries(p, d)
+
+
+def _conv_stack_entries(path, convs: nn.Module) -> List[Entry]:
+    """An audio encoder's conv{i} (flax's lecun_normal kernel, zero bias)
+    and bn{i}."""
+    out: List[Entry] = []
+    for i in range(len(convs.specs)):
+        conv = getattr(convs, f"conv{i}")
+        out += [(path + (f"conv{i}", "kernel"), conv.weight, "conv",
+                 "lecun"),
+                (path + (f"conv{i}", "bias"), conv.bias, "same", "zeros")]
+        if i < convs.n_norm:
+            out += _norm_entries(path + (f"bn{i}",),
+                                 getattr(convs, f"bn{i}"))
+    return out
+
+
+def audio_entries(model: nn.Module, path=()) -> List[Entry]:
+    """An audio encoder's parameters under path: a WavEncoder*, or the
+    context / fusion encoder with its BiGRU."""
+    if isinstance(model, (AudioContextEncoder, AudioTextFusionEncoder)):
+        out: List[Entry] = []
+        if isinstance(model, AudioTextFusionEncoder):
+            out.append(_embed(path + ("embedding", "embedding"),
+                              model.embedding))
+        return out + audio_entries(model.wav_encoder,
+                                   path + ("wav_encoder",)) \
+            + _gru_entries(path + ("gru",), model.gru, model.hidden_size)
+    out = _conv_stack_entries(path, model.convs)
+    if isinstance(model, WavEncoderSpectral):
+        out += _dense_entries(path + ("fc",), model.fc)
+        out += _norm_entries(path + ("fc_bn",), model.fc_bn)
+    elif isinstance(model, WavEncoderTri):
+        out += _dense_entries(path + ("out_layer",), model.out_layer)
+    return out
+
+
+def audio_batch_norms(model: nn.Module, path=()
+                      ) -> Dict[Tuple[str, ...], nn.Module]:
+    """An audio encoder's BatchNorms by their path in batch_stats."""
+    if isinstance(model, (AudioContextEncoder, AudioTextFusionEncoder)):
+        return audio_batch_norms(model.wav_encoder, path + ("wav_encoder",))
+    out = {path + (f"bn{i}",): getattr(model.convs, f"bn{i}")
+           for i in range(model.convs.n_norm)}
+    if isinstance(model, WavEncoderSpectral):
+        out[path + ("fc_bn",)] = model.fc_bn
+    return out
+
+
+_AUDIO_ENCODERS = (WavEncoderRaw, WavEncoderSpectral, WavEncoderTri,
+                   AudioContextEncoder, AudioTextFusionEncoder)
 
 
 def transformer_text2token_entries(model: TransformerText2Token
@@ -560,7 +652,8 @@ def transformer_text2token_entries(model: TransformerText2Token
 
 
 def param_entries(model: nn.Module) -> List[Entry]:
-    """The entries of a trainable port model (DAE, tokenizer, Part d)."""
+    """The entries of a trainable port model (DAE, tokenizer, Part d, the
+    audio Part d and its encoders)."""
     if isinstance(model, DAE):
         return dae_entries(model)
     if isinstance(model, (VAEFrame, VQFrame)):
@@ -571,6 +664,12 @@ def param_entries(model: nn.Module) -> List[Entry]:
         return text2token_entries(model)
     if isinstance(model, TransformerText2Token):
         return transformer_text2token_entries(model)
+    if isinstance(model, Audio2Token):
+        return audio_entries(model.encoder, ("encoder",)) \
+            + _token_decoder_entries(model.decoder_step,
+                                     model.encoder.hidden_size)
+    if isinstance(model, _AUDIO_ENCODERS):
+        return audio_entries(model)
     raise NotImplementedError(f"no JAX layout for {type(model).__name__}")
 
 
@@ -582,6 +681,11 @@ def batch_norms(model: nn.Module) -> Dict[Tuple[str, ...], nn.Module]:
         return {("decoder_step", "pre_bn"): model.decoder_step.pre_bn}
     if isinstance(model, VQFrame):
         return {("bn",): model.bn}
+    if isinstance(model, Audio2Token):
+        return {**audio_batch_norms(model.encoder, ("encoder",)),
+                ("decoder_step", "pre_bn"): model.decoder_step.pre_bn}
+    if isinstance(model, _AUDIO_ENCODERS):
+        return audio_batch_norms(model)
     return {}
 
 
@@ -668,8 +772,9 @@ def flax_init(model: nn.Module, generator: torch.Generator) -> None:
         elif init in ("lecun", "xavier"):
             # flax's lecun_normal (xavier_normal): a normal truncated at 2
             # sigma, rescaled so the std is 1/sqrt(fan_in) (sqrt(2 /
-            # (fan_in + fan_out)))
-            fan = shape[1] if init == "lecun" else (shape[0] + shape[1]) / 2
+            # (fan_in + fan_out))); a conv's fan_in is in * k
+            fan = (int(np.prod(shape[1:])) if init == "lecun"
+                   else (shape[0] + shape[1]) / 2)
             std = (1.0 / fan) ** 0.5 / .87962566103423978
             v = torch.empty(shape)
             torch.nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std,

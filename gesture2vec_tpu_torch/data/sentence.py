@@ -1,14 +1,18 @@
 """The Part-d sentence dataset (the port's copy of the JAX package's
-`data/sentence.py`, text only): windows of sentence_frame_length frames
-with at least 4 words, their word ids (SOS ... EOS, zero-padded to
-max_words) and the gesture tokens of each n_frames chunk, from one
-offline sweep of the frozen Part-a DAE and Part-b tokenizer
-(`data/teacher.py`). The audio fields (`include_audio`,
-`include_raw_audio`) wait for the audio trainer (ROADMAP.md queue A item
-3.9).
+`data/sentence.py`): windows of sentence_frame_length frames with at
+least 4 words, their word ids (SOS ... EOS, zero-padded to max_words)
+and the gesture tokens of each n_frames chunk, from one offline sweep of
+the frozen Part-a DAE and Part-b tokenizer (`data/teacher.py`); for the
+audio Part d also each window's audio, at the sample its first frame's
+position in the clip gives (zeros where a clip has none, zero-padded
+past its end): one-second mel chunks (`include_audio`) or one-second raw
+chunks (`include_raw_audio`). The sentence embeddings of the JAX
+package's `sentence_embedding` argument are not ported (ROADMAP.md
+queue A item 6).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -16,9 +20,7 @@ import numpy as np
 from gesture2vec_tpu_torch.data.datasets import normalize, sentence_windows
 from gesture2vec_tpu_torch.data.teacher import (encode_windows_with_dae,
                                                 tokenize_windows)
-
-_AUDIO = "{} is not ported yet (ROADMAP.md queue A item 3.9, the audio " \
-         "trainer)"
+from gesture2vec_tpu_torch.io.audio import mel_chunks_per_second
 
 
 def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
@@ -29,18 +31,17 @@ def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
                            std: Optional[np.ndarray] = None,
                            include_audio: bool = False,
                            include_raw_audio: bool = False,
+                           audio_sr: int = 16000,
                            mesh=None, emit_stage_tokens: bool = False,
                            text_context_s: float = 0.0
                            ) -> Dict[str, np.ndarray]:
     """Returns {"word_ids" (N, max_words) int32, "lengths" (N,) int32,
     "tokens" (N, n_steps) int32 with n_steps = sentence_frame_length //
     n_frames, "poses" (N, sentence_frame_length, D) float32 normalized},
-    and "stage_tokens" (N, n_steps, S) when emit_stage_tokens (a
-    residual-VQ tokenizer; "tokens" is its column 0)."""
-    if include_audio:
-        raise NotImplementedError(_AUDIO.format("include_audio"))
-    if include_raw_audio:
-        raise NotImplementedError(_AUDIO.format("include_raw_audio"))
+    "stage_tokens" (N, n_steps, S) when emit_stage_tokens (a
+    residual-VQ tokenizer; "tokens" is its column 0), "mel" (N, seconds,
+    128, frames) when include_audio and "wav" (N, seconds, audio_sr) when
+    include_raw_audio, seconds = sentence_frame_length // fps."""
     mean = store.pose_mean if mean is None else mean
     std = store.pose_std if std is None else std
     wins = sentence_windows(store, sentence_frame_length, stride, fps,
@@ -72,4 +73,23 @@ def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
         out["tokens"] = out["stage_tokens"][:, :, 0]
     else:
         out["tokens"] = tokens.reshape(N, n_steps).astype(np.int32)
+    if include_audio or include_raw_audio:
+        need = sentence_frame_length // fps * audio_sr
+        segs = []
+        for w in wins:
+            clip = clips[w["clip"]]
+            audio = clip.get("audio")
+            seg = np.zeros((need,), np.float32)
+            if audio is not None:
+                # frames -> samples by their position in the clip
+                a0 = math.floor(w["frame0"] / clip["poses"].shape[0]
+                                * len(audio))
+                got = audio[a0:a0 + need]
+                seg[:len(got)] = got
+            segs.append(seg)
+        if include_audio:
+            out["mel"] = np.stack([mel_chunks_per_second(a, audio_sr)
+                                   for a in segs]).astype(np.float32)
+        if include_raw_audio:
+            out["wav"] = np.stack(segs).reshape(N, -1, audio_sr)
     return out

@@ -2,8 +2,9 @@
 words arrive.
 
 Port of the JAX package's `infer/streaming.py` (StreamingGestureSession,
-build_streaming_step, StreamStepBatcher); the audio sessions are not
-ported yet. A live avatar gets its words with the speech, so a session
+build_streaming_step, StreamStepBatcher, and for speech
+AudioStreamingGestureSession and build_audio_streaming_step). A live
+avatar gets its words with the speech, so a session
 takes the words seen so far and gives the motion of every window that
 is complete, with the batch path's cross-window teacher seed (and, with
 chunk_continuity, its seed frame) carried from one push to the next.
@@ -321,3 +322,104 @@ class StreamStepBatcher:
         for i, (slot, _) in enumerate(batch):
             slot["result"] = tuple(o[i:i + 1] for o in outs)
             slot["done"].set()
+
+
+class AudioStreamingGestureSession:
+    """Incremental speech -> gesture over one live audio stream, from a
+    configured AudioGestureGenerator: push the waveform captured so far
+    (cumulative mono float at audio_sr; with fusion "both" also the
+    words so far) and get the motion of every window it completes, with
+    the teacher seed (and in exemplar mode the continuity pick) carried
+    from window to window. Its windows are `generate`'s on the same audio
+    under greedy and beam decodes; a sampled window draws its own
+    generator from the numpy stream (as the JAX session draws a key per
+    window), and the rollout takes no decode_overlap (as in JAX). One
+    step (`build_audio_streaming_step`) may serve many sessions; they
+    run one window at a time (the JAX package batches no audio
+    streams)."""
+
+    def __init__(self, generator, step=None):
+        g = self.gen = generator
+        self.unit = g.sentence_frame_length / g.fps
+        self.n_steps = g.n_steps
+        self._next_window = 0
+        self._seed = torch.zeros((1, self.n_steps), dtype=torch.long,
+                                 device=g.device)
+        self._prev_pick = np.int32(-1)
+        self._audio = np.zeros((0,), np.float32)
+        self._words: List[List] = []
+        self._step = step or build_audio_streaming_step(g)
+
+    def push(self, audio: np.ndarray, now_s: Optional[float] = None,
+             words: Optional[List[List]] = None
+             ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """audio: the cumulative waveform so far; now_s defaults to its
+        length. Returns one (frames, tokens) per newly completed window."""
+        self._audio = np.asarray(audio, np.float32)
+        if words is not None:
+            self._words = list(words)
+        if now_s is None:
+            now_s = len(self._audio) / self.gen.audio_sr
+        out = []
+        while (self._next_window + 1) * self.unit <= now_s + 1e-9:
+            out.append(self._emit(self._next_window))
+            self._next_window += 1
+        return out
+
+    def finish(self, duration_s: Optional[float] = None
+               ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """The remaining windows up to ceil(duration_s / window) (default:
+        the audio's length), as `generate` counts them."""
+        if duration_s is None:
+            duration_s = len(self._audio) / self.gen.audio_sr
+        n_windows = max(int(np.ceil(duration_s / self.unit)), 1)
+        out = []
+        while self._next_window < n_windows:
+            out.append(self._emit(self._next_window))
+            self._next_window += 1
+        return out
+
+    def _emit(self, w: int) -> Tuple[np.ndarray, np.ndarray]:
+        g = self.gen
+        samples = g.window_seconds * g.audio_sr
+        seg = self._audio[w * samples:(w + 1) * samples]
+        enc_in = g.encoder_inputs(seg, 1, self._shifted_words(w))
+        frames, toks, self._seed, self._prev_pick = self._step(
+            enc_in, self._seed, self._prev_pick, g._next_generator())
+        return g._frames(frames), toks.to(torch.int32).cpu().numpy()
+
+    def _shifted_words(self, w: int) -> Optional[List[List]]:
+        """The words with times relative to window w's start (fusion
+        "both"), so that window 0 of the encoder inputs is window w."""
+        if self.gen.fusion != "both":
+            return None
+        t0 = w * self.unit
+        return [[word, s - t0, e - t0] for word, s, e in self._words]
+
+
+def build_audio_streaming_step(g):
+    """The per-window step of an AudioGestureGenerator: (encoder inputs of
+    one window (`encoder_inputs(seg, 1, words)`), seed_tokens (1,
+    n_steps), prev_pick, generator or None) -> (frames (window frames,
+    pose_dim) normalised, tokens (n_steps,), next_seed, next prev_pick).
+    Shared by any number of sessions."""
+
+    @torch.inference_mode()
+    def step(enc_in, seed_tokens, prev_pick, generator):
+        pred = g._predict(enc_in, g._noise(generator, (1, 1)),
+                          seed=seed_tokens)
+        toks = pred["tokens"][0]
+        if g.mode == "decode":
+            latents = g._decode_chunks(pred, overlap=0)[0]
+            return (g.dae_model.decode(latents), toks, pred["next_seed"],
+                    prev_pick)
+        t = toks.to(torch.int32).cpu().numpy()
+        if g.exemplar_continuity:
+            picks = g._exemplars.pick_indices_continuity(
+                t, prev_pick=int(prev_pick))
+            prev_pick = np.int32(picks[-1])
+        else:
+            picks = g._exemplars.pick_indices(t)
+        return g._exemplar_decode(picks), toks, pred["next_seed"], prev_pick
+
+    return step

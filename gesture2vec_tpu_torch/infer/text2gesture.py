@@ -47,6 +47,8 @@ Chunk decode (decode mode):
   chunk_continuity    chunks roll out one after another, each seeded with
                       the previous chunk's last frame: one launch a chunk.
 `generate_batch` runs many transcripts as one batch (no mesh).
+`ChunkSynthesis` holds what the generator shares with the audio one
+(`infer/audio2gesture.AudioGestureGenerator`).
 """
 from __future__ import annotations
 
@@ -83,45 +85,31 @@ def bucket_windows(n_windows: int) -> int:
     return (n_windows + 15) // 16 * 16
 
 
-@dataclasses.dataclass
-class GestureGenerator:
-    t2t_model: Union[Text2Token, TransformerText2Token]
-    seq_decoder: SeqDecoder
-    dae_model: Union[DAE, VAEFrame, VQFrame]
-    vocab: Vocab
-    pose_mean: np.ndarray
-    pose_std: np.ndarray
-    n_frames: int = 20
-    sentence_frame_length: int = 120
-    fps: int = 20
-    max_words: int = 48
-    mode: str = "exemplar"          # "exemplar" | "decode"
-    latent_bank: Optional[Dict[str, np.ndarray]] = None
-    seed: int = 0
-    window_carry: bool = True
-    use_fused_decoder: bool = True
-    # extend each window's word lookup backwards by this many seconds;
-    # must match what the Part-d model was trained with
-    text_context_s: float = 0.0
-    chunk_continuity: bool = False
-    decode_overlap: int = 0
-    soft_decode: float = 0.0
-    temperature: float = 0.0
-    top_k: int = 0
-    stage0_temperature: float = -1.0
-    beam_width: int = 0
-    exemplar_continuity: bool = False
-    device: Optional[Union[str, torch.device]] = None
+class ChunkSynthesis:
+    """What a text and an audio generator share (the JAX package's two
+    generators hold copies of it): option checks and device set-up, the
+    request's sampling noise, the per-window token decode under the
+    policy, the decode outputs as chunk inputs, the chunk rollout
+    (kernel or module), the exemplar picks and the unnormalised frames.
+    A generator provides `token_model` (Text2Token, the transformer or
+    Audio2Token), seq_decoder, dae_model, device, mode, seed, the decode
+    options and the frame layout."""
 
-    def __post_init__(self):
+    chunk_continuity = False
+    stage0_temperature = -1.0
+
+    def _setup_synthesis(self) -> None:
+        """Checks the options, moves the models to the device in eval
+        mode, folds the chunk decoder's weights for the kernel and builds
+        the exemplar bank (the JAX generators' __post_init__)."""
         if self.mode not in ("decode", "exemplar"):
             raise ValueError(f"unknown mode {self.mode!r}")
         self.device = resolve_device(self.device)
         self.n_steps = self.sentence_frame_length // self.n_frames
         self._rng = np.random.default_rng(self.seed)
-        t2t, seq = self.t2t_model, self.seq_decoder
+        t2t, seq = self.token_model, self.seq_decoder
         if t2t.n_steps != self.n_steps:
-            raise ValueError(f"Text2Token decodes {t2t.n_steps} "
+            raise ValueError(f"the token model decodes {t2t.n_steps} "
                              f"steps, windows hold {self.n_steps} chunks")
         if seq.n_frames != self.n_frames:
             raise ValueError(f"SeqDecoder rolls {seq.n_frames}"
@@ -168,18 +156,6 @@ class GestureGenerator:
             self._exemplar_decode = self._exemplars.make_decode_fn(
                 self.dae_model, self.device)
 
-    # ------------------------------------------------------------------
-    def _window_word_ids(self, words: List[List], t0: float, t1: float
-                         ) -> Tuple[np.ndarray, int]:
-        """Ids of the words overlapping [t0 - text_context_s, t1), SOS/EOS
-        added, cut to max_words and zero-padded; the length is >= 1."""
-        t0 = t0 - float(self.text_context_s)
-        inside = [w[0] for w in words if w[2] > t0 and w[1] < t1]
-        ids = self.vocab.words_to_ids(inside)[: self.max_words]
-        arr = np.zeros((self.max_words,), np.int64)
-        arr[: len(ids)] = ids
-        return arr, max(len(ids), 1)
-
     def _next_generator(self) -> Optional[torch.Generator]:
         """The request's noise generator, seeded by one draw from the
         numpy stream, as the JAX generator draws its request key; None
@@ -195,83 +171,66 @@ class GestureGenerator:
         host, then moved to the device."""
         if generator is None:
             return None
-        t2t = self.t2t_model
+        t2t = self.token_model
         shape = (*windows, self.n_steps - 1, t2t.token_stages, t2t.n_tokens)
         return gumbel_noise(shape, generator).to(self.device)
 
     def _decode_windows(self, enc_outs, dec_hidden, seed, mask, gumbel):
         if self._beam:
-            return self.t2t_model.beam_decode(enc_outs, dec_hidden, seed,
-                                              self._beam, mask)
-        return self.t2t_model.decode_tokens(
+            return self.token_model.beam_decode(enc_outs, dec_hidden, seed,
+                                                self._beam, mask)
+        return self.token_model.decode_tokens(
             enc_outs, dec_hidden, seed, mask, temperature=self.temperature,
             top_k=self.top_k, stage0_temperature=self.stage0_temperature,
             gumbel=gumbel)
 
-    def _predict_windows(self, word_ids: torch.Tensor, lengths: torch.Tensor,
-                         gumbel: Optional[torch.Tensor] = None,
-                         seed: Optional[torch.Tensor] = None
-                         ) -> Dict[str, torch.Tensor]:
-        """word_ids (B, W, S), lengths (B, W) for B transcripts of W
-        windows -> "tokens" (B, W * n_steps); with residual stages
-        "stage" (B, W * n_steps, S-1), -1 at each window's seed step; with
-        soft_decode the mixtures "probs" (B, W * n_steps, K) and
-        "stage_probs" (B, W * n_steps, S-1, K). Every window of every
-        transcript is encoded in one batch. window_carry decodes window w
-        of all transcripts as one batch, each row with its own mask and
-        carried seed, and gives each row's seed for a next window as
-        "next_seed" (B, n_steps); otherwise all windows decode at once,
-        each with its transcript's batch-max mask or (per_sentence_mask)
-        its own. seed (B, n_steps), the teacher seed of each row's first
-        window (zeros when None), takes the carried decode whatever
-        window_carry says: a streamed window continues its transcript."""
-        t2t, n_steps, n_pre = self.t2t_model, self.n_steps, \
-            self.t2t_model.n_pre
-        B, W, S = word_ids.shape
-        enc_outs, dec_hidden = t2t.encode_text(word_ids.reshape(B * W, S),
-                                               lengths.reshape(B * W))
-        positions = torch.arange(S, device=self.device)
-        next_seed = None
-        if not self.window_carry and seed is None:
-            longest = (lengths if t2t.per_sentence_mask else
-                       lengths.max(dim=1, keepdim=True).values.expand(B, W))
-            mask = positions[None, :] < longest.reshape(B * W, 1)
-            seed = torch.zeros((B * W, n_steps), dtype=torch.long,
+    def _decode_carried(self, enc_outs: torch.Tensor,
+                        dec_hidden: torch.Tensor,
+                        seed: Optional[torch.Tensor], mask_of,
+                        gumbel: Optional[torch.Tensor]
+                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """B rows of W windows decoded window after window, each window
+        of all rows as one batch: enc_outs (S, B, W, H), dec_hidden (L,
+        B, W, H), seed (B, n_steps) the first window's teacher seed (zeros
+        when None), mask_of(w) window w's attention mask (None: every
+        position), gumbel (B, W, ...) or None. Each window's seed is the
+        last n_pre tokens of the one before. Returns (the decode outputs
+        stacked (B, W, ...), the seed of a next window)."""
+        B, W = enc_outs.shape[1:3]
+        if seed is None:
+            seed = torch.zeros((B, self.n_steps), dtype=torch.long,
                                device=self.device)
+        n_pre = self.token_model.n_pre
+        per_window = []
+        for w in range(W):
             res = self._decode_windows(
-                enc_outs, dec_hidden, seed, mask,
-                None if gumbel is None else gumbel.flatten(0, 1))
-            res = {k: v.reshape(B, W, *v.shape[1:]) for k, v in res.items()
-                   if k in _PER_WINDOW}
-        else:
-            eo = enc_outs.reshape(S, B, W, -1)
-            dh = dec_hidden.reshape(dec_hidden.shape[0], B, W, -1)
-            if seed is None:
-                seed = torch.zeros((B, n_steps), dtype=torch.long,
-                                   device=self.device)
-            per_window = []
-            for w in range(W):
-                res = self._decode_windows(
-                    eo[:, :, w], dh[:, :, w], seed,
-                    positions[None, :] < lengths[:, w, None],
-                    None if gumbel is None else gumbel[:, w])
-                per_window.append(res)
-                seed = torch.zeros_like(seed)
-                if n_pre:
-                    seed[:, :n_pre] = res["tokens"][:, -n_pre:]
-            res = {k: torch.stack([r[k] for r in per_window], dim=1)
-                   for k in per_window[0] if k in _PER_WINDOW}
-            next_seed = seed
+                enc_outs[:, :, w], dec_hidden[:, :, w], seed, mask_of(w),
+                None if gumbel is None else gumbel[:, w])
+            per_window.append(res)
+            seed = torch.zeros_like(seed)
+            if n_pre:
+                seed[:, :n_pre] = res["tokens"][:, -n_pre:]
+        return {k: torch.stack([r[k] for r in per_window], dim=1)
+                for k in per_window[0] if k in _PER_WINDOW}, seed
+
+    def _token_outputs(self, res: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The decode outputs of B rows of W windows (each (B, W, ...))
+        -> "tokens" (B, W * n_steps); with residual stages "stage" (B,
+        W * n_steps, S-1), -1 at each window's seed step; with
+        soft_decode the mixtures "probs" (B, W * n_steps, K) and
+        "stage_probs" (B, W * n_steps, S-1, K), each window's seed step
+        the hard one-hot (and no stage mixture)."""
+        B, W = res["tokens"].shape[:2]
+        n_steps = self.n_steps
         out = {"tokens": res["tokens"].reshape(B, -1)}
-        if next_seed is not None:
-            out["next_seed"] = next_seed
         soft = float(self.soft_decode)
         if soft:
             p = torch.softmax(res["logits"] / soft, dim=-1)
             p[:, :, 0] = F.one_hot(res["tokens"][:, :, 0],
                                    p.shape[-1]).to(p.dtype)
             out["probs"] = p.reshape(B, W * n_steps, -1)
-        if t2t.token_stages > 1:
+        if self.token_model.token_stages > 1:
             st = res["stage_tokens"]                     # (B, W, T-1, S-1)
             pad = torch.full_like(st[:, :, :1], -1)
             out["stage"] = torch.cat([pad, st], dim=2).reshape(
@@ -294,11 +253,13 @@ class GestureGenerator:
         return self.seq_decoder.rollout(hidden, seed, n_steps=n_steps)
 
     def _decode_chunks(self, pred: Dict[str, torch.Tensor],
-                       prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       prev: Optional[torch.Tensor] = None,
+                       overlap: Optional[int] = None) -> torch.Tensor:
         """The token prediction of B transcripts of N chunks -> latents
         (B, N * n_frames, rep_dim). With chunk_continuity, prev (B, rep_dim)
         seeds each row's first chunk (zeros when None), and the carry for
-        a next call is the last latent frame, latents[:, -1]."""
+        a next call is the last latent frame, latents[:, -1]. overlap
+        (default decode_overlap) is the crossfade's frames."""
         seq, Fr = self.seq_decoder, self.n_frames
         B, N = pred["tokens"].shape
 
@@ -319,7 +280,7 @@ class GestureGenerator:
                 prev = out[:, -1]
                 chunks.append(out)
             return torch.stack(chunks, dim=1).reshape(B, N * Fr, D)
-        b = int(self.decode_overlap)
+        b = int(self.decode_overlap if overlap is None else overlap)
         seed = torch.zeros((B * N, D), dtype=torch.float32,
                            device=self.device)
         out = self._rollout(seed, hidden, Fr + b)
@@ -331,6 +292,112 @@ class GestureGenerator:
              / (b + 1.0))[:, None]
         main[:, 1:, :b] = (1 - w) * out[:, :-1, Fr:] + w * out[:, 1:, :b]
         return main.reshape(B, N * Fr, D)
+
+    def _frames(self, frames: torch.Tensor) -> np.ndarray:
+        return unnormalize(frames.cpu().numpy(), self.pose_mean,
+                           self.pose_std)
+
+    def _picks(self, tokens: Sequence[np.ndarray]) -> np.ndarray:
+        """Exemplar picks for each transcript's tokens: one vectorised
+        pick over all of them, or one continuity chain per transcript."""
+        if self.exemplar_continuity:
+            return np.concatenate(
+                [self._exemplars.pick_indices_continuity(t) for t in tokens])
+        return self._exemplars.pick_indices(np.concatenate(tokens))
+
+
+@dataclasses.dataclass
+class GestureGenerator(ChunkSynthesis):
+    t2t_model: Union[Text2Token, TransformerText2Token]
+    seq_decoder: SeqDecoder
+    dae_model: Union[DAE, VAEFrame, VQFrame]
+    vocab: Vocab
+    pose_mean: np.ndarray
+    pose_std: np.ndarray
+    n_frames: int = 20
+    sentence_frame_length: int = 120
+    fps: int = 20
+    max_words: int = 48
+    mode: str = "exemplar"          # "exemplar" | "decode"
+    latent_bank: Optional[Dict[str, np.ndarray]] = None
+    seed: int = 0
+    window_carry: bool = True
+    use_fused_decoder: bool = True
+    # extend each window's word lookup backwards by this many seconds;
+    # must match what the Part-d model was trained with
+    text_context_s: float = 0.0
+    chunk_continuity: bool = False
+    decode_overlap: int = 0
+    soft_decode: float = 0.0
+    temperature: float = 0.0
+    top_k: int = 0
+    stage0_temperature: float = -1.0
+    beam_width: int = 0
+    exemplar_continuity: bool = False
+    device: Optional[Union[str, torch.device]] = None
+
+    def __post_init__(self):
+        self._setup_synthesis()
+
+    @property
+    def token_model(self) -> Union[Text2Token, TransformerText2Token]:
+        return self.t2t_model
+
+    # ------------------------------------------------------------------
+    def _window_word_ids(self, words: List[List], t0: float, t1: float
+                         ) -> Tuple[np.ndarray, int]:
+        """Ids of the words overlapping [t0 - text_context_s, t1), SOS/EOS
+        added, cut to max_words and zero-padded; the length is >= 1."""
+        t0 = t0 - float(self.text_context_s)
+        inside = [w[0] for w in words if w[2] > t0 and w[1] < t1]
+        ids = self.vocab.words_to_ids(inside)[: self.max_words]
+        arr = np.zeros((self.max_words,), np.int64)
+        arr[: len(ids)] = ids
+        return arr, max(len(ids), 1)
+
+    def _predict_windows(self, word_ids: torch.Tensor, lengths: torch.Tensor,
+                         gumbel: Optional[torch.Tensor] = None,
+                         seed: Optional[torch.Tensor] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """word_ids (B, W, S), lengths (B, W) for B transcripts of W
+        windows -> "tokens" (B, W * n_steps); with residual stages
+        "stage" (B, W * n_steps, S-1), -1 at each window's seed step; with
+        soft_decode the mixtures "probs" (B, W * n_steps, K) and
+        "stage_probs" (B, W * n_steps, S-1, K). Every window of every
+        transcript is encoded in one batch. window_carry decodes window w
+        of all transcripts as one batch, each row with its own mask and
+        carried seed, and gives each row's seed for a next window as
+        "next_seed" (B, n_steps); otherwise all windows decode at once,
+        each with its transcript's batch-max mask or (per_sentence_mask)
+        its own. seed (B, n_steps), the teacher seed of each row's first
+        window (zeros when None), takes the carried decode whatever
+        window_carry says: a streamed window continues its transcript."""
+        t2t, n_steps = self.t2t_model, self.n_steps
+        B, W, S = word_ids.shape
+        enc_outs, dec_hidden = t2t.encode_text(word_ids.reshape(B * W, S),
+                                               lengths.reshape(B * W))
+        positions = torch.arange(S, device=self.device)
+        next_seed = None
+        if not self.window_carry and seed is None:
+            longest = (lengths if t2t.per_sentence_mask else
+                       lengths.max(dim=1, keepdim=True).values.expand(B, W))
+            mask = positions[None, :] < longest.reshape(B * W, 1)
+            seed = torch.zeros((B * W, n_steps), dtype=torch.long,
+                               device=self.device)
+            res = self._decode_windows(
+                enc_outs, dec_hidden, seed, mask,
+                None if gumbel is None else gumbel.flatten(0, 1))
+            res = {k: v.reshape(B, W, *v.shape[1:]) for k, v in res.items()
+                   if k in _PER_WINDOW}
+        else:
+            res, next_seed = self._decode_carried(
+                enc_outs.reshape(S, B, W, -1),
+                dec_hidden.reshape(dec_hidden.shape[0], B, W, -1), seed,
+                lambda w: positions[None, :] < lengths[:, w, None], gumbel)
+        out = self._token_outputs(res)
+        if next_seed is not None:
+            out["next_seed"] = next_seed
+        return out
 
     def _windows(self, transcripts: Sequence[List[List]],
                  durations_s: Sequence[float]
@@ -357,18 +424,6 @@ class GestureGenerator:
         bucketed window count W, and the real window count."""
         word_ids, lengths, wins = self._windows([words], [duration_s])
         return word_ids[0], lengths[0], wins[0]
-
-    def _frames(self, frames: torch.Tensor) -> np.ndarray:
-        return unnormalize(frames.cpu().numpy(), self.pose_mean,
-                           self.pose_std)
-
-    def _picks(self, tokens: Sequence[np.ndarray]) -> np.ndarray:
-        """Exemplar picks for each transcript's tokens: one vectorised
-        pick over all of them, or one continuity chain per transcript."""
-        if self.exemplar_continuity:
-            return np.concatenate(
-                [self._exemplars.pick_indices_continuity(t) for t in tokens])
-        return self._exemplars.pick_indices(np.concatenate(tokens))
 
     @torch.inference_mode()
     def generate(self, words: List[List], duration_s: float

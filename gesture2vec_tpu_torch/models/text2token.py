@@ -221,6 +221,134 @@ class TokenDecoderStep(nn.Module):
         return logits, new_hidden
 
 
+def decode_tokens_impl(model: nn.Module, enc_outs: torch.Tensor,
+                       dec_hidden: torch.Tensor, target_tokens: torch.Tensor,
+                       enc_mask: Optional[torch.Tensor] = None,
+                       temperature: float = 0.0, top_k: int = 0,
+                       stage0_temperature: float = -1.0,
+                       gumbel: Optional[torch.Tensor] = None,
+                       stage_targets: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The autoregressive decode of a token model (Text2Token, or
+    models/audio2token.Audio2Token: its n_tokens, n_steps, n_pre_poses,
+    token_stages, stage_conditional and decoder_step) given its encoding.
+    target_tokens (B, n_steps) is the teacher signal (column 0 the seed);
+    enc_mask (S,) or (B, S), None attends to every position. Returns "logits" (B, n_steps, K), "tokens"
+    (B, n_steps), and with residual stages "stage_logits" (B,
+    n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1).
+    stage_targets (B, n_steps, token_stages), column 0 the primary
+    code, drives the stage chain of a stage_conditional model in
+    training (its teacher codes); training such a model needs it."""
+    check_noise(model.token_stages, temperature, stage0_temperature,
+                gumbel)
+    if model.stage_conditional and model.training \
+            and stage_targets is None:
+        raise ValueError("stage_conditional training needs "
+                         "stage_targets (B, n_steps, token_stages)")
+    teach = model.stage_conditional and stage_targets is not None
+    multi = model.token_stages > 1
+    step = model.decoder_step
+    seed = target_tokens[:, 0]
+    logits = [F.one_hot(seed, model.n_tokens).to(enc_outs.dtype)]
+    tokens, stage_logits, stage_tokens = [seed], [], []
+    prev, hidden = seed, dec_hidden
+    for t in range(1, model.n_steps):
+        token_in = (target_tokens[:, t - 1] if t - 1 < model.n_pre_poses
+                    else prev)
+        lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
+        if teach:
+            # the chain reads the teacher codes; the tokens reported
+            # are the argmaxes, as in JAX
+            st = stage_targets[:, t]
+            prev = torch.argmax(lg, dim=-1)
+            slg, _ = stage_chain(step, out, st[:, 0],
+                                 lambda _, s: st[:, s + 1])
+            stok = torch.argmax(slg, dim=-1)
+        else:
+            prev, slg, stok = choose_step(
+                step, lg, out, temperature, top_k, stage0_temperature,
+                None if gumbel is None else gumbel[:, t - 1])
+        logits.append(lg)
+        tokens.append(prev)
+        if multi:
+            stage_logits.append(slg)
+            stage_tokens.append(stok)
+    res = {"logits": torch.stack(logits, dim=1),
+           "tokens": torch.stack(tokens, dim=1)}
+    if multi:
+        res["stage_logits"] = torch.stack(stage_logits, dim=1)
+        res["stage_tokens"] = torch.stack(stage_tokens, dim=1)
+    return res
+
+
+def beam_decode_impl(model: nn.Module, enc_outs: torch.Tensor,
+                     dec_hidden: torch.Tensor, target_tokens: torch.Tensor,
+                     beam_width: int = 4,
+                     enc_mask: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Beam search over the decode of a token model (as in
+    `decode_tokens_impl`; the JAX package's beam_decode_impl). The K hypotheses of a row ride the batch axis
+    (row b's at b*K .. b*K + K-1); only hypothesis 0 is live at the
+    start, so the first expansion picks the K best distinct
+    continuations; the recombination keeps the K best of K*V scores,
+    ties to the lower index as lax.top_k breaks them (a stable sort).
+    Inputs at steps t - 1 < n_pre_poses are the teacher tokens. Stage
+    ids are each hypothesis's own argmax choices (through the chain
+    with stage_conditional, conditioned on its argmax primary); they
+    never enter the score. Returns "tokens" (B, n_steps), "logprob"
+    (B,), "step_scores" (B, n_steps - 1, K + 1), each step's K + 1
+    best scores in descending order (the last step's first K are the
+    final hypotheses' log-probabilities), and with residual stages
+    "stage_tokens" (B, n_steps - 1, S-1)."""
+    K = int(beam_width)
+    V, L, T = model.n_tokens, model.n_layers, model.n_steps
+    B = target_tokens.shape[0]
+    S1 = model.token_stages - 1
+    step = model.decoder_step
+    dev = enc_outs.device
+    rows = torch.arange(B, device=dev)[:, None]
+
+    seed = target_tokens[:, 0]
+    eo = enc_outs.repeat_interleave(K, dim=1)           # (S, B*K, H)
+    hidden = dec_hidden.repeat_interleave(K, dim=1)     # (L, B*K, H)
+    mask = (enc_mask.repeat_interleave(K, dim=0)
+            if enc_mask is not None and enc_mask.dim() == 2
+            else enc_mask)
+    tokens = seed.repeat_interleave(K)
+    logprob = torch.full((B, K), float("-inf"), device=dev)
+    logprob[:, 0] = 0.0
+    seqs = torch.zeros((B, K, T), dtype=seed.dtype, device=dev)
+    seqs[:, :, 0] = seed[:, None]
+    stages = torch.zeros((B, K, T, max(S1, 1)), dtype=seed.dtype,
+                         device=dev)
+    step_scores = []
+    for t in range(1, T):
+        token_in = (target_tokens[:, t - 1].repeat_interleave(K)
+                    if t - 1 < model.n_pre_poses else tokens)
+        logits, new_hidden, out = step.step(token_in, hidden, eo, mask)
+        logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+        scores = (logprob[:, :, None] + logp).reshape(B, K * V)
+        order = torch.sort(scores, dim=-1, descending=True, stable=True)
+        logprob, top_idx = order.values[:, :K], order.indices[:, :K]
+        step_scores.append(order.values[:, :K + 1])
+        parent, new_tok = top_idx // V, top_idx % V
+        hidden = new_hidden.reshape(L, B, K, -1)[:, rows, parent] \
+            .reshape(L, B * K, -1)
+        seqs = seqs[rows, parent]
+        seqs[:, :, t] = new_tok
+        if S1:
+            _, _, st = choose_step(step, logits, out, 0.0, 0, -1.0, None)
+            stages = stages[rows, parent]
+            stages[:, :, t] = st.reshape(B, K, S1)[rows, parent]
+        tokens = new_tok.reshape(-1)
+    best = torch.argmax(logprob, dim=1)
+    b = torch.arange(B, device=dev)
+    res = {"tokens": seqs[b, best], "logprob": logprob[b, best],
+           "step_scores": torch.stack(step_scores, dim=1)}
+    if S1:
+        res["stage_tokens"] = stages[b, best][:, 1:, :]
+    return res
+
 
 class Text2Token(nn.Module):
     """Sentence -> n_steps gesture tokens (and residual-stage codes)."""
@@ -283,126 +411,19 @@ class Text2Token(nn.Module):
     def decode_tokens(self, enc_outs: torch.Tensor, dec_hidden: torch.Tensor,
                       target_tokens: torch.Tensor,
                       enc_mask: Optional[torch.Tensor] = None,
-                      temperature: float = 0.0, top_k: int = 0,
-                      stage0_temperature: float = -1.0,
-                      gumbel: Optional[torch.Tensor] = None,
-                      stage_targets: Optional[torch.Tensor] = None
-                      ) -> Dict[str, torch.Tensor]:
-        """The autoregressive decode given a text encoding. target_tokens
-        (B, n_steps) is the teacher signal (column 0 the seed); enc_mask
-        (S,) or (B, S). Returns "logits" (B, n_steps, K), "tokens"
-        (B, n_steps), and with residual stages "stage_logits" (B,
-        n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1).
-        stage_targets (B, n_steps, token_stages), column 0 the primary
-        code, drives the stage chain of a stage_conditional model in
-        training (its teacher codes); training such a model needs it."""
-        check_noise(self.token_stages, temperature, stage0_temperature,
-                    gumbel)
-        if self.stage_conditional and self.training \
-                and stage_targets is None:
-            raise ValueError("stage_conditional training needs "
-                             "stage_targets (B, n_steps, token_stages)")
-        teach = self.stage_conditional and stage_targets is not None
-        multi = self.token_stages > 1
-        step = self.decoder_step
-        seed = target_tokens[:, 0]
-        logits = [F.one_hot(seed, self.n_tokens).to(enc_outs.dtype)]
-        tokens, stage_logits, stage_tokens = [seed], [], []
-        prev, hidden = seed, dec_hidden
-        for t in range(1, self.n_steps):
-            token_in = (target_tokens[:, t - 1] if t - 1 < self.n_pre_poses
-                        else prev)
-            lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
-            if teach:
-                # the chain reads the teacher codes; the tokens reported
-                # are the argmaxes, as in JAX
-                st = stage_targets[:, t]
-                prev = torch.argmax(lg, dim=-1)
-                slg, _ = stage_chain(step, out, st[:, 0],
-                                     lambda _, s: st[:, s + 1])
-                stok = torch.argmax(slg, dim=-1)
-            else:
-                prev, slg, stok = choose_step(
-                    step, lg, out, temperature, top_k, stage0_temperature,
-                    None if gumbel is None else gumbel[:, t - 1])
-            logits.append(lg)
-            tokens.append(prev)
-            if multi:
-                stage_logits.append(slg)
-                stage_tokens.append(stok)
-        res = {"logits": torch.stack(logits, dim=1),
-               "tokens": torch.stack(tokens, dim=1)}
-        if multi:
-            res["stage_logits"] = torch.stack(stage_logits, dim=1)
-            res["stage_tokens"] = torch.stack(stage_tokens, dim=1)
-        return res
+                      **decode_kw) -> Dict[str, torch.Tensor]:
+        """The autoregressive decode given a text encoding
+        (`decode_tokens_impl`); enc_mask (S,) or (B, S)."""
+        return decode_tokens_impl(self, enc_outs, dec_hidden, target_tokens,
+                                  enc_mask, **decode_kw)
 
     def beam_decode(self, enc_outs: torch.Tensor, dec_hidden: torch.Tensor,
                     target_tokens: torch.Tensor, beam_width: int = 4,
                     enc_mask: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
-        """Beam search over the decode (the JAX package's
-        beam_decode_impl). The K hypotheses of a row ride the batch axis
-        (row b's at b*K .. b*K + K-1); only hypothesis 0 is live at the
-        start, so the first expansion picks the K best distinct
-        continuations; the recombination keeps the K best of K*V scores,
-        ties to the lower index as lax.top_k breaks them (a stable sort).
-        Inputs at steps t - 1 < n_pre_poses are the teacher tokens. Stage
-        ids are each hypothesis's own argmax choices (through the chain
-        with stage_conditional, conditioned on its argmax primary); they
-        never enter the score. Returns "tokens" (B, n_steps), "logprob"
-        (B,), "step_scores" (B, n_steps - 1, K + 1), each step's K + 1
-        best scores in descending order (the last step's first K are the
-        final hypotheses' log-probabilities), and with residual stages
-        "stage_tokens" (B, n_steps - 1, S-1)."""
-        K = int(beam_width)
-        V, L, T = self.n_tokens, self.n_layers, self.n_steps
-        B = target_tokens.shape[0]
-        S1 = self.token_stages - 1
-        step = self.decoder_step
-        dev = enc_outs.device
-        rows = torch.arange(B, device=dev)[:, None]
-
-        seed = target_tokens[:, 0]
-        eo = enc_outs.repeat_interleave(K, dim=1)           # (S, B*K, H)
-        hidden = dec_hidden.repeat_interleave(K, dim=1)     # (L, B*K, H)
-        mask = (enc_mask.repeat_interleave(K, dim=0)
-                if enc_mask is not None and enc_mask.dim() == 2
-                else enc_mask)
-        tokens = seed.repeat_interleave(K)
-        logprob = torch.full((B, K), float("-inf"), device=dev)
-        logprob[:, 0] = 0.0
-        seqs = torch.zeros((B, K, T), dtype=seed.dtype, device=dev)
-        seqs[:, :, 0] = seed[:, None]
-        stages = torch.zeros((B, K, T, max(S1, 1)), dtype=seed.dtype,
-                             device=dev)
-        step_scores = []
-        for t in range(1, T):
-            token_in = (target_tokens[:, t - 1].repeat_interleave(K)
-                        if t - 1 < self.n_pre_poses else tokens)
-            logits, new_hidden, out = step.step(token_in, hidden, eo, mask)
-            logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
-            scores = (logprob[:, :, None] + logp).reshape(B, K * V)
-            order = torch.sort(scores, dim=-1, descending=True, stable=True)
-            logprob, top_idx = order.values[:, :K], order.indices[:, :K]
-            step_scores.append(order.values[:, :K + 1])
-            parent, new_tok = top_idx // V, top_idx % V
-            hidden = new_hidden.reshape(L, B, K, -1)[:, rows, parent] \
-                .reshape(L, B * K, -1)
-            seqs = seqs[rows, parent]
-            seqs[:, :, t] = new_tok
-            if S1:
-                _, _, st = choose_step(step, logits, out, 0.0, 0, -1.0, None)
-                stages = stages[rows, parent]
-                stages[:, :, t] = st.reshape(B, K, S1)[rows, parent]
-            tokens = new_tok.reshape(-1)
-        best = torch.argmax(logprob, dim=1)
-        b = torch.arange(B, device=dev)
-        res = {"tokens": seqs[b, best], "logprob": logprob[b, best],
-               "step_scores": torch.stack(step_scores, dim=1)}
-        if S1:
-            res["stage_tokens"] = stages[b, best][:, 1:, :]
-        return res
+        """Beam search over the decode (`beam_decode_impl`)."""
+        return beam_decode_impl(self, enc_outs, dec_hidden, target_tokens,
+                                beam_width, enc_mask)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 target_tokens: torch.Tensor, **decode_kw

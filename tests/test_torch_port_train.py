@@ -738,7 +738,7 @@ def test_refused_options_name_their_queue_items():
                           device="cpu")
     for argv, item in ((["--part", "gan"], "item 6"),
                        (["--part", "a", "--mesh", "dp=2"], "item 5"),
-                       (["--part", "audio"], "item 3.9")):
+                       (["--part", "a", "--plot-every", "5"], "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             ptrain.main(["-c", "x.yml"] + argv)
 

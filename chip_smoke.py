@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-It drives ten paths of the port, each with every kernel launch counter
-set to 0 just before and read just after. Phases, each printing one
+It drives twelve paths of the port, each with every kernel launch
+counter set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel from the sources in the checkout (one
@@ -235,6 +235,34 @@ Training, `g2v-train` parts a, b, d and audio (`cli/train.main()`):
            `cli/_common.build_generator` (over its own tokenizer, and
            d_tcn's over the VQFrame DAE and the VAE tokenizer) to finite
            frames of a 6 s transcript with one chunk-decoder launch;
+compute_dtype: bfloat16 (over the train path's store and checkpoints):
+  kernel   the four bf16 instantiations (GRU sequence, its gate-saving
+           variant, GRU backward at T=20, 48 and 6, B=128, both
+           directions; chunk decoder at B=128, 19 steps) against their
+           bf16 plain versions within 2^-6 of the largest magnitude, with
+           the fp32 kernel's time on the same values in turns, the bound
+           (bf16 bytes against the operations at the bf16 tensor-core
+           peak; beside it the fp32 CUDA-core figure) and cuDNN's bf16
+           GRU;
+  train_bf16  `cli/train.main()` with compute_dtype: bfloat16 over
+           configs/VQ-VAE.yml, seq2seqtxt.yml (GRU encoder),
+           seq2seqtxt_recommended.yml (feedback epoch, over the residual
+           VQ) and audio.yml: the command's launches and losses, and as
+           for the fp32 runs steps/s, the split, the idle share, beside
+           the fp32 run's; bf16 steps on the card against the CPU's
+           bf16 steps on two batches (the loss, each gradient and their
+           median within BF16_CARD_LOSS_TOL, _TOL, _MEDIAN_TOL), each
+           one's distance from the CPU's fp32 step printed beside them;
+  check    a bf16 step launches only the bf16 instantiations (4 + 4 a
+           BiGRU step, 4 forward a validation batch and 1 chunk decode
+           a Part-b one), no fp32 kernel; losses fall; a bf16 Part d and
+           tokenizer through `build_generator` give fp32 models and
+           finite frames of a 6 s transcript;
+The streaming source:
+  stream   Part a from StreamingFrames and Part b from StreamingWindows
+           with the frozen DAE as the prefetch worker's transform, one
+           epoch each beside the in-RAM arrays: steps/s, the host's peak
+           RSS, the launches (equal), both losses falling;
 then the kernels line (each kernel's launches on its first path, on the
 later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
@@ -281,8 +309,10 @@ DECODER_EDGE_BATCHES = tuple(sorted({7, 8, 9, 128, *KERNEL_BATCHES}))
 TRAIN_VAL_DECODE = (128, N_FRAMES - 1)
 DECODER_SHAPES = tuple((B, N_FRAMES) for B in KERNEL_BATCHES) + (
     TRAIN_VAL_DECODE,)
-# published H100 SXM peaks: fp32 outside the tensor cores, HBM3
+# published H100 SXM peaks: fp32 outside the tensor cores, HBM3; bf16
+# on the tensor cores (dense), the card's rate for bf16 operands
 PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+PEAK_BF16_FLOPS = 989e12
 
 # Part c: the Trinity Speech-Gesture corpus as GENEA 2020 used it, 244
 # minutes at 20 fps, as 24 clips; 2 more clips validate
@@ -378,6 +408,45 @@ TRAIN_STEP_LAUNCHES = {
 # one-second steps
 GRU_BWD_SHAPES = ((20, 128), (20, 512), (48, 128), (20, 117), (20, 3),
                   (6, 128))
+# compute_dtype: bfloat16 (the bf16 instantiations of the GRU-sequence,
+# GRU-backward and chunk-decoder kernels): the kernel rows' (T, B), the
+# tokenizer's BiGRU, the GRU text encoder's word window and the audio
+# encoder's 6 seconds at the training batch (and TRAIN_VAL_DECODE for the
+# chunk decoder); bf16 kernel vs bf16 plain version: the tests' bf16
+# tolerance (2^-6 of the largest magnitude;
+# tests/test_torch_port_train_bf16.py)
+BF16_GRU_SHAPES = ((N_FRAMES, 128), (MAXW, 128), (6, 128))
+BF16_TOL = 2.0 ** -6
+# the card's bf16 train step against the CPU's (bf16_card_vs_cpu), on
+# each of the first BF16_CARD_BATCHES batches: the loss (relative), each
+# gradient (relative to its norm) and the median of those over the
+# tensors. Set from a first run's readings at these widths (NVIDIA H100
+# 80GB HBM3, 700.00 W; ten steps): losses within 6.0e-5, the worst
+# tensor 0.116 (bf16 roundings that flip between the two devices move a
+# step's gradients nearly as far as bf16 moves them from fp32: 0.04 to
+# 0.18 on the same tensors), the median 0.032
+BF16_CARD_LOSS_TOL, BF16_CARD_TOL, BF16_CARD_MEDIAN_TOL = (
+    2.0 ** -10, 2.0 ** -2, 2.0 ** -4)
+BF16_CARD_BATCHES = 2
+# the bf16 runs: (run, part, shipped config, cuts, the fp32 run of
+# TRAIN_RUNS read beside it, whose Part-a checkpoint and tokenizer it uses)
+TRAIN_BF16_RUNS = (
+    ("b_gssoft_bf16", "b", "VQ-VAE.yml", {"epochs": 1}, "b_gssoft"),
+    ("d_gru_bf16", "d", "seq2seqtxt.yml",
+     {"epochs": 1, "text_encoder": "gru"}, "d_gru"),
+    ("d_recipe_bf16", "d", "seq2seqtxt_recommended.yml",
+     {"epochs": 2, "feedback_finetune_epochs": 1}, "d_recipe"),
+    ("d_audio_bf16", "audio", "audio.yml", {"epochs": 1}, "d_audio"))
+# the bf16 instantiations' launches a train step and a validation batch
+# (every other count, each fp32 kernel's included, 0): the BiGRU's 2
+# layers x 2 directions, the Part-b validation's chunk decode; the
+# recipe's transformer none
+_BIGRU_BF16 = ({"gru_sequence_gates_bf16": 4,
+                "gru_sequence_backward_bf16": 4}, {"gru_sequence_bf16": 4})
+BF16_LAUNCHES = {"b_gssoft_bf16": (_BIGRU_BF16[0], {**_BIGRU_BF16[1],
+                                                    "chunk_decoder_bf16": 1}),
+                 "d_gru_bf16": _BIGRU_BF16, "d_audio_bf16": _BIGRU_BF16,
+                 "d_recipe_bf16": ({}, {})}
 # the residual VQ's K-Means re-fit in the training path: 10 full batches
 # of 512 of its 5,196 windows
 TRAIN_REFIT_ROWS = 5120
@@ -673,12 +742,35 @@ def launch_counters() -> dict:
 
 
 def reset_launches() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    for fn in (*launch_counters().values(), gk.gru_sequence_gates):
+        fn.launches = fn.launches_bf16 = 0
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def bf16_launches() -> dict:
+    """The bf16 instantiations' launches: the GRU source's inference
+    variant (its bf16 count less the gate-saving variant's), the
+    gate-saving variant, the GRU backward, the chunk decoder."""
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    return {"gru_sequence_bf16": gk.gru_sequence.launches_bf16
+            - gk.gru_sequence_gates.launches_bf16,
+            "gru_sequence_gates_bf16": gk.gru_sequence_gates.launches_bf16,
+            "gru_sequence_backward_bf16":
+                gk.gru_sequence_backward.launches_bf16,
+            "chunk_decoder_bf16": dk.fused_chunk_decode.launches_bf16}
+
+
+def all_launches() -> dict:
+    """Every counter: the fp32 kernels' (read_launches) and the bf16
+    instantiations' (bf16_launches)."""
+    return {**read_launches(), **bf16_launches()}
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -3480,7 +3572,7 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
     reset_launches()
     run_steps(batches[:1])
     torch.cuda.synchronize()
-    per_step = read_launches()
+    per_step = all_launches()
     model.eval()
     reset_launches()
     vb = tuple(to_device(a[:bs], "cuda") for a in val_arrays)
@@ -3494,7 +3586,7 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
     else:
         tt.make_eval_step(model)(*vb)
     torch.cuda.synchronize()
-    per_val = read_launches()
+    per_val = all_launches()
     model.train()
     split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
     for batch in batches[1:6]:
@@ -3534,6 +3626,19 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
             "timed_steps": len(timed), "steps_per_s": len(timed) / wall,
             "samples_per_s": len(timed) * bs / wall, "split_ms": split,
             "profiled_steps": len(prof), **busy}
+
+
+def cancelled_grad(path: tuple, vq_frame: bool = False) -> bool:
+    """Whether a parameter's gradient is rounding (zero in exact
+    arithmetic): a bias in front of a batch-statistics BatchNorm through
+    a linear map only (the decoders' pre_linear, the TCN's output layer,
+    the VQFrame's encoder, the audio mel encoder's fc and bn2) or an
+    attention's key bias, which its softmax cancels."""
+    return path[-2:] in (("pre_linear", "bias"), ("k", "bias")) \
+        or path == ("encoder", "decoder", "bias") \
+        or (vq_frame and path == ("encoder", "bias")) \
+        or path[-3:] in (("wav_encoder", "fc", "bias"),
+                         ("wav_encoder", "bn2", "bias"))
 
 
 def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
@@ -3616,13 +3721,8 @@ def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
         top = max(float(g.abs().max()) for g in ref.values())
         worst, where = 0.0, ""
         for path, g in ref.items():
-            cancelled = path[-2:] in (("pre_linear", "bias"),
-                                      ("k", "bias")) \
-                or path == ("encoder", "decoder", "bias") \
-                or (vq_frame and path == ("encoder", "bias")) \
-                or path[-3:] in (("wav_encoder", "fc", "bias"),
-                                 ("wav_encoder", "bn2", "bias"))
-            scale = top if cancelled else float(g.abs().max())
+            scale = top if cancelled_grad(path, vq_frame) \
+                else float(g.abs().max())
             err = float((other[path] - g).abs().max()) / max(scale, 1e-30)
             if err > worst:
                 worst, where = err, "/".join(path)
@@ -3666,7 +3766,7 @@ def train_card_vs_cpu(part: str, cfg, arrays, n_words: int,
     return out
 
 
-def train_path(smi: str, tmp: str) -> tuple:
+def train_path(smi: str, tmp: str, done: dict) -> tuple:
     """`cli/train.main()` for part a (the DAE, the VQFrame, the VAEFrame,
     and the VQFrame with VAE heads through `train_dae(vq_tricks=True)`),
     part b (GS-Soft, residual VQ, residual VQ with the transformer chunk
@@ -3674,7 +3774,9 @@ def train_path(smi: str, tmp: str) -> tuple:
     autoencoder, the similarity-supervised step) and part d (TCN, GRU
     encoder, then the recommended recipe's transformer with its feedback
     epoch) at the shipped configs' widths, each run's launches, speed and
-    losses; then the checks."""
+    losses; then the checks. Fills `done` with what the bf16 and stream
+    phases train over: the store root and stores, the checkpoints and
+    the runs' rows."""
     import glob
 
     import torch
@@ -3694,6 +3796,7 @@ def train_path(smi: str, tmp: str) -> tuple:
     root = os.path.join(tmp, "training")
     stores = write_train_store(root, np.random.default_rng(9))
     ckpts, runs, counts, gates_launches = {}, {}, {}, {}
+    done.update(root=root, stores=stores, ckpts=ckpts, runs=runs)
     # the command's own data (cli/train.build_arrays), the re-fits' Lloyd
     # steps and the launches before and during a Part-a re-fit, recorded
     # as the command runs
@@ -3840,7 +3943,7 @@ def train_path(smi: str, tmp: str) -> tuple:
                 if variant in row:
                     steps[f"{run}_{variant}"] = row[variant]
             for name, measured in steps.items():
-                want = {k: 0 for k in launch_counters()}
+                want = {k: 0 for k in all_launches()}
                 want.update(TRAIN_STEP_LAUNCHES[name])
                 if measured["launches_per_step"] != want:
                     problems.append(f"{name}: launches per step "
@@ -3990,6 +4093,584 @@ def train_path(smi: str, tmp: str) -> tuple:
                  "library_ms": main_row["library_forward_ms"],
                  "inference_ms": main_row["forward_ms"]}}
     return entry, counts
+
+
+# -- compute_dtype: bfloat16, and the streaming source -------------------
+def bf16_bound_ms(flops: float, values: float) -> dict:
+    """The least time for bf16 work: 2 bytes a value at the memory rate
+    against the operations at the card's bf16 tensor-core peak (its rate
+    for bf16 operands with fp32 accumulation). Beside it
+    `cuda_core_bound_ms`, the same with the operations at the fp32
+    CUDA-core peak: the units the bf16 instantiations multiply on today,
+    not a bound of the work."""
+    nbytes = 2.0 * values
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "cuda_core_bound_ms": bound(flops, nbytes)["bound_ms"]}
+
+
+def bf16_gru_values(T: int, B: int, H: int, gates: bool) -> float:
+    """x_proj, h0, w_hh, b_hh in; outputs, last hidden (and the gates)
+    out."""
+    return (T * B * 3 * H + B * H + 3 * H * H + 3 * H + T * B * H + B * H
+            + (T * B * 4 * H if gates else 0))
+
+
+def bf16_kernel_rows() -> dict:
+    """Each bf16 instantiation against its bf16 plain version on the card
+    at the main path's shapes (BF16_GRU_SHAPES, both directions;
+    TRAIN_VAL_DECODE), within BF16_TOL of the largest magnitude (fp32 sums
+    in another order flip a bf16 rounding now and then, and the
+    recurrence carries it): CUDA-event times of the kernel, its plain
+    version and the fp32 kernel on the same values in fp32 (in turns:
+    bf16, fp32, fp32, bf16), the bound (bf16_bound_ms) and, for the GRU,
+    cuDNN's bf16 GRU layer (input product included) and its backward as
+    the library yardsticks. Returns {kernel: {shape: row}}."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    H, bf = HID, torch.bfloat16
+    bnd = 1.0 / H ** 0.5
+
+    def uni(*s):
+        return (torch.rand(s, device="cuda", generator=g) * 2 - 1) * bnd
+
+    w_ih, w_hh, b_ih, b_hh = uni(3 * H, H), uni(3 * H, H), uni(3 * H), \
+        uni(3 * H)
+    cudnn = torch.nn.GRU(H, H, 1).cuda()
+    with torch.no_grad():
+        for p, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                     (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            p.copy_(v)
+    cudnn = cudnn.to(bf)
+    rows = {"gru_sequence_bf16": {}, "gru_sequence_gates_bf16": {},
+            "gru_sequence_backward_bf16": {}, "chunk_decoder_bf16": {}}
+
+    def in_turns(a, b, iters=20):
+        t = [cuda_ms(f, iters) for f in (a, b, b, a)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    for T, B in BF16_GRU_SHAPES:
+        xs = torch.randn(T, B, H, device="cuda", generator=g)
+        h0 = 0.5 * torch.randn(B, H, device="cuda", generator=g)
+        x_proj = (xs.reshape(-1, H) @ w_ih.t() + b_ih).reshape(T, B, -1)
+        dys = torch.randn(T, B, H, device="cuda", generator=g)
+        dhl = torch.randn(B, H, device="cuda", generator=g)
+        f32 = (x_proj, h0, w_hh, b_hh)
+        b16 = tuple(t.to(bf).contiguous() for t in f32)
+        d16 = (dys.to(bf), dhl.to(bf))
+        for reverse in (False, True):
+            key = f"T{T}_B{B}" + ("_reverse" if reverse else "")
+            with torch.no_grad():
+                ys, h = gk.gru_sequence(*b16, reverse)
+                ys_g, h_g, gates = gk.gru_sequence_gates(*b16, reverse)
+                ys_p, h_p, gates_p = gk.gru_sequence_gates_plain(*b16,
+                                                                 reverse)
+                _, _, gates32 = gk.gru_sequence_gates(*f32, reverse)
+                bwd = (gates, b16[1], b16[2], ys, *d16, reverse)
+                got = gk.gru_sequence_backward(*bwd)
+                want = gk.gru_sequence_backward_plain(
+                    gates_p, b16[1], b16[2], ys_p, *d16, reverse)
+                ys32 = gk.gru_sequence(*f32, reverse)[0]
+                bwd32 = (gates32, h0, w_hh, ys32, dys, dhl, reverse)
+                errs = {"ys": rel_err(ys.float(), ys_p.float()),
+                        "h_last": rel_err(h.float(), h_p.float()),
+                        "gates": rel_err(gates.float(), gates_p.float()),
+                        **{n: rel_err(a.float(), b.float()) for n, a, b in
+                           zip(("dx_proj", "dgh", "dh0"), got, want)}}
+                bitwise = bool(torch.equal(ys, ys_g)
+                               and torch.equal(h, h_g))
+                fwd_ms, fwd32_ms = in_turns(
+                    lambda: gk.gru_sequence(*b16, reverse),
+                    lambda: gk.gru_sequence(*f32, reverse))
+                gates_ms, gates32_ms = in_turns(
+                    lambda: gk.gru_sequence_gates(*b16, reverse),
+                    lambda: gk.gru_sequence_gates(*f32, reverse))
+                bwd_ms, bwd32_ms = in_turns(
+                    lambda: gk.gru_sequence_backward(*bwd),
+                    lambda: gk.gru_sequence_backward(*bwd32))
+                common = {"phase": "kernel", "T": T, "B": B, "H": H,
+                          "reverse": reverse, "dtype": "bfloat16",
+                          "rel_err_vs_plain": errs, "tol": BF16_TOL,
+                          "ys_bitwise_equal_to_inference": bitwise}
+                fwd_row = {**common, "kernel": "gru_sequence_bf16",
+                           "launch": gk.launch_shape(B, H, dtype=bf),
+                           "max_abs_err": max(
+                               (ys.float() - ys_p.float()).abs().max()
+                               .item(), (h.float() - h_p.float()).abs()
+                               .max().item()),
+                           "ms": fwd_ms, "fp32_ms": fwd32_ms,
+                           "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                               *b16, reverse), 5),
+                           **bf16_bound_ms(2.0 * T * B * H * 3 * H,
+                                           bf16_gru_values(T, B, H, False))}
+                gates_row = {**common, "kernel": "gru_sequence_gates_bf16",
+                             "max_abs_err": (gates.float() - gates_p.float())
+                             .abs().max().item(),
+                             "ms": gates_ms, "fp32_ms": gates32_ms,
+                             "plain_ms": cuda_ms(
+                                 lambda: gk.gru_sequence_gates_plain(
+                                     *b16, reverse), 5),
+                             **bf16_bound_ms(2.0 * T * B * H * 3 * H,
+                                             bf16_gru_values(T, B, H, True))}
+                bwd_row = {**common, "kernel": "gru_sequence_backward_bf16",
+                           "launch": gk.backward_launch_shape(B, H,
+                                                              dtype=bf),
+                           "max_abs_err": max(
+                               (a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, want)),
+                           "ms": bwd_ms, "fp32_ms": bwd32_ms,
+                           "plain_ms": cuda_ms(
+                               lambda: gk.gru_sequence_backward_plain(
+                                   gates_p, b16[1], b16[2], ys_p, *d16,
+                                   reverse), 5),
+                           **bf16_bound_ms(
+                               2.0 * T * B * 3 * H * H,
+                               T * B * 4 * H + 2 * B * H + 3 * H * H
+                               + 2 * T * B * H + 2 * T * B * 3 * H + B * H)}
+                if not reverse:
+                    xs16, h016 = xs.to(bf), h0[None].to(bf)
+                    fwd_row["library_ms"] = cuda_ms(
+                        lambda: cudnn(xs16, h016), 20)
+                    fwd_row["matmul_plus_kernel_ms"] = cuda_ms(
+                        lambda: gru_layer(xs, h0, w_ih, w_hh, b_ih, b_hh,
+                                          dtype=bf), 20)
+                    gates_row["library_ms"] = fwd_row["library_ms"]
+            if not reverse:
+                # cuDNN's backward of one bf16 layer on the same weights
+                xs_l = xs.to(bf).requires_grad_()
+                h0_l = h0[None].to(bf).requires_grad_()
+                y_c, h_c = cudnn(xs_l, h0_l)
+                params = [xs_l, h0_l, *cudnn.parameters()]
+                bwd_row["library_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(
+                        (y_c, h_c), params, (d16[0], d16[1][None]),
+                        retain_graph=True), 20)
+            for row in (fwd_row, gates_row, bwd_row):
+                row.setdefault("library_ms", None)
+                emit(row)
+                rows[row["kernel"]][key] = row
+            worst = max(errs.values())
+            if not np.isfinite(worst) or worst > BF16_TOL or not bitwise:
+                raise AssertionError(f"bf16 GRU kernels {key}: {errs}, ys "
+                                     f"bitwise equal to the inference "
+                                     f"launch: {bitwise}")
+    # the chunk decoder over a bf16-folded decoder step (eval BatchNorm
+    # with non-trivial statistics), Part-b validation's shape
+    from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
+    dec = SeqDecoder(REP, H, L, N_FRAMES, 8, dtype=bf).cuda().eval()
+    with torch.no_grad():
+        for prm in dec.parameters():
+            prm.copy_(uni(*prm.shape))
+        bn = dec.decoder_step.pre_bn
+        bn.running_mean.copy_(0.1 * torch.randn(H, device="cuda",
+                                                generator=g))
+        bn.running_var.copy_(torch.rand(H, device="cuda", generator=g)
+                             + 0.5)
+    B, n = TRAIN_VAL_DECODE
+    w16 = dk.fold_decoder_step(dec.decoder_step, bf)
+    w32 = dk.fold_decoder_step(dec.decoder_step)
+    x0 = torch.randn(B, REP, device="cuda", generator=g)
+    h0 = 0.5 * torch.randn(L, B, H, device="cuda", generator=g)
+    a16 = (x0.to(bf), h0.to(bf), w16, n)
+    with torch.no_grad():
+        ys = dk.fused_chunk_decode(*a16)
+        ys_p = dk.fused_chunk_decode_plain(*a16)
+        err = rel_err(ys.float(), ys_p.float())
+        ms, ms32 = in_turns(lambda: dk.fused_chunk_decode(*a16),
+                            lambda: dk.fused_chunk_decode(x0, h0, w32, n))
+        plain_ms = cuda_ms(lambda: dk.fused_chunk_decode_plain(*a16), 5)
+    cb = chunk_decoder_bound_ms(B, REP, H, n)
+    row = {"phase": "kernel", "kernel": "chunk_decoder_bf16", "B": B,
+           "steps": n, "H": H, "D": REP, "dtype": "bfloat16",
+           "launch": dk.launch_shape(B, H, REP, dtype=bf),
+           "max_abs_err": (ys.float() - ys_p.float()).abs().max().item(),
+           "rel_err_vs_plain": err, "tol": BF16_TOL, "ms": ms,
+           "fp32_ms": ms32, "plain_ms": plain_ms, "library_ms": None,
+           **bf16_bound_ms(cb["flops"], cb["bytes"] / 4.0)}
+    emit(row)
+    rows["chunk_decoder_bf16"][f"B{B}_steps{n}"] = row
+    if not np.isfinite(err) or err > BF16_TOL:
+        raise AssertionError(f"chunk_decoder_bf16: relative error {err}")
+    return rows
+
+
+def bf16_card_vs_cpu(part: str, cfg, cfg32, arrays, n_words: int,
+                     variant: str = "") -> dict:
+    """One bf16 train step (the variant's) on the card and on the CPU
+    from the same initial weights, every dropout off, on each of the
+    first BF16_CARD_BATCHES batches: the two run the same bf16 math (the
+    CPU through the kernels' bf16 plain versions), so the card's loss and
+    each gradient (in norm, against the CPU bf16 gradient's norm) are
+    held to the CPU bf16 step's; the gradients that a batch-statistics BatchNorm or a softmax cancels (see
+    train_card_vs_cpu) are measured against the largest norm. Beside
+    them, as statistics only, the first batch's CPU fp32 step: each bf16
+    step's distance from it. Limits: BF16_CARD_LOSS_TOL on the loss,
+    BF16_CARD_TOL on each gradient, BF16_CARD_MEDIAN_TOL on their
+    median."""
+    import copy
+
+    import torch
+
+    from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.train.optim import Adam
+    from gesture2vec_tpu_torch.train.token_loop import to_device
+
+    cpu16 = fresh_model(part, cfg, n_words, "cpu").train()
+    card = copy.deepcopy(cpu16).cuda().train()
+    cpu32 = fresh_model(part, cfg32, n_words, "cpu").train()
+
+    def run(m, c, dev: str, batch):
+        m.zero_grad(set_to_none=True)
+        step = train_step_of(part, c, m, Adam(m.parameters(), 1e-3), variant)
+        loss = step.loss(*[to_device(a, dev) for a in batch])
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss.backward()
+        return float(loss), {
+            path: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().cpu().double() for path, p, _, _ in param_entries(m)}
+
+    def norm_dist(got, want, top, path):
+        scale = top if cancelled_grad(path) else float(want.norm())
+        return float((got - want).norm()) / scale if scale else \
+            float(got.norm())
+
+    out = {"tol": {"loss": BF16_CARD_LOSS_TOL, "grad": BF16_CARD_TOL,
+                   "grad_median": BF16_CARD_MEDIAN_TOL}, "batches": []}
+    for b in range(BF16_CARD_BATCHES):
+        batch = step_inputs(cfg, arrays, np.arange(b * cfg.batch_size,
+                                                   (b + 1) * cfg.batch_size),
+                            b)
+        l16, g16 = run(cpu16, cfg, "cpu", batch)
+        lc, gc = run(card, cfg, "cuda", batch)
+        top = max(float(g.norm()) for g in g16.values())
+        dist = {path: norm_dist(gc[path], g, top, path)
+                for path, g in g16.items()}
+        worst = max(dist, key=dist.get)
+        read = {"loss_cpu": l16, "loss_card": lc,
+                "loss_rel_err": abs(lc - l16) / abs(l16),
+                "grad_worst": {"path": "/".join(worst),
+                               "rel_err": dist[worst]},
+                "grad_median": float(np.median(list(dist.values())))}
+        if b == 0:
+            l32, g32 = run(cpu32, cfg32, "cpu", batch)
+            top32 = max(float(g.norm()) for g in g32.values())
+            read["vs_fp32"] = {
+                "loss_fp32": l32,
+                "cpu_bf16_grad_worst": max(norm_dist(g16[p], g, top32, p)
+                                           for p, g in g32.items()),
+                "card_grad_worst": max(norm_dist(gc[p], g, top32, p)
+                                       for p, g in g32.items())}
+        out["batches"].append(read)
+    out["ok"] = all(r["loss_rel_err"] <= BF16_CARD_LOSS_TOL
+                    and r["grad_worst"]["rel_err"] <= BF16_CARD_TOL
+                    and r["grad_median"] <= BF16_CARD_MEDIAN_TOL
+                    for r in out["batches"])
+    return out
+
+
+def train_bf16_path(smi: str, done: dict) -> tuple:
+    """compute_dtype: bfloat16 (TRAIN_BF16_RUNS): `cli/train.main()` for
+    the GS-Soft BiGRU tokenizer, the GRU-encoder Part d, the recipe's
+    transformer Part d with its feedback epoch over the residual-VQ
+    tokenizer and the audio Part d, each at the shipped config's widths
+    and batch 128 over the train path's store and checkpoints: the
+    command's launches and losses; from a loop over its own arrays the
+    launches per step and per validation batch, steps/s, the step split
+    and the idle share beside the fp32 run's; one bf16 step on the card
+    against the CPU's (bf16_card_vs_cpu); then a bf16 Part d and a bf16
+    tokenizer through `cli/_common.build_generator` (fp32 models, finite
+    frames of a 6 s transcript). Checks that a bf16 step launches the
+    bf16 instantiations (BF16_LAUNCHES) and no fp32 kernel. Returns the
+    kernels line's four bf16 entries and the phase's launches."""
+    import glob
+
+    import torch
+
+    from gesture2vec_tpu_torch.cli import train as cli_train
+    from gesture2vec_tpu_torch.cli._common import build_generator
+    from gesture2vec_tpu_torch.data.store import ClipStore
+
+    rows = bf16_kernel_rows()
+    root, stores, ckpts = done["root"], done["stores"], done["ckpts"]
+    build, built = cli_train.build_arrays, {}
+
+    def recording_build(*args):
+        built["out"] = build(*args)
+        return built["out"]
+
+    problems, runs, totals = [], {}, {k: 0 for k in bf16_launches()}
+    for run, part, shipped, cuts, base in TRAIN_BF16_RUNS:
+        cfg_path = os.path.join(root, f"{run}.yml")
+        save = os.path.join(root, "out", run)
+        write_train_config(cfg_path, shipped, {
+            "train_data_path": stores[2 if part == "audio" else 0],
+            "val_data_path": stores[3 if part == "audio" else 1],
+            "model_save_path": save, "compute_dtype": "bfloat16", **cuts})
+        argv = ["-c", cfg_path, "--part", part, "--save-dir", save,
+                "--rep-checkpoint", ckpts["a"]]
+        if part != "b":
+            argv += ["--autoencoder-checkpoint", ckpts[TRAIN_TEACHERS[base]]]
+        cli_train.build_arrays = recording_build
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            _, hist = cli_train.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            cli_train.build_arrays = build
+        wall = time.perf_counter() - t0
+        launched = all_launches()
+        for k in totals:
+            totals[k] += launched[k]
+        ckpts[run] = sorted(glob.glob(os.path.join(save, "*.bin")))[-1]
+        cfg, (train, val), kw = built.pop("out")
+        if part in ("d", "audio"):
+            fields = (("mel", "tokens") if part == "audio" else
+                      ("word_ids", "lengths", "tokens")) + (
+                ("stage_tokens",) if cfg.token_stages > 1 else ())
+            train, val = (tuple(d[f] for f in fields) for d in (train, val))
+        else:
+            train, val = (train,), (val,)
+        n_words = kw.get("n_words", 0)
+        cfg32 = cfg.replace(compute_dtype="float32")
+        fp32 = done["runs"][base]
+        row = {"phase": "train_bf16", "run": run, "part": part,
+               "config": f"configs/{shipped}", "cuts": cuts,
+               "compute_dtype": cfg.compute_dtype, "cli_s": wall,
+               "launches": launched,
+               "first_step_loss": hist["first_step_loss"][0],
+               "epoch_loss": hist["train_loss"],
+               "val_loss": hist["val_loss"],
+               **train_measure(run, part, cfg, train, val, n_words),
+               "card_vs_cpu": bf16_card_vs_cpu(part, cfg, cfg32, train,
+                                               n_words),
+               "fp32": {k: fp32[k] for k in (
+                   "steps_per_s", "samples_per_s", "split_ms",
+                   "idle_share", "device_ops_per_step")}}
+        steps = {run: row}
+        if cfg.feedback_finetune_epochs:
+            row["feedback"] = {
+                **train_measure(run, part, cfg, train, val, n_words,
+                                variant="feedback"),
+                "card_vs_cpu": bf16_card_vs_cpu(part, cfg, cfg32, train,
+                                                n_words, "feedback"),
+                "fp32": {k: fp32["feedback"][k] for k in (
+                    "steps_per_s", "split_ms", "idle_share")}}
+            steps[f"{run}_feedback"] = row["feedback"]
+        emit(row)
+        runs[run] = row
+        # -- check ---------------------------------------------------------
+        per_step, per_val = BF16_LAUNCHES[run]
+        for name, measured in steps.items():
+            want = {k: 0 for k in all_launches()}
+            want.update(per_step)
+            if measured["launches_per_step"] != want:
+                problems.append(f"{name}: launches per step "
+                                f"{measured['launches_per_step']}, want "
+                                f"{want}")
+            if not measured["card_vs_cpu"]["ok"]:
+                problems.append(f"{name}: card vs CPU "
+                                f"{measured['card_vs_cpu']}")
+        want = {k: 0 for k in all_launches()}
+        want.update(per_val)
+        if row["launches_per_val_batch"] != want:
+            problems.append(f"{run}: launches per validation batch "
+                            f"{row['launches_per_val_batch']}, want {want}")
+        # the command: one gate-saving launch for each backward one, no
+        # fp32 training kernel, a bf16 chunk decode a Part-b validation
+        # batch (its data step's teacher sweeps run the fp32 tokenizer)
+        if launched["gru_sequence_gates_bf16"] != \
+                launched["gru_sequence_backward_bf16"] or \
+                launched["gru_sequence_backward"] or \
+                (per_step and not launched["gru_sequence_backward_bf16"]) \
+                or launched["chunk_decoder"] or \
+                (part == "b") != (launched["chunk_decoder_bf16"] > 0):
+            problems.append(f"{run}: the command launched {launched}")
+        losses = [row["first_step_loss"], *row["epoch_loss"],
+                  *row["val_loss"]]
+        if not all(np.isfinite(losses)) or not \
+                row["epoch_loss"][-1] < row["first_step_loss"]:
+            problems.append(f"{run}: losses {losses}")
+    # bf16-trained checkpoints generate in fp32
+    gen, _ = build_generator(ckpts["d_gru_bf16"], ckpts["a"],
+                             ckpts["b_gssoft_bf16"], ClipStore(stores[0]),
+                             mode="decode")
+    models = (gen.t2t_model, gen.seq_decoder)
+    fp32_models = all(p.dtype == torch.float32 for m in models
+                      for p in m.parameters()) and \
+        gen.t2t_model.compute_dtype is None and gen.seq_decoder.dtype is None
+    reset_launches()
+    frames, _ = gen.generate(words(6.0), 6.0)
+    torch.cuda.synchronize()
+    got = all_launches()
+    generator = {"checkpoints": ["d_gru_bf16", "a", "b_gssoft_bf16"],
+                 "fp32_models": fp32_models, "frames": list(frames.shape),
+                 "finite": bool(np.isfinite(frames).all()), "launches": got}
+    if not fp32_models or frames.shape != (int(6.0 * FPS), DIM) or \
+            not generator["finite"] or got["chunk_decoder"] != 1 or \
+            any(got[k] for k in bf16_launches()):
+        problems.append(f"bf16 generator {generator}")
+    emit({"phase": "check", "path": "train_bf16", "generator": generator,
+          "card_vs_cpu": {r: row["card_vs_cpu"] for r, row in runs.items()},
+          "tol": BF16_TOL, "problems": problems})
+    if problems:
+        raise AssertionError(f"train_bf16 check failed: {problems}")
+    entries = []
+    for name, fp32_name, main_key in (
+            ("gru_sequence_bf16", "gru_sequence", "T20_B128"),
+            ("gru_sequence_gates_bf16", "gru_sequence_gates", "T20_B128"),
+            ("gru_sequence_backward_bf16", "gru_sequence_backward",
+             "T20_B128"),
+            ("chunk_decoder_bf16", "chunk_decoder", "B128_steps19")):
+        main = rows[name][main_key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "gesture2vec_tpu_torch/csrc/" + (
+                "chunk_decoder.cu" if name.startswith("chunk") else
+                "gru_sequence_backward.cu" if "backward" in name else
+                "gru_sequence.cu"),
+            "replaces": ("gesture2vec_tpu/ops/decoder_pallas.py:144"
+                         if name.startswith("chunk") else
+                         "gesture2vec_tpu/ops/gru_pallas.py:60"),
+            "replaces_note": f"the bf16 instantiation of {fp32_name} (the "
+                             f"JAX package's compute_dtype: bfloat16)",
+            "launches": totals[name],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in rows[name].values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "cuda_core_bound_ms": main["cuda_core_bound_ms"],
+            "library_ms": main["library_ms"], "fp32_ms": main["fp32_ms"],
+            "by_shape": {k: {key: r.get(key) for key in (
+                "ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
+                "cuda_core_bound_ms", "library_ms",
+                "matmul_plus_kernel_ms", "max_abs_err")}
+                for k, r in rows[name].items()}})
+    return entries, totals
+
+
+def rss_sampler():
+    """A thread sampling this process's resident set every 20 ms: returns
+    (stop, peak, start) where stop() ends it, peak() gives the largest RSS
+    seen and start the RSS when it began, in MiB."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    seen = [0]
+    stop_ev = threading.Event()
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    def loop():
+        while not stop_ev.is_set():
+            seen[0] = max(seen[0], rss())
+            stop_ev.wait(0.02)
+
+    seen[0] = rss()
+    start = seen[0] / 2 ** 20
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+
+    def stop():
+        stop_ev.set()
+        t.join()
+        seen[0] = max(seen[0], rss())
+    return stop, lambda: seen[0] / 2 ** 20, start
+
+
+def stream_path(smi: str, done: dict) -> dict:
+    """The streaming sources (`data/streaming`) on the train path's store:
+    Part a (configs/DAE.yml) from StreamingFrames and Part b
+    (configs/VQ-VAE.yml, the GS-Soft BiGRU tokenizer) from
+    StreamingWindows with the frozen Part-a DAE as its transform
+    (`data/teacher.window_teacher`, run in the prefetch worker), one epoch
+    each, beside the same trainer on the in-RAM arrays cli/train builds:
+    steps/s of each, the host's peak RSS during each and its growth over
+    the RSS at the start (the process's own ~8 GB of CUDA context, stores
+    and earlier phases under it; the in-RAM arrays are built before), the
+    launches (the same steps, so the same counts), and both losses
+    falling."""
+    import torch
+
+    from gesture2vec_tpu_torch.cli import train as cli_train
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.data.streaming import (StreamingFrames,
+                                                      StreamingWindows)
+    from gesture2vec_tpu_torch.data.teacher import window_teacher
+    from gesture2vec_tpu_torch.train import dae_trainer as dt
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train.config import load_config
+
+    root, stores, ckpts = done["root"], done["stores"], done["ckpts"]
+    store = ClipStore(stores[0])
+    dae = load_checkpoint_and_model(ckpts["a"], "DAE", "cuda")[0]
+    out, problems = {}, []
+    for part, shipped, trainer in (("a", "DAE.yml", dt.train_dae),
+                                   ("b", "VQ-VAE.yml", st.train_seq_ae)):
+        cfg_path = os.path.join(root, f"stream_{part}.yml")
+        write_train_config(cfg_path, shipped, {
+            "train_data_path": stores[0], "val_data_path": stores[1],
+            "epochs": 1, "rep_learning_checkpoint": ckpts["a"]})
+        cfg, (train, val), _ = cli_train.build_arrays(
+            load_config(cfg_path), part, torch.device("cuda"))
+        if part == "a":
+            source = StreamingFrames(store)
+        else:
+            source = StreamingWindows(
+                store, cfg.n_poses, cfg.subdivision_stride,
+                transform=window_teacher(dae))
+        res = {}
+        for how, data in (("in_ram", train), ("stream", source)):
+            n = len(data)
+            stop, peak, start = rss_sampler()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, hist = trainer(cfg, data, val, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stop()
+            steps = n // cfg.batch_size
+            res[how] = {"samples": n, "steps": steps, "epoch_s": wall,
+                        "steps_per_s": steps / wall,
+                        "peak_rss_mib": peak(), "rss_at_start_mib": start,
+                        "peak_rss_growth_mib": peak() - start,
+                        "launches": all_launches(),
+                        "first_step_loss": hist["first_step_loss"][0],
+                        "epoch_loss": hist["train_loss"],
+                        "val_loss": hist["val_loss"]}
+            losses = [res[how]["first_step_loss"], *hist["train_loss"],
+                      *hist["val_loss"]]
+            if not all(np.isfinite(losses)) or \
+                    not hist["train_loss"][-1] < hist["first_step_loss"][0]:
+                problems.append(f"{part} {how}: losses {losses}")
+        if res["stream"]["launches"] != res["in_ram"]["launches"] or \
+                res["stream"]["steps"] != res["in_ram"]["steps"]:
+            problems.append(f"{part}: stream {res['stream']} against in "
+                            f"RAM {res['in_ram']}")
+        row = {"phase": "stream", "part": part, "config": f"configs/{shipped}",
+               "batch": cfg.batch_size, **res,
+               "stream_over_in_ram_steps_per_s":
+                   res["stream"]["steps_per_s"]
+                   / res["in_ram"]["steps_per_s"]}
+        emit(row)
+        out[part] = row
+    emit({"phase": "check", "path": "stream", "problems": problems})
+    if problems:
+        raise AssertionError(f"stream check failed: {problems}")
+    return out
 
 
 def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
@@ -4728,9 +5409,16 @@ def main() -> int:
     secs["recipe_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        train_entry, train_counts = train_path(smi, tmp)
-    kernels.append(train_entry)
-    secs["train_s"] = time.perf_counter() - t0
+        done = {}
+        train_entry, train_counts = train_path(smi, tmp, done)
+        kernels.append(train_entry)
+        secs["train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bf16_entries, _ = train_bf16_path(smi, done)
+        secs["train_bf16_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stream_path(smi, done)
+        secs["stream_s"] = time.perf_counter() - t0
     emit({"phase": "paths", **secs,
           "total_s": time.perf_counter() - _T0})
     for k in kernels:
@@ -4755,7 +5443,8 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "matmul_plus_kernel_ms", "max_abs_err")}
                 for name, r in shapes.items()}
-    emit({"kernels": kernels})
+    # the bf16 instantiations: launches on the bf16 training path
+    emit({"kernels": kernels + bf16_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

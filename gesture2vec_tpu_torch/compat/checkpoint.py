@@ -34,6 +34,11 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
                   decoder's attention, not the Part-b decoder attention
                   that autoencoder_vq refuses) from the config, fp32.
 Each maker holds what the config says against what the weights hold.
+Every model loaded here computes in fp32 (`compute_dtype` None) and
+`load_checkpoint_and_model` sets the payload config's `compute_dtype` to
+"float32", as the JAX registry does: a checkpoint trained with
+`compute_dtype: bfloat16` (its parameters are fp32) generates through the
+fp32 kernels.
 """
 from __future__ import annotations
 
@@ -190,6 +195,8 @@ def load_checkpoint_and_model(path: str, what: str,
         raise KeyError(f"unknown checkpoint kind {what!r}; known: "
                        f"{sorted(_MAKERS)}")
     payload = load_checkpoint(path)
+    # registry loads serve inference: fp32 whatever the training dtype
+    payload["config"]["compute_dtype"] = "float32"
     stored = payload.get("kind", "")
     alias = {"autoencoder": "autoencoder_vq"}
     if stored and alias.get(stored, stored) != alias.get(what, what):

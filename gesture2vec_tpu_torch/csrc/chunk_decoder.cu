@@ -55,13 +55,33 @@
 // slower at B=6, since a row's step costs about as much in a tall tile
 // as in a short one.
 //
+// bf16 instantiation (g2v_chunk_decode_bf16): the eval-mode decode of a
+// bf16-trained tokenizer's validation (the JAX package's compute_dtype:
+// bfloat16 runs its DecoderStep in bf16: pre_linear, BatchNorm and the GRU
+// cells return bf16 and the hidden is carried in bf16). The same kernel,
+// templated on the storage type of x0, h0, the weights, the folded BN and
+// ys. Products and gate math stay fp32 on the CUDA cores; what JAX holds
+// in bf16 between modules is rounded to bf16 (__float2bfloat16_rn) where
+// it is stored: p after the folded BN and ReLU, each layer's new h (the
+// carry) and each output x (fed back). The weights sit in shared memory as
+// bf16 (four are one 8-byte read; the copy is a plain loop: bulk copies
+// want 16-byte rows), so more H fits; the state tiles stay fp32 holding
+// bf16 values. Bound at B=128, H=200, D=40, 19 steps: 2.41 GFLOP at the
+// card's 989 TFLOP/s bf16 tensor-core peak (0.0024 ms) against 1 MB of
+// bf16 bytes: bound by operations. The products run on the CUDA cores
+// (0.036 ms at 67 TFLOP/s fp32).
+//
 // Eligibility: the block's shared memory (layout() below) must fit
-// 232,448 B: H <= 204 at D=40. A block has 512 threads.
+// 232,448 B and a block's units must be at most 16 (a warp each, H <=
+// 256): fp32 H <= 204 at D=40 (shared memory), bf16 H <= 256 (units; its
+// shared memory would take H <= 292). A block has 512 threads.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
+
+#include "storage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,14 +95,18 @@ constexpr int kThreads = 512;
 constexpr int kSmemLimit = 232448;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Offsets (in floats) into a block's shared memory.
+// Offsets (in floats) into a block's shared memory. The weight regions
+// (wg, wpre, wout) hold esz-byte values, each region rounded up to 16
+// bytes; the rest is fp32.
 struct Layout {
   int U, H4, DP, DR;
   int wg, wpre, wout, bns, bnb, bout, bg, own, xs, ps, h0a, h0b, h1a, h1b,
       total;
 };
 
-__host__ __device__ inline Layout layout(int H, int D) {
+__host__ __device__ inline Layout layout(int H, int D, int esz) {
+  // floats taken by n weights of esz bytes
+  const auto wf = [esz](int n) { return 4 * ((n * esz + 15) / 16); };
   Layout l;
   l.U = (H + C - 1) / C;
   l.H4 = 4 * ((H + 3) / 4);
@@ -93,9 +117,9 @@ __host__ __device__ inline Layout layout(int H, int D) {
   l.DP = 4 * (q + ((2 - q) % 4 + 4) % 4);
   l.DR = 4 * q;
   int o = 4;                          // the mbarrier, 16 bytes
-  l.wg = o;   o += 12 * l.U * l.H4;   // [layer][ih, hh][r, z, n][U][H4]
-  l.wpre = o; o += H * l.DP;          // [H][DP]
-  l.wout = o; o += l.DR * l.H4;       // [DR][H4]
+  l.wg = o;   o += wf(12 * l.U * l.H4);  // [layer][ih, hh][r, z, n][U][H4]
+  l.wpre = o; o += wf(H * l.DP);         // [H][DP]
+  l.wout = o; o += wf(l.DR * l.H4);      // [DR][H4]
   l.bns = o;  o += l.H4;
   l.bnb = o;  o += l.H4;
   l.bout = o; o += l.DR;
@@ -111,7 +135,9 @@ __host__ __device__ inline Layout layout(int H, int D) {
   return l;
 }
 
-size_t smem_bytes(int H, int D) { return sizeof(float) * layout(H, D).total; }
+size_t smem_bytes(int H, int D, int esz) {
+  return sizeof(float) * layout(H, D, esz).total;
+}
 
 // Rows per tile for B rows when the card holds max_clusters clusters.
 int rows_for(int B, int max_clusters) {
@@ -125,10 +151,6 @@ int rows_for(int B, int max_clusters) {
 // dependent chain)
 __device__ __forceinline__ float sigmoid_f(float x) {
   return __fdividef(1.0f, 1.0f + __expf(-x));
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -207,52 +229,27 @@ __device__ __forceinline__ int lane_of(int i) {
   return i * (32 / N);
 }
 
+template <typename Elt>
 struct Params {
-  const float *x0, *h0, *w_pre, *bn_scale, *bn_bias, *w_out, *b_out;
-  const float* w[4];  // w0_ih, w0_hh, w1_ih, w1_hh, each (3H, H)
-  const float* b[4];  // b0_ih, b0_hh, b1_ih, b1_hh, each (3H)
-  float* ys;          // (T, B, D)
+  const Elt *x0, *h0, *w_pre, *bn_scale, *bn_bias, *w_out, *b_out;
+  const Elt* w[4];  // w0_ih, w0_hh, w1_ih, w1_hh, each (3H, H)
+  const Elt* b[4];  // b0_ih, b0_hh, b1_ih, b1_hh, each (3H)
+  Elt* ys;          // (T, B, D)
   int B, D, H, T, bulk;
 };
 
-// Stages this block's weights and biases; `bulk` copies need H and D
-// multiples of 4 and 16-byte aligned weights.
-__device__ void stage_weights(const Params& P, const Layout& L, float* sm,
-                              int u0, int nv) {
+// a read through the read-only cache (fp32) or a plain one
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldg(const __nv_bfloat16* p) {
+  return *p;
+}
+
+// The fp32 weights' bulk copies (stage_weights' `bulk` case).
+__device__ void stage_bulk(const Params<float>& P, const Layout& L,
+                           float* sm, int u0, int nv, float* wg, float* wpre,
+                           float* wout) {
   const int H = P.H, D = P.D, U = L.U, H4 = L.H4, DP = L.DP;
   const int tid = threadIdx.x, nt = blockDim.x;
-  float* wg = sm + L.wg;
-  float* wpre = sm + L.wpre;
-  float* wout = sm + L.wout;
-  for (int i = tid; i < 12 * U; i += nt) {
-    const int m = i / (3 * U), g = (i / U) % 3, j = i % U;
-    sm[L.bg + i] = j < nv ? P.b[m][g * H + u0 + j] : 0.f;
-  }
-  for (int i = tid; i < H; i += nt) {
-    sm[L.bns + i] = P.bn_scale[i];
-    sm[L.bnb + i] = P.bn_bias[i];
-  }
-  for (int i = tid; i < D; i += nt) sm[L.bout + i] = P.b_out[i];
-
-  if (!P.bulk) {
-    for (int i = tid; i < 12 * U * H4; i += nt) {
-      const int row = i / H4, k = i % H4;
-      const int m = row / (3 * U), g = (row / U) % 3, j = row % U;
-      wg[i] = j < nv && k < H
-                  ? __ldg(P.w[m] + (size_t)(g * H + u0 + j) * H + k) : 0.f;
-    }
-    for (int i = tid; i < H * DP; i += nt) {
-      const int n = i / DP, k = i % DP;
-      wpre[i] = k < D ? __ldg(P.w_pre + (size_t)n * D + k) : 0.f;
-    }
-    for (int i = tid; i < L.DR * H4; i += nt) {
-      const int d = i / H4, k = i % H4;
-      wout[i] = d < D && k < H ? __ldg(P.w_out + (size_t)d * H + k) : 0.f;
-    }
-    __syncthreads();
-    return;
-  }
-
   // bulk: H4 == H and L.DR == D, so a gate's unit rows and all of w_out
   // are contiguous on both sides; w_pre's rows are padded to DP here
   const uint32_t bar = smem_u32(sm);
@@ -285,13 +282,56 @@ __device__ void stage_weights(const Params& P, const Layout& L, float* sm,
   __syncthreads();
 }
 
+// Stages this block's weights and biases; `bulk` copies (fp32 only) need
+// H and D multiples of 4 and 16-byte aligned weights.
+template <typename Elt>
+__device__ void stage_weights(const Params<Elt>& P, const Layout& L,
+                              float* sm, int u0, int nv) {
+  const int H = P.H, D = P.D, U = L.U, H4 = L.H4, DP = L.DP;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  Elt* wg = reinterpret_cast<Elt*>(sm + L.wg);
+  Elt* wpre = reinterpret_cast<Elt*>(sm + L.wpre);
+  Elt* wout = reinterpret_cast<Elt*>(sm + L.wout);
+  const Elt zero = from_f<Elt>(0.f);
+  for (int i = tid; i < 12 * U; i += nt) {
+    const int m = i / (3 * U), g = (i / U) % 3, j = i % U;
+    sm[L.bg + i] = j < nv ? to_f(P.b[m][g * H + u0 + j]) : 0.f;
+  }
+  for (int i = tid; i < H; i += nt) {
+    sm[L.bns + i] = to_f(P.bn_scale[i]);
+    sm[L.bnb + i] = to_f(P.bn_bias[i]);
+  }
+  for (int i = tid; i < D; i += nt) sm[L.bout + i] = to_f(P.b_out[i]);
+
+  if (!P.bulk) {
+    for (int i = tid; i < 12 * U * H4; i += nt) {
+      const int row = i / H4, k = i % H4;
+      const int m = row / (3 * U), g = (row / U) % 3, j = row % U;
+      wg[i] = j < nv && k < H
+                  ? ldg(P.w[m] + (size_t)(g * H + u0 + j) * H + k) : zero;
+    }
+    for (int i = tid; i < H * DP; i += nt) {
+      const int n = i / DP, k = i % DP;
+      wpre[i] = k < D ? ldg(P.w_pre + (size_t)n * D + k) : zero;
+    }
+    for (int i = tid; i < L.DR * H4; i += nt) {
+      const int d = i / H4, k = i % H4;
+      wout[i] = d < D && k < H ? ldg(P.w_out + (size_t)d * H + k) : zero;
+    }
+    __syncthreads();
+    return;
+  }
+  if constexpr (is_f32<Elt>()) stage_bulk(P, L, sm, u0, nv, wg, wpre, wout);
+}
+
 // One GRU layer for a tile of R rows: `in` and `hc` [RM][H4] -> the
-// block's units of the new state, into its full next state `hn` and its
-// compact slice `own` [RM][US], from which the other blocks pull them.
-template <int R>
+// block's units of the new state (rounded to the storage type: the
+// carry), into its full next state `hn` and its compact slice `own`
+// [RM][US], from which the other blocks pull them.
+template <typename Elt, int R>
 __device__ __forceinline__ void gru_layer(const float* in, const float* hc,
                                           float* hn, float* own,
-                                          const float* ws, const float* bs,
+                                          const Elt* ws, const float* bs,
                                           const Layout& L, int u0, int nv) {
   constexpr int N = 4 * pow2(R);  // [row][r, z, n_in, n_h]
   const int U = L.U, H4 = L.H4, q4 = H4 / 4;
@@ -301,8 +341,8 @@ __device__ __forceinline__ void gru_layer(const float* in, const float* hc,
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.f;
   if (act) {
-    const float* wi = ws + j * H4;            // w_ih rows r, z, n of unit j
-    const float* wh = ws + (3 * U + j) * H4;  // w_hh rows
+    const Elt* wi = ws + j * H4;            // w_ih rows r, z, n of unit j
+    const Elt* wh = ws + (3 * U + j) * H4;  // w_hh rows
     for (int c = s; c < q4; c += S) {
       const int k = 4 * c;
       const float4 wir = ld4(wi + k), wiz = ld4(wi + U * H4 + k),
@@ -332,7 +372,8 @@ __device__ __forceinline__ void gru_layer(const float* in, const float* hc,
     const float rg = sigmoid_f(g[0] + bi[j] + bh[j]);
     const float zg = sigmoid_f(g[1] + bi[U + j] + bh[U + j]);
     const float ng = tanhf(g[2] + bi[2 * U + j] + rg * (g[3] + bh[2 * U + j]));
-    const float h = (1.f - zg) * ng + zg * hc[r * H4 + u0 + j];
+    const float h =
+        round_to<Elt>((1.f - zg) * ng + zg * hc[r * H4 + u0 + j]);
     hn[r * H4 + u0 + j] = h;
     own[r * US + j] = h;
   }
@@ -359,13 +400,13 @@ __device__ __forceinline__ void pull_units(cg::cluster_group& cluster,
   }
 }
 
-template <int R>
+template <typename Elt, int R>
 __global__ void __launch_bounds__(kThreads, 1)
-chunk_decode_kernel(const Params P) {
+chunk_decode_kernel(const Params<Elt> P) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int B = P.B, D = P.D, H = P.H;
-  const Layout L = layout(H, D);
+  const Layout L = layout(H, D, sizeof(Elt));
   const int U = L.U, H4 = L.H4, DP = L.DP, u0 = rank * U;
   const int nv = max(0, min(U, H - u0));
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -378,6 +419,9 @@ chunk_decode_kernel(const Params P) {
   float* h0n = sm + L.h0b;
   float* h1c = sm + L.h1a;
   float* h1n = sm + L.h1b;
+  const Elt* wg = reinterpret_cast<const Elt*>(sm + L.wg);
+  const Elt* wpre = reinterpret_cast<const Elt*>(sm + L.wpre);
+  const Elt* wout = reinterpret_cast<const Elt*>(sm + L.wout);
   // the tile buffers' padding (columns past D or H) must read as zeros
   for (int i = L.xs + tid; i < L.total; i += nt) sm[i] = 0.f;
   stage_weights(P, L, sm, u0, nv);
@@ -392,12 +436,12 @@ chunk_decode_kernel(const Params P) {
     const int row0 = tile * R;
     for (int i = tid; i < R * D; i += nt) {
       const int r = i / D, k = i % D, b = row0 + r;
-      xs[r * DP + k] = b < B ? P.x0[(size_t)b * D + k] : 0.f;
+      xs[r * DP + k] = b < B ? to_f(P.x0[(size_t)b * D + k]) : 0.f;
     }
     for (int i = tid; i < R * H; i += nt) {
       const int r = i / H, k = i % H, b = row0 + r;
-      h0c[r * H4 + k] = b < B ? P.h0[(size_t)b * H + k] : 0.f;
-      h1c[r * H4 + k] = b < B ? P.h0[((size_t)B + b) * H + k] : 0.f;
+      h0c[r * H4 + k] = b < B ? to_f(P.h0[(size_t)b * H + k]) : 0.f;
+      h1c[r * H4 + k] = b < B ? to_f(P.h0[((size_t)B + b) * H + k]) : 0.f;
     }
     __syncthreads();
 
@@ -410,7 +454,7 @@ chunk_decode_kernel(const Params P) {
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = 0.f;
         if (n < H) {
-          const float* w = sm + L.wpre + n * DP;
+          const Elt* w = wpre + n * DP;
           for (int c = half; c < dq; c += 2) {
             const float4 wv = ld4(w + 4 * c);
 #pragma unroll
@@ -425,20 +469,21 @@ chunk_decode_kernel(const Params P) {
           const float sc = sm[L.bns + n], sh = sm[L.bnb + n];
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            ps[r * H4 + n] = fmaxf(fmaf(acc[r], sc, sh), 0.f);
+            ps[r * H4 + n] =
+                round_to<Elt>(fmaxf(fmaf(acc[r], sc, sh), 0.f));
         }
       }
       __syncthreads();
       float* own0 = sm + L.own;
       float* own1 = own0 + RM * US;
-      gru_layer<R>(ps, h0c, h0n, own0, sm + L.wg, sm + L.bg, L, u0, nv);
+      gru_layer<Elt, R>(ps, h0c, h0n, own0, wg, sm + L.bg, L, u0, nv);
       // publishes every block's new units of layer 0
       cluster.sync();
       pull_units<R>(cluster, own0, h0n, L, rank, H);
       __syncthreads();
       float* tmp = h0c; h0c = h0n; h0n = tmp;
-      gru_layer<R>(h0c, h1c, h1n, own1, sm + L.wg + 6 * U * H4,
-                   sm + L.bg + 6 * U, L, u0, nv);
+      gru_layer<Elt, R>(h0c, h1c, h1n, own1, wg + 6 * U * H4,
+                        sm + L.bg + 6 * U, L, u0, nv);
       cluster.sync();
       pull_units<R>(cluster, own1, h1n, L, rank, H);
       __syncthreads();
@@ -452,7 +497,7 @@ chunk_decode_kernel(const Params P) {
 #pragma unroll
         for (int i = 0; i < NO; ++i) acc[i] = 0.f;
         if (g < dq) {
-          const float* w = sm + L.wout + 4 * g * H4;
+          const Elt* w = wout + 4 * g * H4;
           for (int c = s; c < q4; c += S) {
             const int k = 4 * c;
             const float4 w0 = ld4(w + k), w1 = ld4(w + H4 + k),
@@ -473,10 +518,10 @@ chunk_decode_kernel(const Params P) {
         const int i = s * NO / 32, r = i % (NO / 4);
         const int d = 4 * g + i / (NO / 4), b = row0 + r;
         if (g < dq && s % (32 / NO) == 0 && r < R && d < D) {
-          const float y = acc[0] + sm[L.bout + d];
+          const float y = round_to<Elt>(acc[0] + sm[L.bout + d]);
           xs[r * DP + d] = y;
           if (b < B && (r * D + d) % C == rank)
-            P.ys[((size_t)t * B + b) * D + d] = y;
+            P.ys[((size_t)t * B + b) * D + d] = from_f<Elt>(y);
         }
       }
       __syncthreads();
@@ -486,12 +531,18 @@ chunk_decode_kernel(const Params P) {
   cluster.sync();
 }
 
-using Kernel = void (*)(Params);
+template <typename Elt>
+using Kernel = void (*)(Params<Elt>);
 // one instantiation per tile height: rows are unrolled in every loop
-const Kernel kKernels[RM] = {
-    chunk_decode_kernel<1>, chunk_decode_kernel<2>, chunk_decode_kernel<3>,
-    chunk_decode_kernel<4>, chunk_decode_kernel<5>, chunk_decode_kernel<6>,
-    chunk_decode_kernel<7>, chunk_decode_kernel<8>};
+template <typename Elt>
+const Kernel<Elt>* kernels() {
+  static const Kernel<Elt> k[RM] = {
+      chunk_decode_kernel<Elt, 1>, chunk_decode_kernel<Elt, 2>,
+      chunk_decode_kernel<Elt, 3>, chunk_decode_kernel<Elt, 4>,
+      chunk_decode_kernel<Elt, 5>, chunk_decode_kernel<Elt, 6>,
+      chunk_decode_kernel<Elt, 7>, chunk_decode_kernel<Elt, 8>};
+  return k;
+}
 
 cudaLaunchConfig_t launch_config(int clusters, size_t smem,
                                  cudaStream_t stream,
@@ -510,27 +561,32 @@ cudaLaunchConfig_t launch_config(int clusters, size_t smem,
   return cfg;
 }
 
-// the (H, D) prepare() last succeeded for, and the clusters the card holds,
-// under prepare_mutex: a server's threads launch concurrently
+// per storage type (fp32, bf16): the (H, D) prepare() last succeeded for,
+// and the clusters the card holds, under prepare_mutex: a server's
+// threads launch concurrently
 std::mutex prepare_mutex;
-int checked_H = -1, checked_D = -1, max_clusters = 0;
+int checked_H[2] = {-1, -1}, checked_D[2] = {-1, -1};
+int max_clusters[2] = {0, 0};
 
 // Sets the kernels' attributes (dynamic shared memory, the non-portable
 // cluster size) and reads how many 16-block clusters of this shape the
 // card holds at once (the least over the tile heights) into *clusters;
 // fails if none.
+template <typename Elt>
 cudaError_t prepare(int H, int D, int* clusters) {
   const std::lock_guard<std::mutex> lock(prepare_mutex);
-  if (H == checked_H && D == checked_D) {
-    *clusters = max_clusters;
+  const int ti = is_f32<Elt>() ? 0 : 1;
+  if (H == checked_H[ti] && D == checked_D[ti]) {
+    *clusters = max_clusters[ti];
     return cudaSuccess;
   }
-  const size_t smem = smem_bytes(H, D);
-  // a warp per unit: U <= 16 (the shared memory already implies it)
-  if (smem > kSmemLimit || layout(H, D).U > kThreads / S)
+  const size_t smem = smem_bytes(H, D, sizeof(Elt));
+  // a warp per unit: U <= 16
+  if (smem > kSmemLimit || layout(H, D, sizeof(Elt)).U > kThreads / S)
     return cudaErrorInvalidValue;
   int least = 1 << 30;
-  for (const Kernel k : kKernels) {
+  for (int i = 0; i < RM; ++i) {
+    const Kernel<Elt> k = kernels<Elt>()[i];
     cudaError_t e = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
@@ -545,23 +601,70 @@ cudaError_t prepare(int H, int D, int* clusters) {
     least = n < least ? n : least;
   }
   if (least <= 0) return cudaErrorInvalidConfiguration;
-  checked_H = H;
-  checked_D = D;
-  max_clusters = least;
+  checked_H[ti] = H;
+  checked_D[ti] = D;
+  max_clusters[ti] = least;
   *clusters = least;
   return cudaSuccess;
 }
 
-bool aligned16(const float* p) {
+bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename Elt>
+int launch(const Elt* x0, const Elt* h0, const Elt* w_pre,
+           const Elt* bn_scale, const Elt* bn_bias, const Elt* w0_ih,
+           const Elt* w0_hh, const Elt* b0_ih, const Elt* b0_hh,
+           const Elt* w1_ih, const Elt* w1_hh, const Elt* b1_ih,
+           const Elt* b1_hh, const Elt* w_out, const Elt* b_out, Elt* ys,
+           int B, int D, int H, int T, void* stream) {
+  if (B <= 0 || D <= 0 || H <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
+  int mc = 0;
+  cudaError_t e = prepare<Elt>(H, D, &mc);
+  if (e != cudaSuccess) return (int)e;
+  const int R = rows_for(B, mc);
+  Params<Elt> P = {x0, h0, w_pre, bn_scale, bn_bias, w_out, b_out,
+                   {w0_ih, w0_hh, w1_ih, w1_hh},
+                   {b0_ih, b0_hh, b1_ih, b1_hh}, ys, B, D, H, T, 0};
+  // bulk copies: fp32 weights with 16-byte rows
+  P.bulk = is_f32<Elt>() && H % 4 == 0 && D % 4 == 0 && aligned16(w_pre) &&
+           aligned16(w_out);
+  for (int m = 0; m < 4; ++m) P.bulk = P.bulk && aligned16(P.w[m]);
+  const int tiles = (B + R - 1) / R;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(
+      tiles < mc ? tiles : mc, smem_bytes(H, D, sizeof(Elt)),
+      static_cast<cudaStream_t>(stream), &attr);
+  e = cudaLaunchKernelEx(&cfg, kernels<Elt>()[R - 1], P);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename Elt>
+int shape(int B, int H, int D, long long* out) {
+  if (B <= 0 || H <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  int clusters = 0;
+  const cudaError_t e = prepare<Elt>(H, D, &clusters);
+  const int mc = e == cudaSuccess ? clusters : 1;
+  const int R = rows_for(B, mc), tiles = (B + R - 1) / R;
+  out[0] = R;
+  out[1] = C;
+  out[2] = kThreads;
+  out[3] = (long long)smem_bytes(H, D, sizeof(Elt));
+  out[4] = tiles;
+  out[5] = tiles < mc ? tiles : mc;
+  out[6] = e == cudaSuccess ? clusters : 0;
+  return (int)e;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays, weights in the torch layout: w_pre (H, D), the
-// GRU's (3H, H), w_out (D, H); `stream` is a cudaStream_t. Returns
-// a cudaError_t code (0 = launched).
+// Plain C entry points for ctypes. Pointers are device pointers to
+// contiguous arrays (fp32, or bf16 for the _bf16 entry points), weights in
+// the torch layout: w_pre (H, D), the GRU's (3H, H), w_out (D, H);
+// `stream` is a cudaStream_t. Return a cudaError_t code (0 = launched).
 extern "C" int g2v_chunk_decode(
     const float* x0, const float* h0, const float* w_pre,
     const float* bn_scale, const float* bn_bias, const float* w0_ih,
@@ -569,42 +672,34 @@ extern "C" int g2v_chunk_decode(
     const float* w1_ih, const float* w1_hh, const float* b1_ih,
     const float* b1_hh, const float* w_out, const float* b_out, float* ys,
     int B, int D, int H, int T, void* stream) {
-  if (B <= 0 || D <= 0 || H <= 0 || T <= 0)
-    return (int)cudaErrorInvalidValue;
-  int mc = 0;
-  cudaError_t e = prepare(H, D, &mc);
-  if (e != cudaSuccess) return (int)e;
-  const int R = rows_for(B, mc);
-  Params P = {x0, h0, w_pre, bn_scale, bn_bias, w_out, b_out,
-              {w0_ih, w0_hh, w1_ih, w1_hh}, {b0_ih, b0_hh, b1_ih, b1_hh},
-              ys, B, D, H, T, 0};
-  P.bulk = H % 4 == 0 && D % 4 == 0 && aligned16(w_pre) && aligned16(w_out);
-  for (int m = 0; m < 4; ++m) P.bulk = P.bulk && aligned16(P.w[m]);
-  const int tiles = (B + R - 1) / R;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(
-      tiles < mc ? tiles : mc, smem_bytes(H, D),
-      static_cast<cudaStream_t>(stream), &attr);
-  e = cudaLaunchKernelEx(&cfg, kKernels[R - 1], P);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch<float>(x0, h0, w_pre, bn_scale, bn_bias, w0_ih, w0_hh, b0_ih,
+                       b0_hh, w1_ih, w1_hh, b1_ih, b1_hh, w_out, b_out, ys, B,
+                       D, H, T, stream);
+}
+
+extern "C" int g2v_chunk_decode_bf16(
+    const __nv_bfloat16* x0, const __nv_bfloat16* h0,
+    const __nv_bfloat16* w_pre, const __nv_bfloat16* bn_scale,
+    const __nv_bfloat16* bn_bias, const __nv_bfloat16* w0_ih,
+    const __nv_bfloat16* w0_hh, const __nv_bfloat16* b0_ih,
+    const __nv_bfloat16* b0_hh, const __nv_bfloat16* w1_ih,
+    const __nv_bfloat16* w1_hh, const __nv_bfloat16* b1_ih,
+    const __nv_bfloat16* b1_hh, const __nv_bfloat16* w_out,
+    const __nv_bfloat16* b_out, __nv_bfloat16* ys, int B, int D, int H,
+    int T, void* stream) {
+  return launch<__nv_bfloat16>(x0, h0, w_pre, bn_scale, bn_bias, w0_ih,
+                               w0_hh, b0_ih, b0_hh, w1_ih, w1_hh, b1_ih,
+                               b1_hh, w_out, b_out, ys, B, D, H, T, stream);
 }
 
 // The launch shape for (B, H, D), so callers can check their mirror of
 // it: out = {rows per tile, blocks per cluster, threads per block, dynamic
 // shared bytes, tiles, clusters in the grid, clusters the card holds}.
 extern "C" int g2v_chunk_decode_shape(int B, int H, int D, long long* out) {
-  if (B <= 0 || H <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  int clusters = 0;
-  const cudaError_t e = prepare(H, D, &clusters);
-  const int mc = e == cudaSuccess ? clusters : 1;
-  const int R = rows_for(B, mc), tiles = (B + R - 1) / R;
-  out[0] = R;
-  out[1] = C;
-  out[2] = kThreads;
-  out[3] = (long long)smem_bytes(H, D);
-  out[4] = tiles;
-  out[5] = tiles < mc ? tiles : mc;
-  out[6] = e == cudaSuccess ? clusters : 0;
-  return (int)e;
+  return shape<float>(B, H, D, out);
+}
+
+extern "C" int g2v_chunk_decode_shape_bf16(int B, int H, int D,
+                                           long long* out) {
+  return shape<__nv_bfloat16>(B, H, D, out);
 }

@@ -52,19 +52,43 @@
 // r, z, n and gh_n = (h @ w_hh^T + b_hh)_n into gates (T, B, 4H), so that
 // the backward (csrc/gru_sequence_backward.cu) needs no recompute. The
 // values are the ones the step computes anyway; the stores are the only
-// new work (4*T*B*H floats), and ys comes out bit-identical to the
-// inference launch's (same products, same order of sums). The inference
-// instantiation (kGates false) compiles to the code it ran before.
+// new work (4*T*B*H values), and ys comes out bit-identical to the
+// inference launch's (same products, same order of sums).
 //
-// Eligibility: the block's shared memory, 4 * (3*U*HP + 2*R*HP + 2*R*3U +
-// 3U) bytes with HP the padded row (see smem_bytes), must fit 232,448 B:
-// H <= 232 (gru_kernel.launch_shape mirrors this formula). A block then
-// has at most 58 * R/RT = 290 items, one a thread.
+// bf16 instantiation (g2v_gru_sequence_bf16, g2v_gru_sequence_gates_bf16;
+// the JAX package's compute_dtype: bfloat16, whose gru_layer casts x_proj,
+// h0, w_hh and b_hh to bf16 and carries h in bf16 through its lax.scan):
+// the same kernel, templated on the storage type T of x_proj, h0, w_hh,
+// b_hh, ys, h_last and the gates. Products and gate math stay fp32 on the
+// CUDA cores; a step's new h is rounded to bf16 (__float2bfloat16_rn)
+// before it is stored, published and carried, so the carry is JAX's bf16
+// carry; nothing else inside a step is rounded. The w_hh slice sits in
+// shared memory as bf16 (half the bytes: four weights are one 8-byte read,
+// rows padded as in fp32, so a warp's reads still fall in distinct
+// banks); the state tiles stay fp32 holding bf16 values. x_proj cannot go
+// through cp.async (its smallest copy is 4 bytes, a value 2), so each
+// thread loads its item's 3*RT values of a step into registers at the
+// top of the step, ahead of the product. Bound at T=20, B=128, H=200: the
+// bf16 bytes 4.4 MB (0.0013 ms at 3.35 TB/s) against the products' 0.61
+// GFLOP at the card's 989 TFLOP/s bf16 tensor-core peak (0.00062 ms):
+// bound by bytes (8.5 MB, 0.0026 ms, with the gates). The products run on
+// the CUDA cores (0.0092 ms at 67 TFLOP/s fp32), so the bound is out of
+// reach until they move to the tensor cores. Staging is a plain copy
+// loop, once per launch.
+//
+// Eligibility: the block's shared memory (smem_bytes: fp32 4 * (3*U*HP +
+// 2*R*HP + 2*R*3U + 3U) bytes with HP the padded row; bf16 the slice at 2
+// bytes a weight rounded up to 16 bytes, plus 4 * (2*R*HP + 3U)) must
+// fit 232,448 B: fp32 H <= 232, bf16 H <= 340 (gru_kernel.launch_shape
+// mirrors both). A block then has at most ceil(H/4) * R/RT items, one a
+// thread, within the 512 of the launch bound.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
+
+#include "storage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -73,7 +97,7 @@ namespace {
 constexpr int R = 20;   // batch rows per cluster
 constexpr int C = 4;    // blocks per cluster
 constexpr int RT = 4;   // rows per thread
-constexpr int kMaxThreads = 512;  // the launch bound; H <= 232 takes <= 320
+constexpr int kMaxThreads = 512;  // the launch bound; H <= 340 takes <= 448
 constexpr int kSmemLimit = 232448;
 static_assert(R % RT == 0, "tile");
 
@@ -88,9 +112,18 @@ __host__ __device__ __forceinline__ int padded(int H) {
 }
 // one thread per item (a unit and RT rows)
 int threads_for(int H) { return (units(H) * (R / RT) + 31) / 32 * 32; }
+// bytes of the block's w_hh slice, rounded up to 16 so the fp32 tiles
+// after it stay float4-aligned
+template <typename Elt>
+__host__ __device__ __forceinline__ size_t slice_bytes(int H) {
+  return (sizeof(Elt) * 3 * units(H) * padded(H) + 15) / 16 * 16;
+}
+template <typename Elt>
 size_t smem_bytes(int H) {
   const size_t U = units(H), HP = padded(H);
-  return sizeof(float) * (3 * U * HP + 2 * R * HP + 2 * R * 3 * U + 3 * U);
+  // fp32 prefetches x_proj into shared slots; bf16 into registers
+  const size_t slots = is_f32<Elt>() ? 2 * R * 3 * U : 0;
+  return slice_bytes<Elt>(H) + sizeof(float) * (2 * R * HP + slots + 3 * U);
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
@@ -137,82 +170,114 @@ __device__ __forceinline__ void stage(float* dst, int ld_dst, const float* src,
   }
 }
 
-template <bool kGates>
+template <typename Elt, bool kGates>
 __global__ void __launch_bounds__(kMaxThreads)
-gru_sequence_kernel(const float* __restrict__ xp,   // (T, B, 3H)
-                    const float* __restrict__ h0,   // (B, H)
-                    const float* __restrict__ whh,  // (3H, H)
-                    const float* __restrict__ bhh,  // (3H)
-                    float* __restrict__ ys,         // (T, B, H)
-                    float* __restrict__ hlast,      // (B, H)
-                    float* __restrict__ gates,      // (T, B, 4H) if kGates
+gru_sequence_kernel(const Elt* __restrict__ xp,   // (T, B, 3H)
+                    const Elt* __restrict__ h0,   // (B, H)
+                    const Elt* __restrict__ whh,  // (3H, H)
+                    const Elt* __restrict__ bhh,  // (3H)
+                    Elt* __restrict__ ys,         // (T, B, H)
+                    Elt* __restrict__ hlast,      // (B, H)
+                    Elt* __restrict__ gates,      // (T, B, 4H) if kGates
                     int T, int B, int H, int reverse, int vec) {
+  constexpr bool kF32 = is_f32<Elt>();
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int U = units(H), HP = padded(H), q4 = (H + 3) / 4;
   const int u0 = rank * U, row0 = (blockIdx.x / C) * R;
 
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [3][U][HP] w_hh slice
-  float* hc = ws + 3 * U * HP;                  // [R][HP] current state
+  Elt* ws = reinterpret_cast<Elt*>(smem4);      // [3][U][HP] w_hh slice
+  float* hc = reinterpret_cast<float*>(         // [R][HP] current state
+      reinterpret_cast<char*>(smem4) + slice_bytes<Elt>(H));
   float* hn = hc + R * HP;                      // [R][HP] next state
-  float* xb = hn + R * HP;                      // [2][R][3][U] x_proj
-  float* bs = xb + 2 * R * 3 * U;               // [3][U] b_hh slice
+  float* xb = hn + R * HP;                      // fp32: [2][R][3][U] x_proj
+  float* bs = xb + (kF32 ? 2 * R * 3 * U : 0);  // [3][U] b_hh slice
 
-  for (int g = 0; g < 3; ++g)
-    stage(ws + g * U * HP, HP, whh + ((size_t)g * H + u0) * H, H, U, HP,
-          H - u0, H, whh, vec);
-  stage(hc, HP, h0 + (size_t)row0 * H, H, R, HP, B - row0, H, h0, vec);
-  cp_async_commit();
+  if constexpr (kF32) {
+    for (int g = 0; g < 3; ++g)
+      stage(ws + g * U * HP, HP, whh + ((size_t)g * H + u0) * H, H, U, HP,
+            H - u0, H, whh, vec);
+    stage(hc, HP, h0 + (size_t)row0 * H, H, R, HP, B - row0, H, h0, vec);
+    cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < 3 * U * HP; i += blockDim.x) {
+      const int g = i / (U * HP), u = u0 + (i / HP) % U, k = i % HP;
+      ws[i] = u < H && k < H ? whh[((size_t)g * H + u) * H + k]
+                             : from_f<Elt>(0.f);
+    }
+    for (int i = threadIdx.x; i < R * HP; i += blockDim.x) {
+      const int b = row0 + i / HP, k = i % HP;
+      hc[i] = b < B && k < H ? to_f(h0[(size_t)b * H + k]) : 0.f;
+    }
+  }
   for (int i = threadIdx.x; i < R * HP; i += blockDim.x) hn[i] = 0.f;
   for (int i = threadIdx.x; i < 3 * U; i += blockDim.x) {
     const int g = i / U, u = u0 + i % U;
-    bs[i] = u < H ? bhh[g * H + u] : 0.f;
+    bs[i] = u < H ? to_f(bhh[g * H + u]) : 0.f;
   }
 
   // this thread's item: unit u0 + j and rows grp*RT .. grp*RT + RT-1
   const int grp = threadIdx.x / U, j = threadIdx.x % U, u = u0 + j;
   const bool active = grp < R / RT, unit_ok = active && u < H;
-  // the x_proj values this thread's gates read, into its own slots
+  // fp32: the x_proj values this thread's gates read, into its own slots
   auto prefetch = [&](int t, int buf) {
+    if constexpr (kF32) {
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = grp * RT + i, b = row0 + r;
-      if (unit_ok && b < B)
+      for (int i = 0; i < RT; ++i) {
+        const int r = grp * RT + i, b = row0 + r;
+        if (unit_ok && b < B)
 #pragma unroll
-        for (int g = 0; g < 3; ++g)
-          cp_async4(xb + buf * R * 3 * U + (r * 3 + g) * U + j,
-                    xp + ((size_t)t * B + b) * 3 * H + g * H + u, 4);
+          for (int g = 0; g < 3; ++g)
+            cp_async4(xb + buf * R * 3 * U + (r * 3 + g) * U + j,
+                      xp + ((size_t)t * B + b) * 3 * H + g * H + u, 4);
+      }
     }
   };
   prefetch(reverse ? T - 1 : 0, 0);
-  cp_async_commit();
-  cp_async_wait<1>();  // the weights and h0 have landed
+  if constexpr (kF32) {
+    cp_async_commit();
+    cp_async_wait<1>();  // the weights and h0 have landed
+  }
   // every block's buffers are ready before any peer writes them
   cluster.sync();
 
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    if (s + 1 < T) prefetch(reverse ? t - 1 : t + 1, (s + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's x_proj slots have landed
+    // this step's x_proj values of the item: fp32 in the slots prefetched
+    // a step ahead, bf16 loaded into registers here, ahead of the product
     const float* xcur = xb + (s & 1) * R * 3 * U;
+    float xv[RT][3];
+    if constexpr (kF32) {
+      if (s + 1 < T) prefetch(reverse ? t - 1 : t + 1, (s + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this step's x_proj slots have landed
+    } else {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int b = row0 + grp * RT + i;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          xv[i][g] = unit_ok && b < B
+                         ? to_f(xp[((size_t)t * B + b) * 3 * H + g * H + u])
+                         : 0.f;
+      }
+    }
 
     float acc[RT][3];
 #pragma unroll
     for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
     if (active) {
-      const float* wr = ws + j * HP;
+      const Elt* wr = ws + j * HP;
       const float* hr = hc + grp * RT * HP;
 #pragma unroll 2
       for (int q = 0; q < q4; ++q) {
         float4 w[3];
 #pragma unroll
-        for (int g = 0; g < 3; ++g)
-          w[g] = *reinterpret_cast<const float4*>(wr + g * U * HP + 4 * q);
+        for (int g = 0; g < 3; ++g) w[g] = ld4(wr + g * U * HP + 4 * q);
 #pragma unroll
         for (int i = 0; i < RT; ++i) {
-          const float4 h = *reinterpret_cast<const float4*>(hr + i * HP + 4 * q);
+          const float4 h = ld4(hr + i * HP + 4 * q);
 #pragma unroll
           for (int g = 0; g < 3; ++g) {
             acc[i][g] = fmaf(h.x, w[g].x, acc[i][g]);
@@ -228,42 +293,48 @@ gru_sequence_kernel(const float* __restrict__ xp,   // (T, B, 3H)
     for (int i = 0; i < RT; ++i) {
       const int r = grp * RT + i, b = row0 + r;
       if (!unit_ok || b >= B) continue;
-      const float* x = xcur + r * 3 * U + j;
+      float x[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        x[g] = kF32 ? xcur[r * 3 * U + g * U + j] : xv[i][g];
       const float ghn = acc[i][2] + bs[2 * U + j];
       const float rg = sigmoid_f(x[0] + (acc[i][0] + bs[j]));
-      const float zg = sigmoid_f(x[U] + (acc[i][1] + bs[U + j]));
-      const float ng = tanhf(x[2 * U] + rg * ghn);
-      const float h = (1.f - zg) * ng + zg * hc[r * HP + u];
+      const float zg = sigmoid_f(x[1] + (acc[i][1] + bs[U + j]));
+      const float ng = tanhf(x[2] + rg * ghn);
+      // the carry in the storage type (bf16: JAX's bf16 scan carry)
+      const float h = round_to<Elt>((1.f - zg) * ng + zg * hc[r * HP + u]);
 #pragma unroll
       for (int c = 0; c < C; ++c)
         cluster.map_shared_rank(hn, c)[r * HP + u] = h;
-      ys[((size_t)t * B + b) * H + u] = h;
+      ys[((size_t)t * B + b) * H + u] = from_f<Elt>(h);
       if (kGates) {
-        float* gt = gates + ((size_t)t * B + b) * 4 * H + u;
-        gt[0] = rg;
-        gt[H] = zg;
-        gt[2 * H] = ng;
-        gt[3 * H] = ghn;
+        Elt* gt = gates + ((size_t)t * B + b) * 4 * H + u;
+        gt[0] = from_f<Elt>(rg);
+        gt[H] = from_f<Elt>(zg);
+        gt[2 * H] = from_f<Elt>(ng);
+        gt[3 * H] = from_f<Elt>(ghn);
       }
     }
     // publishes the new state; after it the old buffer is free again
     cluster.sync();
     float* tmp = hc; hc = hn; hn = tmp;
   }
-  cp_async_wait<0>();
+  if constexpr (kF32) cp_async_wait<0>();
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int r = grp * RT + i, b = row0 + r;
-    if (unit_ok && b < B) hlast[(size_t)b * H + u] = hc[r * HP + u];
+    if (unit_ok && b < B)
+      hlast[(size_t)b * H + u] = from_f<Elt>(hc[r * HP + u]);
   }
 }
 
+template <typename Elt>
 cudaLaunchConfig_t launch_config(int B, int H, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((B + R - 1) / R) * C);
   cfg.blockDim = dim3(threads_for(H));
-  cfg.dynamicSmemBytes = smem_bytes(H);
+  cfg.dynamicSmemBytes = smem_bytes<Elt>(H);
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = C;
@@ -276,66 +347,92 @@ cudaLaunchConfig_t launch_config(int B, int H, cudaStream_t stream,
 
 // sets the shared-memory attribute and checks that one cluster of this
 // shape fits the card
-template <bool kGates>
+template <typename Elt, bool kGates>
 cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
   *max_clusters = 0;
-  const size_t smem = smem_bytes(H);
+  const size_t smem = smem_bytes<Elt>(H);
   if (smem > kSmemLimit || threads_for(H) > kMaxThreads)
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      gru_sequence_kernel<kGates>,
+      gru_sequence_kernel<Elt, kGates>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, H, stream, &attr);
+  const cudaLaunchConfig_t cfg = launch_config<Elt>(B, H, stream, &attr);
   e = cudaOccupancyMaxActiveClusters(max_clusters,
-                                     gru_sequence_kernel<kGates>, &cfg);
+                                     gru_sequence_kernel<Elt, kGates>, &cfg);
   if (e != cudaSuccess) return e;
   return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// the H prepare() last succeeded for, per variant, under prepare_mutex: a
-// server's threads launch concurrently
+// the H prepare() last succeeded for, per storage type and variant, under
+// prepare_mutex: a server's threads launch concurrently
 std::mutex prepare_mutex;
-int checked_H[2] = {-1, -1};
+int checked_H[2][2] = {{-1, -1}, {-1, -1}};
 
-template <bool kGates>
-int launch(const float* xp, const float* h0, const float* whh,
-           const float* bhh, float* ys, float* hlast, float* gates, int T,
-           int B, int H, int reverse, void* stream) {
+template <typename Elt>
+__host__ __device__ constexpr int type_index() { return is_f32<Elt>() ? 0 : 1; }
+
+template <typename Elt, bool kGates>
+int launch(const Elt* xp, const Elt* h0, const Elt* whh, const Elt* bhh,
+           Elt* ys, Elt* hlast, Elt* gates, int T, int B, int H,
+           int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   {
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    if (H != checked_H[kGates]) {
+    int& checked = checked_H[type_index<Elt>()][kGates];
+    if (H != checked) {
       int n = 0;
-      const cudaError_t e = prepare<kGates>(B, H, st, &n);
+      const cudaError_t e = prepare<Elt, kGates>(B, H, st, &n);
       if (e != cudaSuccess) return (int)e;
-      checked_H[kGates] = H;
+      checked = H;
     }
   }
   const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(h0) % 16 == 0;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, H, st, &attr);
+  const cudaLaunchConfig_t cfg = launch_config<Elt>(B, H, st, &attr);
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gru_sequence_kernel<kGates>, xp, h0, whh, bhh, ys, hlast, gates,
-      T, B, H, reverse, (int)vec);
+      &cfg, gru_sequence_kernel<Elt, kGates>, xp, h0, whh, bhh, ys, hlast,
+      gates, T, B, H, reverse, (int)vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename Elt>
+int shape(int B, int H, long long* out) {
+  if (B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  int n = 0;
+  cudaError_t e;
+  {
+    // prepare() sets the kernel's shared-memory attribute for this H: a
+    // launch re-prepares for its own H afterwards
+    const std::lock_guard<std::mutex> lock(prepare_mutex);
+    e = prepare<Elt, false>(B, H, nullptr, &n);
+    checked_H[type_index<Elt>()][0] = e == cudaSuccess ? H : -1;
+  }
+  out[0] = R;
+  out[1] = C;
+  out[2] = threads_for(H);
+  out[3] = (long long)smem_bytes<Elt>(H);
+  out[4] = (B + R - 1) / R;
+  out[5] = n;
+  return (int)e;
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays, w_hh in the torch layout (3H, H); `stream` is a
-// cudaStream_t. Return a cudaError_t code (0 = launched).
+// contiguous arrays (fp32, or bf16 for the _bf16 entry points), w_hh in
+// the torch layout (3H, H); `stream` is a cudaStream_t. Return a
+// cudaError_t code (0 = launched).
 extern "C" int g2v_gru_sequence(const float* xp, const float* h0,
                                 const float* whh, const float* bhh,
                                 float* ys, float* hlast, int T, int B, int H,
                                 int reverse, void* stream) {
-  return launch<false>(xp, h0, whh, bhh, ys, hlast, nullptr, T, B, H,
-                       reverse, stream);
+  return launch<float, false>(xp, h0, whh, bhh, ys, hlast, nullptr, T, B, H,
+                              reverse, stream);
 }
 
 // The training variant: also writes the gates (T, B, 4H), r | z | n | gh_n.
@@ -344,29 +441,34 @@ extern "C" int g2v_gru_sequence_gates(const float* xp, const float* h0,
                                       float* ys, float* hlast, float* gates,
                                       int T, int B, int H, int reverse,
                                       void* stream) {
-  return launch<true>(xp, h0, whh, bhh, ys, hlast, gates, T, B, H, reverse,
-                      stream);
+  return launch<float, true>(xp, h0, whh, bhh, ys, hlast, gates, T, B, H,
+                             reverse, stream);
+}
+
+extern "C" int g2v_gru_sequence_bf16(
+    const __nv_bfloat16* xp, const __nv_bfloat16* h0,
+    const __nv_bfloat16* whh, const __nv_bfloat16* bhh, __nv_bfloat16* ys,
+    __nv_bfloat16* hlast, int T, int B, int H, int reverse, void* stream) {
+  return launch<__nv_bfloat16, false>(xp, h0, whh, bhh, ys, hlast, nullptr,
+                                      T, B, H, reverse, stream);
+}
+
+extern "C" int g2v_gru_sequence_gates_bf16(
+    const __nv_bfloat16* xp, const __nv_bfloat16* h0,
+    const __nv_bfloat16* whh, const __nv_bfloat16* bhh, __nv_bfloat16* ys,
+    __nv_bfloat16* hlast, __nv_bfloat16* gates, int T, int B, int H,
+    int reverse, void* stream) {
+  return launch<__nv_bfloat16, true>(xp, h0, whh, bhh, ys, hlast, gates, T,
+                                     B, H, reverse, stream);
 }
 
 // The launch shape for (B, H), so callers can check their mirror of it:
 // out = {rows per cluster, blocks per cluster, threads per block, dynamic
 // shared bytes, clusters in the grid, clusters the card holds at once}.
 extern "C" int g2v_gru_sequence_shape(int B, int H, long long* out) {
-  if (B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  int n = 0;
-  cudaError_t e;
-  {
-    // prepare() sets the kernel's shared-memory attribute for this H: a
-    // launch re-prepares for its own H afterwards
-    const std::lock_guard<std::mutex> lock(prepare_mutex);
-    e = prepare<false>(B, H, nullptr, &n);
-    checked_H[0] = e == cudaSuccess ? H : -1;
-  }
-  out[0] = R;
-  out[1] = C;
-  out[2] = threads_for(H);
-  out[3] = (long long)smem_bytes(H);
-  out[4] = (B + R - 1) / R;
-  out[5] = n;
-  return (int)e;
+  return shape<float>(B, H, out);
+}
+
+extern "C" int g2v_gru_sequence_shape_bf16(int B, int H, long long* out) {
+  return shape<__nv_bfloat16>(B, H, out);
 }

@@ -87,15 +87,34 @@
 // dependent chain (gate math, block barrier, the product's 3U rows in
 // order, remote stores, cluster barrier), as in the forward.
 //
-// Eligibility: the block's shared memory, 4 * (3U*W + 2*C*R*U + 3U*R)
-// bytes with W = H rounded up to a multiple of 4 (see smem_bytes), must
-// fit 232,448 B: H <= 244 (gru_kernel.backward_launch_shape mirrors the
-// formula); the forward's H <= 232 is the tighter limit.
+// bf16 instantiation (g2v_gru_sequence_backward_bf16), the gradient of
+// the bf16 forward (csrc/gru_sequence.cu's bf16 instantiation, which saves
+// bf16 gates): the same kernel, templated on the storage type of the
+// gates, h0, w_hh, ys, dys, dh_last and of d x_proj, dgh and d h0. It
+// reads bf16 and computes in fp32: the gate math, the product dgh @ w_hh
+// (from the fp32 dgh of the step, before it is rounded for the store) and
+// the carried dh stay fp32; d x_proj, dgh and d h0 are rounded to bf16 as
+// they are written. The w_hh slice sits in shared memory as bf16 (four
+// weights are one 8-byte read). Bound at T=20, B=128, H=200: 12.7 MB of
+// bf16 bytes (0.0038 ms at 3.35 TB/s) against 0.61 GFLOP at the card's
+// 989 TFLOP/s bf16 tensor-core peak (0.00062 ms): bound by bytes. The
+// product runs on the CUDA cores (0.0092 ms at 67 TFLOP/s fp32). Staging
+// is a plain copy loop, once per launch.
+//
+// Eligibility: the block's shared memory (smem_bytes: fp32 4 * (3U*W +
+// 2*C*R*U + 3U*R) bytes with W = H rounded up to a multiple of 4; bf16 the
+// slice at 2 bytes a weight rounded up to 16 bytes, plus 4 * (2*C*R*U +
+// 3U*R)) must fit 232,448 B and the block's threads the launch bound of
+// 320: fp32 H <= 244 (shared memory), bf16 H <= 256 (threads);
+// gru_kernel.backward_launch_shape mirrors both. The forward's limits
+// (fp32 H <= 232, bf16 H <= 340) apply too.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
+
+#include "storage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -104,7 +123,7 @@ namespace {
 constexpr int R = 20;   // batch rows per cluster
 constexpr int C = 4;    // blocks per cluster
 constexpr int RT = 4;   // rows per thread
-constexpr int kMaxThreads = 320;  // the launch bound; H <= 244 takes <= 320
+constexpr int kMaxThreads = 320;  // the launch bound; H <= 256 takes <= 320
 constexpr int kSmemLimit = 232448;
 constexpr int kIn = 6;  // a gate item's inputs a row: r, z, n, gh_n, dy, h_prev
 static_assert(R % RT == 0 && RT == 4, "tile: a float4 of rows");
@@ -117,9 +136,16 @@ __host__ __device__ __forceinline__ int units(int H) {
 __host__ __device__ __forceinline__ int row4(int H) { return (H + 3) / 4 * 4; }
 // one thread per gate item (a unit and RT rows)
 int threads_for(int H) { return (units(H) * (R / RT) + 31) / 32 * 32; }
+// bytes of the block's w_hh slice, rounded up to 16 so the fp32 buffers
+// after it stay float4-aligned
+template <typename Elt>
+__host__ __device__ __forceinline__ size_t slice_bytes(int H) {
+  return (sizeof(Elt) * 3 * units(H) * row4(H) + 15) / 16 * 16;
+}
+template <typename Elt>
 size_t smem_bytes(int H) {
-  const size_t U = units(H), W = row4(H);
-  return sizeof(float) * (3 * U * W + 2 * C * R * U + 3 * U * R);
+  const size_t U = units(H);
+  return slice_bytes<Elt>(H) + sizeof(float) * (2 * C * R * U + 3 * U * R);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -161,17 +187,18 @@ __device__ __forceinline__ void stage(float* dst, int ld_dst, const float* src,
   }
 }
 
+template <typename Elt>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_sequence_backward_kernel(
-    const float* __restrict__ gates,  // (T, B, 4H) r | z | n | gh_n
-    const float* __restrict__ h0,     // (B, H)
-    const float* __restrict__ whh,    // (3H, H)
-    const float* __restrict__ ys,     // (T, B, H) forward outputs
-    const float* __restrict__ dys,    // (T, B, H) output gradients
-    const float* __restrict__ dhl,    // (B, H) last-hidden gradient
-    float* __restrict__ dxp,          // (T, B, 3H)
-    float* __restrict__ dgh,          // (T, B, 3H)
-    float* __restrict__ dh0,          // (B, H)
+    const Elt* __restrict__ gates,  // (T, B, 4H) r | z | n | gh_n
+    const Elt* __restrict__ h0,     // (B, H)
+    const Elt* __restrict__ whh,    // (3H, H)
+    const Elt* __restrict__ ys,     // (T, B, H) forward outputs
+    const Elt* __restrict__ dys,    // (T, B, H) output gradients
+    const Elt* __restrict__ dhl,    // (B, H) last-hidden gradient
+    Elt* __restrict__ dxp,          // (T, B, 3H)
+    Elt* __restrict__ dgh,          // (T, B, 3H)
+    Elt* __restrict__ dh0,          // (B, H)
     int T, int B, int H, int reverse, int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -179,14 +206,23 @@ gru_sequence_backward_kernel(
   const int u0 = rank * U, row0 = (blockIdx.x / C) * R;
 
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [3U][W] w_hh slice
-  float* recv = ws + 3 * U * W;                 // [2][C][U][R] partials
+  Elt* ws = reinterpret_cast<Elt*>(smem4);      // [3U][W] w_hh slice
+  float* recv = reinterpret_cast<float*>(       // [2][C][U][R] partials
+      reinterpret_cast<char*>(smem4) + slice_bytes<Elt>(H));
   float* dgt = recv + 2 * C * R * U;            // [3U][R] step's dgh
 
-  for (int g = 0; g < 3; ++g)
-    stage(ws + g * U * W, W, whh + ((size_t)g * H + u0) * H, H, U, W,
-          H - u0, H, whh, vec);
-  cp_async_commit();
+  if constexpr (is_f32<Elt>()) {
+    for (int g = 0; g < 3; ++g)
+      stage(ws + g * U * W, W, whh + ((size_t)g * H + u0) * H, H, U, W,
+            H - u0, H, whh, vec);
+    cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < 3 * U * W; i += blockDim.x) {
+      const int g = i / (U * W), u = u0 + (i / W) % U, k = i % W;
+      ws[i] = u < H && k < H ? whh[((size_t)g * H + u) * H + k]
+                             : from_f<Elt>(0.f);
+    }
+  }
 
   // this thread's gate item: unit u0 + j and rows grp*RT .. grp*RT + RT-1
   const int grp = threadIdx.x / U, j = threadIdx.x % U, u = u0 + j;
@@ -196,18 +232,18 @@ gru_sequence_backward_kernel(
   // output of the step taken before, or h0), zeros for absent rows
   auto fetch = [&](int t, float (&v)[RT][kIn]) {
     const int tp = reverse ? t + 1 : t - 1;
-    const float* hsrc = (tp >= 0 && tp < T) ? ys + (size_t)tp * B * H : h0;
+    const Elt* hsrc = (tp >= 0 && tp < T) ? ys + (size_t)tp * B * H : h0;
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const int b = row0 + grp * RT + i;
       if (unit_ok && b < B) {
-        const float* g = gates + ((size_t)t * B + b) * 4 * H + u;
-        v[i][0] = g[0];
-        v[i][1] = g[H];
-        v[i][2] = g[2 * H];
-        v[i][3] = g[3 * H];
-        v[i][4] = dys[((size_t)t * B + b) * H + u];
-        v[i][5] = hsrc[(size_t)b * H + u];
+        const Elt* g = gates + ((size_t)t * B + b) * 4 * H + u;
+        v[i][0] = to_f(g[0]);
+        v[i][1] = to_f(g[H]);
+        v[i][2] = to_f(g[2 * H]);
+        v[i][3] = to_f(g[3 * H]);
+        v[i][4] = to_f(dys[((size_t)t * B + b) * H + u]);
+        v[i][5] = to_f(hsrc[(size_t)b * H + u]);
       } else {
 #pragma unroll
         for (int k = 0; k < kIn; ++k) v[i][k] = 0.f;
@@ -219,9 +255,9 @@ gru_sequence_backward_kernel(
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int b = row0 + grp * RT + i;
-    dh[i] = (unit_ok && b < B) ? dhl[(size_t)b * H + u] : 0.f;
+    dh[i] = (unit_ok && b < B) ? to_f(dhl[(size_t)b * H + u]) : 0.f;
   }
-  cp_async_wait_all();
+  if constexpr (is_f32<Elt>()) cp_async_wait_all();
   // every block's buffers are ready before any peer writes them
   cluster.sync();
 
@@ -249,12 +285,12 @@ gru_sequence_backward_kernel(
       const float dpr = dpn * ghn * rg * (1.f - rg);
       const float dpz = d * (hprev - ng) * zg * (1.f - zg);
       const size_t o3 = ((size_t)t * B + b) * 3 * H + u;
-      dxp[o3] = dpr;
-      dxp[o3 + H] = dpz;
-      dxp[o3 + 2 * H] = dpn;
-      dgh[o3] = dpr;
-      dgh[o3 + H] = dpz;
-      dgh[o3 + 2 * H] = dpn * rg;
+      dxp[o3] = from_f<Elt>(dpr);
+      dxp[o3 + H] = from_f<Elt>(dpz);
+      dxp[o3 + 2 * H] = from_f<Elt>(dpn);
+      dgh[o3] = from_f<Elt>(dpr);
+      dgh[o3 + H] = from_f<Elt>(dpz);
+      dgh[o3 + 2 * H] = from_f<Elt>(dpn * rg);
       dr[i] = dpr;
       dz[i] = dpz;
       dn[i] = dpn * rg;
@@ -280,11 +316,11 @@ gru_sequence_backward_kernel(
       for (int i = 0; i < RT; ++i)
         acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
       const float* dcol = dgt + pg * RT;
-      const float* wcol = ws + k0;
+      const Elt* wcol = ws + k0;
 #pragma unroll 4
       for (int m = 0; m < 3 * U; ++m) {
         const float4 dv = *reinterpret_cast<const float4*>(dcol + m * R);
-        const float4 wv = *reinterpret_cast<const float4*>(wcol + m * W);
+        const float4 wv = ld4(wcol + m * W);
         const float d4[RT] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
         for (int i = 0; i < RT; ++i) {
@@ -322,16 +358,17 @@ gru_sequence_backward_kernel(
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int b = row0 + grp * RT + i;
-    if (unit_ok && b < B) dh0[(size_t)b * H + u] = dh[i];
+    if (unit_ok && b < B) dh0[(size_t)b * H + u] = from_f<Elt>(dh[i]);
   }
 }
 
+template <typename Elt>
 cudaLaunchConfig_t launch_config(int B, int H, cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((B + R - 1) / R) * C);
   cfg.blockDim = dim3(threads_for(H));
-  cfg.dynamicSmemBytes = smem_bytes(H);
+  cfg.dynamicSmemBytes = smem_bytes<Elt>(H);
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = C;
@@ -344,62 +381,56 @@ cudaLaunchConfig_t launch_config(int B, int H, cudaStream_t stream,
 
 // sets the shared-memory attribute and checks that one cluster of this
 // shape fits the card
+template <typename Elt>
 cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
   *max_clusters = 0;
-  const size_t smem = smem_bytes(H);
+  const size_t smem = smem_bytes<Elt>(H);
   if (smem > kSmemLimit || threads_for(H) > kMaxThreads)
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      gru_sequence_backward_kernel,
+      gru_sequence_backward_kernel<Elt>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, H, stream, &attr);
+  const cudaLaunchConfig_t cfg = launch_config<Elt>(B, H, stream, &attr);
   e = cudaOccupancyMaxActiveClusters(max_clusters,
-                                     gru_sequence_backward_kernel, &cfg);
+                                     gru_sequence_backward_kernel<Elt>, &cfg);
   if (e != cudaSuccess) return e;
   return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
+// the H prepare() last succeeded for, per storage type (fp32, bf16)
 std::mutex prepare_mutex;
-int checked_H = -1;
+int checked_H[2] = {-1, -1};
 
-}  // namespace
-
-// Plain C entry point for ctypes. Pointers are device pointers to
-// contiguous fp32 arrays: the gates the forward's training variant saved
-// (T, B, 4H), w_hh in the torch layout (3H, H); `stream` is a
-// cudaStream_t. Returns a cudaError_t code (0 = launched).
-extern "C" int g2v_gru_sequence_backward(
-    const float* gates, const float* h0, const float* whh, const float* ys,
-    const float* dys, const float* dhl, float* dxp, float* dgh, float* dh0,
-    int T, int B, int H, int reverse, void* stream) {
+template <typename Elt>
+int launch(const Elt* gates, const Elt* h0, const Elt* whh, const Elt* ys,
+           const Elt* dys, const Elt* dhl, Elt* dxp, Elt* dgh, Elt* dh0,
+           int T, int B, int H, int reverse, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   {
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    if (H != checked_H) {
+    int& checked = checked_H[is_f32<Elt>() ? 0 : 1];
+    if (H != checked) {
       int n = 0;
-      const cudaError_t e = prepare(B, H, st, &n);
+      const cudaError_t e = prepare<Elt>(B, H, st, &n);
       if (e != cudaSuccess) return (int)e;
-      checked_H = H;
+      checked = H;
     }
   }
   const bool vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(whh) % 16 == 0;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, H, st, &attr);
+  const cudaLaunchConfig_t cfg = launch_config<Elt>(B, H, st, &attr);
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gru_sequence_backward_kernel, gates, h0, whh, ys, dys, dhl, dxp,
-      dgh, dh0, T, B, H, reverse, (int)vec);
+      &cfg, gru_sequence_backward_kernel<Elt>, gates, h0, whh, ys, dys, dhl,
+      dxp, dgh, dh0, T, B, H, reverse, (int)vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The launch shape for (B, H), so callers can check their mirror of it:
-// out = {rows per cluster, blocks per cluster, threads per block, dynamic
-// shared bytes, clusters in the grid, clusters the card holds at once}.
-extern "C" int g2v_gru_sequence_backward_shape(int B, int H,
-                                               long long* out) {
+template <typename Elt>
+int shape(int B, int H, long long* out) {
   if (B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   int n = 0;
   cudaError_t e;
@@ -407,14 +438,52 @@ extern "C" int g2v_gru_sequence_backward_shape(int B, int H,
     // prepare() sets the kernel's shared-memory attribute for this H: a
     // launch re-prepares for its own H afterwards
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    e = prepare(B, H, nullptr, &n);
-    checked_H = e == cudaSuccess ? H : -1;
+    e = prepare<Elt>(B, H, nullptr, &n);
+    checked_H[is_f32<Elt>() ? 0 : 1] = e == cudaSuccess ? H : -1;
   }
   out[0] = R;
   out[1] = C;
   out[2] = threads_for(H);
-  out[3] = (long long)smem_bytes(H);
+  out[3] = (long long)smem_bytes<Elt>(H);
   out[4] = (B + R - 1) / R;
   out[5] = n;
   return (int)e;
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes. Pointers are device pointers to
+// contiguous arrays (fp32, or bf16 for the _bf16 entry points): the gates
+// the forward's training variant saved (T, B, 4H), w_hh in the torch
+// layout (3H, H); `stream` is a cudaStream_t. Return a cudaError_t code
+// (0 = launched).
+extern "C" int g2v_gru_sequence_backward(
+    const float* gates, const float* h0, const float* whh, const float* ys,
+    const float* dys, const float* dhl, float* dxp, float* dgh, float* dh0,
+    int T, int B, int H, int reverse, void* stream) {
+  return launch<float>(gates, h0, whh, ys, dys, dhl, dxp, dgh, dh0, T, B, H,
+                       reverse, stream);
+}
+
+extern "C" int g2v_gru_sequence_backward_bf16(
+    const __nv_bfloat16* gates, const __nv_bfloat16* h0,
+    const __nv_bfloat16* whh, const __nv_bfloat16* ys,
+    const __nv_bfloat16* dys, const __nv_bfloat16* dhl, __nv_bfloat16* dxp,
+    __nv_bfloat16* dgh, __nv_bfloat16* dh0, int T, int B, int H,
+    int reverse, void* stream) {
+  return launch<__nv_bfloat16>(gates, h0, whh, ys, dys, dhl, dxp, dgh, dh0,
+                               T, B, H, reverse, stream);
+}
+
+// The launch shape for (B, H), so callers can check their mirror of it:
+// out = {rows per cluster, blocks per cluster, threads per block, dynamic
+// shared bytes, clusters in the grid, clusters the card holds at once}.
+extern "C" int g2v_gru_sequence_backward_shape(int B, int H,
+                                               long long* out) {
+  return shape<float>(B, H, out);
+}
+
+extern "C" int g2v_gru_sequence_backward_shape_bf16(int B, int H,
+                                                    long long* out) {
+  return shape<__nv_bfloat16>(B, H, out);
 }

@@ -12,12 +12,16 @@ layer 0 at 2 layers), as XLA does when it drops the unused encoder
 outputs under jit: two GRU-kernel launches (forward and reverse) per
 batch at 2 layers.
 
+`window_teacher` is the frozen DAE as a streaming source's transform
+(`data/streaming.StreamingWindows`): it runs in the prefetch worker and
+hands the training step device tensors.
+
 Scale-out over several cards (`mesh=` in the JAX package) is not ported
 yet (ROADMAP.md queue A, scale-out).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -84,3 +88,21 @@ def tokenize_windows(seq_model, latent_windows: np.ndarray, batch: int = 512,
         toks.append(t.cpu().numpy().astype(np.int32))
     n = latent_windows.shape[0]
     return np.concatenate(toks)[:n], np.concatenate(lats)[:n]
+
+
+def window_teacher(dae_model) -> Callable[[np.ndarray], torch.Tensor]:
+    """A StreamingWindows transform: (B, T, motion_dim) normalized windows
+    -> (B, T, latent_dim) latents of the frozen DAE (in eval mode), a
+    tensor on the DAE's device, so no batch makes a round trip to the
+    host. Grad mode is per thread, so the transform turns it off itself;
+    it uses no_grad rather than inference_mode, since the latents then
+    enter the training step's graph as inputs."""
+    dev = _device(dae_model)
+
+    def transform(batch: np.ndarray) -> torch.Tensor:
+        with torch.no_grad():
+            x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
+            B, T, D = x.shape
+            return dae_model.encode(x.to(dev).reshape(B * T, D)).reshape(
+                B, T, -1)
+    return transform

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import BiGRU
-from gesture2vec_tpu_torch.models.layers import BatchNorm
+from gesture2vec_tpu_torch.models.layers import BatchNorm, Dtype
 
 N_MELS = 128
 # (channels out, kernel, stride, padding) of the raw-wave conv stacks
@@ -131,9 +131,11 @@ class WavEncoderTri(nn.Module):
 
 def _summed(gru: BiGRU, seq: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The BiGRU's directions summed (in its dtype), then outputs and
+    hidden as fp32, as the JAX encoders return them."""
     outs, hidden = gru(seq)
     H = gru.hidden_size
-    return outs[..., :H] + outs[..., H:], hidden
+    return (outs[..., :H] + outs[..., H:]).float(), hidden.float()
 
 
 class AudioContextEncoder(nn.Module):
@@ -141,11 +143,13 @@ class AudioContextEncoder(nn.Module):
     (2 * layers, B, H))."""
 
     def __init__(self, hidden_size: int, n_layers: int = 2,
-                 dropout_rate: float = 0.0, n_frames: int = 32):
+                 dropout_rate: float = 0.0, n_frames: int = 32,
+                 dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.wav_encoder = WavEncoderSpectral(hidden_size, n_frames)
-        self.gru = BiGRU(hidden_size, hidden_size, n_layers, dropout_rate)
+        self.gru = BiGRU(hidden_size, hidden_size, n_layers, dropout_rate,
+                         dtype=dtype)
 
     def forward(self, mel_chunks: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -160,13 +164,14 @@ class AudioTextFusionEncoder(nn.Module):
 
     def __init__(self, n_words: int, hidden_size: int,
                  embed_size: int = 300, n_layers: int = 2,
-                 dropout_rate: float = 0.0, samples: int = 16000):
+                 dropout_rate: float = 0.0, samples: int = 16000,
+                 dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.embedding = nn.Embedding(n_words, embed_size)
         self.wav_encoder = WavEncoderTri(hidden_size, samples)
         self.gru = BiGRU(embed_size + hidden_size, hidden_size, n_layers,
-                         dropout_rate)
+                         dropout_rate, dtype=dtype)
 
     def forward(self, word_ids: torch.Tensor, wav_chunks: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

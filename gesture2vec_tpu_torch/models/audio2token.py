@@ -15,6 +15,11 @@ Training mode (`.train()`, dropout inside
 `models/layers.dropout_generator`) is the JAX package's train=True:
 dropout between the encoder BiGRU's layers and in the decoder, BatchNorm
 on batch statistics (the encoder's convs and the decoder's pre_bn).
+
+compute_dtype=torch.bfloat16 (the JAX package's bf16 mode) runs the
+encoder's BiGRU (the bf16 GRU kernel on the card) and the decoder step in
+bf16 (`models/text2token`); the wav encoders, the attention, the encoder's
+outputs and the logits stay fp32, as in JAX.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from torch import nn
 
 from gesture2vec_tpu_torch.models.audio import (AudioContextEncoder,
                                                AudioTextFusionEncoder)
+from gesture2vec_tpu_torch.models.layers import Dtype
 from gesture2vec_tpu_torch.models.text2token import (TokenDecoderStep,
                                                      beam_decode_impl,
                                                      decode_tokens_impl)
@@ -41,8 +47,9 @@ class Audio2Token(nn.Module):
                  use_attention: bool = True, fusion: str = "audio",
                  n_words: int = 0, embed_size: int = 300,
                  token_stages: int = 1, stage_conditional: bool = False,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, compute_dtype: Dtype = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.n_tokens = n_tokens
         self.n_layers = n_layers
         self.n_steps = n_steps
@@ -54,16 +61,19 @@ class Audio2Token(nn.Module):
             if n_words <= 0:
                 raise ValueError("audio_fusion='both' needs n_words > 0")
             self.encoder = AudioTextFusionEncoder(
-                n_words, hidden_size, embed_size, n_layers, dropout_rate)
+                n_words, hidden_size, embed_size, n_layers, dropout_rate,
+                dtype=compute_dtype)
         elif fusion == "audio":
             self.encoder = AudioContextEncoder(hidden_size, n_layers,
-                                               dropout_rate)
+                                               dropout_rate,
+                                               dtype=compute_dtype)
         else:
             raise ValueError(f"unknown fusion {fusion!r}")
         self.decoder_step = TokenDecoderStep(
             hidden_size, n_tokens, n_layers, use_attention,
             n_stage_heads=token_stages - 1,
-            stage_conditional=stage_conditional, dropout_rate=dropout_rate)
+            stage_conditional=stage_conditional, dropout_rate=dropout_rate,
+            dtype=compute_dtype)
 
     @property
     def n_pre(self) -> int:

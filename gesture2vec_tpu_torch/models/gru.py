@@ -26,6 +26,14 @@ valid step, the reverse direction reads each sequence backwards from its
 own last word). The state at step t < length depends only on the steps
 before t, so the unmasked recurrence gives every valid output: the
 layer runs the same kernel unmasked and masks afterwards.
+
+`dtype` (None or torch.bfloat16) is the JAX package's GRU dtype
+(`_cast_gru`): with bf16 the inputs, h0 and the weights are cast to bf16
+before anything else, the input projection comes out in bf16, and the
+recurrence runs in bf16 (`ops/gru_kernel`: the bf16 kernel instantiations
+on the card, their plain versions on the CPU), carrying h in bf16; the
+cell (`gru_cell`) computes each step in bf16 torch ops. Outputs and
+hidden come out in bf16; parameters and their gradients stay fp32.
 """
 from __future__ import annotations
 
@@ -34,22 +42,37 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from gesture2vec_tpu_torch.models.layers import dropout
+from gesture2vec_tpu_torch.models.layers import Dtype, dropout
 from gesture2vec_tpu_torch.ops.gru_kernel import (gru_sequence,
                                                   gru_sequence_plain)
 
 
+def cast_gru(dtype: Dtype, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The JAX package's `_cast_gru`: every tensor in dtype (None: as it
+    is)."""
+    return ts if dtype is None else tuple(t.to(dtype) for t in ts)
+
+
 def gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor,
              w_hh: torch.Tensor, b_ih: torch.Tensor,
-             b_hh: torch.Tensor) -> torch.Tensor:
+             b_hh: torch.Tensor, dtype: Dtype = None) -> torch.Tensor:
     """Single GRU step (B, in) x (B, H) -> (B, H)."""
+    x, h, w_ih, w_hh, b_ih, b_hh = cast_gru(dtype, x, h, w_ih, w_hh, b_ih,
+                                            b_hh)
     H = h.shape[-1]
     gi = torch.addmm(b_ih, x, w_ih.t())
     gh = torch.addmm(b_hh, h, w_hh.t())
+    if dtype is not None:
+        # the gate math of one step in fp32 from the products in dtype,
+        # the new h rounded to dtype: XLA fuses a step's elementwise ops
+        # and keeps their intermediates in fp32 (excess precision), and so
+        # does the kernel
+        gi, gh, h = gi.float(), gh.float(), h.float()
     r = torch.sigmoid(gi[:, :H] + gh[:, :H])
     z = torch.sigmoid(gi[:, H:2 * H] + gh[:, H:2 * H])
     n = torch.tanh(gi[:, 2 * H:] + r * gh[:, 2 * H:])
-    return (1.0 - z) * n + z * h
+    h_new = (1.0 - z) * n + z * h
+    return h_new if dtype is None else h_new.to(dtype)
 
 
 class GRUCellStack(nn.Module):
@@ -58,11 +81,12 @@ class GRUCellStack(nn.Module):
     as in the JAX package, so weights copy across by name."""
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
         self.dropout_rate = dropout_rate
+        self.dtype = dtype
         H = hidden_size
         for layer in range(n_layers):
             in_dim = input_size if layer == 0 else H
@@ -85,7 +109,8 @@ class GRUCellStack(nn.Module):
         outs = x
         new_h = []
         for layer in range(self.n_layers):
-            outs = gru_cell(outs, h[layer], *self.layer_weights(layer))
+            outs = gru_cell(outs, h[layer], *self.layer_weights(layer),
+                            dtype=self.dtype)
             new_h.append(outs)
             if layer < self.n_layers - 1:
                 outs = dropout(outs, self.dropout_rate, self.training)
@@ -102,11 +127,14 @@ def _input_projection(xs: torch.Tensor, w_ih: torch.Tensor,
 
 def gru_layer(xs: torch.Tensor, h0: torch.Tensor, w_ih: torch.Tensor,
               w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
-              reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+              reverse: bool = False, dtype: Dtype = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GRU layer over a sequence: xs (T, B, in) time-major, h0 (B, H)
     -> (outputs (T, B, H), last hidden (B, H)). reverse walks the last
     step first; outputs stay at their time positions and the last hidden
     is the state after t = 0."""
+    xs, h0, w_ih, w_hh, b_ih, b_hh = cast_gru(dtype, xs, h0, w_ih, w_hh,
+                                              b_ih, b_hh)
     return gru_sequence(_input_projection(xs, w_ih, b_ih), h0.contiguous(),
                         w_hh, b_hh, reverse)
 
@@ -117,15 +145,17 @@ class BiGRU(nn.Module):
     JAX package. Each layer's two directions read the concatenated (2H)
     outputs of the layer below. The returned hidden is (2 * layers, B, H)
     ordered [l0_fwd, l0_bwd, l1_fwd, l1_bwd, ...]; outputs are (T, B, 2H).
-    use_kernel=False runs the plain recurrence on any device.
+    use_kernel=False runs the plain recurrence on any device. dtype as in
+    `gru_layer`.
     """
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
         self.dropout_rate = dropout_rate
+        self.dtype = dtype
         self.use_kernel = True
         H = hidden_size
         for layer in range(n_layers):
@@ -153,12 +183,14 @@ class BiGRU(nn.Module):
         over padded sequences."""
         n_run = self.n_layers if n_run is None else n_run
         recurrence = gru_sequence if self.use_kernel else gru_sequence_plain
+        xs, = cast_gru(self.dtype, xs)
         h0 = xs.new_zeros((xs.shape[1], self.hidden_size))
         outs, h_finals = xs, []
         for layer in range(n_run):
             ys = []
             for reverse in (False, True):
-                w_ih, w_hh, b_ih, b_hh = self.layer_weights(layer, reverse)
+                w_ih, w_hh, b_ih, b_hh = cast_gru(
+                    self.dtype, *self.layer_weights(layer, reverse))
                 if lengths is None:
                     y, h_last = recurrence(
                         _input_projection(outs, w_ih, b_ih), h0, w_hh, b_hh,
@@ -191,7 +223,8 @@ def reverse_padded(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 def masked_gru_layer(xs: torch.Tensor, lengths: torch.Tensor,
                      h0: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
                      b_ih: torch.Tensor, b_hh: torch.Tensor,
-                     reverse: bool = False, use_kernel: bool = True
+                     reverse: bool = False, use_kernel: bool = True,
+                     dtype: Dtype = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GRU layer over padded sequences: xs (T, B, in), lengths (B,),
     h0 (B, H) -> (outputs (T, B, H), zero at t >= length; last hidden
@@ -200,6 +233,8 @@ def masked_gru_layer(xs: torch.Tensor, lengths: torch.Tensor,
     lengths = lengths.long()
     if reverse:
         xs = reverse_padded(xs, lengths)
+    xs, h0, w_ih, w_hh, b_ih, b_hh = cast_gru(dtype, xs, h0, w_ih, w_hh,
+                                              b_ih, b_hh)
     recurrence = gru_sequence if use_kernel else gru_sequence_plain
     ys, _ = recurrence(_input_projection(xs, w_ih, b_ih), h0.contiguous(),
                        w_hh, b_hh, False)

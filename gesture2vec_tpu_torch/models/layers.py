@@ -19,6 +19,17 @@ biased variance, where torch's BatchNorm1d would use the unbiased one.
 An autoregressive decoder that calls it once a step updates the running
 statistics once a step, as flax's nn.scan carries them. Eval mode reads
 the running statistics, as BatchNorm1d does.
+
+Compute dtype (the JAX package's compute_dtype: bfloat16). Parameters,
+running statistics and gradients stay fp32; a module built with
+`compute_dtype=torch.bfloat16` computes as the flax module with
+`dtype=jnp.bfloat16` does: `Dense` casts its input, weight and bias to
+bf16 and returns bf16 (flax's promote_dtype); `BatchNorm` and `LayerNorm`
+take their statistics and normalise in fp32 and return bf16; `Embedding`
+returns its rows in bf16. With no compute dtype a module computes in the
+promoted type of its input and parameters (a bf16 input to an fp32
+module gives fp32, as in flax), which for fp32 inputs is the plain torch
+module.
 """
 from __future__ import annotations
 
@@ -27,7 +38,10 @@ import contextvars
 from typing import Iterator, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+Dtype = Optional[torch.dtype]
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
     "dropout_generator", default=None)
@@ -52,8 +66,10 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
+    # bf16 values are kept with an fp32 draw (a bf16 uniform is coarse)
     keep = torch.rand(x.shape, generator=gen, device=x.device,
-                      dtype=x.dtype) < 1.0 - rate
+                      dtype=torch.float32 if x.dtype == torch.bfloat16
+                      else x.dtype) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
@@ -75,15 +91,85 @@ def reparameterize(mean: torch.Tensor, logvar: torch.Tensor,
     return mean + torch.exp(logvar / 2) * reparam_noise(mean)
 
 
-class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over (B, C) with flax's train-mode statistics (see the
-    module note); eps 1e-5 and momentum 0.99 are flax's defaults."""
+def compute_dtype(name: str) -> Dtype:
+    """The models' compute dtype for a config's `compute_dtype`: bf16 for
+    "bfloat16", else None (fp32), as the JAX models read it."""
+    return torch.bfloat16 if name == "bfloat16" else None
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        # torch's momentum weighs the new statistic: flax's 0.99 is 0.01
-        super().__init__(num_features, eps=eps, momentum=0.01)
+
+def _out_dtype(x: torch.Tensor, param: torch.Tensor,
+               compute_dtype: Dtype) -> torch.dtype:
+    """A module's compute type: its compute dtype, else the promoted type
+    of its input and parameters (flax's)."""
+    return compute_dtype or torch.promote_types(x.dtype, param.dtype)
+
+
+def as_fp32(x: torch.Tensor) -> torch.Tensor:
+    """bf16 as fp32 (a normalisation's statistics, the kernels' registers
+    in their plain versions); else as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+class Dense(nn.Linear):
+    """nn.Linear with flax's Dense dtype semantics (see the module note)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, compute_dtype: Dtype = None):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _out_dtype(x, self.weight, self.compute_dtype)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with flax's dtype semantics: fp32 statistics and
+    normalisation, the result in the compute dtype."""
+
+    def __init__(self, normalized_shape: int, eps: float = 1e-5,
+                 compute_dtype: Dtype = None):
+        super().__init__(normalized_shape, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _out_dtype(x, self.weight, self.compute_dtype)
+        return super().forward(as_fp32(x)).to(dt)
+
+
+class Embedding(nn.Embedding):
+    """nn.Embedding whose rows come out in the compute dtype (flax's Embed
+    with a dtype)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 compute_dtype: Dtype = None):
+        super().__init__(num_embeddings, embedding_dim)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        out = super().forward(ids)
+        return out if self.compute_dtype is None \
+            else out.to(self.compute_dtype)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over (B, C) with flax's train-mode statistics (see the
+    module note); eps 1e-5 and momentum 0.99 are flax's defaults. The
+    statistics and the normalisation are fp32 whatever the input; the
+    result comes in the compute dtype (flax's BatchNorm dtype)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 compute_dtype: Dtype = None):
+        # torch's momentum weighs the new statistic: flax's 0.99 is 0.01
+        super().__init__(num_features, eps=eps, momentum=0.01)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _out_dtype(x, self.weight, self.compute_dtype)
+        return self._normalise(as_fp32(x)).to(dt)
+
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         mean = x.mean(dim=0)

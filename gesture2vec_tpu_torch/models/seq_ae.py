@@ -30,6 +30,17 @@ transformer encoder's sites, the reference's 0.95
 dropout on the decoder's input at every step, dropout between the
 decoder's GRU layers, and BatchNorm on batch statistics, updated once a
 step (`models/layers.BatchNorm`).
+
+compute_dtype=torch.bfloat16 is the JAX package's compute_dtype:
+bfloat16, module by module at its cast sites: the BiGRU encoder (in_layer
+and the recurrences in bf16, the summed outputs and the hidden bf16) or
+the transformer encoder (its own sites; its hidden fp32); the quantizer
+in fp32 on the fp32 hidden (token identity); the decoder step's
+pre_linear, BatchNorm (fp32 statistics), GRU cells and out_layer in bf16,
+its output cast to fp32; the decoder's hidden cast to bf16 before the
+rollout and carried in bf16. The eval decode then runs the chunk-decoder
+kernel's bf16 instantiation over weights folded in bf16. The VAE heads
+and the attention stay fp32, as in JAX.
 """
 from __future__ import annotations
 
@@ -39,8 +50,8 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import BiGRU, GRUCellStack
-from gesture2vec_tpu_torch.models.layers import (BatchNorm, dropout,
-                                                 reparameterize)
+from gesture2vec_tpu_torch.models.layers import (BatchNorm, Dense, Dtype,
+                                                 dropout, reparameterize)
 from gesture2vec_tpu_torch.models.vq import VQGSSoft, VQOutput, VQResidual
 
 
@@ -72,20 +83,23 @@ class DecoderStep(nn.Module):
     """One Part-b decoder timestep without attention: pre_linear ->
     BatchNorm -> ReLU -> GRU stack -> out_layer. conditioned=False
     zeroes the input, as the JAX module does; in training the input then
-    takes the reference's step dropout."""
+    takes the reference's step dropout. With a compute dtype every module
+    computes in it and the output comes back in fp32."""
 
     # the reference's dropout on the decoder's input at every step
     step_dropout = 0.95
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
-                 conditioned: bool = True, dropout_rate: float = 0.0):
+                 conditioned: bool = True, dropout_rate: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
         self.conditioned = conditioned
-        self.pre_linear = nn.Linear(input_size, hidden_size)
-        self.pre_bn = BatchNorm(hidden_size)
+        self.dtype = dtype
+        self.pre_linear = Dense(input_size, hidden_size, compute_dtype=dtype)
+        self.pre_bn = BatchNorm(hidden_size, compute_dtype=dtype)
         self.gru = GRUCellStack(hidden_size, hidden_size, n_layers,
-                                dropout_rate)
-        self.out_layer = nn.Linear(hidden_size, input_size)
+                                dropout_rate, dtype=dtype)
+        self.out_layer = Dense(hidden_size, input_size, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -94,7 +108,8 @@ class DecoderStep(nn.Module):
         x = dropout(x, self.step_dropout, self.training)
         h = torch.relu(self.pre_bn(self.pre_linear(x)))
         out, new_hidden = self.gru(h, hidden)
-        return self.out_layer(out), new_hidden
+        # losses and the fed-back frame read fp32 whatever the dtype
+        return self.out_layer(out).float(), new_hidden
 
 
 class SeqDecoder(nn.Module):
@@ -106,9 +121,10 @@ class SeqDecoder(nn.Module):
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, n_codes: int, n_pre_poses: int = 1,
                  conditioned: bool = True, stages: int = 1,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.use_kernel = True
+        self.dtype = dtype
         self.rep_dim = rep_dim
         self.hidden_size = hidden_size
         self.n_layers = n_layers
@@ -121,7 +137,7 @@ class SeqDecoder(nn.Module):
                 "codebook" if s == 0 else f"codebook_r{s}",
                 nn.Parameter(torch.zeros(n_codes, n_layers * hidden_size)))
         self.decoder_step = DecoderStep(rep_dim, hidden_size, n_layers,
-                                        conditioned, dropout_rate)
+                                        conditioned, dropout_rate, dtype)
 
     def token_hidden(self, tokens: torch.Tensor,
                      stage_tokens: Optional[torch.Tensor] = None,
@@ -157,21 +173,26 @@ class SeqDecoder(nn.Module):
         """Generative rollout: the seed frame (B, D) is the first input
         and is never emitted; each output feeds back as the next input.
         dec_hidden (L, B, H) -> (B, n_steps or n_frames, D)."""
-        x, hidden = seed_frame, dec_hidden
+        x, hidden = seed_frame, self._carry(dec_hidden)
         outs = []
         for _ in range(n_steps or self.n_frames):
             x, hidden = self.decoder_step(x, hidden)
             outs.append(x)
         return torch.stack(outs, dim=1)
 
+    def _carry(self, dec_hidden: torch.Tensor) -> torch.Tensor:
+        """The hidden in the compute dtype (JAX casts it before its scan,
+        whose carry stays there)."""
+        return dec_hidden if self.dtype is None else dec_hidden.to(self.dtype)
+
     def kernel_reason(self) -> str:
-        """'' when the eval decode can run the chunk-decoder kernel, else
-        why not."""
+        """'' when the eval decode can run the chunk-decoder kernel (its
+        instantiation for the compute dtype), else why not."""
         from gesture2vec_tpu_torch.ops import decoder_kernel as dk
 
         if self.n_pre_poses != 1:
             return "the kernel starts from one seed frame (n_pre_poses=1)"
-        return dk.supported(self.decoder_step)
+        return dk.supported(self.decoder_step, self.dtype or torch.float32)
 
     def decode(self, dec_hidden: torch.Tensor, out_poses: torch.Tensor
                ) -> torch.Tensor:
@@ -182,9 +203,10 @@ class SeqDecoder(nn.Module):
         dec_hidden (L, B, H) -> (B, n_frames, D). In eval mode with a
         1-frame teacher prefix this is the seed plus the rollout from it,
         which `ops/decoder_kernel.fused_chunk_decode` runs in one launch
-        (`use_kernel`, the default). On a CUDA tensor a decoder the kernel
-        cannot run raises (`kernel_reason`); on the CPU it takes the plain
-        loop."""
+        (`use_kernel`, the default; with a compute dtype its instantiation
+        for that dtype, over weights folded in it). On a CUDA tensor a
+        decoder the kernel cannot run raises (`kernel_reason`); on the CPU
+        it takes the plain loop."""
         from gesture2vec_tpu_torch.ops import decoder_kernel as dk
 
         seed = out_poses[:, 0]
@@ -197,11 +219,14 @@ class SeqDecoder(nn.Module):
                                  f"rollout)")
             kernel = not reason
         if kernel:
+            dt = self.dtype or torch.float32
             ys = dk.fused_chunk_decode(
-                seed.float().contiguous(), dec_hidden.float().contiguous(),
-                dk.fold_decoder_step(self.decoder_step), self.n_frames - 1)
-            return torch.cat([out_poses[:, :1], ys.transpose(0, 1)], dim=1)
-        prev, hidden, outs = seed, dec_hidden, [seed]
+                seed.to(dt).contiguous(), dec_hidden.to(dt).contiguous(),
+                dk.fold_decoder_step(self.decoder_step, dt),
+                self.n_frames - 1)
+            return torch.cat([out_poses[:, :1], ys.transpose(0, 1).float()],
+                             dim=1)
+        prev, hidden, outs = seed, self._carry(dec_hidden), [seed]
         for t in range(1, self.n_frames):
             x = out_poses[:, t - 1] if t - 1 < self.n_pre_poses else prev
             prev, hidden = self.decoder_step(x, hidden)
@@ -210,14 +235,16 @@ class SeqDecoder(nn.Module):
 
 
 class SeqEncoder(nn.Module):
-    """Linear-in + bidirectional GRU, directions summed."""
+    """Linear-in + bidirectional GRU, directions summed; with a compute
+    dtype both run in it and outputs and hidden come out in it."""
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
-        self.in_layer = nn.Linear(input_size, hidden_size)
-        self.gru = BiGRU(hidden_size, hidden_size, n_layers, dropout_rate)
+        self.in_layer = Dense(input_size, hidden_size, compute_dtype=dtype)
+        self.gru = BiGRU(hidden_size, hidden_size, n_layers, dropout_rate,
+                         dtype=dtype)
 
     def forward(self, xs: torch.Tensor, n_run: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,7 +281,8 @@ class SeqVQAutoencoder(nn.Module):
     vq_variant "gssoft" (the reference's) or "rvq"; use_vq False has no
     quantizer (and the decoder no codebook), use_vae the VAE heads. The
     decoder's stage-0 codebook is the quantizer's own parameter (and for
-    "rvq" every stage's), so training moves one tensor for both."""
+    "rvq" every stage's), so training moves one tensor for both.
+    compute_dtype (None, or torch.bfloat16) as in the module note."""
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, vq_components: int = 512,
@@ -262,8 +290,10 @@ class SeqVQAutoencoder(nn.Module):
                  rvq_stages: int = 2, commitment_cost: float = 0.25,
                  conditioned: bool = True, vq_flatten: str = "per_sample",
                  encoder_arch: str = "bigru", use_vae: bool = False,
-                 dropout_rate: float = 0.2, use_vq: bool = True):
+                 dropout_rate: float = 0.2, use_vq: bool = True,
+                 compute_dtype: Dtype = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if encoder_arch not in ("bigru", "transformer"):
             raise ValueError(f"unknown encoder_arch {encoder_arch!r}")
         if vq_flatten not in ("per_sample", "torch_view"):
@@ -282,10 +312,11 @@ class SeqVQAutoencoder(nn.Module):
             from gesture2vec_tpu_torch.models.seq_encoder import \
                 TransformerSeqEncoder
             self.encoder = TransformerSeqEncoder(
-                rep_dim, hidden_size, n_layers, dropout_rate=dropout_rate)
+                rep_dim, hidden_size, n_layers, dropout_rate=dropout_rate,
+                dtype=compute_dtype)
         else:
             self.encoder = SeqEncoder(rep_dim, hidden_size, n_layers,
-                                      dropout_rate)
+                                      dropout_rate, compute_dtype)
         d = hidden_size * n_layers
         if vq_variant not in ("rvq", "gssoft"):
             raise ValueError(f"unknown vq_variant {vq_variant!r}")
@@ -297,14 +328,14 @@ class SeqVQAutoencoder(nn.Module):
             self.vq_layer = VQGSSoft(vq_components, d, commitment_cost)
         if use_vae:
             # over the (B, L*H) hidden, after the quantizer
-            self.vae_mean = nn.Linear(d, d)
-            self.vae_std = nn.Linear(d, d)
-            self.vae_dec = nn.Linear(d, d)
+            self.vae_mean = Dense(d, d)
+            self.vae_std = Dense(d, d)
+            self.vae_dec = Dense(d, d)
         self.decoder = SeqDecoder(
             rep_dim, hidden_size, n_layers, n_frames, vq_components,
             n_pre_poses, conditioned,
             stages=rvq_stages if use_vq and vq_variant == "rvq" else 1,
-            dropout_rate=dropout_rate)
+            dropout_rate=dropout_rate, dtype=compute_dtype)
         # one tensor for each codebook: the quantizer's (none without one)
         cbs = ([] if not use_vq else self.vq_layer.codebooks()
                if vq_variant == "rvq" else [self.vq_layer.codebook])

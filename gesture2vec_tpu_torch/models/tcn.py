@@ -16,6 +16,11 @@ JAX package's Text2Token builds the encoder with.
 Layouts follow the JAX package at the public functions: token ids are
 batch-major (B, S); outputs are time-major (S, B, H) and the hidden is
 (n_layers, B, H).
+
+With a compute dtype (the JAX package's bf16 mode) the embeddings are
+cast to it, the convolutions (their weight normalised in fp32, then cast),
+the per-step projection and hidden_proj run in it, and the outputs and
+hidden come back in fp32.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gesture2vec_tpu_torch.models.layers import dropout
+from gesture2vec_tpu_torch.models.layers import Dense, Dtype, dropout
 
 # flax's WeightNorm epsilon
 WN_EPS = 1e-12
@@ -36,8 +41,9 @@ class CausalConv1d(nn.Module):
     (out, in, k), scale (out,), bias (out,)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, dilation: int):
+                 kernel_size: int, dilation: int, dtype: Dtype = None):
         super().__init__()
+        self.dtype = dtype
         self.dilation = dilation
         self.pad = (kernel_size - 1) * dilation
         self.kernel = nn.Parameter(
@@ -53,8 +59,17 @@ class CausalConv1d(nn.Module):
             * self.scale[:, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(F.pad(x, (self.pad, 0)), self.weight, self.bias,
-                        dilation=self.dilation)
+        return conv(x, self.weight, self.bias, self.dtype, self.pad,
+                    self.dilation)
+
+
+def conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+         dtype: Dtype, pad: int = 0, dilation: int = 1) -> torch.Tensor:
+    """A left-padded 1D convolution over (B, C, T), in dtype (flax's Conv
+    with a dtype: input, weight and bias cast to it) when given."""
+    if dtype is not None:
+        x, weight, bias = x.to(dtype), weight.to(dtype), bias.to(dtype)
+    return F.conv1d(F.pad(x, (pad, 0)), weight, bias, dilation=dilation)
 
 
 class TemporalBlock(nn.Module):
@@ -62,13 +77,15 @@ class TemporalBlock(nn.Module):
     where the width changes), then relu."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, dilation: int, dropout_rate: float = 0.3):
+                 kernel_size: int, dilation: int, dropout_rate: float = 0.3,
+                 dtype: Dtype = None):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.dtype = dtype
         self.conv1 = CausalConv1d(in_channels, out_channels, kernel_size,
-                                  dilation)
+                                  dilation, dtype)
         self.conv2 = CausalConv1d(out_channels, out_channels, kernel_size,
-                                  dilation)
+                                  dilation, dtype)
         self.downsample = (nn.Conv1d(in_channels, out_channels, 1)
                            if in_channels != out_channels else None)
 
@@ -77,7 +94,8 @@ class TemporalBlock(nn.Module):
                     self.training)
         h = dropout(torch.relu(self.conv2(h)), self.dropout_rate,
                     self.training)
-        res = x if self.downsample is None else self.downsample(x)
+        ds = self.downsample
+        res = x if ds is None else conv(x, ds.weight, ds.bias, self.dtype)
         return torch.relu(h + res)
 
 
@@ -85,12 +103,13 @@ class TemporalConvNet(nn.Module):
     """Stacked blocks with dilation 2**i, over (B, C, T)."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
-                 kernel_size: int = 2, dropout_rate: float = 0.3):
+                 kernel_size: int = 2, dropout_rate: float = 0.3,
+                 dtype: Dtype = None):
         super().__init__()
         blocks = []
         for i, ch in enumerate(channels):
             blocks.append(TemporalBlock(in_channels, ch, kernel_size, 2 ** i,
-                                        dropout_rate))
+                                        dropout_rate, dtype))
             in_channels = ch
         self.blocks = nn.ModuleList(blocks)
 
@@ -106,28 +125,34 @@ class TextEncoderTCN(nn.Module):
 
     def __init__(self, n_words: int, embed_size: int, hidden_size: int,
                  n_layers: int, kernel_size: int = 2,
-                 dropout_rate: float = 0.3, emb_dropout: float = 0.1):
+                 dropout_rate: float = 0.3, emb_dropout: float = 0.1,
+                 dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.emb_dropout = emb_dropout
         self.n_layers = n_layers
+        self.dtype = dtype
         self.embedding_table = nn.Embedding(n_words, embed_size)
         self.tcn = TemporalConvNet(embed_size, [hidden_size] * n_layers,
-                                   kernel_size, dropout_rate)
-        self.decoder = nn.Linear(hidden_size, hidden_size)
-        self.hidden_proj = nn.Linear(hidden_size, n_layers * hidden_size)
+                                   kernel_size, dropout_rate, dtype)
+        self.decoder = Dense(hidden_size, hidden_size, compute_dtype=dtype)
+        self.hidden_proj = Dense(hidden_size, n_layers * hidden_size,
+                                 compute_dtype=dtype)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) ids, lengths (B,) -> (outputs (S, B, H),
-        hidden (n_layers, B, H))."""
+        hidden (n_layers, B, H)), fp32."""
         B, S = tokens.shape
-        emb = dropout(self.embedding_table(tokens), self.emb_dropout,
-                      self.training)                        # (B, S, E)
+        emb = self.embedding_table(tokens)
+        if self.dtype is not None:
+            emb = emb.to(self.dtype)
+        emb = dropout(emb, self.emb_dropout, self.training)  # (B, S, E)
         y = self.tcn(emb.transpose(1, 2)).transpose(1, 2)   # (B, S, H)
         outputs = self.decoder(y)
         idx = (lengths.long() - 1).clamp(0, S - 1)
         last = y[torch.arange(B, device=y.device), idx]     # (B, H)
         hidden = self.hidden_proj(torch.tanh(last))
         hidden = hidden.reshape(B, self.n_layers, self.hidden_size)
-        return outputs.transpose(0, 1), hidden.transpose(0, 1)
+        return (outputs.transpose(0, 1).float(),
+                hidden.transpose(0, 1).float())

@@ -32,6 +32,14 @@ embedding and between its GRU layers, and BatchNorm on batch statistics
 (`models/layers.BatchNorm`). The decode is the same loop (teacher tokens
 while t - 1 < n_pre_poses, then the argmax); with stage_conditional the
 chain reads the step's teacher codes (`stage_targets`).
+
+compute_dtype=torch.bfloat16 mirrors the JAX package's bf16 mode at its
+cast sites: the TCN (`models/tcn`) or the masked BiGRU (the bf16 GRU
+kernel) in bf16, their outputs and hidden cast back to fp32; the decoder
+step's pre_linear, BatchNorm (fp32 statistics), GRU cells, out_layer and
+stage heads in bf16, the logits cast to fp32; the token embedding and the
+attention fp32; the decoder's hidden cast to bf16 before the decode and
+carried in bf16.
 """
 from __future__ import annotations
 
@@ -42,7 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import GRUCellStack, MaskedBiGRU
-from gesture2vec_tpu_torch.models.layers import BatchNorm, dropout
+from gesture2vec_tpu_torch.models.layers import (BatchNorm, Dense, Dtype,
+                                                 Embedding, dropout)
 from gesture2vec_tpu_torch.models.seq_ae import Attn
 from gesture2vec_tpu_torch.models.tcn import TextEncoderTCN
 
@@ -81,8 +90,9 @@ def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
 
 def stage_logits(heads: nn.Module, out: torch.Tensor) -> torch.Tensor:
     """Independent residual-stage heads `out_layer_r{s}` of `heads` (a
-    module with `n_stage_heads` of them): (..., H) -> (..., S-1, K)."""
-    return torch.stack([getattr(heads, f"out_layer_r{s + 1}")(out)
+    module with `n_stage_heads` of them): (..., H) -> (..., S-1, K), fp32
+    whatever the compute dtype."""
+    return torch.stack([getattr(heads, f"out_layer_r{s + 1}")(out).float()
                         for s in range(heads.n_stage_heads)], dim=-2)
 
 
@@ -99,7 +109,7 @@ def stage_chain(heads: nn.Module, out: torch.Tensor, first: torch.Tensor,
     logits, chosen = [], []
     for s in range(heads.n_stage_heads):
         h = h + getattr(heads, f"stage_embed_{s}")(prev)
-        lg = getattr(heads, f"out_layer_r{s + 1}")(h)
+        lg = getattr(heads, f"out_layer_r{s + 1}")(h).float()
         prev = choose(lg, s)
         logits.append(lg)
         chosen.append(prev)
@@ -152,19 +162,21 @@ class TextEncoderRNN(nn.Module):
     [l0_fwd, l0_bwd] at 2 layers: the reference's quirk, kept."""
 
     def __init__(self, n_words: int, embed_size: int, hidden_size: int,
-                 n_layers: int, dropout_rate: float = 0.0):
+                 n_layers: int, dropout_rate: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.embedding_table = nn.Embedding(n_words, embed_size)
         self.gru = MaskedBiGRU(embed_size, hidden_size, n_layers,
-                               dropout_rate)
+                               dropout_rate, dtype=dtype)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(outputs (S, B, H), hidden (2L, B, H)), fp32."""
         emb = self.embedding_table(tokens).transpose(0, 1)   # (S, B, E)
         outs, hidden = self.gru(emb, lengths)
         H = self.hidden_size
-        return outs[..., :H] + outs[..., H:], hidden
+        return (outs[..., :H] + outs[..., H:]).float(), hidden.float()
 
 
 class TokenDecoderStep(nn.Module):
@@ -175,25 +187,27 @@ class TokenDecoderStep(nn.Module):
 
     def __init__(self, hidden_size: int, n_tokens: int, n_layers: int,
                  use_attention: bool = True, n_stage_heads: int = 0,
-                 stage_conditional: bool = False, dropout_rate: float = 0.0):
+                 stage_conditional: bool = False, dropout_rate: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
+        self.dtype = dtype
         self.use_attention = use_attention
         self.n_stage_heads = n_stage_heads
         self.stage_conditional = stage_conditional and n_stage_heads > 0
         self.token_embedding = nn.Embedding(n_tokens, hidden_size)
         in_dim = 2 * hidden_size if use_attention else hidden_size
         self.attn = Attn(hidden_size) if use_attention else None
-        self.pre_linear = nn.Linear(in_dim, hidden_size)
-        self.pre_bn = BatchNorm(hidden_size)
+        self.pre_linear = Dense(in_dim, hidden_size, compute_dtype=dtype)
+        self.pre_bn = BatchNorm(hidden_size, compute_dtype=dtype)
         self.gru = GRUCellStack(hidden_size, hidden_size, n_layers,
-                                dropout_rate)
-        self.out_layer = nn.Linear(hidden_size, n_tokens)
+                                dropout_rate, dtype=dtype)
+        self.out_layer = Dense(hidden_size, n_tokens, compute_dtype=dtype)
         for s in range(n_stage_heads):
             setattr(self, f"out_layer_r{s + 1}",
-                    nn.Linear(hidden_size, n_tokens))
+                    Dense(hidden_size, n_tokens, compute_dtype=dtype))
             if self.stage_conditional:
                 setattr(self, f"stage_embed_{s}",
-                        nn.Embedding(n_tokens, hidden_size))
+                        Embedding(n_tokens, hidden_size, compute_dtype=dtype))
 
     def step(self, token: torch.Tensor, hidden: torch.Tensor,
              encoder_outputs: torch.Tensor,
@@ -204,12 +218,14 @@ class TokenDecoderStep(nn.Module):
         x = dropout(self.token_embedding(token), self.embedding_dropout,
                     self.training)                             # (B, H)
         if self.use_attention:
-            w = self.attn(hidden[-1], encoder_outputs, mask=enc_mask)
+            # fp32 attention (the hidden may be carried in bf16)
+            w = self.attn(hidden[-1].to(encoder_outputs.dtype),
+                          encoder_outputs, mask=enc_mask)
             context = torch.einsum("bt,tbh->bh", w, encoder_outputs)
             x = torch.cat([x, context], dim=-1)
         h = torch.relu(self.pre_bn(self.pre_linear(x)))
         out, new_hidden = self.gru(h, hidden)
-        return self.out_layer(out), new_hidden, out
+        return self.out_layer(out).float(), new_hidden, out
 
     def forward(self, token: torch.Tensor, hidden: torch.Tensor,
                 encoder_outputs: torch.Tensor,
@@ -251,6 +267,9 @@ def decode_tokens_impl(model: nn.Module, enc_outs: torch.Tensor,
     seed = target_tokens[:, 0]
     logits = [F.one_hot(seed, model.n_tokens).to(enc_outs.dtype)]
     tokens, stage_logits, stage_tokens = [seed], [], []
+    if step.dtype is not None:
+        # the hidden carried in the compute dtype, as JAX's scan carries it
+        dec_hidden = dec_hidden.to(step.dtype)
     prev, hidden = seed, dec_hidden
     for t in range(1, model.n_steps):
         token_in = (target_tokens[:, t - 1] if t - 1 < model.n_pre_poses
@@ -362,8 +381,9 @@ class Text2Token(nn.Module):
                  word_embed_size: int = 300, encoder_type: str = "tcn",
                  use_attention: bool = True, token_stages: int = 1,
                  kernel_size: int = 2, stage_conditional: bool = False,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, compute_dtype: Dtype = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.n_tokens = n_tokens
         self.n_layers = n_layers
         self.n_steps = n_steps
@@ -376,17 +396,19 @@ class Text2Token(nn.Module):
             # the config's dropout
             self.encoder = TextEncoderTCN(n_words, word_embed_size,
                                           hidden_size, n_layers, kernel_size,
-                                          dropout_rate=0.3, emb_dropout=0.1)
+                                          dropout_rate=0.3, emb_dropout=0.1,
+                                          dtype=compute_dtype)
         elif encoder_type == "gru":
             self.encoder = TextEncoderRNN(n_words, word_embed_size,
                                           hidden_size, n_layers,
-                                          dropout_rate)
+                                          dropout_rate, compute_dtype)
         else:
             raise ValueError(f"unknown encoder_type {encoder_type!r}")
         self.decoder_step = TokenDecoderStep(
             hidden_size, n_tokens, n_layers, use_attention,
             n_stage_heads=token_stages - 1,
-            stage_conditional=stage_conditional, dropout_rate=dropout_rate)
+            stage_conditional=stage_conditional, dropout_rate=dropout_rate,
+            dtype=compute_dtype)
 
     @property
     def n_pre(self) -> int:

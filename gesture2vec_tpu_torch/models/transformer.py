@@ -31,6 +31,13 @@ Kept from flax: LayerNorm epsilon 1e-6, the tanh approximation of GELU,
 and masked attention scores set to -1e30 (a fully masked row attends
 uniformly instead of giving NaN). Scores and softmax are fp32 matmuls, as
 the JAX einsums are.
+
+compute_dtype=torch.bfloat16 (the JAX package's compute_dtype: bfloat16)
+puts every Dense, LayerNorm (fp32 statistics), the token embeddings and
+the residual stream in bf16, as flax's modules with dtype=bfloat16 do;
+the attention scores and softmax stay fp32 (the weights cast to bf16
+before they weigh v), and the encoder's output, the logits and the
+attention maps come out in fp32.
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gesture2vec_tpu_torch.models.layers import dropout
+from gesture2vec_tpu_torch.models.layers import (Dense, Dtype, Embedding,
+                                                 LayerNorm, dropout)
 from gesture2vec_tpu_torch.models.text2token import (check_noise, choose_step,
                                                      stage_chain,
                                                      stage_logits)
@@ -81,18 +89,19 @@ def _causal(length: int, device: torch.device) -> torch.Tensor:
 
 
 class MHA(nn.Module):
-    """Multi-head attention that also returns its head-averaged weights."""
+    """Multi-head attention that also returns its head-averaged weights
+    (fp32)."""
 
-    def __init__(self, hidden_size: int, n_heads: int):
+    def __init__(self, hidden_size: int, n_heads: int, dtype: Dtype = None):
         super().__init__()
         if hidden_size % n_heads:
             raise ValueError(f"{n_heads} heads do not divide hidden size "
                              f"{hidden_size}")
         self.n_heads = n_heads
-        self.q = nn.Linear(hidden_size, hidden_size)
-        self.k = nn.Linear(hidden_size, hidden_size)
-        self.v = nn.Linear(hidden_size, hidden_size)
-        self.o = nn.Linear(hidden_size, hidden_size)
+        self.q = Dense(hidden_size, hidden_size, compute_dtype=dtype)
+        self.k = Dense(hidden_size, hidden_size, compute_dtype=dtype)
+        self.v = Dense(hidden_size, hidden_size, compute_dtype=dtype)
+        self.o = Dense(hidden_size, hidden_size, compute_dtype=dtype)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 mask: Optional[torch.Tensor] = None
@@ -109,11 +118,14 @@ class MHA(nn.Module):
 
         q, k, v = split(self.q(q_in)), split(self.k(kv_in)), \
             split(self.v(kv_in))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        # fp32 scores (JAX: preferred_element_type=float32)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+            / math.sqrt(hd)
         if mask is not None:
             scores = scores.masked_fill(~mask, MASKED)
         w = torch.softmax(scores, dim=-1)
-        out = torch.matmul(w, v).transpose(1, 2).reshape(B, Tq, H)
+        out = torch.matmul(w.to(v.dtype), v).transpose(1, 2).reshape(B, Tq,
+                                                                     H)
         return self.o(out), w.mean(dim=1)
 
 
@@ -122,18 +134,23 @@ class Block(nn.Module):
     dropout on each residual branch."""
 
     def __init__(self, hidden_size: int, n_heads: int, cross: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: Dtype = None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.ln_self = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.self_attn = MHA(hidden_size, n_heads)
+
+        def ln():
+            return LayerNorm(hidden_size, eps=LN_EPS, compute_dtype=dtype)
+
+        self.ln_self = ln()
+        self.self_attn = MHA(hidden_size, n_heads, dtype)
         self.cross = cross
         if cross:
-            self.ln_cross = nn.LayerNorm(hidden_size, eps=LN_EPS)
-            self.cross_attn = MHA(hidden_size, n_heads)
-        self.ln_mlp = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.mlp_in = nn.Linear(hidden_size, 4 * hidden_size)
-        self.mlp_out = nn.Linear(4 * hidden_size, hidden_size)
+            self.ln_cross = ln()
+            self.cross_attn = MHA(hidden_size, n_heads, dtype)
+        self.ln_mlp = ln()
+        self.mlp_in = Dense(hidden_size, 4 * hidden_size, compute_dtype=dtype)
+        self.mlp_out = Dense(4 * hidden_size, hidden_size,
+                             compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, self_mask: Optional[torch.Tensor],
                 enc: Optional[torch.Tensor] = None,
@@ -164,29 +181,33 @@ class _TextEncoder(nn.Module):
     """Word ids -> contextual embeddings + masked mean-pool."""
 
     def __init__(self, n_words: int, word_embed_size: int, hidden_size: int,
-                 n_layers: int, n_heads: int, dropout_rate: float = 0.0):
+                 n_layers: int, n_heads: int, dropout_rate: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
         self.n_layers = n_layers
         self.dropout_rate = dropout_rate
         self.embedding_table = nn.Embedding(n_words, word_embed_size)
-        self.embed_proj = nn.Linear(word_embed_size, hidden_size)
+        self.embed_proj = Dense(word_embed_size, hidden_size,
+                                compute_dtype=dtype)
         add_blocks(self, n_layers, hidden_size, n_heads,
-                   dropout_rate=dropout_rate)
-        self.final_ln = nn.LayerNorm(hidden_size, eps=LN_EPS)
+                   dropout_rate=dropout_rate, dtype=dtype)
+        self.final_ln = LayerNorm(hidden_size, eps=LN_EPS,
+                                  compute_dtype=dtype)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, S) ids, (B,) lengths -> (enc (B, S, H), pooled (B, H))."""
+        """(B, S) ids, (B,) lengths -> (enc (B, S, H), pooled (B, H)),
+        fp32."""
         S = tokens.shape[1]
         x = self.embed_proj(self.embedding_table(tokens))
-        x = dropout(x + position_table(S, x.shape[-1], x.device),
+        x = dropout(x + position_table(S, x.shape[-1], x.device).to(x.dtype),
                     self.dropout_rate, self.training)
         valid = torch.arange(S, device=tokens.device)[None, :] \
             < lengths[:, None]                                 # (B, S)
         mask = valid[:, None, None, :]
         for i in range(self.n_layers):
             x, _ = getattr(self, f"layer_{i}")(x, mask)
-        x = self.final_ln(x)
+        x = self.final_ln(x).float()
         denom = lengths[:, None].to(x.dtype).clamp_min(1.0)
         return x, (x * valid[:, :, None]).sum(dim=1) / denom
 
@@ -198,23 +219,26 @@ class _TokenDecoder(nn.Module):
 
     def __init__(self, n_tokens: int, hidden_size: int, n_layers: int,
                  n_heads: int, n_stage_heads: int = 0,
-                 stage_conditional: bool = False, dropout_rate: float = 0.0):
+                 stage_conditional: bool = False, dropout_rate: float = 0.0,
+                 dtype: Dtype = None):
         super().__init__()
         self.n_layers = n_layers
         self.dropout_rate = dropout_rate
         self.n_stage_heads = n_stage_heads
         self.stage_conditional = stage_conditional and n_stage_heads > 0
-        self.token_embedding = nn.Embedding(n_tokens, hidden_size)
+        self.token_embedding = Embedding(n_tokens, hidden_size,
+                                         compute_dtype=dtype)
         add_blocks(self, n_layers, hidden_size, n_heads, cross=True,
-                   dropout_rate=dropout_rate)
-        self.final_ln = nn.LayerNorm(hidden_size, eps=LN_EPS)
-        self.out_layer = nn.Linear(hidden_size, n_tokens)
+                   dropout_rate=dropout_rate, dtype=dtype)
+        self.final_ln = LayerNorm(hidden_size, eps=LN_EPS,
+                                  compute_dtype=dtype)
+        self.out_layer = Dense(hidden_size, n_tokens, compute_dtype=dtype)
         for s in range(n_stage_heads):
             setattr(self, f"out_layer_r{s + 1}",
-                    nn.Linear(hidden_size, n_tokens))
+                    Dense(hidden_size, n_tokens, compute_dtype=dtype))
             if self.stage_conditional:
                 setattr(self, f"stage_embed_{s}",
-                        nn.Embedding(n_tokens, hidden_size))
+                        Embedding(n_tokens, hidden_size, compute_dtype=dtype))
 
     def forward(self, buf: torch.Tensor, enc: torch.Tensor,
                 enc_mask: Optional[torch.Tensor] = None
@@ -222,11 +246,11 @@ class _TokenDecoder(nn.Module):
         """buf (B, T) token ids, enc (B, S, H), enc_mask (S,) or (B, S) ->
         (logits (B, T, K) where position j predicts step j + 1, the last
         layer's cross-attention weights (B, T, S), the decoder output
-        (B, T, H) that the stage heads read)."""
+        (B, T, H) that the stage heads read); logits and weights fp32."""
         T = buf.shape[1]
-        x = dropout(self.token_embedding(buf)
-                    + position_table(T, self.token_embedding.embedding_dim,
-                                   buf.device),
+        emb = self.token_embedding(buf)
+        x = dropout(emb + position_table(T, emb.shape[-1],
+                                         buf.device).to(emb.dtype),
                     self.dropout_rate, self.training)
         causal = _causal(T, x.device)
         em = None
@@ -236,7 +260,7 @@ class _TokenDecoder(nn.Module):
         for i in range(self.n_layers):
             x, cross_w = getattr(self, f"layer_{i}")(x, causal, enc, em)
         x = self.final_ln(x)
-        return self.out_layer(x), cross_w, x
+        return self.out_layer(x).float(), cross_w, x
 
 
 class TransformerText2Token(nn.Module):
@@ -255,8 +279,9 @@ class TransformerText2Token(nn.Module):
                  n_layers: int, n_steps: int, n_pre_poses: int = 2,
                  word_embed_size: int = 300, n_heads: int = 4,
                  token_stages: int = 1, stage_conditional: bool = False,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, compute_dtype: Dtype = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.n_tokens = n_tokens
         self.n_layers = n_layers
         self.n_steps = n_steps
@@ -265,11 +290,13 @@ class TransformerText2Token(nn.Module):
         self.token_stages = token_stages
         self.stage_conditional = stage_conditional and token_stages > 1
         self.encoder = _TextEncoder(n_words, word_embed_size, hidden_size,
-                                    n_layers, n_heads, dropout_rate)
+                                    n_layers, n_heads, dropout_rate,
+                                    compute_dtype)
         self.decoder = _TokenDecoder(n_tokens, hidden_size, n_layers,
                                      n_heads, n_stage_heads=token_stages - 1,
                                      stage_conditional=stage_conditional,
-                                     dropout_rate=dropout_rate)
+                                     dropout_rate=dropout_rate,
+                                     dtype=compute_dtype)
 
     @property
     def n_pre(self) -> int:

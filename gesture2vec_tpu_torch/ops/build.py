@@ -4,7 +4,10 @@ Each source under `gesture2vec_tpu_torch/csrc/` is compiled by `nvcc`
 into a shared library with a plain C interface and loaded with ctypes
 (no PyTorch headers, so a build takes seconds). Libraries go into
 `build/kernels/` at the repo root, named by a hash of the source and the
-flags, so a changed source is rebuilt and an unchanged one is reused.
+flags, so a changed source or header is rebuilt and an unchanged one is
+reused. The GRU-sequence, GRU-backward and chunk-decoder sources each
+hold an fp32 and a bf16 instantiation (`_bf16` entry points; the shared
+storage helpers are `csrc/storage.cuh`).
 Nothing is built or loaded at import time. `load` and the launch
 counters are safe under threads: a server's handler threads make the
 first kernel calls concurrently.
@@ -46,7 +49,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of one source, named by a hash of the source, the
+    headers under csrc/ (which every source may include) and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
@@ -101,8 +107,17 @@ def load(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def count_launch(wrapper) -> None:
-    """Adds one to a kernel wrapper's `launches` count (a read, add and
-    write, so under a lock)."""
+def counter(dtype) -> str:
+    """The attribute of a kernel wrapper that counts its launches on
+    tensors of this dtype: `launches` (fp32), `launches_bf16` (bf16)."""
+    import torch
+
+    return "launches_bf16" if dtype == torch.bfloat16 else "launches"
+
+
+def count_launch(wrapper, dtype=None) -> None:
+    """Adds one to a kernel wrapper's launch count for dtype (`counter`;
+    fp32 when None): a read, add and write, so under a lock."""
+    name = "launches" if dtype is None else counter(dtype)
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, name, getattr(wrapper, name) + 1)

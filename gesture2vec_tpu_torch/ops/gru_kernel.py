@@ -32,6 +32,15 @@ raise), on a CPU tensor `gru_sequence_gates_plain` and
 `gru_sequence_backward_plain`. `gru_sequence_backward_recompute`, which
 recomputes the gates from x_proj, is the oracle the tests hold the
 saved-gate path against.
+
+bf16 (the JAX package's compute_dtype: bfloat16, whose `gru_layer` casts
+x_proj, h0, w_hh and b_hh to bf16 and carries h in bf16): bf16 tensors
+launch the bf16 instantiations of both kernels (counted in
+`launches_bf16`), never the fp32 ones, and on the CPU take the same
+plain versions, which then compute each step in fp32 from the bf16
+values and round the new h to bf16 (the carry), and the outputs, gates
+and gradients to bf16, as the kernels do. dW_hh and db_hh stay two
+products outside the kernel, in fp32 from the bf16 dgh and states.
 """
 from __future__ import annotations
 
@@ -40,33 +49,46 @@ from typing import Tuple
 
 import torch
 
+from gesture2vec_tpu_torch.models.layers import as_fp32
 from gesture2vec_tpu_torch.ops.build import count_launch
 
 # the kernel's tile (csrc/gru_sequence.cu's R, C and RT): batch rows per
 # cluster, blocks per cluster, rows per thread
 ROWS, CLUSTER, ROWS_PER_THREAD = 20, 4, 4
 _SMEM_LIMIT = 232448
+# the backward kernel's launch bound (csrc/gru_sequence_backward.cu)
+_BACKWARD_THREADS = 320
 # clusters of 4 such blocks that an H100 SXM holds at once
 # (cudaOccupancyMaxActiveClusters, reported by chip_smoke.py)
 H100_MAX_CLUSTERS = 30
 
 
-def launch_shape(B: int, H: int,
-                 max_clusters: int = H100_MAX_CLUSTERS) -> dict:
+def _slice_bytes(U: int, width: int, dtype: torch.dtype) -> int:
+    """A block's 3U x width w_hh slice in the storage type, rounded up to
+    16 bytes (the kernels' slice_bytes)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    return -(-size * 3 * U * width // 16) * 16
+
+
+def launch_shape(B: int, H: int, max_clusters: int = H100_MAX_CLUSTERS,
+                 dtype: torch.dtype = torch.float32) -> dict:
     """The kernel's launch for a batch of B rows at hidden size H, as
-    `csrc/gru_sequence.cu` computes it (`threads_for`, `smem_bytes`), and
-    how many waves of clusters it takes. Raises ValueError when the
-    block's shared memory (its w_hh slice, the tile's state twice, x_proj
-    slots) exceeds the card's 232,448 bytes, which happens above H=232."""
+    `csrc/gru_sequence.cu` computes it (`threads_for`, `smem_bytes<T>`),
+    and how many waves of clusters it takes. Raises ValueError when the
+    block's shared memory (its w_hh slice, the tile's state twice, fp32's
+    x_proj slots) exceeds the card's 232,448 bytes, which happens above
+    H=232 in fp32 and H=340 in bf16 (a bf16 slice is half the bytes and
+    bf16 x_proj goes to registers)."""
     U = -(-H // CLUSTER)                    # hidden units per block
     q = -(-H // 4)
     HP = 4 * (q if q % 2 else q + 1)        # padded row: odd float4s
     threads = -(-U * (ROWS // ROWS_PER_THREAD) // 32) * 32
-    smem = 4 * (3 * U * HP + 2 * ROWS * HP + 2 * ROWS * 3 * U + 3 * U)
+    slots = 2 * ROWS * 3 * U if dtype != torch.bfloat16 else 0
+    smem = _slice_bytes(U, HP, dtype) + 4 * (2 * ROWS * HP + slots + 3 * U)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"H={H} needs {smem} B of shared memory per block "
                          f"(its w_hh slice, the tile's state twice, x_proj "
-                         f"slots), more than {_SMEM_LIMIT}")
+                         f"slots) in {dtype}, more than {_SMEM_LIMIT}")
     clusters = -(-B // ROWS)
     return {"rows": ROWS, "cluster": CLUSTER, "threads": threads,
             "smem_bytes": smem, "clusters": clusters,
@@ -87,16 +109,21 @@ def _step(xp: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor,
 
 
 def _recurrence(x_proj, h0, w_hh, b_hh, reverse, keep_gates):
+    store = x_proj.dtype
+    x_proj, h0, w_hh, b_hh = map(as_fp32, (x_proj, h0, w_hh, b_hh))
     h = h0
     T = x_proj.shape[0]
     ys, gates = [None] * T, [None] * T
     for t in (reversed(range(T)) if reverse else range(T)):
         h, g = _step(x_proj[t], h, w_hh, b_hh)
+        # the carry in the storage type (bf16 rounds; else the identity)
+        h = h.to(store).to(h.dtype)
         ys[t] = h
         if keep_gates:
             gates[t] = torch.cat(g, dim=1)
-    out = (torch.stack(ys, dim=0), h)
-    return out + (torch.stack(gates, dim=0),) if keep_gates else out
+    out = (torch.stack(ys, dim=0).to(store), h.to(store))
+    return out + (torch.stack(gates, dim=0).to(store),) if keep_gates \
+        else out
 
 
 def gru_sequence_plain(x_proj: torch.Tensor, h0: torch.Tensor,
@@ -118,22 +145,25 @@ def gru_sequence_gates_plain(x_proj: torch.Tensor, h0: torch.Tensor,
 
 
 def backward_launch_shape(B: int, H: int,
-                          max_clusters: int = H100_MAX_CLUSTERS) -> dict:
+                          max_clusters: int = H100_MAX_CLUSTERS,
+                          dtype: torch.dtype = torch.float32) -> dict:
     """The backward kernel's launch (`csrc/gru_sequence_backward.cu`'s
-    `threads_for`, `smem_bytes`): the forward's tile and threads, with
-    shared memory for the w_hh slice (rows of H rounded up to a float4),
+    `threads_for`, `smem_bytes<T>`): the forward's tile and threads, with
+    shared memory for the w_hh slice (rows of H rounded up to 4 values),
     two rounds of the cluster's partial sums and the step's dgh rows.
-    Raises ValueError above 232,448 bytes a block, which happens above
-    H=244."""
+    Raises ValueError above 232,448 bytes a block (fp32: above H=244) or
+    above the kernel's 320 threads (bf16: above H=256)."""
     U = -(-H // CLUSTER)
     W = 4 * -(-H // 4)
     threads = -(-U * (ROWS // ROWS_PER_THREAD) // 32) * 32
-    smem = 4 * (3 * U * W + 2 * CLUSTER * ROWS * U + 3 * U * ROWS)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"H={H} needs {smem} B of shared memory per block "
-                         f"for the GRU backward (its w_hh slice, the "
-                         f"cluster's partial sums, the step's dgh rows), "
-                         f"more than {_SMEM_LIMIT}")
+    smem = _slice_bytes(U, W, dtype) + 4 * (2 * CLUSTER * ROWS * U
+                                            + 3 * U * ROWS)
+    if smem > _SMEM_LIMIT or threads > _BACKWARD_THREADS:
+        raise ValueError(f"H={H} needs {smem} B of shared memory and "
+                         f"{threads} threads per block for the GRU backward "
+                         f"in {dtype} (its w_hh slice, the cluster's "
+                         f"partial sums, the step's dgh rows), more than "
+                         f"{_SMEM_LIMIT} or {_BACKWARD_THREADS}")
     clusters = -(-B // ROWS)
     return {"rows": ROWS, "cluster": CLUSTER, "threads": threads,
             "smem_bytes": smem, "clusters": clusters,
@@ -172,7 +202,11 @@ def gru_sequence_backward_plain(gates: torch.Tensor, h0: torch.Tensor,
     """The backward kernel's math as a plain PyTorch loop: from the gates
     the forward saved, its outputs ys and the gradients dys (T, B, H) of
     the outputs and dh_last (B, H) of the last hidden -> (d x_proj (T, B,
-    3H), dgh (T, B, 3H), d h0 (B, H)). One product a step, dgh @ w_hh."""
+    3H), dgh (T, B, 3H), d h0 (B, H)). One product a step, dgh @ w_hh.
+    bf16 inputs: computed in fp32, the three results rounded to bf16."""
+    store = gates.dtype
+    gates, h0, w_hh, ys, dys, dh_last = map(as_fp32, (gates, h0, w_hh, ys,
+                                                      dys, dh_last))
     T = gates.shape[0]
     H = h0.shape[-1]
     prev = h_prev_stack(ys, h0, reverse)
@@ -188,7 +222,7 @@ def gru_sequence_backward_plain(gates: torch.Tensor, h0: torch.Tensor,
         dxp[t] = torch.cat([dpr, dpz, dpn], dim=1)
         dgh[t] = torch.cat([dpr, dpz, dpn * r], dim=1)
         dh = dh * z + dgh[t] @ w_hh
-    return dxp, dgh, dh
+    return dxp.to(store), dgh.to(store), dh.to(store)
 
 
 def gru_sequence_backward_recompute(x_proj: torch.Tensor, h0: torch.Tensor,
@@ -224,10 +258,12 @@ def gru_sequence_backward_recompute(x_proj: torch.Tensor, h0: torch.Tensor,
 
 
 def _dtype(x_proj: torch.Tensor) -> torch.dtype:
-    """float32; the plain versions on the CPU also take float64 (the
-    gradient checks)."""
-    if x_proj.device.type == "cpu" and x_proj.dtype == torch.float64:
-        return torch.float64
+    """The storage type the call runs in: float32 or bfloat16 (each has
+    its kernel instantiation); the plain versions on the CPU also take
+    float64 (the gradient checks)."""
+    if x_proj.dtype == torch.bfloat16 or (
+            x_proj.device.type == "cpu" and x_proj.dtype == torch.float64):
+        return x_proj.dtype
     return torch.float32
 
 
@@ -252,28 +288,37 @@ def _check(x_proj, h0, w_hh, b_hh) -> None:
             raise ValueError(f"{name} must be contiguous")
     if T == 0 or B == 0 or H == 0:
         raise ValueError("empty sequence, batch or hidden")
-    launch_shape(B, H)
+    launch_shape(B, H, dtype=x_proj.dtype)
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    """The kernels' entry-point suffix of a storage type."""
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def _run(fn_name, n_out, x_proj, h0, w_hh, b_hh, reverse):
     from gesture2vec_tpu_torch.ops.build import load
 
-    fn = getattr(load("gru_sequence"), fn_name)
+    fn = getattr(load("gru_sequence"), fn_name + _suffix(x_proj.dtype))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     T, B, H3 = x_proj.shape
     H = H3 // 3
-    outs = [torch.empty(shape, dtype=torch.float32, device=x_proj.device)
+    outs = [torch.empty(shape, dtype=x_proj.dtype, device=x_proj.device)
             for shape in ((T, B, H), (B, H), (T, B, 4 * H))[:n_out]]
     stream = torch.cuda.current_stream(x_proj.device).cuda_stream
     err = fn(x_proj.data_ptr(), h0.data_ptr(), w_hh.data_ptr(),
              b_hh.data_ptr(), *(o.data_ptr() for o in outs), T, B, H,
              int(reverse), stream)
     if err != 0:
-        raise RuntimeError(f"gru_sequence kernel launch failed ({fn_name}): "
-                           f"CUDA error {err}")
-    count_launch(gru_sequence)
+        raise RuntimeError(f"gru_sequence kernel launch failed ({fn_name}, "
+                           f"{x_proj.dtype}): CUDA error {err}")
+    # gru_sequence counts the source's launches, either variant;
+    # gru_sequence_gates those of the gate-saving variant
+    count_launch(gru_sequence, x_proj.dtype)
+    if n_out == 3:
+        count_launch(gru_sequence_gates, x_proj.dtype)
     return tuple(outs)
 
 
@@ -302,21 +347,26 @@ def gru_sequence_gates(x_proj: torch.Tensor, h0: torch.Tensor,
     """The training variant: (outputs (T, B, H), last hidden (B, H), gates
     (T, B, 4H) = r | z | n | gh_n of every step). Outputs are bitwise
     those of `gru_sequence`. CUDA tensors launch the kernel's variant
-    (counted in `gru_sequence.launches`); CPU tensors take
+    (counted in `gru_sequence_gates.launches`, bf16 in `launches_bf16`,
+    and among `gru_sequence`'s); CPU tensors take
     `gru_sequence_gates_plain`. No autograd: `GRUSequenceFn` calls it."""
     _check(x_proj, h0, w_hh, b_hh)
     return _forward(x_proj, h0, w_hh, b_hh, reverse, gates=True)
 
 
+gru_sequence_gates.launches = gru_sequence_gates.launches_bf16 = 0
+
+
 def _launch_backward(gates, h0, w_hh, ys, dys, dh_last, reverse):
     from gesture2vec_tpu_torch.ops.build import load
 
-    fn = load("gru_sequence_backward").g2v_gru_sequence_backward
+    fn = getattr(load("gru_sequence_backward"),
+                 "g2v_gru_sequence_backward" + _suffix(gates.dtype))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     T, B, H = ys.shape
-    backward_launch_shape(B, H)
+    backward_launch_shape(B, H, dtype=gates.dtype)
     dxp = gates.new_empty((T, B, 3 * H))
     dgh = torch.empty_like(dxp)
     dh0 = torch.empty_like(h0)
@@ -326,9 +376,9 @@ def _launch_backward(gates, h0, w_hh, ys, dys, dh_last, reverse):
              dxp.data_ptr(), dgh.data_ptr(), dh0.data_ptr(), T, B, H,
              int(reverse), stream)
     if err != 0:
-        raise RuntimeError(f"gru_sequence_backward kernel launch failed: "
-                           f"CUDA error {err}")
-    count_launch(gru_sequence_backward)
+        raise RuntimeError(f"gru_sequence_backward kernel launch failed "
+                           f"({gates.dtype}): CUDA error {err}")
+    count_launch(gru_sequence_backward, gates.dtype)
     return dxp, dgh, dh0
 
 
@@ -340,9 +390,9 @@ def gru_sequence_backward(gates: torch.Tensor, h0: torch.Tensor,
                                      torch.Tensor]:
     """(d x_proj (T, B, 3H), dgh (T, B, 3H), d h0 (B, H)) from the gates
     the training variant saved (T, B, 4H), the forward's h0, w_hh and
-    outputs ys, and the gradients dys, dh_last. CUDA tensors launch the
-    kernel (counted in `gru_sequence_backward.launches`); CPU tensors take
-    the plain version."""
+    outputs ys, and the gradients dys, dh_last, all fp32 or all bf16. CUDA
+    tensors launch the kernel (counted in `gru_sequence_backward.launches`,
+    bf16 in `launches_bf16`); CPU tensors take the plain version."""
     if gates.dim() != 3 or gates.shape[2] % 4:
         raise ValueError(f"gates: shape {tuple(gates.shape)}, want "
                          f"(T, B, 4H)")
@@ -368,7 +418,7 @@ def gru_sequence_backward(gates: torch.Tensor, h0: torch.Tensor,
     return _launch_backward(gates, h0, w_hh, ys, dys, dh_last, reverse)
 
 
-gru_sequence_backward.launches = 0
+gru_sequence_backward.launches = gru_sequence_backward.launches_bf16 = 0
 
 
 class GRUSequenceFn(torch.autograd.Function):
@@ -395,16 +445,21 @@ class GRUSequenceFn(torch.autograd.Function):
         dxp, dgh, dh0 = gru_sequence_backward(
             gates, h0, w_hh, ys, dys, dh_last, ctx.reverse)
         T, B, H3 = dgh.shape
-        prev = h_prev_stack(ys, h0, ctx.reverse)
-        dw_hh = dgh.reshape(T * B, H3).t() @ prev.reshape(T * B, -1)
-        return dxp, dh0, dw_hh, dgh.sum(dim=(0, 1)), None
+        # fp32 products (bf16: from the bf16 dgh and states), returned in
+        # w_hh's storage type
+        dgh32, prev = map(as_fp32, (dgh, h_prev_stack(ys, h0,
+                                                       ctx.reverse)))
+        dw_hh = dgh32.reshape(T * B, H3).t() @ prev.reshape(T * B, -1)
+        return (dxp, dh0, dw_hh.to(w_hh.dtype),
+                dgh32.sum(dim=(0, 1)).to(w_hh.dtype), None)
 
 
 def gru_sequence(x_proj: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor,
                  b_hh: torch.Tensor, reverse: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(outputs (T, B, H), last hidden (B, H)). CUDA tensors launch the
-    kernel (counted in `gru_sequence.launches`); CPU tensors take the
+    """(outputs (T, B, H), last hidden (B, H)), all inputs fp32 or all
+    bf16. CUDA tensors launch the kernel (counted in
+    `gru_sequence.launches`, bf16 in `launches_bf16`); CPU tensors take the
     plain version. With grad enabled and an input that requires it, the
     call goes through `GRUSequenceFn`, whose backward is the backward
     kernel."""
@@ -415,4 +470,4 @@ def gru_sequence(x_proj: torch.Tensor, h0: torch.Tensor, w_hh: torch.Tensor,
     return _forward(x_proj, h0, w_hh, b_hh, reverse)
 
 
-gru_sequence.launches = 0
+gru_sequence.launches = gru_sequence.launches_bf16 = 0

@@ -11,10 +11,12 @@ stage_tokens]) for audio_fusion "audio", (word_ids, wav (B, seconds,
 BiGRU's recurrences run the GRU-sequence kernel's gate-saving variant (4
 launches a step) and its backward kernel (4). Checkpoints are the JAX
 package's kind "audio2token" files (optax's state in extra), which
-either package resumes.
+either package resumes. `compute_dtype: bfloat16` builds the model in
+bf16 (`models/audio2token`): the encoder BiGRU then runs the bf16
+instantiations of both GRU kernels; parameters, Adam's state and
+checkpoints stay fp32.
 
-Refused, naming the ROADMAP.md queue A item that ports it:
-`compute_dtype: bfloat16` (3.7), a mesh (5).
+Refused, naming the ROADMAP.md queue A item that ports it: a mesh (5).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
                                                    to_jax_variables)
 from gesture2vec_tpu_torch.device import resolve_device
+from gesture2vec_tpu_torch.models.layers import compute_dtype
 from gesture2vec_tpu_torch.models.audio2token import Audio2Token
 from gesture2vec_tpu_torch.train import checkpoints
 from gesture2vec_tpu_torch.train.config import Config
@@ -38,10 +41,8 @@ _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 def make_audio2token(config: Config, n_words: int = 0) -> Audio2Token:
     """The JAX package's make_audio2token: n_words (the vocabulary's size)
-    is needed with audio_fusion "both"."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(_LATER.format("compute_dtype: bfloat16",
-                                                "3.7"))
+    is needed with audio_fusion "both"; the compute dtype from
+    `compute_dtype`."""
     if config.audio_fusion == "both" and n_words <= 0:
         raise ValueError("audio_fusion='both' needs n_words > 0")
     return Audio2Token(
@@ -52,7 +53,8 @@ def make_audio2token(config: Config, n_words: int = 0) -> Audio2Token:
         fusion=config.audio_fusion, n_words=n_words,
         embed_size=config.wordembed_dim, token_stages=config.token_stages,
         stage_conditional=config.stage_conditional,
-        dropout_rate=config.dropout_prob)
+        dropout_rate=config.dropout_prob,
+        compute_dtype=compute_dtype(config.compute_dtype))
 
 
 @torch.no_grad()

@@ -19,7 +19,11 @@ codebook with K-Means (`reestimate_codebook`, its Lloyd steps through
 the VQ-argmin kernel) every vq_reestimate_every epochs from then on.
 The batch order of each epoch is np.random.default_rng(seed +
 epoch).permutation(n), as in JAX; dropout masks and the VAEs' noise come
-from a torch.Generator on the device seeded with random_seed.
+from a torch.Generator on the device seeded with random_seed. The
+training frames may be a streaming source (`data/streaming.StreamingFrames`)
+in place of the array, whose batches are then the source's; both go
+through `utils/prefetch`. A stream refuses vq_tricks (the codebook re-fit
+sweeps the array), as in JAX.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
                                                     to_device)
 from gesture2vec_tpu_torch.utils.meters import AverageMeter
+from gesture2vec_tpu_torch.utils.prefetch import prefetch
 
 
 def make_frame_model(config: Config) -> nn.Module:
@@ -143,7 +148,7 @@ def reestimate_codebook(
     model.train(was_training)
 
 
-def train_dae(config: Config, train_frames: np.ndarray,
+def train_dae(config: Config, train_frames,
               val_frames: np.ndarray, save_dir: Optional[str] = None,
               save_every: int = 10, log_every: int = 50,
               resume_from: Optional[str] = None,
@@ -155,9 +160,11 @@ def train_dae(config: Config, train_frames: np.ndarray,
     parameters, the BatchNorm statistics, a VQFrame's EMA state, the
     optimizer state and the dropout generator where the checkpoint
     carries them (the port's or the JAX package's) and continues from its
-    epoch. vq_tricks (a VQFrame only): see the module note. Runs on CUDA
-    unless device says otherwise."""
-    if vq_tricks and hasattr(train_frames, "batches"):
+    epoch. vq_tricks (a VQFrame only): see the module note. train_frames
+    is an (N, motion_dim) array or a streaming source. Runs on CUDA unless
+    device says otherwise."""
+    streaming = hasattr(train_frames, "batches")
+    if vq_tricks and streaming:
         raise ValueError("vq_tricks needs the in-RAM frame array (K-Means "
                          "codebook re-estimation sweeps it)")
     dev = resolve_device(device)
@@ -175,7 +182,8 @@ def train_dae(config: Config, train_frames: np.ndarray,
     step = TrainStep(model, opt)
     warmup = TrainStep(model, opt, skip_vq=True) if vq_tricks and is_vq \
         else None
-    n, bs = train_frames.shape[0], config.batch_size
+    n = len(train_frames) if streaming else train_frames.shape[0]
+    bs = config.batch_size
     require_full_batch(n, bs, config.name)
     history: Dict[str, list] = {"train_loss": [], "val_loss": []}
     meter = AverageMeter("loss", ":.4f")
@@ -189,11 +197,15 @@ def train_dae(config: Config, train_frames: np.ndarray,
                                     config.autoencoder_vq_components)
         meter.reset()
         t0 = time.time()
-        perm = np.random.default_rng(seed + epoch).permutation(n)
+        if streaming:
+            source = train_frames.batches(epoch, bs)
+        else:
+            perm = np.random.default_rng(seed + epoch).permutation(n)
+            source = (train_frames[perm[b * bs:(b + 1) * bs]]
+                      for b in range(n // bs))
         model.train()
         losses = []
-        for b in range(n // bs):
-            batch = to_device(train_frames[perm[b * bs:(b + 1) * bs]], dev)
+        for b, batch in enumerate(prefetch(source, device=dev)):
             with dropout_generator(gen):
                 losses.append(step_fn(batch))
             if (b + 1) % log_every == 0:

@@ -23,9 +23,18 @@ first step. `rvq_reestimate_every` re-fits each residual stage's
 codebook with K-Means (`cluster/kmeans`, assignments through the
 VQ-argmin kernel) over the current encoder latents.
 
-Refused, each naming the ROADMAP.md queue A item that ports it:
-`compute_dtype: bfloat16` (3.7), the streaming window source (3.8),
-decoder attention (6).
+`compute_dtype: bfloat16` builds the tokenizer in bf16
+(`models/seq_ae`): on the card the BiGRU runs the bf16 instantiations of
+the GRU-sequence and GRU-backward kernels and validation the chunk
+decoder's; parameters, Adam's state, gradients and checkpoints stay
+fp32. The training windows may be a streaming source
+(`data/streaming.StreamingWindows`, with its frozen-DAE transform) in
+place of the array; both go through `utils/prefetch`. A stream refuses
+use_similarity (pair sampling indexes the array) and trains without the
+residual-VQ re-fit (it sweeps the array), as in JAX.
+
+Refused, naming the ROADMAP.md queue A item that ports it: decoder
+attention (6).
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ from gesture2vec_tpu_torch.compat.from_jax import to_jax_variables
 from gesture2vec_tpu_torch.data.similarity import (read_gesture_labels,
                                                    sample_pairs)
 from gesture2vec_tpu_torch.device import resolve_device
-from gesture2vec_tpu_torch.models.layers import dropout_generator
+from gesture2vec_tpu_torch.models.layers import (compute_dtype,
+                                                 dropout_generator)
 from gesture2vec_tpu_torch.models.seq_ae import (SeqVQAutoencoder,
                                                  _flatten_hidden)
 from gesture2vec_tpu_torch.ops.vq_kernel import vq_argmin
@@ -54,6 +64,7 @@ from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
                                                     to_device)
 from gesture2vec_tpu_torch.utils.meters import AverageMeter
+from gesture2vec_tpu_torch.utils.prefetch import prefetch
 
 _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
@@ -61,15 +72,11 @@ _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 def make_seq_ae(config: Config) -> SeqVQAutoencoder:
     """The tokenizer the JAX package's make_seq_ae builds (per_sample
     flattening, the trainers' default; the encoder from `seq_arch`;
-    `use_derivative` doubles rep_dim)."""
-    refused = (
-        (config.autoencoder_att, "decoder attention (autoencoder_att)",
-         "6, reconstruction"),
-        (config.compute_dtype != "float32", "compute_dtype: bfloat16",
-         "3.7"))
-    for cond, what, item in refused:
-        if cond:
-            raise NotImplementedError(_LATER.format(what, item))
+    `use_derivative` doubles rep_dim; the compute dtype from
+    `compute_dtype`)."""
+    if config.autoencoder_att:
+        raise NotImplementedError(_LATER.format(
+            "decoder attention (autoencoder_att)", "6, reconstruction"))
     rep_dim = config.rep_learning_dim * (2 if config.use_derivative else 1)
     return SeqVQAutoencoder(
         rep_dim=rep_dim, hidden_size=config.hidden_size,
@@ -82,7 +89,8 @@ def make_seq_ae(config: Config) -> SeqVQAutoencoder:
         conditioned=config.autoencoder_conditioned,
         encoder_arch=config.extras.get("seq_arch", "bigru"),
         dropout_rate=config.dropout_prob, use_vq=config.autoencoder_vq,
-        use_vae=config.autoencoder_vae)
+        use_vae=config.autoencoder_vae,
+        compute_dtype=compute_dtype(config.compute_dtype))
 
 
 def _rec(config: Config, res: dict, batch: torch.Tensor) -> torch.Tensor:
@@ -216,26 +224,28 @@ def reestimate_rvq_codebooks(
     model.train(was_training)
 
 
-def train_seq_ae(config: Config, train_windows: np.ndarray,
+def train_seq_ae(config: Config, train_windows,
                  val_windows: np.ndarray, save_dir: Optional[str] = None,
                  save_every: int = 20, log_every: int = 50,
                  resume_from: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None
                  ) -> Tuple[SeqVQAutoencoder, Dict[str, list]]:
     """The Part-b loop over frozen-DAE latent windows (N, n_poses,
-    rep_dim); returns (model, history). resume_from as in
-    dae_trainer.train_dae. With use_similarity and a similarity_labels
-    file every step is the SSLTrainStep, its 3 pairs drawn by
-    np.random.default_rng(seed + epoch * 65536 + b) among the windows (as
-    in JAX; use_similarity without labels trains the plain step). Runs on
-    CUDA unless device says otherwise."""
-    if hasattr(train_windows, "batches"):
-        raise NotImplementedError(_LATER.format(
-            "the streaming window source (data/streaming)", "3.8"))
+    rep_dim), an array or a streaming source (`data/streaming`); returns
+    (model, history). resume_from as in dae_trainer.train_dae. With
+    use_similarity and a similarity_labels file every step is the
+    SSLTrainStep, its 3 pairs drawn by np.random.default_rng(seed + epoch
+    * 65536 + b) among the windows (as in JAX; use_similarity without
+    labels trains the plain step). Runs on CUDA unless device says
+    otherwise."""
+    streaming = hasattr(train_windows, "batches")
+    if streaming and config.use_similarity:
+        raise ValueError("use_similarity needs the in-RAM window array "
+                         "(pair sampling indexes it)")
     dev = resolve_device(device)
     seed = max(config.random_seed, 0)
     model = init_model(make_seq_ae(config), seed, dev)
-    if train_windows.shape[-1] != model.rep_dim:
+    if not streaming and train_windows.shape[-1] != model.rep_dim:
         # use_derivative: the JAX package's trainer fails the same way
         # (a parameter-shape error at its first step): neither package's
         # Part-b data appends the derivative
@@ -261,13 +271,14 @@ def train_seq_ae(config: Config, train_windows: np.ndarray,
                      len(pairs), config.similarity_labels)
     step = (SSLTrainStep if pairs is not None else TrainStep)(
         config, model, opt)
-    n, bs = train_windows.shape[0], config.batch_size
+    n = len(train_windows) if streaming else train_windows.shape[0]
+    bs = config.batch_size
     require_full_batch(n, bs, config.name)
     history: Dict[str, list] = {"train_loss": [], "val_loss": [],
                                 "perplexity": []}
     meter = AverageMeter("loss", ":.4f")
     rvq_every = (config.rvq_reestimate_every
-                 if config.autoencoder_vq
+                 if config.autoencoder_vq and not streaming
                  and config.autoencoder_vq_variant == "rvq" else 0)
     for epoch in range(start_epoch, config.epochs):
         if rvq_every and epoch and epoch % rvq_every == 0:
@@ -276,12 +287,16 @@ def train_seq_ae(config: Config, train_windows: np.ndarray,
                                      config.rvq_stages)
         meter.reset()
         t0 = time.time()
-        perm = np.random.default_rng(seed + epoch).permutation(n)
+        if streaming:
+            source = train_windows.batches(epoch, bs)
+        else:
+            perm = np.random.default_rng(seed + epoch).permutation(n)
+            source = (train_windows[perm[b * bs:(b + 1) * bs]]
+                      for b in range(n // bs))
         model.train()
         losses, perps = [], []
-        for b in range(n // bs):
-            batch = (to_device(train_windows[perm[b * bs:(b + 1) * bs]],
-                               dev),)
+        for b, windows in enumerate(prefetch(source, device=dev)):
+            batch = (windows,)
             if pairs is not None:
                 pa, pb, pl = sample_pairs(pairs, 3, np.random.default_rng(
                     seed + epoch * 65536 + b), n)

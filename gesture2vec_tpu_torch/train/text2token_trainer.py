@@ -21,8 +21,11 @@ with grad enabled, each step feeding back the model's own argmax, or at
 `feedback_temperature` > 0 a sample whose Gumbel noise is drawn from the
 trainer's generator, and the CE against the ground-truth codes.
 
-Refused, naming the ROADMAP.md queue A item that ports it:
-`compute_dtype: bfloat16` (3.7).
+`compute_dtype: bfloat16` builds the model in bf16 (`models/text2token`,
+`models/transformer`), for the training step and the feedback finetune
+alike, as JAX builds both with the compute dtype: on the card the GRU
+text encoder runs the bf16 GRU kernels; the logits, the CE, parameters,
+Adam's state and checkpoints stay fp32.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
                                                    to_jax_variables)
 from gesture2vec_tpu_torch.device import resolve_device
+from gesture2vec_tpu_torch.models.layers import compute_dtype
 from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.train import checkpoints
@@ -41,8 +45,6 @@ from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.losses import stage_ce, token_cross_entropy
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import run_token_training
-
-_LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 
 Part = Union[Text2Token, TransformerText2Token]
@@ -52,10 +54,8 @@ def make_text2token(config: Config, n_words: int) -> Part:
     """The Part-d model of make_text2token in the JAX package
     (n_steps = sentence_frame_length // n_poses, tokens = the codebook
     size): the transformer for `t2t_arch: transformer`, else the GRU
-    model."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(_LATER.format("compute_dtype: bfloat16",
-                                                "3.7"))
+    model; the compute dtype from `compute_dtype`."""
+    dtype = compute_dtype(config.compute_dtype)
     n_steps = config.sentence_frame_length // config.n_poses
     if config.extras.get("t2t_arch", "gru") == "transformer":
         return TransformerText2Token(
@@ -66,7 +66,7 @@ def make_text2token(config: Config, n_words: int) -> Part:
             n_heads=int(config.extras.get("t2t_heads", 4)),
             token_stages=config.token_stages,
             stage_conditional=config.stage_conditional,
-            dropout_rate=config.dropout_prob)
+            dropout_rate=config.dropout_prob, compute_dtype=dtype)
     return Text2Token(
         n_words=n_words, n_tokens=config.autoencoder_vq_components,
         hidden_size=config.hidden_size, n_layers=config.n_layers,
@@ -76,7 +76,7 @@ def make_text2token(config: Config, n_words: int) -> Part:
         use_attention=config.autoencoder_att,
         token_stages=config.token_stages,
         stage_conditional=config.stage_conditional,
-        dropout_rate=config.dropout_prob)
+        dropout_rate=config.dropout_prob, compute_dtype=dtype)
 
 
 @torch.no_grad()

@@ -364,9 +364,6 @@ def test_audio_command_trains_and_resumes_across_packages(
 
 
 def test_refusals_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 3.7"):
-        pa2t.make_audio2token(load_config({**a2t_raw(),
-                                           "compute_dtype": "bfloat16"}))
     with pytest.raises(NotImplementedError, match="item 5"):
         pa2t.train_audio2token(load_config({**a2t_raw(),
                                             "mesh_shape": {"dp": 2}}),

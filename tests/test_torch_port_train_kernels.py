@@ -20,8 +20,14 @@ for a decoder the chunk-decoder kernel cannot run, and a third holds one
 train step of the transformer models (the recipe's Part d, its feedback
 step, the `seq_arch: transformer` tokenizer) on the card against the
 CPU, and a fourth one step of the Part-a VQ frame model with VAE heads
-and of the similarity-supervised Part-b step (its pair forwards at B=3).
-The JAX package's
+and of the similarity-supervised Part-b step (its pair forwards at B=3),
+a fifth the four bf16 instantiations against their bf16 plain
+versions, and a sixth one `compute_dtype: bfloat16` train step of Part b
+(GS-Soft and residual VQ over the BiGRU, residual VQ over the
+transformer) and of Part d (TCN, GRU, the recipe's transformer and its
+feedback step) on the card against the CPU's bf16 step, over three
+seeds. The CPU tests also hold the bf16 launch mirrors' limits and
+that a bf16 call never takes an fp32 path. The JAX package's
 GRU module (it imports flax) is imported inside the CPU tests, so the
 file also collects on a machine with the card and without flax.
 """
@@ -223,6 +229,111 @@ def test_backward_launch_shape_limit():
         gk.launch_shape(128, 233)
 
 
+def test_bf16_launch_shape_limits():
+    """The bf16 instantiations' limits in the mirrors (a bf16 weight slice
+    is half the bytes): the GRU forward takes H <= 340 (fp32 232), its
+    backward H <= 256 (its 320 threads; fp32 244, its shared memory), the
+    chunk decoder H <= 256 at D=40 (a warp a unit; fp32 204)."""
+    bf16 = torch.bfloat16
+    for fn, last in ((gk.launch_shape, 340),
+                     (gk.backward_launch_shape, 256)):
+        fn(128, last, dtype=bf16)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(128, last + 1, dtype=bf16)
+    assert gk.launch_shape(128, 200, dtype=bf16)["smem_bytes"] == 94440
+    assert gk.backward_launch_shape(128, 200, dtype=bf16)["smem_bytes"] \
+        == 104000
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    assert dk.launch_shape(128, 200, 40, dtype=bf16)["smem_bytes"] == 131104
+    dk.launch_shape(1, 256, 40, dtype=bf16)
+    for H, dt in ((257, bf16), (205, torch.float32)):
+        with pytest.raises(ValueError):
+            dk.launch_shape(1, H, 40, dtype=dt)
+
+
+def test_bf16_takes_no_fp32_path():
+    """A bf16 call stays bf16: mixed storage types are refused (nothing is
+    upcast into the fp32 kernel), the plain versions return bf16, and the
+    carried h is bf16-exact at every step."""
+    rng = np.random.default_rng(1)
+    bf = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * sc
+                              ).bfloat16()
+          for k, s, sc in (("h0", (7, 16), 0.5), ("w_hh", (48, 16), 0.25),
+                           ("b_hh", (48,), 0.25))}
+    xp = torch.from_numpy(rng.normal(size=(5, 7, 48)).astype(np.float32)
+                          ).bfloat16()
+    with pytest.raises(ValueError, match="dtype"):
+        gk.gru_sequence(xp, bf["h0"], bf["w_hh"].float(), bf["b_hh"])
+    ys, h, gates = gk.gru_sequence_gates(xp, bf["h0"], bf["w_hh"],
+                                         bf["b_hh"])
+    assert ys.dtype == h.dtype == gates.dtype == torch.bfloat16
+    # each step from the bf16 carry equals one fp32 step rounded to bf16
+    prev = gk.h_prev_stack(ys, bf["h0"], False).float()
+    step, _ = gk._step(xp.float().reshape(-1, 48), prev.reshape(-1, 16),
+                       bf["w_hh"].float(), bf["b_hh"].float())
+    assert torch.equal(step.bfloat16().reshape(ys.shape), ys)
+    grads = gk.gru_sequence_backward(gates, bf["h0"], bf["w_hh"], ys,
+                                     torch.ones_like(ys), h, False)
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_on_card_match_plain():
+    """On the card: each bf16 instantiation (GRU sequence, its gate-saving
+    variant, the GRU backward, the chunk decoder) against its bf16 plain
+    version at the main path's shapes, within 2^-6 of the largest
+    magnitude (fp32 sums in another order; a bf16 rounding of the carry
+    may then flip, and the recurrence carries it); the bf16 counters move
+    and the fp32 ones do not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16, tol = torch.bfloat16, 2.0 ** -6
+
+    def rnd(*s, sc=1.0):
+        return (torch.randn(s, device="cuda", generator=g) * sc).to(bf16)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    before = (gk.gru_sequence.launches, gk.gru_sequence_backward.launches,
+              dk.fused_chunk_decode.launches)
+    n_bf16 = gk.gru_sequence.launches_bf16
+    H = 200
+    for T, B in ((20, 128), (48, 64), (6, 128)):
+        for reverse in (False, True):
+            args = (rnd(T, B, 3 * H), rnd(B, H, sc=0.5),
+                    rnd(3 * H, H, sc=H ** -0.5), rnd(3 * H, sc=0.1))
+            ys, h = gk.gru_sequence(*args, reverse)
+            ys_g, h_g, gates = gk.gru_sequence_gates(*args, reverse)
+            yp, hp, gp = gk.gru_sequence_gates_plain(*args, reverse)
+            assert torch.equal(ys, ys_g) and ys.dtype == bf16
+            assert max(rel(ys, yp), rel(h, hp), rel(gates, gp)) <= tol
+            dys, dh = rnd(T, B, H), rnd(B, H)
+            got = gk.gru_sequence_backward(gates, args[1], args[2], ys,
+                                           dys, dh, reverse)
+            want = gk.gru_sequence_backward_plain(gp, args[1], args[2], yp,
+                                                  dys, dh, reverse)
+            assert max(rel(a, b) for a, b in zip(got, want)) <= tol
+    D, n = 40, 19
+    w = dk.FoldedDecoder(
+        rnd(H, D, sc=D ** -0.5), rnd(H, sc=0.2).float().abs().to(bf16) + 0.5,
+        rnd(H, sc=0.1), *[rnd(3 * H, H, sc=H ** -0.5),
+                          rnd(3 * H, H, sc=H ** -0.5), rnd(3 * H, sc=0.1),
+                          rnd(3 * H, sc=0.1)] * 2,
+        rnd(D, H, sc=H ** -0.5), rnd(D, sc=0.1))
+    x0, h0 = rnd(128, D), rnd(2, 128, H, sc=0.5)
+    ys = dk.fused_chunk_decode(x0, h0, w, n)
+    assert ys.dtype == bf16
+    assert rel(ys, dk.fused_chunk_decode_plain(x0, h0, w, n)) <= tol
+    torch.cuda.synchronize()
+    assert gk.gru_sequence.launches_bf16 == n_bf16 + 12
+    assert (gk.gru_sequence.launches, gk.gru_sequence_backward.launches,
+            dk.fused_chunk_decode.launches) == before
+
+
 @pytest.mark.gpu
 def test_backward_kernel_on_card_matches_autograd_of_plain():
     """On the card: the forward's training variant gives outputs bitwise
@@ -343,6 +454,127 @@ def test_transformer_train_step_on_card_matches_cpu(run):
         scale = top if cancelled else max(float(g.abs().max()), 1e-30)
         err = float((grads[1][path] - g).abs().max()) / scale
         assert err <= 1e-4, f"{'/'.join(path)}: {err}"
+
+
+# the card's bf16 step against the CPU's: both run the same bf16 math
+# (the CPU through the kernels' bf16 plain versions), so they differ only
+# where fp32 sums in another order flip a bf16 rounding. Set from a first
+# run's readings of the 21 cases below (NVIDIA H100 80GB HBM3, 700.00 W):
+# losses within 1.9e-7, the worst gradient 9.4e-3 of its norm
+BF16_CARD_LOSS_TOL, BF16_CARD_TOL = 2.0 ** -16, 2.0 ** -5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("run", ["b_gssoft", "b_rvq", "b_tf_rvq", "d_tcn",
+                                 "d_gru", "d_tf_recipe",
+                                 "d_tf_recipe_feedback"])
+def test_bf16_train_steps_on_card_match_cpu(run, seed):
+    """compute_dtype: bfloat16 on the card (the BiGRUs through the bf16
+    GRU kernels): one train step against the CPU's bf16 step from the same
+    weights (init seed) and batch (seed + 5), dropout off: the loss
+    within BF16_CARD_LOSS_TOL of the CPU bf16 loss and each gradient within
+    BF16_CARD_TOL of the CPU bf16 gradient's norm (the cancelled biases
+    measured against the largest norm); the bf16 step launches no fp32
+    GRU kernel. It prints its readings, and beside them each bf16 step's
+    distance from the CPU's fp32 step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+    import json
+
+    from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.train import seq_ae_trainer as st
+    from gesture2vec_tpu_torch.train import text2token_trainer as tt
+    from gesture2vec_tpu_torch.train.config import load_config
+    from gesture2vec_tpu_torch.train.dae_trainer import init_model
+    from gesture2vec_tpu_torch.train.optim import Adam
+
+    rng = np.random.default_rng(seed + 5)
+    bs, n_words, steps = 16, 40, 6
+    if run.startswith("d"):
+        raw = {"hidden_size": 32, "n_layers": 2,
+               "autoencoder_vq_components": 16, "n_poses": 5,
+               "sentence_frame_length": 5 * steps, "n_pre_poses": 1,
+               "wordembed_dim": 12, "autoencoder_att": True}
+        if run.startswith("d_tf"):
+            raw.update(t2t_arch="transformer", t2t_heads=2, token_stages=4,
+                       stage_conditional=True, label_smoothing=0.1)
+        else:
+            raw["text_encoder"] = run[2:]
+        lengths = rng.integers(3, 12, bs)
+        ids = rng.integers(4, n_words, (bs, 11))
+        ids[np.arange(11)[None, :] >= lengths[:, None]] = 0
+        stages = rng.integers(0, 16, (bs, steps, 4))
+        batch = [torch.from_numpy(a) for a in (ids, lengths,
+                                               stages[:, :, 0])]
+        if run.startswith("d_tf"):
+            batch.append(torch.from_numpy(stages))
+    else:
+        raw = {"hidden_size": 32, "n_layers": 2, "rep_learning_dim": 8,
+               "n_poses": 10, "n_pre_poses": 1, "autoencoder_vq": True,
+               "autoencoder_vq_components": 16}
+        if run != "b_gssoft":
+            raw.update(autoencoder_vq_variant="rvq", rvq_stages=4)
+        if run == "b_tf_rvq":
+            raw["seq_arch"] = "transformer"
+        batch = [torch.from_numpy(rng.normal(size=(bs, 10, 8)).astype(
+            np.float32))]
+
+    def model_of(cfg):
+        if run.startswith("d"):
+            return tt.init_text2token(tt.make_text2token(cfg, n_words),
+                                      seed, torch.device("cpu"))
+        return init_model(st.make_seq_ae(cfg), seed, torch.device("cpu"))
+
+    def step(m, cfg, dev):
+        opt = Adam(m.parameters(), 1e-3)
+        if run.startswith("b"):
+            s = st.TrainStep(cfg, m, opt)
+        else:
+            cls = (tt.FeedbackTrainStep if run.endswith("feedback")
+                   else tt.TrainStep)
+            s = cls(m, opt, cfg.label_smoothing)
+        loss = s.loss(*(a.to(dev) for a in batch))
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        loss.backward()
+        return float(loss), {path: (p.grad if p.grad is not None
+                                    else torch.zeros_like(p)).detach()
+                             .cpu().double()
+                             for path, p, _, _ in param_entries(m)}
+
+    cfg16 = load_config({**raw, "compute_dtype": "bfloat16"})
+    cfg32 = load_config(raw)
+    cpu16 = model_of(cfg16).train()
+    card = copy.deepcopy(cpu16).cuda().train()
+    l16, g16 = step(cpu16, cfg16, "cpu")
+    fp32_before = (gk.gru_sequence.launches,
+                   gk.gru_sequence_backward.launches)
+    lc, gc = step(card, cfg16, "cuda")
+    torch.cuda.synchronize()
+    assert (gk.gru_sequence.launches,
+            gk.gru_sequence_backward.launches) == fp32_before
+    l32, g32 = step(model_of(cfg32).train(), cfg32, "cpu")
+    top = max(float(g.norm()) for g in g16.values())
+    reading = {"run": run, "seed": seed,
+               "tol": (BF16_CARD_LOSS_TOL, BF16_CARD_TOL),
+               "loss_rel": abs(lc - l16) / abs(l16),
+               "loss_rel_vs_fp32": abs(l16 - l32) / abs(l32), "grads": {}}
+    for path, want in g16.items():
+        cancelled = path[-2:] in (("k", "bias"), ("pre_linear", "bias")) \
+            or path == ("encoder", "decoder", "bias")
+        scale = top if cancelled else float(want.norm())
+        if scale == 0.0:
+            assert not gc[path].any(), "/".join(path)
+            continue
+        reading["grads"]["/".join(path)] = (
+            float((gc[path] - want).norm()) / scale,
+            float((want - g32[path]).norm()) / scale,
+            float((gc[path] - g32[path]).norm()) / scale)
+    print("bf16_card_vs_cpu " + json.dumps(reading))
+    assert reading["loss_rel"] <= BF16_CARD_LOSS_TOL
+    for name, (err, _, _) in reading["grads"].items():
+        assert err <= BF16_CARD_TOL, f"{name}: {err}"
 
 
 @pytest.mark.gpu

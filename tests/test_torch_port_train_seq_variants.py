@@ -283,12 +283,17 @@ def test_use_derivative_on_command_line_data_is_refused():
 
 
 def test_streaming_source_still_refused():
+    """A streaming source trains Part b now, but not the similarity step:
+    pair sampling indexes the in-RAM array (JAX's rule)."""
     class Streaming:
         def batches(self, epoch, bs):
             return iter(())
-    with pytest.raises(NotImplementedError, match="item 3.8"):
-        pseq.train_seq_ae(load_config(SEQ_CFG), Streaming(), _windows(0),
-                          device="cpu")
+
+        def __len__(self):
+            return 64
+    with pytest.raises(ValueError, match="use_similarity needs the in-RAM"):
+        pseq.train_seq_ae(load_config({**SEQ_CFG, "use_similarity": True}),
+                          Streaming(), _windows(0), device="cpu")
 
 
 def test_command_trains_the_similarity_step(tmp_path):

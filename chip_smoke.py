@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives twelve paths of the port, each with every kernel launch
+It drives thirteen paths of the port, each with every kernel launch
 counter set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -165,6 +165,30 @@ synthetic speech from seeds):
            speech each, every stream's windows against `generate`;
            `cli/infer_audio.main` at 60 s to a BVH through the ingest's
            data_pipe.json; every kernel shape among those compared;
+The analysis and reconstruction paths (in the Part-c phase's directory,
+over its DAE and GS-Soft tokenizer, train and validation stores and
+bank, and the cli path's ingest):
+  analysis one line a run: `decode_codebook` (the 512 codes from zero
+           seeds: one chunk-decoder launch at B=512, 19 steps, against
+           the plain rollout on the card); `silhouette_sweep` over the
+           bank's first 2,000 sequence latents, K=2..11 (VQ-argmin
+           launches only; the torch silhouette on the card against the
+           CPU within 1e-5); `export_cluster_samples` from the bank, 2 a
+           token (the file count); `cli/cluster` over the validation
+           store with --kmeans 8 --export-samples 2 --pipeline (its
+           launches); `cli/reconstruct` on a corpus BVH, Part a, Part a+b
+           with --overlap 5 (4 `gru_sequence` and 1 `chunk_decoder`
+           launches), with --warmup-steps 5 (the same) and over an
+           `autoencoder_att` tokenizer at VQ-VAE.yml's widths written in
+           the JAX file format (4 and 0: its decode is plain PyTorch),
+           each with --html-player and against its --device cpu run
+           within 1e-4; a parity checkpoint (eval step dropout): refused
+           on the card with the kernel on, reproducible with it off;
+  kernel   the three kernels at every shape the runs launched them at,
+           against their plain versions, with cuDNN's layer beside the
+           GRU;
+  check    every launch's shape compared, and the line of what the path
+           leaves to the CPU tests and why;
 Training, `g2v-train` parts a, b, d and audio (`cli/train.main()`):
   kernel   at T=20 with B=128 and 512, T=48 with B=128, a ragged B=117
            and the similarity step's pairs, B=3 (H=200, both directions;
@@ -570,6 +594,19 @@ AUDIO_GRU_SHAPES = ((6, 1), (6, 10), (6, 128), (6, 300), (48, 10))
 # decode_overlap 4
 AUDIO_DECODER_SHAPES = ((60, N_FRAMES), (1800, N_FRAMES), (60, N_FRAMES + 4))
 # the audio Part d's checkpoint config, as the JAX trainer saves it
+# the analysis path: the silhouette sweep's rows and cluster counts, the
+# cluster CLI's K over the validation store; what it leaves to the CPU
+# tests, and why
+ANALYSIS_SWEEP_ROWS, ANALYSIS_K_RANGE, ANALYSIS_KMEANS = 2000, range(2, 12), 8
+ANALYSIS_NOT_DRIVEN = (
+    "host code, held against the JAX package by the CPU tests "
+    "(tests/test_torch_port_analysis.py): cluster/plots (t-SNE, the "
+    "codebook and latent plots, the attention heatmap), --plots, "
+    "--plot-kernels, --plot-every and g2v-train's loss_curves.png "
+    "(matplotlib and scikit-learn), --algo dbscan|agglomerative "
+    "(scikit-learn), --algo mapdp (numpy / scipy: a d x d Cholesky a "
+    "point and cluster each sweep, which at D=400 does not fit the time "
+    "limit)")
 AUDIO_ARGS = {"name": "audio2token", "model": "seq2seq", "hidden_size": HID,
               "n_layers": L, "sentence_frame_length": SENT_LEN,
               "n_poses": N_FRAMES, "n_pre_poses": 2, "autoencoder_att": True,
@@ -1800,6 +1837,7 @@ def part_c_path(smi: str, tmp: str) -> tuple:
     g512 = next(r for r in gru_rows if r["B"] == 512 and not r["reverse"])
     v_main = next(r for r in vq_rows if r["N"] == 58488 and r["D"] == VQ_D)
     files = {"dae": ckpt["dae"], "vq": ckpt["vq"], "train": train,
+             "val": val,
              "bank": os.path.join(out, "org_latent_clustering_data.npz"),
              # the residual-VQ sweep's windows: the recipe's exemplar bank
              "rvq_bank": {"tokens": rdata["tokens"][:, 0],
@@ -5347,6 +5385,347 @@ def audio_path(smi: str, tmp: str, files: dict) -> tuple:
     return rows, launches
 
 
+# -- the analysis and reconstruction paths ------------------------------
+def analysis_kernel_rows(seq, shapes: dict) -> dict:
+    """The three kernels at the analysis path's shapes, against their
+    plain versions on the same inputs: the chunk decoder with the
+    tokenizer's folded weights at each (B, steps) of shapes["chunk_decoder"]
+    (the codebook's B=512 from zero seeds, the reconstruction's chunk
+    batches), the GRU sequence with its encoder's layer-0 weights at each
+    (T, B, H), both directions, with cuDNN's layer beside it, the VQ argmin
+    at each (N, K, D) (the silhouette sweep's K-Means and the cluster
+    CLI's)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows = {"chunk_decoder": {}, "gru_sequence": {}, "vq_argmin": {}}
+    folded = dk.fold_decoder_step(seq.decoder.decoder_step)
+    cb = seq.decoder.codebook.detach()
+    for B, n in sorted(shapes["chunk_decoder"]):
+        if B == cb.shape[0]:     # the codebook's rows from zero seeds
+            x0 = torch.zeros(B, REP, device="cuda")
+            h0 = cb.reshape(B, L, HID).transpose(0, 1).contiguous()
+        else:
+            x0 = torch.randn(B, REP, device="cuda", generator=g)
+            h0 = torch.tanh(torch.randn(L, B, HID, device="cuda",
+                                        generator=g))
+        ys = dk.fused_chunk_decode(x0, h0, folded, n)
+        ref = dk.fused_chunk_decode_plain(x0, h0, folded, n)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "path": "analysis",
+               "kernel": "chunk_decoder", "B": B, "H": HID, "D": REP,
+               "n_steps": n, "launch": decoder_launch(B, HID, REP),
+               "max_abs_err": (ys - ref).abs().max().item(), "tol": TOL,
+               "ms": cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded,
+                                                           n), 20),
+               "plain_ms": cuda_ms(lambda: dk.fused_chunk_decode_plain(
+                   x0, h0, folded, n), 10),
+               "library_ms": None, **chunk_decoder_bound_ms(B, REP, HID, n)}
+        emit(row)
+        rows["chunk_decoder"][f"analysis_B{B}_T{n}"] = row
+    gru = seq.encoder.gru
+    w_ih, w_hh, b_ih, b_hh = (getattr(gru, f"l0_{n}").detach() for n in
+                              ("w_ih", "w_hh", "b_ih", "b_hh"))
+    cudnn = torch.nn.GRU(w_ih.shape[1], HID, 1).cuda()
+    with torch.no_grad():
+        for prm, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                       (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            prm.copy_(v)
+    with torch.inference_mode():
+        for T, B, H in sorted(shapes["gru_sequence"]):
+            xs = torch.randn(T, B, w_ih.shape[1], device="cuda", generator=g)
+            h0 = torch.zeros(B, HID, device="cuda")
+            xp = (xs.reshape(-1, xs.shape[2]) @ w_ih.t() + b_ih).reshape(
+                T, B, -1)
+            err = 0.0
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(xp, h0, w_hh, b_hh, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(xp, h0, w_hh, b_hh,
+                                                  reverse)
+                torch.cuda.synchronize()
+                err = max(err, (ys - ys_p).abs().max().item(),
+                          (h - h_p).abs().max().item())
+            row = {"phase": "kernel", "path": "analysis",
+                   "kernel": "gru_sequence", "T": T, "B": B, "H": HID,
+                   "directions": 2, "launch": gru_launch(B, HID),
+                   "max_abs_err": err, "tol": TOL,
+                   "ms": cuda_ms(lambda: gk.gru_sequence(xp, h0, w_hh,
+                                                         b_hh), 20),
+                   "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                       xp, h0, w_hh, b_hh), 5),
+                   **gru_bound_ms(T, B, HID),
+                   # cuDNN computes the input product too: its yardstick
+                   # is the matmul plus the kernel
+                   "library_ms": cuda_ms(lambda: cudnn(xs, h0[None]), 20),
+                   "matmul_plus_kernel_ms": cuda_ms(lambda: gru_layer(
+                       xs, h0, w_ih, w_hh, b_ih, b_hh), 20)}
+            emit(row)
+            rows["gru_sequence"][f"analysis_T{T}_B{B}"] = row
+        for N, Kc, D in sorted(shapes["vq_argmin"]):
+            x = torch.randn(N, D, device="cuda", generator=g)
+            c = torch.randn(Kc, D, device="cuda", generator=g)
+            idx, dmin = vk.vq_argmin(x, c)
+            d = vk.codebook_distances(x, c)
+            dp, ip = d.min(dim=1)
+            differ, ties = near_ties(d, idx, ip)
+            row = {"phase": "kernel", "path": "analysis",
+                   "kernel": "vq_argmin", "N": N, "K": Kc, "D": D,
+                   "launch": vq_launch(N, D),
+                   "max_abs_err": (dmin - dp).abs().max().item(),
+                   "rows_differing": differ, "near_ties": ties,
+                   "near_tie_gap": NEAR_TIE, "tol": DMIN_TOL,
+                   "ms": cuda_ms(lambda: vk.vq_argmin(x, c), 20),
+                   "plain_ms": cuda_ms(lambda: vk.vq_argmin_plain(x, c), 10),
+                   "library_ms": None, **vq_bound_ms(N, Kc, D)}
+            emit(row)
+            rows["vq_argmin"][f"analysis_N{N}_K{Kc}_D{D}"] = row
+    bad = [r for k in rows.values() for r in k.values()
+           if not r["max_abs_err"] <= r["tol"]
+           or r.get("rows_differing", 0) != r.get("near_ties", 0)]
+    if bad:
+        raise AssertionError(f"kernels at the analysis path's shapes: {bad}")
+    return rows
+
+
+def analysis_path(smi: str, tmp: str, files: dict) -> tuple:
+    """The analysis and reconstruction paths over Part c's DAE and GS-Soft
+    tokenizer (configs/VQ-VAE.yml: hidden 200, 2 layers, 512 codes), its
+    train and validation stores and bank, and the cli path's ingest
+    (data_pipe.json and the corpus's BVH files): `decode_codebook` (one
+    chunk-decoder launch at B=512, 19 steps), `silhouette_sweep` over the
+    bank's first 2,000 sequence latents (K=2..11: K-Means through the
+    VQ-argmin kernel, the silhouette in torch), `export_cluster_samples`
+    from the bank (2 a token), `cli/cluster` over the validation store
+    with --kmeans 8 --export-samples 2 --pipeline, `cli/reconstruct` on a
+    corpus BVH (Part a; Part a+b with --overlap 5; --warmup-steps 5; an
+    `autoencoder_att` tokenizer written in the JAX file format, its decode
+    in plain PyTorch), each with --html-player and against its --device
+    cpu run, and a parity checkpoint (the eval step dropout: refused with
+    the kernel on, reproducible with it off). Returns (the kernel rows,
+    launches by run)."""
+    import glob
+
+    import torch
+
+    from gesture2vec_tpu_torch.cli import cluster as cluster_cli
+    from gesture2vec_tpu_torch.cli import reconstruct as rec_cli
+    from gesture2vec_tpu_torch.cluster.analysis import (silhouette_score,
+                                                         silhouette_sweep)
+    from gesture2vec_tpu_torch.cluster.kmeans import kmeans_fit
+    from gesture2vec_tpu_torch.cluster.latent_dataset import (
+        decode_codebook, export_cluster_samples, sample_indices)
+    from gesture2vec_tpu_torch.compat.checkpoint import (
+        load_checkpoint, load_checkpoint_and_model)
+    from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
+                                                       to_jax_variables)
+    from gesture2vec_tpu_torch.data.datasets import normalize
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.infer.reconstruct import chunked_reconstruct
+    from gesture2vec_tpu_torch.io.bvh import parse_bvh
+    from gesture2vec_tpu_torch.mocap.features import FeatureExtractor
+    from gesture2vec_tpu_torch.models.seq_ae import SeqVQAutoencoder
+
+    problems, launches = [], {}
+    pipe = os.path.join(tmp, "ingested", "data_pipe.json")
+    bvh = sorted(glob.glob(os.path.join(tmp, "corpus", "Motion",
+                                        "*.bvh")))[-1]
+    store = ClipStore(files["train"])
+    fe = FeatureExtractor.load(pipe)
+    dae, _ = load_checkpoint_and_model(files["dae"], "DAE")
+    seq, _ = load_checkpoint_and_model(files["vq"], "autoencoder_vq")
+    n_files = lambda d: sum(len(fs) for _, _, fs in os.walk(d))  # noqa
+
+    def run(name, fn):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        return out, time.perf_counter() - t0
+
+    with kernel_shapes() as shapes:
+        # -- decode_codebook: the whole codebook in one eval decode -----
+        motion, secs = run("decode_codebook",
+                           lambda: decode_codebook(seq, dae))
+        seq.decoder.use_kernel = False
+        plain = decode_codebook(seq, dae)
+        seq.decoder.use_kernel = True
+        err = float(np.abs(motion - plain).max())
+        emit({"phase": "analysis", "run": "decode_codebook",
+              "shape": list(motion.shape),
+              "launches": launches["decode_codebook"],
+              "kernel_vs_plain_max_abs_err": err, "tol": TOL,
+              "seconds": secs, "card": smi})
+        if launches["decode_codebook"] != {**dict.fromkeys(
+                launches["decode_codebook"], 0), "chunk_decoder": 1} \
+                or motion.shape != (K, N_FRAMES, DIM) or not err <= TOL:
+            problems.append("decode_codebook failed its checks")
+
+        # -- silhouette_sweep over the bank's first 2,000 latents ------
+        with np.load(files["bank"]) as z:
+            tokens = z["tokens"]
+            latents = z["seq_latents"][:ANALYSIS_SWEEP_ROWS]
+            dae_latents = z["dae_latents"]
+        scores, secs = run("silhouette_sweep", lambda: silhouette_sweep(
+            latents, ANALYSIS_K_RANGE, device="cuda"))
+        xc = torch.from_numpy(latents).cuda()
+        sil_err = 0.0
+        for k in (ANALYSIS_K_RANGE[0], ANALYSIS_K_RANGE[-1]):
+            labels = kmeans_fit(xc, k, n_init=1, max_iter=50).labels
+            sil_err = max(sil_err, abs(
+                silhouette_score(xc, labels) - silhouette_score(
+                    torch.from_numpy(latents), labels.cpu())))
+        emit({"phase": "analysis", "run": "silhouette_sweep",
+              "rows": len(latents), "scores": scores,
+              "launches": launches["silhouette_sweep"],
+              "silhouette_card_vs_cpu_abs_err": sil_err, "tol": 1e-5,
+              "seconds": secs, "card": smi})
+        sweep = launches["silhouette_sweep"]
+        if sorted(scores) != list(ANALYSIS_K_RANGE) or not sweep[
+                "vq_argmin"] or any(v for kn, v in sweep.items()
+                                    if kn != "vq_argmin") \
+                or not sil_err <= 1e-5:
+            problems.append("silhouette_sweep failed its checks")
+
+        # -- export_cluster_samples from the bank, 2 a token -----------
+        out = os.path.join(tmp, "analysis_samples")
+        bank = {"tokens": tokens, "dae_latents": dae_latents}
+        n, secs = run("export_cluster_samples", lambda: export_cluster_samples(
+            bank, out, fe, store.pose_mean, store.pose_std, dae,
+            max_per_token=2))
+        want_n = sum(len(v) for v in sample_indices(tokens, 2).values())
+        emit({"phase": "analysis", "run": "export_cluster_samples",
+              "files": n, "files_on_disk": n_files(out), "want": want_n,
+              "launches": launches["export_cluster_samples"],
+              "seconds": secs, "card": smi})
+        if n != want_n or n_files(out) != n or any(
+                launches["export_cluster_samples"].values()):
+            problems.append("export_cluster_samples failed its checks")
+        del bank, dae_latents
+
+        # -- cli/cluster over the validation store ---------------------
+        out = os.path.join(tmp, "analysis_clusters")
+        argv = [files["dae"], files["vq"], "--store", files["val"],
+                "--kmeans", str(ANALYSIS_KMEANS), "--export-samples", "2",
+                "--pipeline", pipe, "--out", out]
+        summary, secs = run("cli_cluster", lambda: cluster_cli.main(argv))
+        got = launches["cli_cluster"]
+        n_win = summary["windows"]
+        want = {"gru_sequence": 2 * math.ceil(n_win / 512),
+                "vq_argmin": sum(summary["kmeans_n_iter"])
+                + len(summary["kmeans_n_iter"])}
+        emit({"phase": "analysis", "run": "cli_cluster", "command":
+              "python -m gesture2vec_tpu_torch.cli.cluster dae.bin vq.bin "
+              f"--store val --kmeans {ANALYSIS_KMEANS} --export-samples 2 "
+              "--pipeline data_pipe.json", "windows": n_win,
+              "samples": summary["samples"],
+              "samples_on_disk": n_files(os.path.join(out, "samples")),
+              "kmeans_lloyd_steps": summary["kmeans_n_iter"],
+              "launches": got, "want": want, "seconds": secs, "card": smi})
+        if any(got[kn] != v for kn, v in want.items()) \
+                or got["chunk_decoder"] or summary["samples"] != n_files(
+                    os.path.join(out, "samples")):
+            problems.append("cli/cluster failed its checks")
+
+        # -- cli/reconstruct on a corpus BVH ---------------------------
+        att = SeqVQAutoencoder(REP, HID, L, N_FRAMES, vq_components=K,
+                               use_attention=True)
+        flax_init(att, torch.Generator().manual_seed(23))
+        v = to_jax_variables(att)
+        ckpt = {"att": os.path.join(tmp, "vq_att.bin"),
+                "parity": os.path.join(tmp, "vq_parity.bin")}
+        write_checkpoint(ckpt["att"], {**VQ_ARGS, "autoencoder_att": True},
+                         v["params"], v["batch_stats"], "autoencoder_vq",
+                         REP)
+        payload = load_checkpoint(files["vq"])
+        write_checkpoint(ckpt["parity"], VQ_ARGS, payload["params"],
+                         payload["extra"]["batch_stats"], "autoencoder_vq",
+                         REP, parity=True)
+        n_chunks = lambda overlap: (  # noqa
+            (int(parse_bvh(bvh).n_frames) // 3 - N_FRAMES)
+            // (N_FRAMES - overlap) + 1)
+        plan = [("part_a", [], {}),
+                ("part_ab_overlap5", ["--autoencoder-checkpoint",
+                                      files["vq"], "--overlap", "5"],
+                 {"gru_sequence": 4, "chunk_decoder": 1}),
+                ("part_ab_warmup5", ["--autoencoder-checkpoint",
+                                     files["vq"], "--warmup-steps", "5"],
+                 {"gru_sequence": 4, "chunk_decoder": 1}),
+                ("part_ab_attention", ["--autoencoder-checkpoint",
+                                       ckpt["att"]],
+                 {"gru_sequence": 4, "chunk_decoder": 0})]
+        for name, flags, want in plan:
+            argv = [files["dae"], bvh, "--store", files["train"],
+                    "--pipeline", pipe, *flags,
+                    "--out", os.path.join(tmp, f"rec_{name}.bvh"),
+                    "--html-player", os.path.join(tmp, f"rec_{name}.html")]
+            res, secs = run(f"reconstruct_{name}", lambda: rec_cli.main(argv))
+            t0 = time.perf_counter()
+            cpu = rec_cli.main([*argv[:-4], "--device", "cpu", "--out",
+                                os.path.join(tmp, f"rec_{name}_cpu.bvh")])
+            cpu_s = time.perf_counter() - t0
+            got = launches[f"reconstruct_{name}"]
+            err = float(np.abs(res["frames"] - cpu["frames"]).max())
+            data = parse_bvh(res["out"])
+            emit({"phase": "analysis", "run": f"reconstruct_{name}",
+                  "command": "python -m gesture2vec_tpu_torch.cli."
+                             "reconstruct dae.bin clip.bvh "
+                             + " ".join(os.path.basename(f) for f in flags),
+                  "frames": list(res["frames"].shape), "mse": res["mse"],
+                  "kernel_decode": res["kernel"], "launches": got,
+                  "want": want, "card_vs_cpu_max_abs_err": err, "tol": TOL,
+                  "bvh_frames": int(data.n_frames),
+                  "html_bytes": os.path.getsize(res["html"]),
+                  "seconds": secs, "cpu_seconds": cpu_s, "card": smi})
+            if any(got[kn] != want.get(kn, 0) for kn in got) \
+                    or not err <= TOL or not np.isfinite(
+                        res["frames"]).all() \
+                    or data.n_frames != res["frames"].shape[0]:
+                problems.append(f"cli/reconstruct {name} failed its checks")
+
+        # -- a parity checkpoint: eval step dropout --------------------
+        frames = normalize(fe.transform(parse_bvh(bvh)).astype(np.float32),
+                           store.pose_mean, store.pose_std)
+        par, _ = load_checkpoint_and_model(ckpt["parity"], "autoencoder_vq")
+        try:
+            chunked_reconstruct(par, dae, frames, N_FRAMES)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        par.set_use_kernels(False)
+        first, secs = run("reconstruct_parity", lambda: chunked_reconstruct(
+            par, dae, frames, N_FRAMES))
+        again = chunked_reconstruct(par, dae, frames, N_FRAMES)
+        emit({"phase": "analysis", "run": "reconstruct_parity",
+              "eval_step_dropout": par.decoder.eval_step_dropout,
+              "kernel_on": refused, "chunks": n_chunks(0),
+              "launches": launches["reconstruct_parity"],
+              "reproducible": bool(np.array_equal(first, again)),
+              "seconds": secs, "card": smi})
+        if "eval decode on the card" not in refused \
+                or not par.decoder.eval_step_dropout \
+                or not np.array_equal(first, again) \
+                or not np.isfinite(first).all():
+            problems.append("the parity checkpoint failed its checks")
+
+    rows = analysis_kernel_rows(seq, {
+        name: set(c) for name, c in shapes.items()
+        if name in ("chunk_decoder", "gru_sequence", "vq_argmin")})
+    emit({"phase": "check", "path": "analysis", "kernel_shapes": {
+        name: [[list(k), v] for k, v in sorted(c.items())]
+        for name, c in shapes.items()}, "problems": problems,
+        "not_driven": ANALYSIS_NOT_DRIVEN})
+    if problems:
+        raise AssertionError(f"analysis path failed: {problems}")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -5401,6 +5780,9 @@ def main() -> int:
         t0 = time.perf_counter()
         audio_rows, audio_counts = audio_path(smi, tmp, files)
         secs["audio_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        analysis_rows, analysis_counts = analysis_path(smi, tmp, files)
+        secs["analysis_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     policy_rows, policy_counts = policies_path(smi)
     secs["policies_s"] = time.perf_counter() - t0
@@ -5433,15 +5815,18 @@ def main() -> int:
             "tf_part_c": {p: c[k["name"]] for p, c in tf_counts.items()},
             "recipe": {p: c[k["name"]] for p, c in recipe_counts.items()},
             "audio": {p: c[k["name"]] for p, c in audio_counts.items()},
+            "analysis": {p: c[k["name"]]
+                         for p, c in analysis_counts.items()},
             "train": {p: c[k["name"]] for p, c in train_counts.items()}}
         shapes = {**policy_rows.get(k["name"], {}),
-                  **audio_rows.get(k["name"], {})}
+                  **audio_rows.get(k["name"], {}),
+                  **analysis_rows.get(k["name"], {})}
         if shapes:
             k["max_abs_err"] = max(k["max_abs_err"], *(
                 r["max_abs_err"] for r in shapes.values()))
             k["by_shape"] = {name: {key: r.get(key) for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "matmul_plus_kernel_ms", "max_abs_err")}
+                "matmul_plus_kernel_ms", "max_abs_err", "tol")}
                 for name, r in shapes.items()}
     # the bf16 instantiations: launches on the bf16 training path
     emit({"kernels": kernels + bf16_entries})

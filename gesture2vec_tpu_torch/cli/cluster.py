@@ -1,7 +1,9 @@
 """CLI: build the corpus latent dataset, K-Means clusters, and metrics.
 
     python -m gesture2vec_tpu_torch.cli.cluster <DAE.bin> <VQ.bin> \\
-        --store <train store> [--val-store <val store>] [--kmeans 300]
+        --store <train store> [--val-store <val store>] [--kmeans 300] \\
+        [--algo kmeans|mapdp|dbscan|agglomerative] [--plots] \\
+        [--export-samples N --pipeline data_pipe.json]
 
 The port of the JAX package's `cli/cluster.py`, reading the same
 checkpoint files and clip stores. It writes into --out (default
@@ -9,6 +11,18 @@ checkpoint files and clip stores. It writes into --out (default
   org_latent_clustering_data.npz  windows, dae_latents, tokens,
                                   seq_latents of the train store;
   kmeans_model.npz                centers and inertia (--kmeans K);
+  mapdp_labels.npy, dbscan_labels.npy, agglomerative_labels.npy
+                                  the labels of --algo mapdp (MAP-DP,
+                                  numpy / scipy), dbscan (scikit-learn's
+                                  defaults) or agglomerative (K clusters,
+                                  scikit-learn) in place of K-Means;
+  codebook_tsne.png, latents_tsne.png
+                                  the codebook's and the first 2,000
+                                  sequence latents' t-SNE (--plots:
+                                  matplotlib, scikit-learn);
+  samples/<token>/sample_<i>.bvh  the first N windows of each token,
+                                  decoded by the DAE (--export-samples N,
+                                  with --pipeline);
   Metrics.txt, Metrics.tex        Hellinger / Frechet / perplexity /
                                   Wasserstein, train against val
                                   (--val-store);
@@ -16,10 +30,8 @@ checkpoint files and clip stores. It writes into --out (default
 It runs on the card (--device cuda, the default) and raises without
 one; --device cpu runs the plain PyTorch path. K-Means is seeded with
 torch's generator (seed 0), so its clusters differ from the JAX
-package's (jax.random); everything else matches it.
-
-Not ported yet: --plots, --export-samples and --algo mapdp / dbscan /
-agglomerative (ROADMAP.md queue A).
+package's (jax.random); everything else matches it. MAP-DP, DBSCAN,
+agglomerative clustering and the plots are host code, as in JAX.
 """
 from __future__ import annotations
 
@@ -27,9 +39,6 @@ import argparse
 import logging
 import os
 from typing import Optional, Sequence
-
-_LATER = "{} is not ported yet (the analysis slice of the PyTorch port)"
-
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -46,17 +55,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser.add_argument("--algo", default="kmeans",
                         choices=["kmeans", "mapdp", "dbscan",
                                  "agglomerative"])
-    parser.add_argument("--plots", action="store_true")
-    parser.add_argument("--export-samples", type=int, default=0)
+    parser.add_argument("--plots", action="store_true",
+                        help="write codebook/latent t-SNE plots")
+    parser.add_argument("--export-samples", type=int, default=0,
+                        help="write up to N BVH samples per token")
+    parser.add_argument("--pipeline", default=None,
+                        help="fitted data_pipe.json (for BVH exports)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.plots:
-        raise NotImplementedError(_LATER.format("--plots"))
-    if args.export_samples:
-        raise NotImplementedError(_LATER.format("--export-samples"))
-    if args.kmeans > 0 and args.algo != "kmeans":
-        raise NotImplementedError(_LATER.format(f"--algo {args.algo}"))
+    from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
+    if args.plots and not have_matplotlib():
+        parser.error("--plots needs matplotlib")
+    if args.export_samples > 0 and not args.pipeline:
+        parser.error("--pipeline required for --export-samples")
+
+    import numpy as np
 
     from gesture2vec_tpu_torch.cluster.kmeans import kmeans_fit, save_kmeans
     from gesture2vec_tpu_torch.cluster.latent_dataset import (
@@ -94,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     logging.info("token perplexity: %.2f (of %d codes)",
                  token_perplexity(data["tokens"], k), k)
 
-    if args.kmeans > 0:
+    if args.kmeans > 0 and args.algo == "kmeans":
         res = kmeans_fit(data["seq_latents"], args.kmeans,
                          device=args.device)
         save_kmeans(os.path.join(out, "kmeans_model.npz"), res)
@@ -102,6 +116,46 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         summary["kmeans_n_iter"] = res.n_iter
         logging.info("kmeans(%d) inertia %.2f, Lloyd steps %s", args.kmeans,
                      float(res.inertia), res.n_iter)
+    elif args.kmeans > 0 and args.algo == "mapdp":
+        from gesture2vec_tpu_torch.cluster.mapdp import mapdp_nw
+        res = mapdp_nw(data["seq_latents"])
+        np.save(os.path.join(out, "mapdp_labels.npy"), res.labels)
+        summary["clusters"] = res.k
+        logging.info("mapdp found %d clusters", res.k)
+    elif args.kmeans > 0:
+        from sklearn.cluster import DBSCAN, AgglomerativeClustering
+        if args.algo == "dbscan":
+            labels = DBSCAN().fit_predict(data["seq_latents"])
+        else:
+            labels = AgglomerativeClustering(
+                n_clusters=args.kmeans).fit_predict(data["seq_latents"])
+        np.save(os.path.join(out, f"{args.algo}_labels.npy"), labels)
+        summary["clusters"] = int(len(np.unique(labels)))
+        logging.info("%s produced %d labels", args.algo,
+                     summary["clusters"])
+
+    if args.plots:
+        from gesture2vec_tpu_torch.cluster.plots import (plot_codebook_tsne,
+                                                         plot_latent_space)
+        cb = seq_model.vq_layer.codebook.detach().cpu().numpy()
+        usage = np.bincount(data["tokens"], minlength=cb.shape[0])
+        plot_codebook_tsne(cb, os.path.join(out, "codebook_tsne.png"),
+                           usage=usage)
+        sub = data["seq_latents"][:2000]
+        plot_latent_space(sub, os.path.join(out, "latents_tsne.png"),
+                          labels=data["tokens"][:2000])
+        logging.info("plots written to %s", out)
+
+    if args.export_samples > 0:
+        from gesture2vec_tpu_torch.cluster.latent_dataset import \
+            export_cluster_samples
+        from gesture2vec_tpu_torch.mocap.features import FeatureExtractor
+        fe = FeatureExtractor.load(args.pipeline)
+        n = export_cluster_samples(
+            data, os.path.join(out, "samples"), fe, store.pose_mean,
+            store.pose_std, dae_model, max_per_token=args.export_samples)
+        summary["samples"] = n
+        logging.info("wrote %d cluster sample BVHs", n)
 
     if args.val_store:
         val = build_latent_dataset(ClipStore(args.val_store),

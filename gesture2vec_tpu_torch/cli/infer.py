@@ -12,7 +12,10 @@ arguments and defaults; `--device` (default cuda) takes the place of
         [--mode decode] [--latent-bank bank.npz] [--device cpu]
 
 It reads the checkpoint files, clip stores, latent banks and
-`data_pipe.json` that either package writes.
+`data_pipe.json` that either package writes. `--plot-attention PNG`
+(one transcript, a Part d with attention; needs matplotlib) saves the
+first window's attention heatmap from the Part d's eval forward, as JAX
+does.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "retrieval (motion matching) instead "
                              "of the reference's random pick")
     parser.add_argument("--plot-attention", default=None,
-                        help="not ported yet (needs cluster/plots)")
+                        help="save the first window's attention heatmap "
+                             "(needs matplotlib)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (cuda raises without a card; "
                              "cpu runs the plain PyTorch path)")
@@ -101,17 +106,16 @@ def run(args: argparse.Namespace
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet: ROADMAP queue A item 5 (scale-out)")
-    if args.plot_attention:
-        raise NotImplementedError(
-            "--plot-attention is not ported yet: it needs cluster/plots, "
-            "ROADMAP queue A item 4")
+    from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
+    if args.plot_attention and not have_matplotlib():
+        raise ValueError("--plot-attention needs matplotlib")
     from gesture2vec_tpu_torch.cli._common import (build_generator,
                                                    load_bvh_exporter)
     from gesture2vec_tpu_torch.data.store import ClipStore
     from gesture2vec_tpu_torch.io.subtitles import read_subtitles
 
     store = ClipStore(args.store)
-    gen, _ = build_generator(args.t2t_checkpoint, args.rep_checkpoint,
+    gen, cfg = build_generator(args.t2t_checkpoint, args.rep_checkpoint,
                              args.autoencoder_checkpoint, store,
                              mode=args.mode,
                              latent_bank_path=args.latent_bank,
@@ -141,10 +145,38 @@ def run(args: argparse.Namespace
     total = sum(f.shape[0] for f, _ in results)
     logging.info("generated %d transcripts, %d frames in %.2fs "
                  "(%.0f frames/s)", len(results), total, dt, total / dt)
+    if args.plot_attention and len(all_words) == 1 \
+            and gen.t2t_model.use_attention:
+        plot_first_window_attention(gen, all_words[0], cfg,
+                                    args.plot_attention)
     for (frames, _), path in zip(results, paths):
         to_bvh(frames, path=path)
         print(f"wrote {path}")
     return [(f, t, p) for (f, t), p in zip(results, paths)]
+
+
+@torch.inference_mode()
+def plot_first_window_attention(gen, words, cfg: dict, path: str) -> None:
+    """The first window's attention heatmap (`cluster/plots.plot_attention`):
+    the transcript's first max_words words (the config's extras, 48 by
+    default) as ids bracketed by SOS / EOS in a 48-wide row, through the
+    Part d's eval forward; the rows are its decode steps, the columns the
+    ids, labelled by the vocabulary."""
+    from gesture2vec_tpu_torch.cluster.plots import plot_attention
+
+    model, vocab = gen.t2t_model, gen.vocab
+    window_words = [w[0] for w in words][:int(cfg.get("max_words", 48))]
+    wid = vocab.words_to_ids(window_words)[:48]
+    ids = torch.zeros((1, 48), dtype=torch.long, device=gen.device)
+    ids[0, :len(wid)] = torch.as_tensor(wid, dtype=torch.long)
+    lengths = torch.tensor([max(len(wid), 1)], device=gen.device)
+    res = model(ids, lengths, torch.zeros((1, model.n_steps),
+                                          dtype=torch.long,
+                                          device=gen.device))
+    attn = res["attentions"][:, 0, :len(wid)].float().cpu().numpy()
+    labels = [vocab.index2word.get(int(i), "?") for i in wid]
+    plot_attention(attn, path, words=labels)
+    logging.info("attention heatmap -> %s", path)
 
 
 def main(argv: Optional[Sequence[str]] = None

@@ -25,10 +25,12 @@ chunks, or with `audio_fusion: both` the word ids and one-second raw
 chunks); the checkpoints are the JAX package's files, which either
 package loads. `--device` (default cuda; cpu on a machine without a
 card) takes the place of `--platform`. The loss history goes to
-`loss_history.json` in the save dir; the JAX package's loss-curve PNG
-waits for `mocap/viz` (ROADMAP.md queue A item 4). Refused, each naming
-the queue item that ports it: the parts baseline, c2g and gan (6),
-`--mesh` (5) and `--plot-every` (4).
+`loss_history.json` in the save dir, and, where matplotlib imports, the
+JAX package's `loss_curves.png` beside it (`mocap/viz.plot_loss_curves`;
+one logged line says when it is left out). `--plot-every N` (part b,
+needs matplotlib and scikit-learn) writes the codebook's t-SNE every N
+epochs, as JAX does. Refused, each naming the queue item that ports it:
+the parts baseline, c2g and gan (6) and `--mesh` (5).
 """
 from __future__ import annotations
 
@@ -42,13 +44,23 @@ _PARTS = ("a", "b", "d", "audio", "baseline", "c2g", "gan")
 _LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 
-def _history_json(history: dict, save_dir: str) -> None:
+def _history(history: dict, save_dir: str, title: str) -> None:
+    """loss_history.json, and loss_curves.png where matplotlib imports."""
+    from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
+
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, "loss_history.json")
     with open(path, "w") as f:
         json.dump(history, f, indent=1)
-    logging.info("loss history -> %s (the loss-curve plot waits for "
-                 "ROADMAP.md queue A item 4)", path)
+    logging.info("loss history -> %s", path)
+    if not have_matplotlib():
+        logging.info("loss_curves.png left out: matplotlib is not "
+                     "installed")
+        return
+    from gesture2vec_tpu_torch.mocap.viz import plot_loss_curves
+    path = os.path.join(save_dir, "loss_curves.png")
+    plot_loss_curves(history, path, title=title)
+    logging.info("loss curves -> %s", path)
 
 
 def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
@@ -65,7 +77,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
                         help="checkpoint to resume from (the port's or the "
                              "JAX package's)")
     parser.add_argument("--mesh", default=None)
-    parser.add_argument("--plot-every", type=int, default=0)
+    parser.add_argument("--plot-every", type=int, default=0,
+                        help="part b: write a codebook t-SNE every N "
+                             "epochs (needs matplotlib)")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -76,9 +90,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
                                                 later[args.part]))
     if args.mesh:
         raise NotImplementedError(_LATER.format("--mesh", "5, scale-out"))
-    if args.plot_every:
-        raise NotImplementedError(_LATER.format("--plot-every",
-                                                "4, the cluster plots"))
+    from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
+    if args.plot_every and not have_matplotlib():
+        parser.error("--plot-every needs matplotlib")
 
     from gesture2vec_tpu_torch.device import resolve_device
     from gesture2vec_tpu_torch.train.config import load_config
@@ -95,6 +109,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
     logging.info("part %s, config %s -> %s on %s", args.part, args.config,
                  save_dir, dev)
     cfg, (train, val), kw = build_arrays(cfg, args.part, dev)
+    if args.part == "b":
+        kw["plot_every"] = args.plot_every
     if args.part == "a":
         from gesture2vec_tpu_torch.train.dae_trainer import train_dae as fit
     elif args.part == "b":
@@ -108,7 +124,7 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
             train_text2token as fit
     model, hist = fit(cfg, train, val, save_dir=save_dir,
                       resume_from=args.resume, device=dev, **kw)
-    _history_json(hist, save_dir)
+    _history(hist, save_dir, cfg.name)
     return model, hist
 
 

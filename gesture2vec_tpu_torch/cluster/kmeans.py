@@ -134,3 +134,9 @@ def kmeans_predict(x: Union[np.ndarray, torch.Tensor],
 def save_kmeans(path: str, result: KMeansResult) -> None:
     np.savez(path, centers=result.centers.cpu().numpy(),
              inertia=result.inertia.cpu().numpy())
+
+
+def load_kmeans(path: str) -> np.ndarray:
+    """The centers `save_kmeans` wrote (either package's file)."""
+    with np.load(path) as z:
+        return z["centers"]

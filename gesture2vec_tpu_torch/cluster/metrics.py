@@ -4,11 +4,15 @@ The port's copy (numpy / scipy) of the JAX package's
 `cluster/metrics.py` pieces that the cluster CLI writes: Hellinger
 distance between token histograms, Frechet distance between Gaussians
 fit to latents, token perplexity, the Wasserstein distance between
-token samples, and the representation-neighbour smoothness metric.
+token samples, the representation-neighbour smoothness metric, and
+sentence / corpus BLEU over token sequences (single reference, the
+JAX package's epsilon smoothing).
 """
 from __future__ import annotations
 
 import math
+from collections import Counter
+from typing import List, Sequence
 
 import numpy as np
 from scipy import linalg
@@ -87,3 +91,38 @@ def representation_neighbor_distance(latents: np.ndarray) -> dict:
         "normal_avg_near": float(d1.mean() / avg_total),
         "normal_avg_far": float(d2.mean() / avg_total),
     }
+
+
+def _ngrams(seq: Sequence[int], n: int) -> Counter:
+    return Counter(tuple(seq[i:i + n]) for i in range(len(seq) - n + 1))
+
+
+def sentence_bleu(candidate: Sequence[int], reference: Sequence[int],
+                  max_n: int = 4) -> float:
+    """Modified-precision BLEU with brevity penalty against one
+    reference; zero precisions become 1e-9 so that short token sequences
+    do not score 0."""
+    precisions = []
+    for n in range(1, max_n + 1):
+        cand = _ngrams(candidate, n)
+        ref = _ngrams(reference, n)
+        overlap = sum(min(c, ref[g]) for g, c in cand.items())
+        total = max(sum(cand.values()), 1)
+        precisions.append(max(overlap, 0) / total)
+    if min(precisions) == 0:
+        precisions = [max(p, 1e-9) for p in precisions]
+    log_p = sum(math.log(p) for p in precisions) / max_n
+    bp = 1.0 if len(candidate) >= len(reference) else \
+        math.exp(1 - len(reference) / max(len(candidate), 1))
+    return bp * math.exp(log_p)
+
+
+def corpus_bleu(candidates: List[Sequence[int]],
+                references: List[Sequence[int]], max_n: int = 4) -> float:
+    """The mean sentence BLEU of candidate / reference pairs (0 for none)."""
+    if len(candidates) != len(references):
+        raise ValueError(f"{len(candidates)} candidates, "
+                         f"{len(references)} references")
+    scores = [sentence_bleu(c, r, max_n) for c, r in
+              zip(candidates, references)]
+    return float(np.mean(scores)) if scores else 0.0

@@ -15,11 +15,14 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
                   else a plain DAE (motion_dim = input_motion_dim, latent
                   = hidden_size);
   autoencoder_vq  `seq_ae_trainer.make_seq_ae`: the gesture tokenizer,
-  (autoencoder)   vq_flatten "torch_view" when extra["parity"], fp32; the
-                  BiGRU or (extras "seq_arch: transformer") the transformer
-                  chunk encoder; the VAE heads and the input width
-                  (use_derivative) as the weights hold them; a tokenizer
-                  without a quantizer is refused (it gives no tokens);
+  (autoencoder)   vq_flatten "torch_view" when extra["parity"], and then
+                  eval_step_dropout as the config's eval_dropout_quirk
+                  (default true) says, fp32; the BiGRU or (extras
+                  "seq_arch: transformer") the transformer chunk encoder;
+                  the VAE heads, the input width (use_derivative) and the
+                  decoder attention (autoencoder_att) as the weights hold
+                  them; a tokenizer without a quantizer is refused (it
+                  gives no tokens);
   text2embedding  `text2token_trainer._build_t2t` / `make_text2token`: the
                   Part-d model, n_words from extra, the architecture
                   (extras "t2t_arch": the GRU model, or the transformer
@@ -31,8 +34,7 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
                   audio_fusion ("both": n_words from extra, and the file
                   carries the vocabulary in lang_model), token_stages,
                   stage_conditional and autoencoder_att (the token
-                  decoder's attention, not the Part-b decoder attention
-                  that autoencoder_vq refuses) from the config, fp32.
+                  decoder's attention) from the config, fp32.
 Each maker holds what the config says against what the weights hold.
 Every model loaded here computes in fp32 (`compute_dtype` None) and
 `load_checkpoint_and_model` sets the payload config's `compute_dtype` to
@@ -53,10 +55,6 @@ from gesture2vec_tpu_torch.compat.from_jax import (
     seq_ae_from_jax, text2token_from_jax, transformer_text2token_from_jax)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
-
-# the queue item that ports each refused option
-_LATER = "not ported yet (ROADMAP.md queue A item {})"
-
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """The payload, with payload["config"] the run's config as a dict
@@ -86,10 +84,6 @@ def dae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
 
 def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     cfg = payload["config"]
-    if cfg.get("autoencoder_att", False):
-        raise NotImplementedError(
-            "autoencoder_att (decoder attention) is "
-            + _LATER.format("6, reconstruction"))
     if not cfg.get("autoencoder_vq", False):
         raise ValueError("the checkpoint has no quantizer "
                          "(autoencoder_vq is false): it gives no tokens")
@@ -101,7 +95,9 @@ def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
         n_pre_poses=int(cfg["n_pre_poses"]),
         conditioned=cfg.get("autoencoder_conditioned", True),
         vq_flatten="torch_view" if parity else "per_sample",
-        commitment_cost=float(cfg["autoencoder_vq_commitment_cost"]))
+        commitment_cost=float(cfg["autoencoder_vq_commitment_cost"]),
+        eval_step_dropout=bool(cfg.get("eval_dropout_quirk", True))
+        and parity)
     # the JAX package builds the transformer for "transformer", else the
     # BiGRU
     want = "transformer" if cfg.get("seq_arch") == "transformer" \
@@ -109,6 +105,11 @@ def seq_ae_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     if model.encoder_arch != want:
         raise ValueError(f"the checkpoint's config says seq_arch {want}, "
                          f"its weights hold {model.encoder_arch}")
+    att = bool(cfg.get("autoencoder_att", False))
+    if model.decoder.use_attention != att:
+        raise ValueError(f"the checkpoint's config says autoencoder_att "
+                         f"{att}, its weights say "
+                         f"{model.decoder.use_attention}")
     return model
 
 

@@ -16,6 +16,10 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
                                      -> the quantizer, same names; the
                                         token decoder keeps codebook and
                                         codebook_r{s} too
+  decoder_step attn (the attn Dense and v)
+                                     -> the token decoder's and the
+                                        Part-b decoder's (autoencoder_att)
+                                        Bahdanau attention
   decoder_step out_layer_r{s} / stage_embed_{s}
                                      -> the residual-stage heads and the
                                         stage chain's embeddings
@@ -260,6 +264,9 @@ def _fill_seq_decoder(model: SeqDecoder, variables: Tree) -> None:
         _set(getattr(model, f"codebook_r{i}"),
              _t(p["vq_layer"][f"codebook_r{i}"]))
     s = model.decoder_step
+    if s.attn is not None:
+        _dense(s.attn.attn, dec["attn"]["attn"])
+        _set(s.attn.v, _t(dec["attn"]["v"]))
     _dense(s.pre_linear, dec["pre_linear"])
     _bn(s.pre_bn, dec["pre_bn"],
         variables["batch_stats"]["decoder_step"]["pre_bn"])
@@ -270,18 +277,19 @@ def _fill_seq_decoder(model: SeqDecoder, variables: Tree) -> None:
 def seq_decoder_from_jax(variables: Tree, *, n_frames: int,
                          n_pre_poses: int = 1,
                          conditioned: bool = True) -> SeqDecoder:
-    """The decoder half (codebooks + decoder step) of a JAX
-    SeqVQAutoencoder; a residual-VQ one keeps every stage's codebook."""
+    """The decoder half (codebooks + decoder step, with its attention when
+    the variables hold one) of a JAX SeqVQAutoencoder; a residual-VQ one
+    keeps every stage's codebook."""
     p = variables["params"]
     dec = p["decoder_step"]
-    rep_dim, hidden = np.shape(dec["pre_linear"]["kernel"])
+    hidden, rep_dim = np.shape(dec["out_layer"]["kernel"])
     vq = p["vq_layer"]
     model = SeqDecoder(rep_dim=rep_dim, hidden_size=hidden,
                        n_layers=_n_layers(dec["gru"]), n_frames=n_frames,
                        n_codes=np.shape(vq["codebook"])[0],
                        n_pre_poses=n_pre_poses, conditioned=conditioned,
                        stages=_n_stages(vq) if "mean_layer" not in vq
-                       else 1)
+                       else 1, use_attention="attn" in dec)
     _fill_seq_decoder(model, variables)
     return model.eval()
 
@@ -289,11 +297,12 @@ def seq_decoder_from_jax(variables: Tree, *, n_frames: int,
 def seq_ae_from_jax(variables: Tree, *, n_frames: int,
                     n_pre_poses: int = 1, conditioned: bool = True,
                     vq_flatten: str = "per_sample",
-                    commitment_cost: float = 0.25) -> SeqVQAutoencoder:
+                    commitment_cost: float = 0.25,
+                    eval_step_dropout: bool = False) -> SeqVQAutoencoder:
     """A whole JAX SeqVQAutoencoder (BiGRU or transformer encoder, GS-Soft,
-    residual or no quantizer, the VAE heads, decoder). The encoder, the
-    quantizer, its stage count and the VAE heads come from the
-    variables."""
+    residual or no quantizer, the VAE heads, decoder with or without
+    attention). The encoder, the quantizer, its stage count, the VAE heads
+    and the decoder attention come from the variables."""
     p = variables["params"]
     enc = p["encoder"]
     rep_dim, hidden = np.shape(enc["in_layer"]["kernel"])
@@ -309,7 +318,8 @@ def seq_ae_from_jax(variables: Tree, *, n_frames: int,
         rvq_stages=_n_stages(vq) if rvq else 1,
         commitment_cost=commitment_cost, conditioned=conditioned,
         vq_flatten=vq_flatten, encoder_arch=arch, use_vq=vq is not None,
-        use_vae="vae_mean" in p)
+        use_vae="vae_mean" in p, use_attention="attn" in p["decoder_step"],
+        eval_step_dropout=eval_step_dropout)
     load_jax_variables(model, p, variables.get("batch_stats"))
     return model.eval()
 
@@ -459,8 +469,15 @@ def _embed(path, mod: nn.Embedding) -> Entry:
 
 
 def _decoder_step_entries(d: nn.Module, hidden: int) -> List[Entry]:
+    """A decoder step's attention (when it has one), pre_linear, pre_bn,
+    GRU stack and out_layer (the Part-b and the token decoder's)."""
     p = ("decoder_step",)
-    out = _dense_entries(p + ("pre_linear",), d.pre_linear) \
+    out: List[Entry] = []
+    if d.attn is not None:
+        out += _dense_entries(p + ("attn", "attn"), d.attn.attn)
+        out.append((p + ("attn", "v"), d.attn.v, "same",
+                    f"normal:{1.0 / np.sqrt(hidden)}"))
+    out += _dense_entries(p + ("pre_linear",), d.pre_linear) \
         + _norm_entries(p + ("pre_bn",), d.pre_bn) \
         + _gru_entries(p + ("gru",), d.gru, hidden) \
         + _dense_entries(p + ("out_layer",), d.out_layer)
@@ -577,10 +594,6 @@ def _token_decoder_entries(d: nn.Module, hidden: int) -> List[Entry]:
     """A `TokenDecoderStep`'s parameters (Text2Token, Audio2Token)."""
     p = ("decoder_step",)
     out = [_embed(p + ("token_embedding", "embedding"), d.token_embedding)]
-    if d.attn is not None:
-        out += _dense_entries(p + ("attn", "attn"), d.attn.attn)
-        out.append((p + ("attn", "v"), d.attn.v, "same",
-                    f"normal:{1.0 / np.sqrt(hidden)}"))
     return out + _decoder_step_entries(d, hidden) + _stage_head_entries(p, d)
 
 

@@ -26,11 +26,9 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from gesture2vec_tpu_torch.device import module_device
+
 _MESH = "mesh= is not ported yet (the scale-out slice of the PyTorch port)"
-
-
-def _device(model: torch.nn.Module) -> torch.device:
-    return next(model.parameters()).device
 
 
 def _padded_batches(a: np.ndarray, batch: int):
@@ -49,7 +47,7 @@ def encode_frames_with_dae(dae_model, frames: np.ndarray, batch: int = 4096,
     """(N, motion_dim) normalized frames -> (N, latent_dim) DAE latents."""
     if mesh is not None:
         raise NotImplementedError(_MESH)
-    dev = _device(dae_model)
+    dev = module_device(dae_model)
     outs = [dae_model.encode(torch.from_numpy(b).to(dev)).cpu().numpy()
             for b in _padded_batches(frames, batch)]
     return np.concatenate(outs, axis=0)[:frames.shape[0]]
@@ -75,7 +73,7 @@ def tokenize_windows(seq_model, latent_windows: np.ndarray, batch: int = 512,
     one column per stage, column 0 the pipeline token."""
     if mesh is not None:
         raise NotImplementedError(_MESH)
-    dev = _device(seq_model)
+    dev = module_device(seq_model)
     toks, lats = [], []
     for b in _padded_batches(latent_windows, batch):
         hidden = seq_model.encode_hidden(torch.from_numpy(b).to(dev))
@@ -97,7 +95,7 @@ def window_teacher(dae_model) -> Callable[[np.ndarray], torch.Tensor]:
     host. Grad mode is per thread, so the transform turns it off itself;
     it uses no_grad rather than inference_mode, since the latents then
     enter the training step's graph as inputs."""
-    dev = _device(dae_model)
+    dev = module_device(dae_model)
 
     def transform(batch: np.ndarray) -> torch.Tensor:
         with torch.no_grad():

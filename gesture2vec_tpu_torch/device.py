@@ -25,3 +25,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def module_device(model: torch.nn.Module) -> torch.device:
+    """The device a model's parameters live on."""
+    return next(model.parameters()).device

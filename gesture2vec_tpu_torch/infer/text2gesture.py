@@ -37,6 +37,12 @@ Chunk decode (decode mode):
   use_fused_decoder   the rollout runs in ops/decoder_kernel (the Hopper
                       kernel on CUDA, its plain version on the CPU): one
                       launch a request; False takes SeqDecoder.rollout.
+                      A tokenizer the kernel cannot run (kernel_reason:
+                      a parity checkpoint's eval step dropout, among
+                      others) is refused unless this is False; the
+                      rollout then applies that dropout from a generator
+                      seeded 0 each call, as the JAX generator feeds it
+                      PRNGKey(0).
   soft_decode > 0     each chunk's hidden is softmax(logits / soft_decode)
                       @ codebook (and the stage mixtures), seed steps the
                       hard rows.
@@ -67,8 +73,7 @@ from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.ops.decoder_kernel import (fold_decoder_step,
-                                                      fused_chunk_decode,
-                                                      supported)
+                                                      fused_chunk_decode)
 from gesture2vec_tpu_torch.text.vocab import Vocab
 
 
@@ -139,10 +144,7 @@ class ChunkSynthesis:
         for m in (t2t, seq, self.dae_model):
             m.to(self.device).eval()
         if self.use_fused_decoder:
-            reason = supported(seq.decoder_step)
-            if not reason and seq.n_pre_poses != 1:
-                reason = "the kernel starts from one seed frame " \
-                         "(n_pre_poses=1)"
+            reason = seq.kernel_reason()
             if reason:
                 raise ValueError(f"use_fused_decoder: {reason}")
             self._folded = fold_decoder_step(seq.decoder_step)

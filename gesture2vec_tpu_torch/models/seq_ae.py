@@ -21,9 +21,21 @@ The decoder-initial hidden is the encoder hidden sliced to its first
 n_layers entries, which for the bidirectional GRU is [l0_fwd, l0_bwd]
 at 2 layers: a reference quirk the JAX package keeps.
 
-Eval mode (`.eval()`) is the JAX package's eval with
-`eval_step_dropout=False`: BatchNorm reads its running statistics and
-no dropout is applied. Training mode (`.train()`, masks drawn inside
+With use_attention (the JAX package's `autoencoder_att`) every decoder
+step attends over the encoder outputs (T, B, H) from its last layer's
+hidden and concatenates the context to its input, so pre_linear takes
+D + H; such a decoder decodes only with the encoder outputs (`decode`,
+`warmup_hidden`), never in the generative `rollout`, as in JAX.
+
+Eval mode (`.eval()`) is the JAX package's eval: BatchNorm reads its
+running statistics and no dropout is applied, except with
+eval_step_dropout (a parity checkpoint's quirk, the JAX package's
+`eval_step_dropout`): then the reference's 0.95 step dropout acts in the
+eval `decode`, `rollout` and `warmup_hidden` too, its masks from the
+caller's torch.Generator, by default one seeded 0 a call (the JAX
+package feeds it PRNGKey(0); the masks are not its bits). Neither the
+attention nor the eval dropout is in the chunk-decoder kernel
+(`SeqDecoder.kernel_reason`). Training mode (`.train()`, masks drawn inside
 `models/layers.dropout_generator`) is its train=True: dropout on the
 encoder's input (either encoder), between the BiGRU's layers or at the
 transformer encoder's sites, the reference's 0.95
@@ -44,6 +56,7 @@ and the attention stay fp32, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -51,7 +64,9 @@ from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import BiGRU, GRUCellStack
 from gesture2vec_tpu_torch.models.layers import (BatchNorm, Dense, Dtype,
-                                                 dropout, reparameterize)
+                                                 as_fp32, dropout,
+                                                 dropout_generator,
+                                                 reparameterize)
 from gesture2vec_tpu_torch.models.vq import VQGSSoft, VQOutput, VQResidual
 
 
@@ -80,32 +95,50 @@ class Attn(nn.Module):
 
 
 class DecoderStep(nn.Module):
-    """One Part-b decoder timestep without attention: pre_linear ->
-    BatchNorm -> ReLU -> GRU stack -> out_layer. conditioned=False
-    zeroes the input, as the JAX module does; in training the input then
-    takes the reference's step dropout. With a compute dtype every module
-    computes in it and the output comes back in fp32."""
+    """One Part-b decoder timestep: [attention ->] pre_linear -> BatchNorm
+    -> ReLU -> GRU stack -> out_layer. With use_attention the context of
+    the encoder outputs, attended from the last layer's hidden, is
+    concatenated to the input. conditioned=False zeroes that input, as the
+    JAX module does; in training (or in eval with eval_step_dropout) it
+    then takes the reference's step dropout. With a compute dtype every
+    module but the attention (fp32, as in JAX) computes in it and the
+    output comes back in fp32."""
 
     # the reference's dropout on the decoder's input at every step
     step_dropout = 0.95
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
                  conditioned: bool = True, dropout_rate: float = 0.0,
-                 dtype: Dtype = None):
+                 dtype: Dtype = None, use_attention: bool = False,
+                 eval_step_dropout: bool = False):
         super().__init__()
         self.conditioned = conditioned
         self.dtype = dtype
-        self.pre_linear = Dense(input_size, hidden_size, compute_dtype=dtype)
+        self.use_attention = use_attention
+        self.eval_step_dropout = eval_step_dropout
+        self.attn = Attn(hidden_size) if use_attention else None
+        self.pre_linear = Dense(
+            input_size + (hidden_size if use_attention else 0), hidden_size,
+            compute_dtype=dtype)
         self.pre_bn = BatchNorm(hidden_size, compute_dtype=dtype)
         self.gru = GRUCellStack(hidden_size, hidden_size, n_layers,
                                 dropout_rate, dtype=dtype)
         self.out_layer = Dense(hidden_size, input_size, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor, hidden: torch.Tensor
+    def forward(self, x: torch.Tensor, hidden: torch.Tensor,
+                encoder_outputs: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.use_attention:
+            if encoder_outputs is None:
+                raise ValueError("the attention decoder step reads the "
+                                 "encoder outputs (autoencoder_att)")
+            enc = as_fp32(encoder_outputs)
+            w = self.attn(as_fp32(hidden[-1]), enc)            # (B, T)
+            x = torch.cat([x, torch.einsum("bt,tbh->bh", w, enc)], dim=-1)
         if not self.conditioned:
             x = torch.zeros_like(x)
-        x = dropout(x, self.step_dropout, self.training)
+        x = dropout(x, self.step_dropout,
+                    self.training or self.eval_step_dropout)
         h = torch.relu(self.pre_bn(self.pre_linear(x)))
         out, new_hidden = self.gru(h, hidden)
         # losses and the fed-back frame read fp32 whatever the dtype
@@ -116,12 +149,16 @@ class SeqDecoder(nn.Module):
     """The token -> latent-chunk half of the gesture tokenizer: the
     codebook (n_codes, n_layers * H), for a residual-VQ tokenizer the
     later stages' codebooks `codebook_r{s}` (s = 1 .. stages - 1), and the
-    decoder step."""
+    decoder step (with attention over the encoder outputs under
+    use_attention, and the step dropout in eval under
+    eval_step_dropout)."""
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, n_codes: int, n_pre_poses: int = 1,
                  conditioned: bool = True, stages: int = 1,
-                 dropout_rate: float = 0.0, dtype: Dtype = None):
+                 dropout_rate: float = 0.0, dtype: Dtype = None,
+                 use_attention: bool = False,
+                 eval_step_dropout: bool = False):
         super().__init__()
         self.use_kernel = True
         self.dtype = dtype
@@ -137,7 +174,28 @@ class SeqDecoder(nn.Module):
                 "codebook" if s == 0 else f"codebook_r{s}",
                 nn.Parameter(torch.zeros(n_codes, n_layers * hidden_size)))
         self.decoder_step = DecoderStep(rep_dim, hidden_size, n_layers,
-                                        conditioned, dropout_rate, dtype)
+                                        conditioned, dropout_rate, dtype,
+                                        use_attention, eval_step_dropout)
+
+    @property
+    def use_attention(self) -> bool:
+        return self.decoder_step.use_attention
+
+    @property
+    def eval_step_dropout(self) -> bool:
+        return self.decoder_step.eval_step_dropout
+
+    def step_dropout_stream(self, generator: Optional[torch.Generator],
+                            device: torch.device):
+        """The context an eval decode runs in: under eval_step_dropout the
+        step dropout's masks come from generator, by default a new one
+        seeded 0 (the JAX package's PRNGKey(0) a call); otherwise, and in
+        training (the trainer's generator), nothing changes."""
+        if self.training or not self.eval_step_dropout:
+            return contextlib.nullcontext()
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        return dropout_generator(generator)
 
     def token_hidden(self, tokens: torch.Tensor,
                      stage_tokens: Optional[torch.Tensor] = None,
@@ -169,16 +227,41 @@ class SeqDecoder(nn.Module):
                             self.hidden_size).transpose(0, 1)
 
     def rollout(self, dec_hidden: torch.Tensor, seed_frame: torch.Tensor,
-                n_steps: Optional[int] = None) -> torch.Tensor:
+                n_steps: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """Generative rollout: the seed frame (B, D) is the first input
         and is never emitted; each output feeds back as the next input.
-        dec_hidden (L, B, H) -> (B, n_steps or n_frames, D)."""
+        dec_hidden (L, B, H) -> (B, n_steps or n_frames, D). generator:
+        the eval step dropout's stream (`step_dropout_stream`). A decoder
+        with attention has no encoder outputs here and is refused (the JAX
+        rollout passes none either)."""
+        if self.use_attention:
+            raise ValueError("the generative rollout has no encoder "
+                             "outputs for the decoder attention "
+                             "(autoencoder_att): decode from an encoding")
         x, hidden = seed_frame, self._carry(dec_hidden)
         outs = []
-        for _ in range(n_steps or self.n_frames):
-            x, hidden = self.decoder_step(x, hidden)
-            outs.append(x)
+        with self.step_dropout_stream(generator, seed_frame.device):
+            for _ in range(n_steps or self.n_frames):
+                x, hidden = self.decoder_step(x, hidden)
+                outs.append(x)
         return torch.stack(outs, dim=1)
+
+    def warmup_hidden(self, dec_hidden: torch.Tensor, seed: torch.Tensor,
+                      encoder_outputs: Optional[torch.Tensor] = None,
+                      steps: int = 5,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """The reference's decoder warm-up: the decoder step fed the seed
+        frame (B, D) `steps` times from dec_hidden (L, B, H), its outputs
+        dropped; returns the hidden after them (the JAX package's
+        `SeqVQAutoencoder.warmup_hidden`). Plain PyTorch steps."""
+        hidden = dec_hidden
+        with self.step_dropout_stream(generator, seed.device):
+            for _ in range(steps):
+                _, hidden = self.decoder_step(seed, hidden, encoder_outputs)
+        return hidden
 
     def _carry(self, dec_hidden: torch.Tensor) -> torch.Tensor:
         """The hidden in the compute dtype (JAX casts it before its scan,
@@ -190,18 +273,30 @@ class SeqDecoder(nn.Module):
         instantiation for the compute dtype), else why not."""
         from gesture2vec_tpu_torch.ops import decoder_kernel as dk
 
+        # neither is in the JAX package's TPU kernel either
+        if self.use_attention:
+            return ("the kernel has no attention over the encoder outputs "
+                    "(autoencoder_att)")
+        if self.eval_step_dropout:
+            return ("the kernel applies no eval step dropout (a parity "
+                    "checkpoint's eval_step_dropout)")
         if self.n_pre_poses != 1:
             return "the kernel starts from one seed frame (n_pre_poses=1)"
         return dk.supported(self.decoder_step, self.dtype or torch.float32)
 
-    def decode(self, dec_hidden: torch.Tensor, out_poses: torch.Tensor
+    def decode(self, dec_hidden: torch.Tensor, out_poses: torch.Tensor,
+               encoder_outputs: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None
                ) -> torch.Tensor:
         """The teacher-forced rollout of training and validation (the JAX
         package's `SeqVQAutoencoder.decode`): out_poses (B, T, D) gives
         the seed, outputs[:, 0], and the inputs of the steps t with
         t - 1 < n_pre_poses; every later step reads the previous output.
-        dec_hidden (L, B, H) -> (B, n_frames, D). In eval mode with a
-        1-frame teacher prefix this is the seed plus the rollout from it,
+        dec_hidden (L, B, H) -> (B, n_frames, D); encoder_outputs (T, B,
+        H) feed the decoder attention (ignored without it); generator is
+        the eval step dropout's stream (`step_dropout_stream`). In eval
+        mode with a 1-frame teacher prefix this is the seed plus the
+        rollout from it,
         which `ops/decoder_kernel.fused_chunk_decode` runs in one launch
         (`use_kernel`, the default; with a compute dtype its instantiation
         for that dtype, over weights folded in it). On a CUDA tensor a
@@ -227,10 +322,12 @@ class SeqDecoder(nn.Module):
             return torch.cat([out_poses[:, :1], ys.transpose(0, 1).float()],
                              dim=1)
         prev, hidden, outs = seed, self._carry(dec_hidden), [seed]
-        for t in range(1, self.n_frames):
-            x = out_poses[:, t - 1] if t - 1 < self.n_pre_poses else prev
-            prev, hidden = self.decoder_step(x, hidden)
-            outs.append(prev)
+        with self.step_dropout_stream(generator, seed.device):
+            for t in range(1, self.n_frames):
+                x = out_poses[:, t - 1] if t - 1 < self.n_pre_poses \
+                    else prev
+                prev, hidden = self.decoder_step(x, hidden, encoder_outputs)
+                outs.append(prev)
         return torch.stack(outs, dim=1)
 
 
@@ -282,7 +379,8 @@ class SeqVQAutoencoder(nn.Module):
     quantizer (and the decoder no codebook), use_vae the VAE heads. The
     decoder's stage-0 codebook is the quantizer's own parameter (and for
     "rvq" every stage's), so training moves one tensor for both.
-    compute_dtype (None, or torch.bfloat16) as in the module note."""
+    compute_dtype (None, or torch.bfloat16), use_attention and
+    eval_step_dropout as in the module note."""
 
     def __init__(self, rep_dim: int, hidden_size: int, n_layers: int,
                  n_frames: int, vq_components: int = 512,
@@ -291,7 +389,8 @@ class SeqVQAutoencoder(nn.Module):
                  conditioned: bool = True, vq_flatten: str = "per_sample",
                  encoder_arch: str = "bigru", use_vae: bool = False,
                  dropout_rate: float = 0.2, use_vq: bool = True,
-                 compute_dtype: Dtype = None):
+                 compute_dtype: Dtype = None, use_attention: bool = False,
+                 eval_step_dropout: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         if encoder_arch not in ("bigru", "transformer"):
@@ -335,7 +434,9 @@ class SeqVQAutoencoder(nn.Module):
             rep_dim, hidden_size, n_layers, n_frames, vq_components,
             n_pre_poses, conditioned,
             stages=rvq_stages if use_vq and vq_variant == "rvq" else 1,
-            dropout_rate=dropout_rate, dtype=compute_dtype)
+            dropout_rate=dropout_rate, dtype=compute_dtype,
+            use_attention=use_attention,
+            eval_step_dropout=eval_step_dropout)
         # one tensor for each codebook: the quantizer's (none without one)
         cbs = ([] if not use_vq else self.vq_layer.codebooks()
                if vq_variant == "rvq" else [self.vq_layer.codebook])
@@ -374,8 +475,9 @@ class SeqVQAutoencoder(nn.Module):
         Returns {"outputs" (B, n_frames, D), "first_hidden" (L, B, H) the
         decoder-initial hidden after the quantizer and the VAE heads,
         "vq" the quantizer's VQOutput (None without one), "mean" and
-        "logvar" (B, L*H) of the VAE heads (None without them)}."""
-        _, dec_hidden = self.encode(in_poses)
+        "logvar" (B, L*H) of the VAE heads (None without them)}. The
+        decoder attention reads the encoder outputs."""
+        enc_outs, dec_hidden = self.encode(in_poses)
         vq_out = mean = logvar = None
         if self.use_vq:
             vq_out, dec_hidden = self.quantize(dec_hidden)
@@ -385,7 +487,8 @@ class SeqVQAutoencoder(nn.Module):
             mean, logvar = self.vae_mean(flat), self.vae_std(flat)
             flat = self.vae_dec(reparameterize(mean, logvar, self.training))
             dec_hidden = flat.reshape(B, L, H).transpose(0, 1)
-        return {"outputs": self.decoder.decode(dec_hidden, out_poses),
+        return {"outputs": self.decoder.decode(dec_hidden, out_poses,
+                                               enc_outs),
                 "first_hidden": dec_hidden, "vq": vq_out, "mean": mean,
                 "logvar": logvar}
 

@@ -212,11 +212,14 @@ class TokenDecoderStep(nn.Module):
     def step(self, token: torch.Tensor, hidden: torch.Tensor,
              encoder_outputs: torch.Tensor,
              enc_mask: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        Optional[torch.Tensor]]:
         """(logits (B, K) fp32, new hidden (L, B, H), the GRU output
-        (B, H) that the stage heads read)."""
+        (B, H) that the stage heads read, the attention weights (B, S),
+        None without attention)."""
         x = dropout(self.token_embedding(token), self.embedding_dropout,
                     self.training)                             # (B, H)
+        w = None
         if self.use_attention:
             # fp32 attention (the hidden may be carried in bf16)
             w = self.attn(hidden[-1].to(encoder_outputs.dtype),
@@ -225,15 +228,15 @@ class TokenDecoderStep(nn.Module):
             x = torch.cat([x, context], dim=-1)
         h = torch.relu(self.pre_bn(self.pre_linear(x)))
         out, new_hidden = self.gru(h, hidden)
-        return self.out_layer(out).float(), new_hidden, out
+        return self.out_layer(out).float(), new_hidden, out, w
 
     def forward(self, token: torch.Tensor, hidden: torch.Tensor,
                 encoder_outputs: torch.Tensor,
                 enc_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, K) fp32, new hidden (L, B, H))."""
-        logits, new_hidden, _ = self.step(token, hidden, encoder_outputs,
-                                          enc_mask)
+        logits, new_hidden, _, _ = self.step(token, hidden,
+                                             encoder_outputs, enc_mask)
         return logits, new_hidden
 
 
@@ -250,8 +253,9 @@ def decode_tokens_impl(model: nn.Module, enc_outs: torch.Tensor,
     token_stages, stage_conditional and decoder_step) given its encoding.
     target_tokens (B, n_steps) is the teacher signal (column 0 the seed);
     enc_mask (S,) or (B, S), None attends to every position. Returns "logits" (B, n_steps, K), "tokens"
-    (B, n_steps), and with residual stages "stage_logits" (B,
-    n_steps - 1, S-1, K) and "stage_tokens" (B, n_steps - 1, S-1).
+    (B, n_steps), with attention "attentions" (n_steps - 1, B, S), and
+    with residual stages "stage_logits" (B, n_steps - 1, S-1, K) and
+    "stage_tokens" (B, n_steps - 1, S-1).
     stage_targets (B, n_steps, token_stages), column 0 the primary
     code, drives the stage chain of a stage_conditional model in
     training (its teacher codes); training such a model needs it."""
@@ -266,7 +270,7 @@ def decode_tokens_impl(model: nn.Module, enc_outs: torch.Tensor,
     step = model.decoder_step
     seed = target_tokens[:, 0]
     logits = [F.one_hot(seed, model.n_tokens).to(enc_outs.dtype)]
-    tokens, stage_logits, stage_tokens = [seed], [], []
+    tokens, stage_logits, stage_tokens, attns = [seed], [], [], []
     if step.dtype is not None:
         # the hidden carried in the compute dtype, as JAX's scan carries it
         dec_hidden = dec_hidden.to(step.dtype)
@@ -274,7 +278,10 @@ def decode_tokens_impl(model: nn.Module, enc_outs: torch.Tensor,
     for t in range(1, model.n_steps):
         token_in = (target_tokens[:, t - 1] if t - 1 < model.n_pre_poses
                     else prev)
-        lg, hidden, out = step.step(token_in, hidden, enc_outs, enc_mask)
+        lg, hidden, out, w = step.step(token_in, hidden, enc_outs,
+                                       enc_mask)
+        if w is not None:
+            attns.append(w)
         if teach:
             # the chain reads the teacher codes; the tokens reported
             # are the argmaxes, as in JAX
@@ -294,6 +301,8 @@ def decode_tokens_impl(model: nn.Module, enc_outs: torch.Tensor,
             stage_tokens.append(stok)
     res = {"logits": torch.stack(logits, dim=1),
            "tokens": torch.stack(tokens, dim=1)}
+    if attns:
+        res["attentions"] = torch.stack(attns)
     if multi:
         res["stage_logits"] = torch.stack(stage_logits, dim=1)
         res["stage_tokens"] = torch.stack(stage_tokens, dim=1)
@@ -344,7 +353,7 @@ def beam_decode_impl(model: nn.Module, enc_outs: torch.Tensor,
     for t in range(1, T):
         token_in = (target_tokens[:, t - 1].repeat_interleave(K)
                     if t - 1 < model.n_pre_poses else tokens)
-        logits, new_hidden, out = step.step(token_in, hidden, eo, mask)
+        logits, new_hidden, out, _ = step.step(token_in, hidden, eo, mask)
         logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
         scores = (logprob[:, :, None] + logp).reshape(B, K * V)
         order = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -415,6 +424,10 @@ class Text2Token(nn.Module):
         """Teacher steps a window takes from its seed: the last n_pre
         tokens of a window seed the next one (window_carry)."""
         return self.n_pre_poses
+
+    @property
+    def use_attention(self) -> bool:
+        return self.decoder_step.use_attention
 
     def set_use_kernels(self, on: bool) -> "Text2Token":
         """Route the GRU text encoder's recurrences through the Hopper

@@ -7,7 +7,8 @@ Port of the JAX package's `train/seq_ae_trainer.py`:
 over the teacher-forced decode of a train-mode forward
 (`models/seq_ae.SeqVQAutoencoder`, with the BiGRU or, for `seq_arch:
 transformer`, the transformer chunk encoder; without a quantizer under
-`autoencoder_vq: false`, with the VAE heads under `autoencoder_vae`;
+`autoencoder_vq: false`, with the VAE heads under `autoencoder_vae`, the
+decoder attention over the encoder outputs under `autoencoder_att`;
 `use_derivative` doubles the window width the model takes), with
 Adam(0.5, 0.999) after global-norm clipping at 5. The similarity-
 supervised step (`use_similarity` with a `similarity_labels` file,
@@ -19,7 +20,10 @@ transformer encoder runs no kernel), and the residual quantizer's hard
 assignments the VQ-argmin kernel; validation (eval BatchNorm, no
 dropout, the VAE heads' mean) decodes through the chunk-decoder kernel,
 so on the card a decoder the kernel cannot run is refused before the
-first step. `rvq_reestimate_every` re-fits each residual stage's
+first step, except an attention decoder: the kernel has no attention
+(nor has the JAX package's), so its validation decode runs in plain
+PyTorch on the card, as its train-mode decode does (logged once).
+`rvq_reestimate_every` re-fits each residual stage's
 codebook with K-Means (`cluster/kmeans`, assignments through the
 VQ-argmin kernel) over the current encoder latents.
 
@@ -31,14 +35,15 @@ fp32. The training windows may be a streaming source
 (`data/streaming.StreamingWindows`, with its frozen-DAE transform) in
 place of the array; both go through `utils/prefetch`. A stream refuses
 use_similarity (pair sampling indexes the array) and trains without the
-residual-VQ re-fit (it sweeps the array), as in JAX.
-
-Refused, naming the ROADMAP.md queue A item that ports it: decoder
-attention (6).
+residual-VQ re-fit (it sweeps the array), as in JAX. `plot_every` N
+writes the codebook's t-SNE (`cluster/plots.plot_codebook_tsne`,
+matplotlib and scikit-learn) every N epochs into the save dir, as the
+JAX trainer does.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -66,17 +71,11 @@ from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
 from gesture2vec_tpu_torch.utils.meters import AverageMeter
 from gesture2vec_tpu_torch.utils.prefetch import prefetch
 
-_LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
-
-
 def make_seq_ae(config: Config) -> SeqVQAutoencoder:
     """The tokenizer the JAX package's make_seq_ae builds (per_sample
     flattening, the trainers' default; the encoder from `seq_arch`;
     `use_derivative` doubles rep_dim; the compute dtype from
-    `compute_dtype`)."""
-    if config.autoencoder_att:
-        raise NotImplementedError(_LATER.format(
-            "decoder attention (autoencoder_att)", "6, reconstruction"))
+    `compute_dtype`; the decoder attention from `autoencoder_att`)."""
     rep_dim = config.rep_learning_dim * (2 if config.use_derivative else 1)
     return SeqVQAutoencoder(
         rep_dim=rep_dim, hidden_size=config.hidden_size,
@@ -90,7 +89,8 @@ def make_seq_ae(config: Config) -> SeqVQAutoencoder:
         encoder_arch=config.extras.get("seq_arch", "bigru"),
         dropout_rate=config.dropout_prob, use_vq=config.autoencoder_vq,
         use_vae=config.autoencoder_vae,
-        compute_dtype=compute_dtype(config.compute_dtype))
+        compute_dtype=compute_dtype(config.compute_dtype),
+        use_attention=config.autoencoder_att)
 
 
 def _rec(config: Config, res: dict, batch: torch.Tensor) -> torch.Tensor:
@@ -228,7 +228,8 @@ def train_seq_ae(config: Config, train_windows,
                  val_windows: np.ndarray, save_dir: Optional[str] = None,
                  save_every: int = 20, log_every: int = 50,
                  resume_from: Optional[str] = None,
-                 device: Optional[Union[str, torch.device]] = None
+                 device: Optional[Union[str, torch.device]] = None,
+                 plot_every: int = 0
                  ) -> Tuple[SeqVQAutoencoder, Dict[str, list]]:
     """The Part-b loop over frozen-DAE latent windows (N, n_poses,
     rep_dim), an array or a streaming source (`data/streaming`); returns
@@ -236,8 +237,9 @@ def train_seq_ae(config: Config, train_windows,
     use_similarity and a similarity_labels file every step is the
     SSLTrainStep, its 3 pairs drawn by np.random.default_rng(seed + epoch
     * 65536 + b) among the windows (as in JAX; use_similarity without
-    labels trains the plain step). Runs on CUDA unless device says
-    otherwise."""
+    labels trains the plain step). plot_every N (with a save_dir and a
+    quantizer) writes codebook_tsne_ep{epoch:03d}.png every N epochs.
+    Runs on CUDA unless device says otherwise."""
     streaming = hasattr(train_windows, "batches")
     if streaming and config.use_similarity:
         raise ValueError("use_similarity needs the in-RAM window array "
@@ -255,7 +257,10 @@ def train_seq_ae(config: Config, train_windows,
             f"{config.rep_learning_dim}"
             f"{', doubled by use_derivative' if config.use_derivative else ''})")
     reason = model.decoder.kernel_reason()
-    if dev.type == "cuda" and reason:
+    if dev.type == "cuda" and model.decoder.use_attention:
+        model.decoder.use_kernel = False
+        logging.info("validation decodes in plain PyTorch: %s", reason)
+    elif dev.type == "cuda" and reason:
         raise ValueError(f"validation decodes through the chunk-decoder "
                          f"kernel on the card: {reason}")
     opt = Adam(model.parameters(), config.learning_rate)
@@ -328,6 +333,15 @@ def train_seq_ae(config: Config, train_windows,
         logging.info("EP %d done: train %.5f val %.5f perp %.1f", epoch,
                      meter.avg, history["val_loss"][-1],
                      history["perplexity"][-1])
+        if plot_every and save_dir and model.use_vq \
+                and (epoch + 1) % plot_every == 0:
+            from gesture2vec_tpu_torch.cluster.plots import \
+                plot_codebook_tsne
+            plot_codebook_tsne(
+                model.vq_layer.codebook.detach().cpu().numpy(),
+                os.path.join(save_dir,
+                             f"codebook_tsne_ep{epoch + 1:03d}.png"),
+                title=f"{config.name} codebook ep{epoch + 1}")
         if save_dir and ((epoch + 1) % save_every == 0
                          or epoch + 1 == config.epochs):
             path = checkpoints.checkpoint_filename(save_dir, config.name,

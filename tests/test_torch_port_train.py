@@ -719,12 +719,14 @@ def test_port_resume_continues_the_run(trained, tmp_path):
 
 
 def test_refused_options_name_their_queue_items():
+    """The parts baseline, c2g and gan (item 6) and --mesh (item 5) are
+    refused; decoder attention and --plot-every are ported (tests/
+    test_torch_port_reconstruct.py, tests/test_torch_port_analysis.py)."""
     from gesture2vec_tpu_torch.cli import train as ptrain
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pseq.make_seq_ae(load_config({**VQ_CFG, "autoencoder_att": True}))
+    assert pseq.make_seq_ae(load_config(
+        {**VQ_CFG, "autoencoder_att": True})).decoder.use_attention
     for argv, item in ((["--part", "gan"], "item 6"),
-                       (["--part", "a", "--mesh", "dp=2"], "item 5"),
-                       (["--part", "a", "--plot-every", "5"], "item 4")):
+                       (["--part", "a", "--mesh", "dp=2"], "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             ptrain.main(["-c", "x.yml"] + argv)
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives thirteen paths of the port, each with every kernel launch
+It drives fourteen paths of the port, each with every kernel launch
 counter set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -287,6 +287,33 @@ The streaming source:
            with the frozen DAE as the prefetch worker's transform, one
            epoch each beside the in-RAM arrays: steps/s, the host's peak
            RSS, the launches (equal), both losses falling;
+The baseline, c2g and the unrolled GAN (over the train path's store, its
+DAE and GS-Soft tokenizer):
+  misc_train  `cli/train.main()` with --part baseline (configs/seq2seq.yml),
+           c2g (configs/c2g.yml, over 512 codes) and gan (configs/gan.yml,
+           10 unrolled D updates) at their widths (hidden 200, 2 layers,
+           batch 128, 20 frames, 300-dim word vectors, noise 400), one
+           epoch each: the command's launches against those its steps,
+           validation batches and c2g's tokenizer sweep must make; from a
+           separate loop on fresh models, launches per step (MISC_STEP_
+           LAUNCHES: 4 + 4 for the baseline, 2 + 2 for c2g, 146 + 138 for
+           the GAN, derived beside it) and per validation batch, steps/s,
+           the split (forward / backward / optimizer; the GAN's fake batch
+           / 11 D updates / generator step), idle share and device ops;
+           one step card against CPU (the GAN's: the fake batch, the first
+           D update's gradients, the whole step's losses, generator
+           gradients and BatchNorm statistics) within 1e-4; losses finite
+           and falling (the GAN's D loss);
+  kernel   the GRU sequence at T 32, 20 and 1 (B=128), 32 (B=1) and 1
+           (B=512), its training kernels at the first three, and the chunk
+           decoder with the trained c2g's step at B 128 and 512 (19
+           steps), each against its plain version, cuDNN beside the GRU;
+  check    `generate_baseline` over the trained baseline and a 60 s
+           transcript, card against CPU within 1e-4 (4 `gru_sequence`
+           launches a window); c2g over all 512 ids through one chunk
+           decoder launch against its plain loop, and the
+           parity_frozen_hidden model plain with none; every launch's
+           shape compared;
 then the kernels line (each kernel's launches on its first path, on the
 later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
@@ -349,6 +376,11 @@ GRU_EDGE_BATCHES = (1, 17, 300, 512)
 # stride 1,720), and one 4,500-frame validation clip (a full validation
 # batch at the recipe's stride)
 TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_VAL_FRAMES = 4, 13000, 4500
+# the audio Part d's stores hold the first 2 train clips (1,290 sentence
+# windows, 10 full batches) and the validation clip: its data step runs
+# one STFT a second of speech on the host, which took ~45 s for all 4
+# clips on a slow host (PERF.md section 5)
+TRAIN_AUDIO_CLIPS = 2
 # (run, part, shipped config, what is cut or set beside the paths): the
 # epochs cut to 1 (Part a: 406 steps) or, for the residual VQ, 2 with the
 # re-fit every epoch so its K-Means runs once; Part a's VQ frame model
@@ -407,8 +439,10 @@ TRAIN_GENERATORS = tuple((run, run, "a", tok)
 SSL_LABEL_LINES = 400
 # steps timed for steps/s, and steps under torch.profiler for the idle
 # share, per part
-TRAIN_TIMED_STEPS = {"a": 200, "b": 10, "d": 10, "audio": 10}
-TRAIN_PROFILED_STEPS = {"a": 50, "b": 1, "d": 3, "audio": 3}
+TRAIN_TIMED_STEPS = {"a": 200, "b": 10, "d": 10, "audio": 10,
+                     "baseline": 10, "c2g": 10, "gan": 3}
+TRAIN_PROFILED_STEPS = {"a": 50, "b": 1, "d": 3, "audio": 3,
+                        "baseline": 2, "c2g": 3, "gan": 1}
 # kernel launches a train step (the others 0): the BiGRUs' 2 layers x 2
 # directions forward and backward, the 4 residual stages' argmins
 TRAIN_STEP_LAUNCHES = {
@@ -1235,7 +1269,7 @@ def rel_err(got, ref) -> float:
                                                 1e-30)
 
 
-def gru_backward_rows() -> list:
+def gru_backward_rows(shapes=GRU_BWD_SHAPES) -> list:
     """The GRU-sequence training kernels at the training path's shapes
     (T=20 at B=128 and 512, T=48 at B=128, and a ragged B=117, H=200,
     both directions): the forward's training variant against the
@@ -1245,7 +1279,8 @@ def gru_backward_rows() -> list:
     Function's gradients against autograd through the plain forward; and
     cuDNN's backward of one GRU layer with the same weights
     (torch.autograd.grad) and its forward + backward round trip as the
-    yardsticks of the Function's."""
+    yardsticks of the Function's. shapes: the (T, B) to run (the
+    training path's by default)."""
     import torch
 
     from gesture2vec_tpu_torch.models.gru import gru_layer
@@ -1264,7 +1299,7 @@ def gru_backward_rows() -> list:
                      (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
             p.copy_(v)
     rows = []
-    for T, B in GRU_BWD_SHAPES:
+    for T, B in shapes:
         xs = torch.randn(T, B, H, device="cuda", generator=g)
         h0 = 0.5 * torch.randn(B, H, device="cuda", generator=g)
         x_proj = (xs.reshape(-1, H) @ w_ih.t() + b_ih).reshape(T, B, -1)
@@ -3268,7 +3303,8 @@ def tf_tokenizer_trees(rng: np.random.Generator):
 def write_train_store(root: str, rng: np.random.Generator) -> list:
     """The training stores: smooth synthetic motion (sinusoids plus noise)
     135 wide with a word every 0.4 s (150 a minute), as [train, val]; then
-    a copy of each with every clip's speech-like audio at 16 kHz
+    a copy of the first TRAIN_AUDIO_CLIPS train clips and of the
+    validation clip with their speech-like audio at 16 kHz
     (synthetic_speech, seeded by the clip), as [train_audio, val_audio],
     which the audio Part d trains on (the other runs read stores without
     audio: a clip's 650 s of audio takes ~0.5 s to decompress)."""
@@ -3280,7 +3316,7 @@ def write_train_store(root: str, rng: np.random.Generator) -> list:
             ("val", 1, TRAIN_VAL_FRAMES))):
         writers = {sfx: ClipStoreWriter(os.path.join(root, name + sfx))
                    for sfx in ("", "_audio")}
-        clips = []
+        clips = {"": [], "_audio": []}
         for i in range(n_clips):
             t = np.arange(n_frames)[:, None] / FPS
             poses = (np.sin(t * rng.uniform(0.3, 2.0, DIM)
@@ -3292,12 +3328,14 @@ def write_train_store(root: str, rng: np.random.Generator) -> list:
                 [f"word{rng.integers(VOCAB_WORDS)}", float(s), float(s + 0.3)]
                 for s in starts]
             writers[""].add_clip(f"{name}{i}", poses, clip_words)
-            writers["_audio"].add_clip(
-                f"{name}{i}", poses, clip_words, audio=synthetic_speech(
-                    n_frames / FPS, 1000 * (k + 1) + i))
-            clips.append(poses)
-        frames = np.concatenate(clips)
+            clips[""].append(poses)
+            if name == "val" or i < TRAIN_AUDIO_CLIPS:
+                writers["_audio"].add_clip(
+                    f"{name}{i}", poses, clip_words, audio=synthetic_speech(
+                        n_frames / FPS, 1000 * (k + 1) + i))
+                clips["_audio"].append(poses)
         for sfx, w in writers.items():
+            frames = np.concatenate(clips[sfx])
             w.set_stats(frames.mean(0), frames.std(0))
             w.set_meta(fps=FPS, feature_dim=DIM)
             w.finish()
@@ -3326,7 +3364,7 @@ def train_step_of(part: str, cfg, model, opt, variant: str = ""):
     """The trainer's own step object for a part: Part a's (variant
     "warmup": vq_tricks' delayed-VQ step), Part b's (the similarity step
     under use_similarity with labels), Part d's (variant "feedback": the
-    feedback-matched finetune step)."""
+    feedback-matched finetune step), the baseline's and c2g's."""
     from gesture2vec_tpu_torch.train import dae_trainer as dt
     from gesture2vec_tpu_torch.train import seq_ae_trainer as st
     from gesture2vec_tpu_torch.train import text2token_trainer as tt
@@ -3339,6 +3377,10 @@ def train_step_of(part: str, cfg, model, opt, variant: str = ""):
     if part == "audio":
         from gesture2vec_tpu_torch.train import audio2token_trainer as at
         return at.TrainStep(model, opt, cfg.label_smoothing)
+    if part in ("baseline", "c2g"):
+        from gesture2vec_tpu_torch.train import misc_trainers as mt
+        cls = mt.BaselineStep if part == "baseline" else mt.C2GStep
+        return cls(cfg, model, opt)
     if variant == "feedback":
         return tt.FeedbackTrainStep(model, opt, cfg.label_smoothing,
                                     cfg.feedback_temperature)
@@ -3381,7 +3423,8 @@ def step_inputs(cfg, arrays, rows: np.ndarray, b: int) -> list:
 
 
 def fresh_model(part: str, cfg, n_words: int, device: str):
-    """A part's model as its trainer builds and initialises it."""
+    """A part's model as its trainer builds and initialises it (the
+    baseline's poses DIM wide, c2g's latents rep_learning_dim)."""
     import torch
 
     from gesture2vec_tpu_torch.train import dae_trainer as dt
@@ -3396,6 +3439,11 @@ def fresh_model(part: str, cfg, n_words: int, device: str):
     if part == "audio":
         from gesture2vec_tpu_torch.train import audio2token_trainer as at
         return at.init_audio2token(at.make_audio2token(cfg, n_words), 0, dev)
+    if part in ("baseline", "c2g"):
+        from gesture2vec_tpu_torch.train import misc_trainers as mt
+        model = (mt.make_baseline(cfg, n_words, DIM) if part == "baseline"
+                 else mt.make_c2g(cfg, cfg.rep_learning_dim))
+        return mt.init_misc(model, 0, dev)
     return tt.init_text2token(tt.make_text2token(cfg, n_words), 0, dev)
 
 
@@ -3621,6 +3669,10 @@ def train_measure(run: str, part: str, cfg, arrays, val_arrays,
     elif part == "audio":
         from gesture2vec_tpu_torch.train import audio2token_trainer as at
         at.make_eval_step(model)(*vb)
+    elif part in ("baseline", "c2g"):
+        from gesture2vec_tpu_torch.train import misc_trainers as mt
+        (mt.baseline_eval_step if part == "baseline"
+         else mt.c2g_eval_step)(cfg, model, *vb)
     else:
         tt.make_eval_step(model)(*vb)
     torch.cuda.synchronize()
@@ -4710,6 +4762,556 @@ def stream_path(smi: str, done: dict) -> dict:
         raise AssertionError(f"stream check failed: {problems}")
     return out
 
+
+# -- the baseline, c2g and the GAN (g2v-train --part baseline|c2g|gan) ---
+# (run, shipped config, cuts) over the train path's store (2,600 windows
+# of 20 frames: 20 full batches of 128; the validation store 1), c2g over
+# the train path's DAE "a" and GS-Soft tokenizer "b_gssoft" (512 codes);
+# widths as shipped (hidden 200, 2 layers, 20 frames, 300-dim word
+# vectors, noise_dim 400); epochs cut to 2 (the baseline's loss falls
+# slowly in its first) and to 1 for the GAN (11 D updates a step)
+MISC_RUNS = (("baseline", "seq2seq.yml", {"epochs": 2}),
+             ("c2g", "c2g.yml", {"epochs": 2}),
+             ("gan", "gan.yml", {"epochs": 1}))
+# kernel launches a train step and a validation batch (the others 0),
+# from the code: a text encoder's masked BiGRU is 2 layers x 2 directions
+# (4 launches), c2g's pre_gru and the discriminator's pose GRU 2 layers
+# (2); under grad each forward is the gate-saving variant (counted among
+# gru_sequence's launches) and has one backward launch. The GAN step: the
+# fake batch's generator forward without grad (4 inference), 11 D updates
+# (the first and 10 unrolled) of 2 forwards x (4 + 2) = 132 gate-saving,
+# the generator's update (its text encoder 4 gate-saving; D's text
+# encoder 4 inference, as no gradient reaches D; D's pose GRU 2
+# gate-saving): 8 inference + 138 gate-saving launches, 138 backward.
+# A validation batch runs without grad; c2g's rolls out through one
+# chunk-decoder launch
+MISC_STEP_LAUNCHES = {
+    "baseline": {"gru_sequence": 4, "gru_sequence_backward": 4},
+    "c2g": {"gru_sequence": 2, "gru_sequence_backward": 2},
+    "gan": {"gru_sequence": 8 + 138, "gru_sequence_backward": 138}}
+MISC_GATES = {"baseline": 4, "c2g": 2, "gan": 138}
+MISC_VAL_LAUNCHES = {"baseline": {"gru_sequence": 4},
+                     "c2g": {"gru_sequence": 2, "chunk_decoder": 1}}
+# the slice's new kernel shapes (H=200): the GRU sequence at the text
+# encoders' 32 word slots, the pose GRU's 20 frames and c2g's one step at
+# the training batch, baseline generation's one window (B=1) and c2g over
+# all 512 ids; its gradient at the first three; the chunk decoder at
+# c2g's validation batch and its 512 ids (19 steps)
+MISC_GRU_SHAPES = ((32, 128), (20, 128), (1, 128), (32, 1), (1, K))
+MISC_BWD_SHAPES = ((32, 128), (20, 128), (1, 128))
+MISC_DECODER_SHAPES = ((128, N_FRAMES - 1), (K, N_FRAMES - 1))
+# baseline generation's transcript
+MISC_GEN_S = 60.0
+
+
+def misc_want_launches(run: str, cfg, n: int, m: int) -> dict:
+    """The launches `cli/train --part run` must make over n train and m
+    validation samples (full batches only): MISC_STEP_LAUNCHES a step,
+    MISC_VAL_LAUNCHES a validation batch, and for c2g the data step's
+    tokenizer, its BiGRU's layer 0 (2 launches) per 512 windows of the
+    train and the validation set."""
+    bs, epochs = cfg.batch_size, cfg.epochs
+    want = {name: 0 for name in launch_counters()}
+    for per, count in ((MISC_STEP_LAUNCHES[run], n // bs),
+                       (MISC_VAL_LAUNCHES.get(run, {}), m // bs)):
+        for k, v in per.items():
+            want[k] += v * count * epochs
+    if run == "c2g":
+        want["gru_sequence"] += 2 * (-(-n // 512) - (-m // 512))
+    return want
+
+
+def misc_kernel_rows(c2g) -> dict:
+    """The kernels at the slice's new shapes against their plain versions
+    on the same inputs: the chunk decoder with the trained c2g's folded
+    step from its zero seed and its pre_gru's hidden of ids 0.. at each
+    MISC_DECODER_SHAPES; the GRU sequence at each MISC_GRU_SHAPES (both
+    directions) with cuDNN's layer beside it; the GRU training kernels at
+    MISC_BWD_SHAPES (`gru_backward_rows`)."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = {"chunk_decoder": {}, "gru_sequence": {},
+            "gru_sequence_backward": {}}
+    folded = dk.fold_decoder_step(c2g.step)
+    for B, n in MISC_DECODER_SHAPES:
+        with torch.no_grad():
+            ids = torch.arange(B, device="cuda") % K
+            _, h0 = c2g.pre_gru(c2g.embedding(ids)[None])
+        x0 = torch.zeros(B, REP, device="cuda")
+        ys = dk.fused_chunk_decode(x0, h0.contiguous(), folded, n)
+        ref = dk.fused_chunk_decode_plain(x0, h0, folded, n)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "path": "misc_train",
+               "kernel": "chunk_decoder", "B": B, "H": HID, "D": REP,
+               "n_steps": n, "launch": decoder_launch(B, HID, REP),
+               "max_abs_err": (ys - ref).abs().max().item(), "tol": TOL,
+               "ms": cuda_ms(lambda: dk.fused_chunk_decode(
+                   x0, h0.contiguous(), folded, n), 20),
+               "plain_ms": cuda_ms(lambda: dk.fused_chunk_decode_plain(
+                   x0, h0, folded, n), 10),
+               "library_ms": None, **chunk_decoder_bound_ms(B, REP, HID, n)}
+        emit(row)
+        rows["chunk_decoder"][f"misc_B{B}_T{n}"] = row
+    bnd = 1.0 / HID ** 0.5
+    w_ih, w_hh = ((torch.rand(3 * HID, HID, device="cuda", generator=g)
+                   * 2 - 1) * bnd for _ in range(2))
+    b_ih, b_hh = ((torch.rand(3 * HID, device="cuda", generator=g) * 2 - 1)
+                  * bnd for _ in range(2))
+    cudnn = torch.nn.GRU(HID, HID, 1).cuda()
+    with torch.no_grad():
+        for prm, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                       (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            prm.copy_(v)
+    with torch.inference_mode():
+        for T, B in MISC_GRU_SHAPES:
+            xs = torch.randn(T, B, HID, device="cuda", generator=g)
+            h0 = torch.zeros(B, HID, device="cuda")
+            xp = (xs.reshape(-1, HID) @ w_ih.t() + b_ih).reshape(T, B, -1)
+            err = 0.0
+            for reverse in (False, True):
+                ys, h = gk.gru_sequence(xp, h0, w_hh, b_hh, reverse)
+                ys_p, h_p = gk.gru_sequence_plain(xp, h0, w_hh, b_hh,
+                                                  reverse)
+                torch.cuda.synchronize()
+                err = max(err, (ys - ys_p).abs().max().item(),
+                          (h - h_p).abs().max().item())
+            row = {"phase": "kernel", "path": "misc_train",
+                   "kernel": "gru_sequence", "T": T, "B": B, "H": HID,
+                   "directions": 2, "launch": gru_launch(B, HID),
+                   "max_abs_err": err, "tol": TOL,
+                   "ms": cuda_ms(lambda: gk.gru_sequence(xp, h0, w_hh,
+                                                         b_hh), 20),
+                   "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                       xp, h0, w_hh, b_hh), 5),
+                   **gru_bound_ms(T, B, HID),
+                   # cuDNN computes the input product too: its yardstick
+                   # is the matmul plus the kernel
+                   "library_ms": cuda_ms(lambda: cudnn(xs, h0[None]), 20),
+                   "matmul_plus_kernel_ms": cuda_ms(lambda: gru_layer(
+                       xs, h0, w_ih, w_hh, b_ih, b_hh), 20)}
+            emit(row)
+            rows["gru_sequence"][f"misc_T{T}_B{B}"] = row
+    for r in gru_backward_rows(MISC_BWD_SHAPES):
+        if not r["reverse"]:
+            r["path"] = "misc_train"
+            rows["gru_sequence_backward"][f"misc_T{r['T']}_B{r['B']}"] = r
+    bad = [r for k in rows.values() for r in k.values()
+           if not r["max_abs_err"] <= r["tol"]]
+    if bad:
+        raise AssertionError(f"kernels at the misc path's shapes: {bad}")
+    return rows
+
+
+def gan_batches(cfg, data, count: int) -> list:
+    """The first count batches of the GAN trainer's first epoch, on the
+    card."""
+    from gesture2vec_tpu_torch.train.token_loop import to_device
+
+    bs = cfg.batch_size
+    perm = np.random.default_rng(max(cfg.random_seed, 0)).permutation(
+        data[0].shape[0])
+    n = data[0].shape[0] // bs
+    return [tuple(to_device(a[perm[(b % n) * bs:(b % n + 1) * bs]], "cuda")
+                  for a in data) for b in range(count)]
+
+
+def gan_measure(cfg, data, n_words: int) -> dict:
+    """The GAN trainer's step (`train/gan_trainer.GANStep`, 10 unrolled D
+    updates) on a fresh pair of models: launches per step (and of the
+    gate-saving variant), steps/s and samples/s over TRAIN_TIMED_STEPS,
+    the split into the fake batch, the 11 D updates and the generator's
+    update (with D's restore) over 3 steps, the idle share and device ops
+    per step over TRAIN_PROFILED_STEPS."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.layers import dropout_generator
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.train import gan_trainer as gt
+    from gesture2vec_tpu_torch.train.optim import Adam
+
+    g, d = gt.init_gan(*gt.build_gan(cfg, n_words, DIM), 0,
+                       torch.device("cuda"))
+    step = gt.GANStep(g, d, Adam(g.parameters(), cfg.learning_rate,
+                                 clip_norm=None),
+                      Adam(d.parameters(), cfg.learning_rate,
+                           clip_norm=None),
+                      keep_unrolled=cfg.gan_keep_unrolled)
+    drop = torch.Generator(device="cuda").manual_seed(0)
+    noise_gen = torch.Generator(device="cuda").manual_seed(1)
+    bs = cfg.batch_size
+    n_timed, n_prof = TRAIN_TIMED_STEPS["gan"], TRAIN_PROFILED_STEPS["gan"]
+    batches = gan_batches(cfg, data, 4 + n_timed + n_prof)
+
+    def noise():
+        return torch.randn(bs, cfg.noise_dim, generator=noise_gen,
+                           device="cuda")
+
+    def run_steps(bb):
+        for batch in bb:
+            with dropout_generator(drop):
+                step(*batch, noise())
+
+    reset_launches()
+    run_steps(batches[:1])
+    torch.cuda.synchronize()
+    per_step = all_launches()
+    gates = gk.gru_sequence_gates.launches
+    split = {"fake_ms": 0.0, "d_updates_ms": 0.0, "g_step_ms": 0.0}
+    for tokens, lengths, real in batches[1:4]:
+        z, seed = noise(), real[:, 0]
+        with dropout_generator(drop):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fake = step.fake_batch(tokens, lengths, z, seed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, _, saved = step.unroll(tokens, lengths, real, fake)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            step.g_update(tokens, lengths, z, seed)
+            if saved is not None:
+                step.restore_d(*saved)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        for key, dt_s in (("fake_ms", t1 - t0), ("d_updates_ms", t2 - t1),
+                          ("g_step_ms", t3 - t2)):
+            split[key] += dt_s * 1e3 / 3
+    timed = batches[4:4 + n_timed]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = batches[4 + n_timed:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(prof)
+    torch.cuda.synchronize()
+    busy = device_busy(lambda: run_steps(prof), time.perf_counter() - t0)
+    busy["device_ops_per_step"] = busy["device_ops"] / max(len(prof), 1)
+    return {"steps_per_epoch": data[0].shape[0] // bs, "batch": bs,
+            "unroll_steps": step.unroll_steps,
+            "launches_per_step": per_step, "gates_per_step": gates,
+            "timed_steps": len(timed), "steps_per_s": len(timed) / wall,
+            "samples_per_s": len(timed) * bs / wall, "split_ms": split,
+            "profiled_steps": len(prof), **busy}
+
+
+def gan_card_vs_cpu(cfg, data, n_words: int) -> dict:
+    """The GAN step from the same initial models, batch and noise on the
+    card and on the CPU, every dropout off: the fake batch (relative to
+    its largest magnitude), the first D update alone (its losses and D's
+    gradients, each against its tensor's largest magnitude), then the
+    whole step from the start again (the three losses; the generator's
+    gradients, pre_linear's bias against the model's largest gradient as
+    in train_card_vs_cpu; its BatchNorm statistics against the larger of
+    1 and their largest magnitude). A ReLU input on another side of 0 on
+    the card (kink_inputs) makes the run a near-tie when each such input
+    lies within KINK_TIE of its call's largest magnitude."""
+    import copy
+
+    import torch
+
+    from gesture2vec_tpu_torch.compat.from_jax import param_entries
+    from gesture2vec_tpu_torch.train import gan_trainer as gt
+    from gesture2vec_tpu_torch.train.optim import Adam
+    from gesture2vec_tpu_torch.train.token_loop import to_device
+
+    g, d = gt.init_gan(*gt.build_gan(cfg, n_words, DIM), 0,
+                       torch.device("cpu"))
+    bs = cfg.batch_size
+    batch = [a[:bs] for a in data]
+    noise = torch.randn(bs, cfg.noise_dim,
+                        generator=torch.Generator().manual_seed(0))
+
+    def grads(model):
+        return {path: (p.grad if p.grad is not None
+                       else torch.zeros_like(p)).detach().cpu()
+                for path, p, _, _ in param_entries(model)}
+
+    def run(dev: str) -> dict:
+        t = [to_device(a, dev) for a in batch]
+        z = noise.to(dev)
+        out = {}
+        with kink_inputs() as calls:
+            for whole in (False, True):
+                gm, dm = copy.deepcopy(g).to(dev), copy.deepcopy(d).to(dev)
+                step = gt.GANStep(
+                    gm, dm, Adam(gm.parameters(), cfg.learning_rate,
+                                 clip_norm=None),
+                    Adam(dm.parameters(), cfg.learning_rate,
+                         clip_norm=None),
+                    keep_unrolled=cfg.gan_keep_unrolled)
+                gm.train()
+                dm.train()
+                if not whole:
+                    fake = step.fake_batch(*t[:2], z, t[2][:, 0])
+                    out["first"] = [float(v) for v in
+                                    step.d_update(*t, fake)]
+                    out["fake"], out["d_grads"] = fake.cpu(), grads(dm)
+                    continue
+                out["metrics"] = {k: float(v)
+                                  for k, v in step(*t, z).items()}
+                out["g_grads"] = grads(gm)
+                out["buffers"] = {name: b.detach().cpu()
+                                  for name, b in gm.named_buffers()
+                                  if b.dtype.is_floating_point}
+        out["kinks"] = calls
+        return out
+
+    def tree_err(ref: dict, other: dict) -> tuple:
+        top = max(float(v.abs().max()) for v in ref.values())
+        worst, where = 0.0, ""
+        for path, v in ref.items():
+            scale = top if cancelled_grad(path) else float(v.abs().max())
+            err = float((other[path] - v).abs().max()) / max(scale, 1e-30)
+            if err > worst:
+                worst, where = err, "/".join(path)
+        return worst, where
+
+    host, card = run("cpu"), run("cuda")
+    flips = kink_flips(host["kinks"], card["kinks"])
+    losses = {**dict(zip(("first_d_real", "first_d_fake"), host["first"])),
+              **host["metrics"]}
+    card_losses = {**dict(zip(("first_d_real", "first_d_fake"),
+                              card["first"])), **card["metrics"]}
+    d_err, d_where = tree_err(host["d_grads"], card["d_grads"])
+    g_err, g_where = tree_err(host["g_grads"], card["g_grads"])
+    buf = max(float((card["buffers"][k] - v).abs().max())
+              / max(1.0, float(v.abs().max()))
+              for k, v in host["buffers"].items())
+    return {"losses_cpu": losses, "losses_card": card_losses,
+            "loss_rel_err": max(abs(card_losses[k] - v) / max(abs(v), 1e-30)
+                                for k, v in losses.items()),
+            "fake_rel_err": rel_err(card["fake"], host["fake"]),
+            "d_grad_rel_err": d_err, "d_grad_worst": d_where,
+            "grad_rel_err": g_err, "grad_worst": g_where,
+            "buffer_rel_err": buf, **flips,
+            "near_tie": flips["kink_flips"] > 0
+            and flips["kink_max_ratio"] <= KINK_TIE}
+
+
+def misc_train_path(smi: str, done: dict) -> tuple:
+    """`cli/train.main()` for --part baseline, c2g and gan over the train
+    path's store (c2g over its DAE and GS-Soft tokenizer) at the shipped
+    configs' widths, one epoch each: each command's launches against
+    those its steps, validation batches and data step must make, and
+    its seconds; from a separate loop on fresh models, launches per step
+    and per validation batch, steps/s, the split (forward / backward /
+    optimizer; the GAN's fake batch / D updates / generator step), the
+    idle share and device ops per step; one step card against CPU; the
+    losses. Then the kernels at the new shapes against their plain
+    versions, `generate_baseline` over the trained baseline's checkpoint
+    and a MISC_GEN_S transcript card against CPU, and c2g over all 512
+    ids through the chunk-decoder kernel against its plain loop (and the
+    parity_frozen_hidden model, which launches no chunk decoder). Returns
+    ({kernel: {shape: row}}, {run: the command's launches})."""
+    import glob
+
+    import torch
+
+    from gesture2vec_tpu_torch.cli import train as cli_train
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.infer.baseline_infer import generate_baseline
+    from gesture2vec_tpu_torch.text.vocab import build_vocab
+
+    root, stores, ckpts = done["root"], done["stores"], done["ckpts"]
+    build, built = cli_train.build_arrays, {}
+
+    def recording_build(*args):
+        built["out"] = build(*args)
+        return built["out"]
+
+    counts, runs, files, problems = {}, {}, {}, []
+    with kernel_shapes() as shapes:
+        for run, shipped, cuts in MISC_RUNS:
+            cfg_path = os.path.join(root, f"misc_{run}.yml")
+            save = os.path.join(root, "out", f"misc_{run}")
+            write_train_config(cfg_path, shipped, {
+                "train_data_path": stores[0], "val_data_path": stores[1],
+                "model_save_path": save, **cuts})
+            argv = ["-c", cfg_path, "--part", run, "--save-dir", save]
+            if run == "c2g":
+                argv += ["--rep-checkpoint", ckpts["a"],
+                         "--autoencoder-checkpoint", ckpts["b_gssoft"]]
+            reset_launches()
+            gates_before = sum(shapes["gru_sequence_gates"].values())
+            cli_train.build_arrays = recording_build
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                _, hist = cli_train.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                cli_train.build_arrays = build
+            wall = time.perf_counter() - t0
+            counts[run] = read_launches()
+            gates = sum(shapes["gru_sequence_gates"].values()) - gates_before
+            files[run] = sorted(glob.glob(os.path.join(save, "*.bin")))[-1]
+            cfg, (train, val), kw = built.pop("out")
+            n_words = kw.get("n_words", 0)
+            if run != "c2g":
+                fields = ("word_ids", "lengths", "poses")
+                train = tuple(train[f] for f in fields)
+                val = tuple(val[f] for f in fields) if val else ((),)
+            m = len(val[0])
+            row = {"phase": "misc_train", "run": run,
+                   "config": f"configs/{shipped}", "cuts": cuts,
+                   "widths": {"hidden": cfg.hidden_size,
+                              "layers": cfg.n_layers,
+                              "batch": cfg.batch_size,
+                              "frames": cfg.n_poses,
+                              "word_embed": cfg.wordembed_dim,
+                              "noise_dim": cfg.noise_dim,
+                              "codes": cfg.autoencoder_vq_components},
+                   "cli_s": wall, "launches": counts[run],
+                   "gates_launches": gates,
+                   "want_launches": misc_want_launches(
+                       run, cfg, train[0].shape[0], m),
+                   "train_samples": int(train[0].shape[0]),
+                   "val_samples": m, "history": hist}
+            if run == "gan":
+                row.update(gan_measure(cfg, train, n_words),
+                           card_vs_cpu=gan_card_vs_cpu(cfg, train, n_words))
+            else:
+                row.update(train_measure(run, run, cfg, train, val,
+                                         n_words),
+                           card_vs_cpu=train_card_vs_cpu(run, cfg, train,
+                                                         n_words))
+            emit(row)
+            runs[run] = row
+
+        # -- generation over the trained checkpoints ------------------------
+        store = ClipStore(stores[0])
+        vocab = build_vocab("corpus", [[w[0] for w in c["words"]]
+                                       for c in store.clips])
+        ws = words(MISC_GEN_S, 4)
+        gen = {}
+        for dev in ("cuda", "cpu"):
+            model, _ = load_checkpoint_and_model(files["baseline"],
+                                                 "baseline", dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen[dev] = generate_baseline(
+                model, vocab, ws, MISC_GEN_S, pose_mean=store.pose_mean,
+                pose_std=store.pose_std, fps=FPS, device=dev)
+            torch.cuda.synchronize()
+            gen[dev + "_s"] = time.perf_counter() - t0
+            gen[dev + "_launches"] = read_launches()
+        n_windows = len(range(0, int(MISC_GEN_S * FPS) - N_FRAMES + 1,
+                              N_FRAMES - 4))
+        baseline_gen = {
+            "frames": list(gen["cuda"].shape), "windows": n_windows,
+            "finite": bool(np.isfinite(gen["cuda"]).all()),
+            "card_s": gen["cuda_s"], "cpu_s": gen["cpu_s"],
+            "launches": gen["cuda_launches"],
+            "max_abs_err_vs_cpu": float(np.abs(gen["cuda"]
+                                               - gen["cpu"]).max()),
+            "tol": TOL * max(1.0, float(np.abs(gen["cpu"]).max()))}
+        emit({"phase": "misc_generate", **baseline_gen})
+        c2g, _ = load_checkpoint_and_model(files["c2g"], "c2g", "cuda")
+        ids = torch.arange(K, device="cuda")
+        c2g_all = {}
+        with torch.no_grad():
+            for name, kernel, frozen in (("kernel", True, False),
+                                         ("plain", False, False),
+                                         ("frozen", True, True)):
+                c2g.use_kernel, c2g.parity_frozen_hidden = kernel, frozen
+                reset_launches()
+                c2g_all[name] = c2g(ids)
+                torch.cuda.synchronize()
+                c2g_all[name + "_launches"] = read_launches()
+        c2g.use_kernel, c2g.parity_frozen_hidden = True, False
+        ref = c2g_all["plain"]
+        c2g_row = {"ids": K, "frames": list(c2g_all["kernel"].shape),
+                   "max_abs_err": (c2g_all["kernel"] - ref).abs().max()
+                   .item(), "tol": TOL * max(1.0, ref.abs().max().item()),
+                   "launches": c2g_all["kernel_launches"],
+                   "plain_launches": c2g_all["plain_launches"],
+                   "frozen_launches": c2g_all["frozen_launches"],
+                   "frozen_finite": bool(torch.isfinite(
+                       c2g_all["frozen"]).all())}
+        emit({"phase": "misc_c2g_all_ids", **c2g_row})
+        rows = misc_kernel_rows(c2g)
+
+    # -- check -------------------------------------------------------------
+    for run, row in runs.items():
+        if row["launches"] != row["want_launches"]:
+            problems.append(f"{run}: the command launched {row['launches']}"
+                            f", want {row['want_launches']}")
+        if row["gates_launches"] != row["launches"]["gru_sequence_backward"]:
+            problems.append(f"{run}: {row['gates_launches']} gate-saving "
+                            f"launches for {row['launches']} backward")
+        want = {k: 0 for k in all_launches()}
+        want.update(MISC_STEP_LAUNCHES[run])
+        if row["launches_per_step"] != want:
+            problems.append(f"{run}: launches per step "
+                            f"{row['launches_per_step']}, want {want}")
+        if run == "gan" and row["gates_per_step"] != MISC_GATES[run]:
+            problems.append(f"gan: {row['gates_per_step']} gate-saving "
+                            f"launches a step, want {MISC_GATES[run]}")
+        if run != "gan":
+            want = {k: 0 for k in all_launches()}
+            want.update(MISC_VAL_LAUNCHES[run])
+            if row["launches_per_val_batch"] != want:
+                problems.append(f"{run}: launches per validation batch "
+                                f"{row['launches_per_val_batch']}, want "
+                                f"{want}")
+        cvc = row["card_vs_cpu"]
+        if not cvc.get("near_tie") and not (
+                cvc["loss_rel_err"] <= TOL and cvc["grad_rel_err"] <= TOL
+                and cvc["buffer_rel_err"] <= TOL
+                and cvc["kink_max_ratio"] <= KINK_TIE
+                and cvc.get("d_grad_rel_err", 0.0) <= TOL
+                and cvc.get("fake_rel_err", 0.0) <= TOL):
+            problems.append(f"{run}: card vs CPU {cvc}")
+        hist = row["history"]
+        losses = [v for vals in hist.values() for v in vals]
+        if run == "gan":
+            first, last = hist["first_step_d_loss"][0], \
+                hist["d_real"][-1] + hist["d_fake"][-1]
+        else:
+            first, last = hist["first_step_loss"][0], hist["train_loss"][-1]
+        if not all(np.isfinite(losses)) or not last < first:
+            problems.append(f"{run}: losses {hist}")
+    if not baseline_gen["finite"] or baseline_gen["frames"] != [
+            int(MISC_GEN_S * FPS), DIM] or not \
+            baseline_gen["max_abs_err_vs_cpu"] <= baseline_gen["tol"] or \
+            baseline_gen["launches"]["gru_sequence"] != 4 * n_windows:
+        problems.append(f"generate_baseline: {baseline_gen}")
+    if not c2g_row["max_abs_err"] <= c2g_row["tol"] or \
+            c2g_row["launches"]["chunk_decoder"] != 1 or \
+            c2g_row["plain_launches"]["chunk_decoder"] != 0 or \
+            c2g_row["frozen_launches"]["chunk_decoder"] != 0 or \
+            not c2g_row["frozen_finite"]:
+        problems.append(f"c2g over all ids: {c2g_row}")
+    compared = compared_shapes()
+    compared["gru_sequence"] |= {(T, B, HID) for T, B in MISC_GRU_SHAPES}
+    for name in ("gru_sequence_gates", "gru_sequence_backward"):
+        compared[name] |= {(T, B, HID) for T, B in MISC_BWD_SHAPES}
+    compared["gru_sequence"] |= compared["gru_sequence_gates"]
+    compared["chunk_decoder"] |= set(MISC_DECODER_SHAPES)
+    for name, counter in shapes.items():
+        missing = sorted(set(counter) - compared[name])
+        if missing:
+            problems.append(f"{name}: shapes {missing} not compared with "
+                            f"the plain version")
+    emit({"phase": "check", "path": "misc_train",
+          "card_vs_cpu": {r: row["card_vs_cpu"] for r, row in runs.items()},
+          "kernel_shapes": {name: [[list(k), v] for k, v in sorted(
+              c.items())] for name, c in shapes.items()},
+          "tol": TOL, "problems": problems})
+    if problems:
+        raise AssertionError(f"misc_train check failed: {problems}")
+    return rows, counts
 
 def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
     """The Part-c sweep with `seq_arch: transformer` tokenizers written as
@@ -5801,6 +6403,9 @@ def main() -> int:
         t0 = time.perf_counter()
         stream_path(smi, done)
         secs["stream_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        misc_rows, misc_counts = misc_train_path(smi, done)
+        secs["misc_train_s"] = time.perf_counter() - t0
     emit({"phase": "paths", **secs,
           "total_s": time.perf_counter() - _T0})
     for k in kernels:
@@ -5817,17 +6422,21 @@ def main() -> int:
             "audio": {p: c[k["name"]] for p, c in audio_counts.items()},
             "analysis": {p: c[k["name"]]
                          for p, c in analysis_counts.items()},
-            "train": {p: c[k["name"]] for p, c in train_counts.items()}}
+            "train": {p: c[k["name"]] for p, c in train_counts.items()},
+            "misc_train": {p: c[k["name"]]
+                           for p, c in misc_counts.items()}}
         shapes = {**policy_rows.get(k["name"], {}),
                   **audio_rows.get(k["name"], {}),
-                  **analysis_rows.get(k["name"], {})}
+                  **analysis_rows.get(k["name"], {}),
+                  **misc_rows.get(k["name"], {})}
         if shapes:
             k["max_abs_err"] = max(k["max_abs_err"], *(
                 r["max_abs_err"] for r in shapes.values()))
-            k["by_shape"] = {name: {key: r.get(key) for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "matmul_plus_kernel_ms", "max_abs_err", "tol")}
-                for name, r in shapes.items()}
+            k["by_shape"] = {**k.get("by_shape", {}), **{
+                name: {key: r.get(key) for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "matmul_plus_kernel_ms", "max_abs_err", "tol")}
+                for name, r in shapes.items()}}
     # the bf16 instantiations: launches on the bf16 training path
     emit({"kernels": kernels + bf16_entries})
     print(smi, flush=True)

@@ -7,10 +7,15 @@ vocabulary (the Part-d checkpoint's `lang_model`, else the store's
 words) and, for exemplar mode, the latent bank that `cli/cluster.py`
 writes, and assembles the port's GestureGenerator with the checkpoint's
 chunk length, window length, frame rate and text context.
-`load_bvh_exporter` is the port of its BVH export half.
+`fused_decoder_policy` chooses the chunk rollout's route for the
+generation commands, as `cli/reconstruct` does: the kernel where the
+tokenizer's decoder admits it, else plain PyTorch, chosen from the stated
+reason and logged. `load_bvh_exporter` is the port of its BVH export
+half.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -27,6 +32,20 @@ _GEN_DEFAULTS = {**T2T_CONFIG_DEFAULTS, "motion_resampling_framerate": 24,
                  "text_context_s": 0.0}
 
 
+def fused_decoder_policy(seq_decoder, policy: Dict[str, Any]
+                         ) -> Dict[str, Any]:
+    """The generator options with use_fused_decoder False (and the reason
+    logged) when the tokenizer's decoder cannot run the chunk-decoder
+    kernel (decoder attention, a parity checkpoint's eval step dropout,
+    ...) and the caller did not ask for the kernel; a caller who asks for
+    it still gets the generator's refusal."""
+    reason = seq_decoder.kernel_reason()
+    if not reason or "use_fused_decoder" in policy:
+        return policy
+    logging.info("the chunk rollout runs in plain PyTorch: %s", reason)
+    return {**policy, "use_fused_decoder": False}
+
+
 def build_generator(t2t_checkpoint: str, rep_checkpoint: str,
                     autoencoder_checkpoint: str, store,
                     mode: str = "decode",
@@ -38,7 +57,9 @@ def build_generator(t2t_checkpoint: str, rep_checkpoint: str,
     the GestureGenerator's decode options (seed, temperature, top_k,
     stage0_temperature, beam_width, soft_decode, decode_overlap,
     chunk_continuity, exemplar_continuity, window_carry,
-    use_fused_decoder). Runs on CUDA unless device says otherwise."""
+    use_fused_decoder: by default the kernel where the tokenizer's decoder
+    admits it, else plain PyTorch, `fused_decoder_policy`). Runs on CUDA
+    unless device says otherwise."""
     dev = resolve_device(device)
     t2t, t2t_payload = load_checkpoint_and_model(t2t_checkpoint,
                                                  "text2embedding", dev)
@@ -60,7 +81,7 @@ def build_generator(t2t_checkpoint: str, rep_checkpoint: str,
         sentence_frame_length=int(cfg["sentence_frame_length"]),
         fps=int(cfg["motion_resampling_framerate"]), mode=mode,
         latent_bank=bank, text_context_s=float(cfg["text_context_s"]),
-        device=dev, **policy)
+        device=dev, **fused_decoder_policy(seq.decoder, policy))
     return gen, cfg
 
 

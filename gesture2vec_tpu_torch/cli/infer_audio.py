@@ -13,7 +13,10 @@ A checkpoint trained with `audio_fusion: both` also needs
 `--transcript` (Google-STT JSON or GENEA TSV); its vocabulary is the
 checkpoint's `lang_model`, else the store's words. It reads the
 checkpoint files, clip stores, latent banks and `data_pipe.json` that
-either package writes, and writes the BVH through `infer/exporter`.
+either package writes, and writes the BVH through `infer/exporter`. The
+chunk rollout runs the chunk-decoder kernel where the tokenizer's decoder
+admits it, else plain PyTorch, chosen from the logged reason
+(`cli/_common.fused_decoder_policy`).
 """
 from __future__ import annotations
 
@@ -81,6 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
 def run(args: argparse.Namespace) -> Tuple[np.ndarray, np.ndarray, str]:
     """Generates and writes the BVH; returns (frames, tokens, path)."""
     from gesture2vec_tpu_torch.cli._common import (_GEN_DEFAULTS,
+                                                   fused_decoder_policy,
                                                    load_bvh_exporter)
     from gesture2vec_tpu_torch.cluster.latent_dataset import \
         load_latent_dataset
@@ -126,7 +130,7 @@ def run(args: argparse.Namespace) -> Tuple[np.ndarray, np.ndarray, str]:
         top_k=args.top_k, beam_width=args.beam_width,
         exemplar_continuity=args.exemplar_continuity,
         decode_overlap=args.decode_overlap, soft_decode=args.soft_decode,
-        device=dev)
+        device=dev, **fused_decoder_policy(seq.decoder, {}))
     t0 = time.time()
     frames, tokens = gen.generate(wave, args.duration, words=words)
     dt = time.time() - t0

@@ -1,4 +1,5 @@
-"""g2v-train for the port: train Part a, b, d or audio from a YAML config.
+"""g2v-train for the port: train Part a, b, d or audio, the baseline,
+c2g or the GAN from a YAML config.
 
     python -m gesture2vec_tpu_torch.cli.train -c configs/DAE.yml --part a
     python -m gesture2vec_tpu_torch.cli.train -c configs/VQ-VAE.yml \\
@@ -7,13 +8,18 @@
         --part d --rep-checkpoint ... --autoencoder-checkpoint ...
     python -m gesture2vec_tpu_torch.cli.train -c configs/audio.yml \\
         --part audio --rep-checkpoint ... --autoencoder-checkpoint ...
+    python -m gesture2vec_tpu_torch.cli.train -c configs/seq2seq.yml \
+        --part baseline
+    python -m gesture2vec_tpu_torch.cli.train -c configs/gan.yml --part gan
+    python -m gesture2vec_tpu_torch.cli.train -c configs/c2g.yml \
+        --part c2g --rep-checkpoint ... --autoencoder-checkpoint ...
 
 The recommended recipe is `configs/VQ-VAE_rvq.yml` for part b (the
 4-stage residual VQ), then `configs/seq2seqtxt_recommended.yml` for part
 d (the transformer, 4 chained stages) over that tokenizer.
 
-The port of the JAX package's `cli/train.py` for parts a, b, d and audio,
-with every model their configs select (Part a's DAE, VQ and VAE frame
+The port of the JAX package's `cli/train.py`, every part, with every
+model their configs select (Part a's DAE, VQ and VAE frame
 models;
 Part b's GS-Soft, residual-VQ, VAE, plain and similarity-supervised
 tokenizers; `vq_tricks` only through `train/dae_trainer.train_dae`, as
@@ -22,15 +28,22 @@ Part-a model's latents of the pose windows, Part d
 on the sentence windows tokenized by the frozen Part-a and Part-b
 models, and the audio Part d on the same windows' audio (one-second mel
 chunks, or with `audio_fusion: both` the word ids and one-second raw
-chunks); the checkpoints are the JAX package's files, which either
-package loads. `--device` (default cuda; cpu on a machine without a
-card) takes the place of `--platform`. The loss history goes to
+chunks); the baseline and the GAN on the sentence windows (one
+stride-long window each, at least one word, 32 word slots) with their
+normalised poses, c2g on the frozen Part-a model's latents of the pose
+windows with the frozen Part-b model's tokens as cluster ids (both
+checkpoints required); the checkpoints are the JAX package's files,
+which either package loads. As in JAX, `--resume` is honored for parts
+a, b, d and audio only (a line says it is ignored for the others).
+`--device` (default cuda; cpu on a machine without a card) takes the
+place of `--platform`. The loss history goes to
 `loss_history.json` in the save dir, and, where matplotlib imports, the
 JAX package's `loss_curves.png` beside it (`mocap/viz.plot_loss_curves`;
 one logged line says when it is left out). `--plot-every N` (part b,
 needs matplotlib and scikit-learn) writes the codebook's t-SNE every N
-epochs, as JAX does. Refused, each naming the queue item that ports it:
-the parts baseline, c2g and gan (6) and `--mesh` (5).
+epochs, as JAX does. Refused, naming the queue item that ports it
+(5, scale-out): `--mesh`, and a config's `mesh_shape` before any data
+is built.
 """
 from __future__ import annotations
 
@@ -40,8 +53,10 @@ import logging
 import os
 from typing import Any, List, Optional, Tuple
 
+import numpy as np
+
 _PARTS = ("a", "b", "d", "audio", "baseline", "c2g", "gan")
-_LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
+_MISC_PARTS = ("baseline", "c2g", "gan")
 
 
 def _history(history: dict, save_dir: str, title: str) -> None:
@@ -69,9 +84,11 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
     parser.add_argument("--config", "-c", required=True)
     parser.add_argument("--part", choices=_PARTS, required=True)
     parser.add_argument("--rep-checkpoint", default=None,
-                        help="frozen Part-a checkpoint (parts b, d)")
+                        help="frozen Part-a checkpoint (parts b, c2g, d, "
+                             "audio)")
     parser.add_argument("--autoencoder-checkpoint", default=None,
-                        help="frozen Part-b checkpoint (part d)")
+                        help="frozen Part-b checkpoint (parts c2g, d, "
+                             "audio)")
     parser.add_argument("--save-dir", default=None)
     parser.add_argument("--resume", default=None, metavar="CKPT",
                         help="checkpoint to resume from (the port's or the "
@@ -84,22 +101,20 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    later = {"baseline": "6", "c2g": "6", "gan": "6"}
-    if args.part in later:
-        raise NotImplementedError(_LATER.format(f"--part {args.part}",
-                                                later[args.part]))
     if args.mesh:
-        raise NotImplementedError(_LATER.format("--mesh", "5, scale-out"))
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP.md "
+                                  "queue A item 5, scale-out)")
     from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
     if args.plot_every and not have_matplotlib():
         parser.error("--plot-every needs matplotlib")
 
     from gesture2vec_tpu_torch.device import resolve_device
-    from gesture2vec_tpu_torch.train.config import load_config
+    from gesture2vec_tpu_torch.train.config import load_config, refuse_mesh
     from gesture2vec_tpu_torch.utils.meters import set_logger
 
     dev = resolve_device(args.device)
     cfg = load_config(args.config)
+    refuse_mesh(cfg)
     if args.rep_checkpoint:
         cfg = cfg.replace(rep_learning_checkpoint=args.rep_checkpoint)
     if args.autoencoder_checkpoint:
@@ -109,6 +124,15 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
     logging.info("part %s, config %s -> %s on %s", args.part, args.config,
                  save_dir, dev)
     cfg, (train, val), kw = build_arrays(cfg, args.part, dev)
+    if args.part in _MISC_PARTS:
+        if args.resume:
+            logging.info("--resume is ignored for part %s (as in the JAX "
+                         "package: parts a, b, d and audio only)",
+                         args.part)
+        model, hist = _fit_misc(cfg, args.part, train, val, save_dir, dev,
+                                kw)
+        _history(hist, save_dir, cfg.name)
+        return model, hist
     if args.part == "b":
         kw["plot_every"] = args.plot_every
     if args.part == "a":
@@ -128,6 +152,50 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
     return model, hist
 
 
+def _fit_misc(cfg, part: str, train, val, save_dir: str, dev,
+              kw: dict) -> Tuple[Any, dict]:
+    """The baseline's, c2g's or the GAN's trainer over build_arrays'
+    data. Their models train in fp32 whatever compute_dtype says, as the
+    JAX trainers build them."""
+    if cfg.compute_dtype != "float32":
+        logging.info("compute_dtype %s is ignored for part %s: it trains "
+                     "in float32, as in the JAX package", cfg.compute_dtype,
+                     part)
+    if part == "baseline":
+        from gesture2vec_tpu_torch.train.misc_trainers import train_baseline
+        return train_baseline(cfg, train, val, save_dir=save_dir,
+                              device=dev, **kw)
+    if part == "gan":
+        from gesture2vec_tpu_torch.train.gan_trainer import train_gan
+        return train_gan(cfg, train, save_dir=save_dir, device=dev, **kw)
+    from gesture2vec_tpu_torch.train.misc_trainers import train_c2g
+    return train_c2g(cfg, *train, *val, save_dir=save_dir, device=dev)
+
+
+def text_pose_windows(cfg, store, vocab, mean, std) -> dict:
+    """The baseline's and the GAN's data (the JAX command's): one
+    n_poses window every subdivision_stride frames with at least one
+    word, its word ids (with SOS / EOS, at most 32; length at least 1)
+    and its poses normalised by mean / std: {word_ids (N, 32), lengths
+    (N,), poses (N, n_poses, D)}."""
+    from gesture2vec_tpu_torch.data.datasets import (normalize,
+                                                     sentence_windows)
+
+    wins = sentence_windows(store, cfg.n_poses, cfg.subdivision_stride,
+                            cfg.motion_resampling_framerate, min_words=1)
+    clips = {i: store[i] for i in sorted({w["clip"] for w in wins})}
+    poses = np.stack([normalize(clips[w["clip"]]["poses"][
+        w["frame0"]:w["frame0"] + cfg.n_poses], mean, std)
+        for w in wins]).astype(np.float32)
+    word_ids = np.zeros((len(wins), 32), np.int32)
+    lengths = np.zeros((len(wins),), np.int32)
+    for i, w in enumerate(wins):
+        ids = vocab.words_to_ids([t[0] for t in w["words"]])[:32]
+        word_ids[i, :len(ids)] = ids
+        lengths[i] = max(len(ids), 1)
+    return {"word_ids": word_ids, "lengths": lengths, "poses": poses}
+
+
 def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
     """A part's data from the config's stores, as its trainer takes it:
     (the config, for parts b and d with rep_learning_dim read from the
@@ -136,7 +204,10 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
     frozen DAE's latents of the pose windows; Part d: the sentence
     windows with the frozen Part-a and Part-b models' tokens; audio: the
     same with each window's mel chunks, or with audio_fusion "both" its
-    raw chunks (and the vocabulary's size and state)."""
+    raw chunks (and the vocabulary's size and state); baseline and gan:
+    `text_pose_windows` (and the vocabulary's size and vectors); c2g:
+    ((train tokens, train latents), (val tokens, val latents)), the
+    frozen Part-b model's tokens of the frozen DAE's latent windows."""
     from gesture2vec_tpu_torch.compat.checkpoint import \
         load_checkpoint_and_model
     from gesture2vec_tpu_torch.data.datasets import (all_frames,
@@ -150,31 +221,52 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
     if part == "a":
         return cfg, (all_frames(train_store),
                      all_frames(val_store, mean, std)), {}
+    if part in ("baseline", "gan"):
+        from gesture2vec_tpu_torch.text.vocab import build_vocab
+
+        vocab = build_vocab("corpus", [[w[0] for w in c["words"]]
+                                       for c in train_store.clips])
+        vocab.load_word_vectors(cfg.wordembed_path, cfg.wordembed_dim)
+        data = [text_pose_windows(cfg, s, vocab, mean, std)
+                for s in (train_store, val_store)]
+        return cfg, (data[0], data[1] if part == "baseline" else None), dict(
+            n_words=vocab.n_words,
+            embedding_weights=vocab.word_embedding_weights)
 
     if not cfg.rep_learning_checkpoint:
-        raise ValueError("--rep-checkpoint required (parts b, d, audio)")
+        raise ValueError("--rep-checkpoint required (parts b, c2g, d, "
+                         "audio)")
     dae, dae_payload = load_checkpoint_and_model(
         cfg.rep_learning_checkpoint, "DAE", dev)
     if cfg.rep_learning_dim <= 0:
         cfg = cfg.replace(
             rep_learning_dim=int(dae_payload["config"]["hidden_size"]))
+    def latents(store):
+        return encode_windows_with_dae(dae, pose_windows(
+            store, cfg.n_poses, cfg.subdivision_stride, mean, std))
+
     if part == "b":
-        def latents(store):
-            return encode_windows_with_dae(dae, pose_windows(
-                store, cfg.n_poses, cfg.subdivision_stride, mean, std))
         return cfg, (latents(train_store), latents(val_store)), {}
+    if not cfg.autoencoder_checkpoint:
+        raise ValueError("--autoencoder-checkpoint required (parts c2g, d, "
+                         "audio)")
+    seq, _ = load_checkpoint_and_model(cfg.autoencoder_checkpoint,
+                                       "autoencoder_vq", dev)
+    if part == "c2g":
+        from gesture2vec_tpu_torch.data.teacher import tokenize_windows
+
+        arrays = []
+        for store in (train_store, val_store):
+            lat = latents(store)
+            arrays.append((tokenize_windows(seq, lat)[0], lat))
+        return cfg, tuple(arrays), {}
 
     from gesture2vec_tpu_torch.data.sentence import build_sentence_dataset
     from gesture2vec_tpu_torch.text.vocab import build_vocab
 
-    if not cfg.autoencoder_checkpoint:
-        raise ValueError("--autoencoder-checkpoint required (parts d, "
-                         "audio)")
     vocab = build_vocab("corpus", [[w[0] for w in c["words"]]
                                    for c in train_store.clips])
     vocab.load_word_vectors(cfg.wordembed_path, cfg.wordembed_dim)
-    seq, _ = load_checkpoint_and_model(cfg.autoencoder_checkpoint,
-                                       "autoencoder_vq", dev)
     kw = dict(dae_model=dae, seq_model=seq,
               sentence_frame_length=cfg.sentence_frame_length,
               stride=cfg.subdivision_stride_sentence, n_frames=cfg.n_poses,

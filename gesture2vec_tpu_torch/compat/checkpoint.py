@@ -35,6 +35,13 @@ constructors mirror the JAX registry for the kinds the Part-c path loads:
                   carries the vocabulary in lang_model), token_stages,
                   stage_conditional and autoencoder_att (the token
                   decoder's attention) from the config, fp32.
+  baseline, c2g,  `misc_trainers._build_baseline` / `_build_c2g`,
+  text2embedding_ `gan_trainer._build_gan_generator`: the Seq2SeqNet,
+  gan             the Cluster2Gesture (parity_frozen_hidden off, as the
+                  JAX maker builds it) and the GAN's generator, widths
+                  from the weights (held against the config's and the
+                  file's n_words and pose_dim), n_poses and n_pre_poses
+                  from the config, fp32.
 Each maker holds what the config says against what the weights hold.
 Every model loaded here computes in fp32 (`compute_dtype` None) and
 `load_checkpoint_and_model` sets the payload config's `compute_dtype` to
@@ -51,7 +58,8 @@ import torch
 from torch import nn
 
 from gesture2vec_tpu_torch.compat.from_jax import (
-    audio2token_from_jax, frame_model_from_jax, is_transformer_text2token,
+    audio2token_from_jax, baseline_from_jax, c2g_from_jax,
+    frame_model_from_jax, gan_generator_from_jax, is_transformer_text2token,
     seq_ae_from_jax, text2token_from_jax, transformer_text2token_from_jax)
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.utils import mpack
@@ -177,11 +185,64 @@ def audio2token_from_checkpoint(payload: Dict[str, Any]) -> nn.Module:
     return model
 
 
+# the JAX package's Config defaults for the fields the baseline, c2g and
+# GAN makers read
+MISC_CONFIG_DEFAULTS = {"n_poses": 50, "n_pre_poses": 5, "hidden_size": 200,
+                        "n_layers": 2, "noise_dim": 200}
+
+
+def _check_misc(model: nn.Module, cfg: Dict[str, Any], payload, kind: str
+                ) -> nn.Module:
+    """Holds the config's widths (and the file's n_words and pose_dim)
+    against the weights."""
+    want = {"hidden_size": int(cfg["hidden_size"]),
+            "n_layers": int(cfg["n_layers"]),
+            "pose_dim": int(payload["pose_dim"])}
+    if kind == "c2g":
+        got = {"hidden_size": model.pre_gru.hidden_size,
+               "n_layers": model.pre_gru.n_layers,
+               "pose_dim": model.output_size}
+    else:
+        enc = model.encoder
+        got = {"hidden_size": enc.hidden_size, "n_layers": enc.gru.n_layers,
+               "pose_dim": model.pose_dim,
+               "n_words": enc.embedding_table.num_embeddings}
+        want["n_words"] = int(payload["extra"]["n_words"])
+    if kind == "text2embedding_gan":
+        got["noise_dim"] = model.noise_dim
+        want["noise_dim"] = int(cfg["noise_dim"])
+    if got != want:
+        raise ValueError(f"the {kind} checkpoint's config says {want}, its "
+                         f"weights hold {got}")
+    return model
+
+
+def misc_from_checkpoint(kind: str):
+    """The maker of the baseline's (Seq2SeqNet), c2g's (Cluster2Gesture)
+    or the GAN generator's (T2GGenerator) checkpoint kind."""
+    def make(payload: Dict[str, Any]) -> nn.Module:
+        cfg = {**MISC_CONFIG_DEFAULTS, **payload["config"]}
+        variables = {"params": payload["params"],
+                     "batch_stats": payload["extra"].get("batch_stats", {})}
+        n_frames = int(cfg["n_poses"])
+        if kind == "baseline":
+            model = baseline_from_jax(variables, n_frames=n_frames,
+                                      n_pre_poses=int(cfg["n_pre_poses"]))
+        elif kind == "c2g":
+            model = c2g_from_jax(variables, n_frames=n_frames)
+        else:
+            model = gan_generator_from_jax(variables, n_frames=n_frames)
+        return _check_misc(model, cfg, payload, kind)
+    return make
+
+
 _MAKERS = {"DAE": dae_from_checkpoint,
            "autoencoder_vq": seq_ae_from_checkpoint,
            "autoencoder": seq_ae_from_checkpoint,
            "text2embedding": text2token_from_checkpoint,
-           "audio2token": audio2token_from_checkpoint}
+           "audio2token": audio2token_from_checkpoint,
+           **{kind: misc_from_checkpoint(kind)
+              for kind in ("baseline", "c2g", "text2embedding_gan")}}
 
 
 def load_checkpoint_and_model(path: str, what: str,

@@ -35,6 +35,12 @@ Text2Token, SeqVQAutoencoder and DAE). Conversions:
   embedding, the BiGRU         -> the same names (convs permuted to
                                   (out, in, k)); the decoder step as the
                                   text model's
+  Seq2SeqNet (baseline), Cluster2Gesture (c2g), T2GGenerator and
+  T2GDiscriminator (the GAN): encoder / text_encoder (embedding_table,
+  the masked BiGRU), decoder_step / step (attention, pre_linear, pre_bn
+  with batch_stats, the GRU stack, out_layer), embedding, pre_gru and
+  pose_gru (l{n}_*), fuse, pose_in, head layers_0 / layers_2
+                                     -> the same names
 The other way, for training: `param_entries` lists a trainable port
 model's parameters with their JAX path, layout and initialiser;
 `to_jax_variables` / `load_jax_variables` carry params and batch_stats
@@ -66,7 +72,10 @@ from gesture2vec_tpu_torch.models.audio import (AudioContextEncoder,
                                                WavEncoderSpectral,
                                                WavEncoderTri)
 from gesture2vec_tpu_torch.models.audio2token import Audio2Token
+from gesture2vec_tpu_torch.models.baseline import Seq2SeqNet
+from gesture2vec_tpu_torch.models.c2g import Cluster2Gesture
 from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
+from gesture2vec_tpu_torch.models.gan import T2GDiscriminator, T2GGenerator
 from gesture2vec_tpu_torch.models.seq_ae import SeqDecoder, SeqVQAutoencoder
 from gesture2vec_tpu_torch.models.text2token import Text2Token
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
@@ -433,6 +442,67 @@ def audio2token_from_jax(variables: Tree, *, n_steps: int,
     return model.eval()
 
 
+def _text_encoder_shape(enc: Tree) -> Tuple[int, int, int, int]:
+    """(n_words, embed, hidden, layers) of a TextEncoderRNN's params."""
+    n_words, embed = np.shape(enc["embedding_table"])
+    return (n_words, embed, np.shape(enc["gru"]["l0_w_hh"])[1],
+            _n_layers(enc["gru"]))
+
+
+def _load(model: nn.Module, variables: Tree) -> nn.Module:
+    load_jax_variables(model, variables["params"],
+                       variables.get("batch_stats"))
+    return model.eval()
+
+
+def baseline_from_jax(variables: Tree, *, n_frames: int,
+                      n_pre_poses: int = 5) -> Seq2SeqNet:
+    """A Seq2SeqNet from JAX variables; widths, layers, vocabulary and
+    pose width from the arrays."""
+    n_words, embed, hidden, layers = _text_encoder_shape(
+        variables["params"]["encoder"])
+    pose_dim = np.shape(variables["params"]["decoder_step"]["out_layer"]
+                        ["kernel"])[1]
+    return _load(Seq2SeqNet(n_words, pose_dim, n_frames, hidden, layers,
+                            n_pre_poses=n_pre_poses, word_embed_size=embed),
+                 variables)
+
+
+def c2g_from_jax(variables: Tree, *, n_frames: int,
+                 parity_frozen_hidden: bool = False) -> Cluster2Gesture:
+    """A Cluster2Gesture from JAX variables; clusters, widths and layers
+    from the arrays."""
+    p = variables["params"]
+    n_clusters, hidden = np.shape(p["embedding"]["embedding"])
+    output = np.shape(p["step"]["out_layer"]["kernel"])[1]
+    return _load(Cluster2Gesture(n_clusters, output, hidden, n_frames,
+                                 _n_layers(p["pre_gru"]),
+                                 parity_frozen_hidden=parity_frozen_hidden),
+                 variables)
+
+
+def gan_generator_from_jax(variables: Tree, *,
+                           n_frames: int) -> T2GGenerator:
+    """A T2GGenerator from JAX variables; the noise width is what `fuse`
+    takes beyond the L*H hidden."""
+    p = variables["params"]
+    n_words, embed, hidden, layers = _text_encoder_shape(p["encoder"])
+    pose_dim = np.shape(p["decoder_step"]["out_layer"]["kernel"])[1]
+    noise_dim = np.shape(p["fuse"]["kernel"])[0] - layers * hidden
+    return _load(T2GGenerator(n_words, pose_dim, n_frames, hidden, layers,
+                              noise_dim=noise_dim, word_embed_size=embed),
+                 variables)
+
+
+def gan_discriminator_from_jax(params: Tree) -> T2GDiscriminator:
+    """A T2GDiscriminator from its JAX params (it has no batch_stats)."""
+    n_words, embed, hidden, layers = _text_encoder_shape(
+        params["text_encoder"])
+    pose_dim = np.shape(params["pose_in"]["kernel"])[0]
+    return _load(T2GDiscriminator(n_words, pose_dim, hidden, layers,
+                                  word_embed_size=embed), {"params": params})
+
+
 # -- the port's modules -> the JAX package's layout ----------------------
 # One entry per parameter: (path in the JAX params tree, the port's
 # tensor, layout, initialiser). Layouts: "dense" (Linear weight (out, in)
@@ -511,6 +581,41 @@ def _stage_head_entries(path, d: nn.Module) -> List[Entry]:
             out.append(_embed(path + (f"stage_embed_{s}", "embedding"),
                               getattr(d, f"stage_embed_{s}")))
     return out
+
+
+def _text_encoder_entries(path, enc: nn.Module) -> List[Entry]:
+    """A TextEncoderRNN's word table (normal(1), the JAX init without
+    word vectors) and masked BiGRU."""
+    return [(path + ("embedding_table",), enc.embedding_table.weight,
+             "same", "normal:1.0")] \
+        + _gru_entries(path + ("gru",), enc.gru, enc.hidden_size)
+
+
+def misc_entries(model: nn.Module) -> List[Entry]:
+    """The baseline's, c2g's and the GAN's parameters."""
+    if isinstance(model, Cluster2Gesture):
+        H = model.pre_gru.hidden_size
+        out = [_embed(("embedding", "embedding"), model.embedding)]
+        out += _gru_entries(("pre_gru",), model.pre_gru, H)
+        return out + [(("step",) + path[1:], *rest) for path, *rest
+                      in _decoder_step_entries(model.step, H)]
+    if isinstance(model, T2GDiscriminator):
+        e = model.text_encoder
+        H = e.hidden_size
+        out = _text_encoder_entries(("text_encoder",), e)
+        out += _dense_entries(("pose_in",), model.pose_in)
+        out += _gru_entries(("pose_gru",), model.pose_gru, H)
+        for name in ("layers_0", "layers_2"):
+            out += _dense_entries(("head", name), model.head[name])
+        return out
+    e = model.encoder
+    out = _text_encoder_entries(("encoder",), e)
+    if isinstance(model, T2GGenerator):
+        out += _dense_entries(("fuse",), model.fuse)
+    return out + _decoder_step_entries(model.decoder_step, e.hidden_size)
+
+
+_MISC = (Seq2SeqNet, Cluster2Gesture, T2GGenerator, T2GDiscriminator)
 
 
 def dae_entries(model: DAE) -> List[Entry]:
@@ -666,7 +771,8 @@ def transformer_text2token_entries(model: TransformerText2Token
 
 def param_entries(model: nn.Module) -> List[Entry]:
     """The entries of a trainable port model (DAE, tokenizer, Part d, the
-    audio Part d and its encoders)."""
+    audio Part d and its encoders, the baseline, c2g and the GAN's two
+    models)."""
     if isinstance(model, DAE):
         return dae_entries(model)
     if isinstance(model, (VAEFrame, VQFrame)):
@@ -683,6 +789,8 @@ def param_entries(model: nn.Module) -> List[Entry]:
                                      model.encoder.hidden_size)
     if isinstance(model, _AUDIO_ENCODERS):
         return audio_entries(model)
+    if isinstance(model, _MISC):
+        return misc_entries(model)
     raise NotImplementedError(f"no JAX layout for {type(model).__name__}")
 
 
@@ -699,6 +807,10 @@ def batch_norms(model: nn.Module) -> Dict[Tuple[str, ...], nn.Module]:
                 ("decoder_step", "pre_bn"): model.decoder_step.pre_bn}
     if isinstance(model, _AUDIO_ENCODERS):
         return audio_batch_norms(model)
+    if isinstance(model, (Seq2SeqNet, T2GGenerator)):
+        return {("decoder_step", "pre_bn"): model.decoder_step.pre_bn}
+    if isinstance(model, Cluster2Gesture):
+        return {("step", "pre_bn"): model.step.pre_bn}
     return {}
 
 

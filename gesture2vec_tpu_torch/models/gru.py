@@ -1,5 +1,6 @@
-"""GRUs: cells for the autoregressive decoders, and the sequence layer
-and bidirectional stack of the tokenizer's encoder.
+"""GRUs: cells for the autoregressive decoders, the sequence layer, the
+unidirectional stack (c2g's and the GAN discriminator's) and the
+bidirectional stack of the tokenizer's encoder.
 
 Gate math matches torch.nn.GRU and the JAX package's `models/gru.py`
 (gate order r, z, n; separate input and hidden biases; weights in
@@ -137,6 +138,45 @@ def gru_layer(xs: torch.Tensor, h0: torch.Tensor, w_ih: torch.Tensor,
                                               b_ih, b_hh)
     return gru_sequence(_input_projection(xs, w_ih, b_ih), h0.contiguous(),
                         w_hh, b_hh, reverse)
+
+
+class GRU(nn.Module):
+    """Multi-layer unidirectional GRU (torch.nn.GRU semantics; the JAX
+    package's `models/gru.GRU`, same parameter names l{n}_w_ih / w_hh /
+    b_ih / b_hh): xs (T, B, in) time-major, h0 (layers, B, H) or None
+    (zeros) -> (outputs (T, B, H), hidden (layers, B, H)). Each layer is
+    one `gru_layer` (`gru_sequence`, through `GRUSequenceFn` when a
+    gradient is needed); in training dropout acts on the outputs of every
+    layer but the last."""
+
+    def __init__(self, input_size: int, hidden_size: int, n_layers: int = 1,
+                 dropout_rate: float = 0.0):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.n_layers = n_layers
+        self.dropout_rate = dropout_rate
+        H = hidden_size
+        for layer in range(n_layers):
+            in_dim = input_size if layer == 0 else H
+            for name, shape in (("w_ih", (3 * H, in_dim)),
+                                ("w_hh", (3 * H, H)), ("b_ih", (3 * H,)),
+                                ("b_hh", (3 * H,))):
+                self.register_parameter(f"l{layer}_{name}",
+                                        nn.Parameter(torch.zeros(shape)))
+
+    def forward(self, xs: torch.Tensor, h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if h0 is None:
+            h0 = xs.new_zeros((self.n_layers, xs.shape[1], self.hidden_size))
+        outs, h_finals = xs, []
+        for layer in range(self.n_layers):
+            outs, h_last = gru_layer(outs, h0[layer], *(
+                getattr(self, f"l{layer}_{n}")
+                for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
+            h_finals.append(h_last)
+            if layer < self.n_layers - 1:
+                outs = dropout(outs, self.dropout_rate, self.training)
+        return outs, torch.stack(h_finals, dim=0)
 
 
 class BiGRU(nn.Module):

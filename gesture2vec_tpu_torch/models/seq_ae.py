@@ -100,18 +100,18 @@ class DecoderStep(nn.Module):
     the encoder outputs, attended from the last layer's hidden, is
     concatenated to the input. conditioned=False zeroes that input, as the
     JAX module does; in training (or in eval with eval_step_dropout) it
-    then takes the reference's step dropout. With a compute dtype every
-    module but the attention (fp32, as in JAX) computes in it and the
-    output comes back in fp32."""
-
-    # the reference's dropout on the decoder's input at every step
-    step_dropout = 0.95
+    then takes the reference's step dropout, at step_dropout (0.95, the
+    reference's; the baseline, c2g and GAN decoders pass 0). With a compute
+    dtype every module but the attention (fp32, as in JAX) computes in it
+    and the output comes back in fp32."""
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int,
                  conditioned: bool = True, dropout_rate: float = 0.0,
                  dtype: Dtype = None, use_attention: bool = False,
-                 eval_step_dropout: bool = False):
+                 eval_step_dropout: bool = False,
+                 step_dropout: float = 0.95):
         super().__init__()
+        self.step_dropout = step_dropout
         self.conditioned = conditioned
         self.dtype = dtype
         self.use_attention = use_attention
@@ -126,14 +126,17 @@ class DecoderStep(nn.Module):
         self.out_layer = Dense(hidden_size, input_size, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor,
-                encoder_outputs: Optional[torch.Tensor] = None
+                encoder_outputs: Optional[torch.Tensor] = None,
+                enc_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """enc_mask (T,) bool marks the encoder positions the attention
+        may read (`Attn`)."""
         if self.use_attention:
             if encoder_outputs is None:
                 raise ValueError("the attention decoder step reads the "
                                  "encoder outputs (autoencoder_att)")
             enc = as_fp32(encoder_outputs)
-            w = self.attn(as_fp32(hidden[-1]), enc)            # (B, T)
+            w = self.attn(as_fp32(hidden[-1]), enc, enc_mask)  # (B, T)
             x = torch.cat([x, torch.einsum("bt,tbh->bh", w, enc)], dim=-1)
         if not self.conditioned:
             x = torch.zeros_like(x)

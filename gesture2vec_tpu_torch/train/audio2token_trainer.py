@@ -31,12 +31,10 @@ from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.layers import compute_dtype
 from gesture2vec_tpu_torch.models.audio2token import Audio2Token
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config
+from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
 from gesture2vec_tpu_torch.train.losses import stage_ce, token_cross_entropy
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import run_token_training
-
-_LATER = "{} is not ported yet (ROADMAP.md queue A item {})"
 
 
 def make_audio2token(config: Config, n_words: int = 0) -> Audio2Token:
@@ -121,9 +119,7 @@ def train_audio2token(config: Config, data: Dict[str, np.ndarray],
     n_words, with the vocabulary's lang_model_state saved for inference,
     for "both"); returns (model, history). Runs on CUDA unless device
     says otherwise."""
-    if config.mesh_shape:
-        raise NotImplementedError(_LATER.format("a mesh (mesh_shape)",
-                                                "5, scale-out"))
+    refuse_mesh(config)
     dev = resolve_device(device)
     seed = max(config.random_seed, 0)
     model = init_audio2token(make_audio2token(config, n_words), seed, dev)

@@ -337,6 +337,17 @@ def parse_yaml(text: str) -> Dict[str, Any]:
     return out
 
 
+MESH_REFUSAL = ("a mesh (mesh_shape) is not ported yet (ROADMAP.md queue A "
+                "item 5, scale-out)")
+
+
+def refuse_mesh(config: Config) -> None:
+    """Refuses config.mesh_shape until the port shards (the JAX trainers
+    build a mesh from it, and raise when the devices are too few)."""
+    if config.mesh_shape:
+        raise NotImplementedError(MESH_REFUSAL)
+
+
 def load_config(path_or_dict, **overrides) -> Config:
     """Load a YAML config file (or dict) into a Config, as the JAX
     package's load_config does."""

@@ -45,7 +45,7 @@ from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
 from gesture2vec_tpu_torch.models.layers import dropout_generator
 from gesture2vec_tpu_torch.models.vq import VQEmaState
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config
+from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
 from gesture2vec_tpu_torch.train.losses import mse_loss
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
@@ -163,6 +163,7 @@ def train_dae(config: Config, train_frames,
     epoch. vq_tricks (a VQFrame only): see the module note. train_frames
     is an (N, motion_dim) array or a streaming source. Runs on CUDA unless
     device says otherwise."""
+    refuse_mesh(config)
     streaming = hasattr(train_frames, "batches")
     if vq_tricks and streaming:
         raise ValueError("vq_tricks needs the in-RAM frame array (K-Means "

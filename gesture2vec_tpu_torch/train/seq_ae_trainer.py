@@ -61,7 +61,7 @@ from gesture2vec_tpu_torch.models.seq_ae import (SeqVQAutoencoder,
                                                  _flatten_hidden)
 from gesture2vec_tpu_torch.ops.vq_kernel import vq_argmin
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config
+from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
 from gesture2vec_tpu_torch.train.dae_trainer import init_model
 from gesture2vec_tpu_torch.train.losses import (custom_loss, kld_loss,
                                                 kld_loss_standard)
@@ -240,6 +240,7 @@ def train_seq_ae(config: Config, train_windows,
     labels trains the plain step). plot_every N (with a save_dir and a
     quantizer) writes codebook_tsne_ep{epoch:03d}.png every N epochs.
     Runs on CUDA unless device says otherwise."""
+    refuse_mesh(config)
     streaming = hasattr(train_windows, "batches")
     if streaming and config.use_similarity:
         raise ValueError("use_similarity needs the in-RAM window array "

@@ -41,7 +41,7 @@ from gesture2vec_tpu_torch.models.layers import compute_dtype
 from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config
+from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
 from gesture2vec_tpu_torch.train.losses import stage_ce, token_cross_entropy
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import run_token_training
@@ -177,6 +177,7 @@ def train_text2token(config: Config, data: Dict[str, np.ndarray],
                      ) -> Tuple[Part, Dict[str, list]]:
     """The Part-d loop over build_sentence_dataset's arrays; returns
     (model, history). Runs on CUDA unless device says otherwise."""
+    refuse_mesh(config)
     dev = resolve_device(device)
     seed = max(config.random_seed, 0)
     model = init_text2token(make_text2token(config, n_words), seed, dev,

@@ -442,9 +442,10 @@ def test_parity_tokenizer_generation_matches_jax(files, tmp_path,
                                                  monkeypatch):
     """Decode-mode generation over a parity tokenizer (the eval step
     dropout in its chunk rollout, fault C.3 of the reconstruction tests):
-    the port refuses the chunk-decoder kernel for it and, with the kernel
-    off, gives the JAX generator's tokens and frames when both packages'
-    dropout read one numpy mask stream."""
+    `build_generator` chooses the plain rollout itself from the decoder's
+    kernel_reason (fault C.5) and gives the JAX generator's tokens and
+    frames when both packages' dropout read one numpy mask stream; a
+    caller who asks for the kernel (use_fused_decoder=True) is refused."""
     from gesture2vec_tpu.cli._common import build_generator as jax_build
     from gesture2vec_tpu.data.store import ClipStore as JaxStore
     from gesture2vec_tpu.train import checkpoints
@@ -465,16 +466,49 @@ def test_parity_tokenizer_generation_matches_jax(files, tmp_path,
     args = (files["t2t"], files["dae"], parity)
     with pytest.raises(ValueError, match="eval step dropout"):
         build_generator(*args, ClipStore(files["train"]), mode="decode",
-                        device="cpu")
+                        device="cpu", use_fused_decoder=True)
     words = read_subtitles(files["transcript"])
     jax_s, port_s = _shared_masks(monkeypatch, 5)
     jgen, _ = jax_build(*args, JaxStore(files["train"]), mode="decode")
     want = jgen.generate(words, 6.0)
     gen, _ = build_generator(*args, ClipStore(files["train"]),
-                             mode="decode", device="cpu",
-                             use_fused_decoder=False)
+                             mode="decode", device="cpu")
+    assert not gen.use_fused_decoder
     got = gen.generate(words, 6.0)
     assert jax_s.draws == port_s.draws > 0
     np.testing.assert_array_equal(got[1], np.asarray(want[1]))
     np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=0,
                                atol=ATOL)
+
+
+def test_exemplar_mode_over_attention_tokenizer_runs(files, data, tmp_path):
+    """Exemplar mode (the generation CLIs' default) over an
+    `autoencoder_att` tokenizer: `build_generator` chooses the plain
+    rollout from the decoder's kernel_reason (fault C.5: it raised
+    before) and a 6 s transcript gives finite frames."""
+    from gesture2vec_tpu.train import checkpoints
+    from gesture2vec_tpu.train.config import load_config
+
+    from gesture2vec_tpu_torch.cli._common import build_generator
+    from gesture2vec_tpu_torch.cluster.latent_dataset import \
+        save_latent_dataset
+    from gesture2vec_tpu_torch.io.subtitles import read_subtitles
+    from gesture2vec_tpu_torch.train.config import load_config as p_config
+    from gesture2vec_tpu_torch.train.seq_ae_trainer import make_seq_ae
+
+    cfg = {**_seq_cfg(), "autoencoder_att": True}
+    tree = _init_variables(make_seq_ae(p_config(cfg)), 4)
+    att = str(tmp_path / "vq_att.bin")
+    checkpoints.save_checkpoint(
+        att, config=load_config(cfg), epoch=1, params=tree["params"],
+        pose_dim=REP, extra={"batch_stats": tree["batch_stats"],
+                             "parity": False}, kind="autoencoder_vq")
+    bank = str(tmp_path / "bank.npz")
+    save_latent_dataset(bank, data)
+    gen, _ = build_generator(files["t2t"], files["dae"], att,
+                             ClipStore(files["train"]), mode="exemplar",
+                             latent_bank_path=bank, device="cpu")
+    assert not gen.use_fused_decoder
+    frames, tokens = gen.generate(read_subtitles(files["transcript"]), 6.0)
+    assert frames.shape == (120, DIM) and np.isfinite(frames).all()
+    assert tokens.shape == (12,)

@@ -440,8 +440,10 @@ def test_unported_options_raise(corpus, tmp_path):
     np.testing.assert_allclose(
         encode_frames_with_dae(vq_frame, frames),
         np.asarray(jenc(jm, variables, frames)), atol=ATOL)
+    # every kind of the JAX registry loads since c2g's came (tests/
+    # test_torch_port_train_misc.py); a kind outside it is refused
     with pytest.raises(KeyError, match="unknown checkpoint kind"):
-        load_checkpoint_and_model(corpus["dae"], "c2g", "cpu")
+        load_checkpoint_and_model(corpus["dae"], "no_such_kind", "cpu")
     dae, _ = load_checkpoint_and_model(corpus["dae"], "DAE", "cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         encode_frames_with_dae(dae, np.zeros((3, DIM), np.float32),

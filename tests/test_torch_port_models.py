@@ -216,6 +216,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((root / "gesture2vec_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(root / "gesture2vec_tpu_torch"))
+             for f in files[:-1]}
+    assert {"models/baseline.py", "models/c2g.py", "models/gan.py",
+            "train/misc_trainers.py", "train/gan_trainer.py",
+            "infer/baseline_infer.py"} <= names
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_roots(f) if m in _BANNED]
     assert bad == []

@@ -718,17 +718,24 @@ def test_port_resume_continues_the_run(trained, tmp_path):
         2 * (frames.shape[0] // 32)
 
 
-def test_refused_options_name_their_queue_items():
-    """The parts baseline, c2g and gan (item 6) and --mesh (item 5) are
-    refused; decoder attention and --plot-every are ported (tests/
-    test_torch_port_reconstruct.py, tests/test_torch_port_analysis.py)."""
+def test_refused_options_name_their_queue_items(tmp_path):
+    """--mesh and a config's mesh_shape (item 5) are refused, the latter
+    before any data is built; decoder attention and --plot-every are
+    ported (tests/test_torch_port_reconstruct.py,
+    tests/test_torch_port_analysis.py), and so are the parts baseline,
+    c2g and gan (tests/test_torch_port_train_misc.py)."""
     from gesture2vec_tpu_torch.cli import train as ptrain
     assert pseq.make_seq_ae(load_config(
         {**VQ_CFG, "autoencoder_att": True})).decoder.use_attention
-    for argv, item in ((["--part", "gan"], "item 6"),
-                       (["--part", "a", "--mesh", "dp=2"], "item 5")):
+    meshed = tmp_path / "mesh.yml"
+    _write_yaml(meshed, {**DAE_CFG, "mesh_shape": "{dp: 2}",
+                         "train_data_path": str(tmp_path / "absent")})
+    for argv, item in ((["-c", str(meshed), "--part", "a", "--device",
+                         "cpu"], "item 5"),
+                       (["-c", "x.yml", "--part", "a", "--mesh", "dp=2"],
+                        "item 5")):
         with pytest.raises(NotImplementedError, match=item):
-            ptrain.main(["-c", "x.yml"] + argv)
+            ptrain.main(argv)
 
 
 def test_keep_best_saves_and_returns_the_best_epoch(tmp_path):

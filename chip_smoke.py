@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives fourteen paths of the port, each with every kernel launch
+It drives fifteen paths of the port, each with every kernel launch
 counter set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -314,6 +314,33 @@ DAE and GS-Soft tokenizer):
            decoder launch against its plain loop, and the
            parity_frozen_hidden model plain with none; every launch's
            shape compared;
+Scale-out (parallel/: the mesh, its ranks, the pipeline), at the widths
+of configs/VQ-VAE.yml (hidden 200, 2 layers, 512 codes, latent 40, 20
+frames, batch 128; 512 random windows, one epoch of 4 steps and one
+validation batch). The card is one, so NCCL runs at world size 1 and
+the multi-rank checks are gloo ranks sharing it (their collectives
+staged through pinned host memory):
+  scale_out  `make_mesh({"dp": 2})` on the card raises; `train_seq_ae`
+           with mesh_shape {dp: 1} in one spawned NCCL rank against the
+           run without a mesh (losses within 1e-6); in two gloo ranks:
+           dp=2 against the single run of the same global batch (losses
+           within 1e-4), configs/VQ-VAE_rvq.yml over dp=1 x tp=2 (losses
+           within 1e-4 of its single run; vq_argmin on 256-row shards)
+           and its tokenizer's stage tokens over tp=2 against the
+           unsharded tokens (identical), `pipelined_gru_stack` over pp=2
+           (H=200, T=20, B=128, 4 microbatches) against the sequential
+           stack (forward and gradients within 1e-4); then
+           `generate_batch(mesh=make_mesh({"dp": 1}))` at the bench widths
+           against the call without a mesh (identical tokens). Each
+           training run is made three times in its rank: a warm-up, a
+           timed run (its launches counted against those derived from
+           the code: `train_want_launches`, 2 + 4 for the tp tokens,
+           4 + 4 a pp stage) and a run under the collective clock
+           (collectives' and pipeline hops' host time); steps/s of the
+           timed runs beside the single run's; the kernels at the
+           ranks' shapes (GRU at B=64 and 128, also against cuDNN, VQ
+           argmin on (128, 256) and (64, 512), the chunk decoder at
+           B=64) against their plain versions;
 then the kernels line (each kernel's launches on its first path, on the
 later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
@@ -6328,6 +6355,544 @@ def analysis_path(smi: str, tmp: str, files: dict) -> tuple:
     return rows, launches
 
 
+# -- the scale-out path --------------------------------------------------
+# configs/VQ-VAE.yml (and _rvq) at its widths: 4 steps of the global batch
+# of 128 and one validation batch, one epoch
+SCALE_N, SCALE_VAL = 512, 128
+# pipelined_gru_stack: T, B, microbatches, stages
+SCALE_PP = (20, 128, 4, 2)
+SCALE_REQUESTS_S = (6.0, 6.0, 12.0)
+
+
+def scale_config(shipped: str, **overrides):
+    """A shipped config at its widths, one epoch."""
+    from gesture2vec_tpu_torch.train.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return load_config(os.path.join(here, "configs", shipped), epochs=1,
+                       **overrides)
+
+
+def scale_windows(n: int, seed: int) -> np.ndarray:
+    """n smooth random latent windows (N_FRAMES x REP)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, N_FRAMES)[None, :, None]
+    base = rng.normal(size=(n, 1, REP))
+    return (base + 0.5 * np.sin(2 * np.pi * t + base)
+            + 0.1 * rng.normal(size=(n, N_FRAMES, REP))).astype(np.float32)
+
+
+SCALE_COLLECTIVES = ("all_reduce", "all_gather", "broadcast")
+SCALE_HOPS = ("send", "recv")
+
+
+@contextlib.contextmanager
+def collective_clock():
+    """Host seconds and calls inside the port's collectives and its
+    point-to-point hops (their gloo host staging included), in all and by
+    helper, by wrapping parallel/mesh's helpers. Each call is synchronised
+    on both sides, so a run under the clock is slower than one without: it
+    is a run of its own. A send's seconds are its staging and its start
+    (the transfer completes at the wait); a recv's include waiting for the
+    sender."""
+    import torch
+
+    from gesture2vec_tpu_torch.parallel import mesh as pmesh
+    from gesture2vec_tpu_torch.parallel import pipeline as ppipe
+
+    clock = {"seconds": 0.0, "calls": 0,
+             "by_name": {n: [0.0, 0]
+                         for n in SCALE_COLLECTIVES + SCALE_HOPS}}
+    saved = []
+    for mod in (pmesh, ppipe):
+        for name in SCALE_COLLECTIVES + SCALE_HOPS:
+            if not hasattr(mod, name):
+                continue
+            def timed(*a, _fn=getattr(mod, name), _name=name, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                clock["seconds"] += dt
+                clock["calls"] += 1
+                clock["by_name"][_name][0] += dt
+                clock["by_name"][_name][1] += 1
+                return out
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, timed)
+    try:
+        yield clock
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def shapes_json(shapes: dict) -> dict:
+    return {name: [[list(k), v] for k, v in sorted(c.items())]
+            for name, c in shapes.items() if c}
+
+
+def gather_ranks(mine: dict) -> list:
+    """Every rank's dict, in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def warm_timed_clocked(run):
+    """run() three times: a warm-up (the process's CUDA context, kernel
+    loading, the mesh's first collectives and communicators), a timed run
+    with nothing wrapped (its launches counted), and a run under the
+    collective clock and the shape recorder. Returns (the timed run's
+    result, {its seconds and launches, the clocked run's seconds,
+    collective time and kernel shapes})."""
+    import torch
+
+    run()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    with kernel_shapes() as shapes, collective_clock() as clock:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        clocked = time.perf_counter() - t0
+    return out, {"launches": launches, "shapes": shapes_json(shapes),
+                 "seconds": secs, "clocked_seconds": clocked,
+                 "collective_s": sum(clock["by_name"][n][0]
+                                     for n in SCALE_COLLECTIVES),
+                 "collective_calls": sum(clock["by_name"][n][1]
+                                         for n in SCALE_COLLECTIVES),
+                 "hop_s": sum(clock["by_name"][n][0] for n in SCALE_HOPS),
+                 "hop_calls": sum(clock["by_name"][n][1]
+                                  for n in SCALE_HOPS),
+                 "by_name": clock["by_name"]}
+
+
+def scale_rank_train(cfg, windows, val) -> dict:
+    """A rank's train_seq_ae over cfg's mesh on the card (a rank function
+    for parallel/launch.run; `warm_timed_clocked`): the timed run's
+    history, and every rank's launches, kernel shapes, seconds and
+    collective time."""
+    from gesture2vec_tpu_torch.train.seq_ae_trainer import train_seq_ae
+
+    (_, hist), mine = warm_timed_clocked(
+        lambda: train_seq_ae(cfg, windows, val, device="cuda"))
+    return {"history": hist, "ranks": gather_ranks(mine)}
+
+
+def scale_rank_tokens(cfg, windows) -> dict:
+    """The residual-VQ tokenizer's initial weights row-sharded over
+    dp=1 x tp=2: its stage tokens of windows (each stage's argmin on the
+    rank's 256 codebook rows, the nearest over the ranks), and every
+    rank's launches and kernel shapes."""
+    import torch
+
+    from gesture2vec_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from gesture2vec_tpu_torch.train.dae_trainer import init_model
+    from gesture2vec_tpu_torch.train.seq_ae_trainer import make_seq_ae
+
+    mesh = make_mesh({"dp": 1, "tp": 2}, "cuda")
+    model = init_model(make_seq_ae(cfg), max(cfg.random_seed, 0),
+                       mesh.device).eval()
+    shard_params(model, mesh)
+    reset_launches()
+    with kernel_shapes() as shapes, torch.no_grad():
+        toks = model.stage_tokens(model.encode_hidden(
+            torch.from_numpy(windows).to(mesh.device)))
+        torch.cuda.synchronize()
+    return {"tokens": toks.cpu().numpy(), "ranks": gather_ranks({
+        "launches": read_launches(), "shapes": shapes_json(shapes)})}
+
+
+def scale_rank_pipeline(stacked, x, target) -> dict:
+    """pipelined_gru_stack over pp=2 on the card (parallel/pipeline.
+    run_stack; `warm_timed_clocked`): the timed run's output and
+    gradients, and every rank's launches, kernel shapes, seconds,
+    collective and hop time."""
+    from gesture2vec_tpu_torch.parallel.pipeline import run_stack
+
+    T, B, micro, stages = SCALE_PP
+    got, mine = warm_timed_clocked(lambda: run_stack(
+        "gru", stacked, x, target, {"pp": stages}, micro, device="cuda"))
+    got["ranks"] = gather_ranks(mine)
+    return got
+
+
+def scale_kernel_rows() -> dict:
+    """The kernels at the shapes each rank sees against their plain
+    versions: the GRU sequence and its training kernels at B=64 (dp=2's
+    half batch) beside B=128 (the GRU sequence also against one cuDNN GRU
+    layer, its input product included, as `gru_kernel_rows`), the VQ
+    argmin on a tp shard (128 rows x 256 codes) and on dp=2's half batch
+    (64 x 512) beside the whole (128 x 512), the chunk decoder's
+    validation rollout at B=64."""
+    import torch
+
+    from gesture2vec_tpu_torch.models.gru import gru_layer
+    from gesture2vec_tpu_torch.ops import decoder_kernel as dk
+    from gesture2vec_tpu_torch.ops import gru_kernel as gk
+    from gesture2vec_tpu_torch.ops import vq_kernel as vk
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rows = {"chunk_decoder": {}, "gru_sequence": {},
+            "gru_sequence_backward": {}, "vq_argmin": {}}
+    bnd = 1.0 / HID ** 0.5
+    w_hh = (torch.rand(3 * HID, HID, device="cuda", generator=g) * 2 - 1) \
+        * bnd
+    b_hh = (torch.rand(3 * HID, device="cuda", generator=g) * 2 - 1) * bnd
+    w_ih = (torch.rand(3 * HID, HID, device="cuda", generator=g) * 2 - 1) \
+        * bnd
+    b_ih = (torch.rand(3 * HID, device="cuda", generator=g) * 2 - 1) * bnd
+    cudnn = torch.nn.GRU(HID, HID, 1).cuda()
+    with torch.no_grad():
+        for p, v in ((cudnn.weight_ih_l0, w_ih), (cudnn.weight_hh_l0, w_hh),
+                     (cudnn.bias_ih_l0, b_ih), (cudnn.bias_hh_l0, b_hh)):
+            p.copy_(v)
+    for B in (64, 128):
+        xs = torch.randn(N_FRAMES, B, HID, device="cuda", generator=g)
+        h0 = torch.zeros(B, HID, device="cuda")
+        with torch.inference_mode():
+            xp = (xs.reshape(-1, HID) @ w_ih.t() + b_ih).reshape(
+                N_FRAMES, B, -1)
+            ys, h = gk.gru_sequence(xp, h0, w_hh, b_hh)
+            ys_p, h_p = gk.gru_sequence_plain(xp, h0, w_hh, b_hh)
+            y_c, h_c = cudnn(xs, h0[None])
+            torch.cuda.synchronize()
+            row = {"phase": "kernel", "path": "scale_out",
+                   "kernel": "gru_sequence", "T": N_FRAMES, "B": B,
+                   "H": HID, "max_abs_err": max(
+                       (ys - ys_p).abs().max().item(),
+                       (h - h_p).abs().max().item()), "tol": TOL,
+                   "ms": cuda_ms(lambda: gk.gru_sequence(xp, h0, w_hh,
+                                                         b_hh), 20),
+                   "plain_ms": cuda_ms(lambda: gk.gru_sequence_plain(
+                       xp, h0, w_hh, b_hh), 5),
+                   # cuDNN computes the input product too: its yardstick
+                   # is the matmul plus the kernel
+                   "library_ms": cuda_ms(lambda: cudnn(xs, h0[None]), 20),
+                   "matmul_plus_kernel_ms": cuda_ms(lambda: gru_layer(
+                       xs, h0, w_ih, w_hh, b_ih, b_hh), 20),
+                   "cudnn_max_abs_err": max(
+                       (y_c - ys).abs().max().item(),
+                       (h_c[0] - h).abs().max().item()),
+                   **gru_bound_ms(N_FRAMES, B, HID)}
+        emit(row)
+        rows["gru_sequence"][f"scale_T{N_FRAMES}_B{B}"] = row
+    for r in gru_backward_rows(((N_FRAMES, 64),)):
+        if not r["reverse"]:
+            r["path"] = "scale_out"
+            rows["gru_sequence_backward"][f"scale_T{N_FRAMES}_B64"] = r
+    D = L * HID
+    for N, Kc in ((128, K // 2), (64, K), (128, K)):
+        x = torch.randn(N, D, device="cuda", generator=g)
+        cb = torch.randn(Kc, D, device="cuda", generator=g)
+        idx, dmin = vk.vq_argmin(x, cb)
+        d = vk.codebook_distances(x, cb)
+        dmin_p, idx_p = d.min(dim=1)
+        torch.cuda.synchronize()
+        differ, ties = near_ties(d, idx, idx_p)
+        row = {"phase": "kernel", "path": "scale_out", "kernel": "vq_argmin",
+               "N": N, "K": Kc, "D": D, "rows_differing": differ,
+               "near_ties": ties, "near_tie_gap": NEAR_TIE,
+               "max_abs_err": (dmin - dmin_p).abs().max().item(),
+               "tol": DMIN_TOL,
+               "ms": cuda_ms(lambda: vk.vq_argmin(x, cb), 20),
+               "plain_ms": cuda_ms(lambda: vk.vq_argmin_plain(x, cb), 20),
+               "library_ms": None, **vq_bound_ms(N, Kc, D)}
+        emit(row)
+        if differ != ties:
+            row["max_abs_err"] = float("inf")
+        rows["vq_argmin"][f"scale_N{N}_K{Kc}"] = row
+    folded = random_folded(HID, REP, g)
+    n = N_FRAMES - 1
+    x0 = torch.randn(64, REP, device="cuda", generator=g)
+    h0 = torch.randn(2, 64, HID, device="cuda", generator=g)
+    ys = dk.fused_chunk_decode(x0, h0, folded, n)
+    ref = dk.fused_chunk_decode_plain(x0, h0, folded, n)
+    torch.cuda.synchronize()
+    row = {"phase": "kernel", "path": "scale_out", "kernel": "chunk_decoder",
+           "B": 64, "H": HID, "D": REP, "n_steps": n,
+           "max_abs_err": (ys - ref).abs().max().item(), "tol": TOL,
+           "ms": cuda_ms(lambda: dk.fused_chunk_decode(x0, h0, folded, n),
+                         20),
+           "plain_ms": cuda_ms(lambda: dk.fused_chunk_decode_plain(
+               x0, h0, folded, n), 10),
+           "library_ms": None, **chunk_decoder_bound_ms(64, REP, HID, n)}
+    emit(row)
+    rows["chunk_decoder"][f"scale_B64_T{n}"] = row
+    bad = [r for k in rows.values() for r in k.values()
+           if not r["max_abs_err"] <= r["tol"]]
+    if bad:
+        raise AssertionError(f"kernels at the scale-out shapes: {bad}")
+    return rows
+
+
+def scale_single(cfg, windows, val) -> dict:
+    """The run without a mesh on the card, after a warm-up run as the
+    ranks' (`warm_timed_clocked`): history, seconds, launches."""
+    from gesture2vec_tpu_torch.train.seq_ae_trainer import train_seq_ae
+
+    (_, hist), mine = warm_timed_clocked(
+        lambda: train_seq_ae(cfg, windows, val, device="cuda"))
+    return {"history": hist, "seconds": mine["seconds"],
+            "launches": mine["launches"]}
+
+
+def scale_generator():
+    """The decode-mode generator at the bench widths, random weights."""
+    from gesture2vec_tpu_torch.compat.from_jax import generator_from_jax
+    from gesture2vec_tpu_torch.text.vocab import Vocab
+
+    vocab = Vocab("bench")
+    for i in range(VOCAB_WORDS):
+        vocab.index_word(f"word{i}")
+    return generator_from_jax(
+        *jax_layout_trees(np.random.default_rng(0)), vocab,
+        np.zeros(DIM, np.float32), np.ones(DIM, np.float32),
+        n_frames=N_FRAMES, sentence_frame_length=SENT_LEN, fps=FPS,
+        max_words=MAXW, device="cuda", mode="decode")
+
+
+def scale_out_path(smi: str) -> tuple:
+    """The scale-out slice on the card (see the module note): returns
+    (the kernels at the ranks' shapes, {run: rank 0's launches})."""
+    import torch
+
+    from gesture2vec_tpu_torch.parallel import launch
+    from gesture2vec_tpu_torch.parallel.mesh import make_mesh
+    from gesture2vec_tpu_torch.parallel.pipeline import (gru_stage,
+                                                         stack_stages)
+
+    problems, counts = [], {}
+    windows, val = scale_windows(SCALE_N, 41), scale_windows(SCALE_VAL, 42)
+    cfg = scale_config("VQ-VAE.yml")
+    rvq = scale_config("VQ-VAE_rvq.yml")
+    steps, vals = SCALE_N // cfg.batch_size, SCALE_VAL // cfg.batch_size
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+    def check_ranks(run, ranks, want):
+        for i, r in enumerate(ranks):
+            got = {k: r["launches"][k] for k in want}
+            if got != want:
+                problems.append(f"{run} rank {i}: launches {got}, want "
+                                f"{want}")
+
+    # 6. a mesh larger than the cards
+    try:
+        make_mesh({"dp": 2}, "cuda")
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    emit({"phase": "scale_out", "check": "make_mesh_dp2_on_one_card",
+          "raised": raised, "cards": torch.cuda.device_count()})
+    if torch.cuda.device_count() == 1 and "needs 2 devices" not in raised:
+        problems.append("make_mesh({'dp': 2}) on one card did not raise")
+
+    # the single-card references
+    single = scale_single(cfg, windows, val)
+    single_rvq = scale_single(rvq, windows, val)
+    want_b = train_want_launches("b", "b_gssoft", cfg, SCALE_N, SCALE_VAL,
+                                 [])
+    want_rvq = train_want_launches("b", "b_rvq", rvq, SCALE_N, SCALE_VAL, [])
+    for name, run, want in (("single", single, want_b),
+                            ("single_rvq", single_rvq, want_rvq)):
+        if run["launches"] != want:
+            problems.append(f"{name}: launches {run['launches']}, want "
+                            f"{want}")
+
+    # 1. dp=1 under NCCL (one spawned rank) against the run without a mesh
+    t0 = time.perf_counter()
+    nccl = launch.run(scale_rank_train, (cfg.replace(mesh_shape={"dp": 1}),
+                                         windows, val), world_size=1,
+                      device="cuda")
+    nccl_s = time.perf_counter() - t0
+    err = rel(nccl["history"]["train_loss"] + nccl["history"]["val_loss"],
+              single["history"]["train_loss"]
+              + single["history"]["val_loss"])
+    check_ranks("nccl_dp1", nccl["ranks"], want_b)
+    if not err <= 1e-6:
+        problems.append(f"dp=1 under NCCL: losses {err} from the single "
+                        f"run")
+    counts["nccl_dp1"] = nccl["ranks"][0]["launches"]
+
+    # 2-4. two gloo ranks sharing the card: dp=2; the residual VQ over
+    # dp=1 x tp=2 (training, and its tokens); the GRU stack over pp=2
+    T, B, micro, stages = SCALE_PP
+    g = torch.Generator().manual_seed(43)
+    bnd = 1.0 / HID ** 0.5
+    layers = [{k: (torch.rand(*shape, generator=g) * 2 - 1) * bnd
+               for k, shape in (("w_ih", (3 * HID, HID)),
+                                ("w_hh", (3 * HID, HID)),
+                                ("b_ih", (3 * HID,)), ("b_hh", (3 * HID,)))}
+              for _ in range(stages)]
+    stacked = stack_stages(layers)
+    x = torch.randn(B, T, HID, generator=g)
+    target = torch.randn(B, T, HID, generator=g)
+    jobs = [(scale_rank_train, (cfg.replace(mesh_shape={"dp": 2}), windows,
+                                val), {}),
+            (scale_rank_train, (rvq.replace(mesh_shape={"dp": 1, "tp": 2}),
+                                windows, val), {}),
+            (scale_rank_tokens, (rvq, val), {}),
+            (scale_rank_pipeline, (stacked, x, target), {})]
+    t0 = time.perf_counter()
+    dp2, tp2, toks, pp = launch.run(launch.call_all, (jobs,), world_size=2,
+                                    device="cuda", backend="gloo")
+    gloo_s = time.perf_counter() - t0
+
+    err_dp2 = rel(dp2["history"]["train_loss"] + dp2["history"]["val_loss"],
+                  single["history"]["train_loss"]
+                  + single["history"]["val_loss"])
+    check_ranks("gloo_dp2", dp2["ranks"], want_b)
+    if not err_dp2 <= 1e-4:
+        problems.append(f"dp=2 over gloo: losses {err_dp2} from the "
+                        f"single run")
+    err_tp2 = rel(tp2["history"]["train_loss"] + tp2["history"]["val_loss"],
+                  single_rvq["history"]["train_loss"]
+                  + single_rvq["history"]["val_loss"])
+    check_ranks("gloo_tp2", tp2["ranks"], want_rvq)
+    if not err_tp2 <= 1e-4:
+        problems.append(f"dp=1 x tp=2 over gloo: losses {err_tp2} from the "
+                        f"single run")
+    for i, r in enumerate(tp2["ranks"] + toks["ranks"]):
+        shards = {tuple(k)[1] for k, _ in r["shapes"].get("vq_argmin", [])}
+        if shards != {K // 2}:
+            problems.append(f"tp=2 rank {i % 2}: vq_argmin on codebook "
+                            f"rows {sorted(shards)}, want {K // 2}")
+
+    # the tokens against the unsharded tokenizer's on the card
+    from gesture2vec_tpu_torch.train.dae_trainer import init_model
+    from gesture2vec_tpu_torch.train.seq_ae_trainer import make_seq_ae
+
+    ref_model = init_model(make_seq_ae(rvq), max(rvq.random_seed, 0),
+                           torch.device("cuda")).eval()
+    with torch.no_grad():
+        want_toks = ref_model.stage_tokens(ref_model.encode_hidden(
+            torch.from_numpy(val).cuda())).cpu().numpy()
+    flips = int((toks["tokens"] != want_toks).sum())
+    check_ranks("gloo_tp2_tokens", toks["ranks"], {
+        "gru_sequence": 2, "vq_argmin": rvq.rvq_stages})
+    if flips:
+        problems.append(f"tp=2 tokens: {flips} differ from the unsharded "
+                        f"tokenizer's")
+
+    # the pipeline against the sequential stack on the card
+    st = {k: v.cuda().requires_grad_() for k, v in stacked.items()}
+    xs = x.cuda().requires_grad_()
+    y = xs
+    for i in range(stages):
+        y = gru_stage({k: v[i] for k, v in st.items()}, y)
+    torch.mean((y - target.cuda()) ** 2).backward()
+    pp_err = max([(pp["y"].cuda() - y.detach()).abs().max().item()]
+                 + [(pp["grads"][k].cuda() - st[k].grad).abs().max().item()
+                    / max(st[k].grad.abs().max().item(), 1e-30)
+                    for k in st]
+                 + [(pp["x_grad"].cuda() - xs.grad).abs().max().item()
+                    / max(xs.grad.abs().max().item(), 1e-30)])
+    check_ranks("gloo_pp2", pp["ranks"], {"gru_sequence": micro,
+                                          "gru_sequence_backward": micro})
+    if not pp_err <= 1e-4:
+        problems.append(f"pp=2 pipeline: {pp_err} from the sequential "
+                        f"stack")
+    counts.update(gloo_dp2=dp2["ranks"][0]["launches"],
+                  gloo_tp2=tp2["ranks"][0]["launches"],
+                  gloo_tp2_tokens=toks["ranks"][0]["launches"],
+                  gloo_pp2=pp["ranks"][0]["launches"])
+
+    # 5. generate_batch over a dp=1 mesh at the bench widths
+    gen = scale_generator()
+    transcripts = [words(d, seed=i) for i, d in enumerate(SCALE_REQUESTS_S)]
+    reset_launches()
+    plain = gen.generate_batch(transcripts, list(SCALE_REQUESTS_S))
+    want_gen = read_launches()
+    reset_launches()
+    meshed = gen.generate_batch(transcripts, list(SCALE_REQUESTS_S),
+                                mesh=make_mesh({"dp": 1}, "cuda"))
+    counts["generate_batch_dp1"] = read_launches()
+    gen_flips = sum(int((a[1] != b[1]).sum()) for a, b in zip(meshed, plain))
+    gen_err = max(float(np.abs(a[0] - b[0]).max())
+                  for a, b in zip(meshed, plain))
+    if gen_flips or not gen_err <= TOL \
+            or counts["generate_batch_dp1"] != want_gen:
+        problems.append(f"generate_batch over dp=1: {gen_flips} token "
+                        f"flips, frames {gen_err}, launches "
+                        f"{counts['generate_batch_dp1']} vs {want_gen}")
+
+    rows = scale_kernel_rows()
+
+    def per_step(ranks):
+        # steps/s of the timed run (the whole call, its validation
+        # included), collectives of the clocked run
+        return [{"steps_per_s": steps / r["seconds"],
+                 "collective_ms_per_step": 1e3 * r["collective_s"] / steps,
+                 "collective_calls": r["collective_calls"],
+                 "seconds": r["seconds"],
+                 "clocked_seconds": r["clocked_seconds"]} for r in ranks]
+
+    emit({"phase": "scale_out", "config": "configs/VQ-VAE.yml",
+          "widths": {"hidden": cfg.hidden_size, "layers": cfg.n_layers,
+                     "codes": cfg.autoencoder_vq_components,
+                     "rep": cfg.rep_learning_dim, "frames": cfg.n_poses,
+                     "batch": cfg.batch_size},
+          "steps": steps, "val_batches": vals,
+          "single": {"history": single["history"],
+                     "steps_per_s": steps / single["seconds"],
+                     "seconds": single["seconds"]},
+          "nccl_dp1": {"history": nccl["history"], "rel_err": err,
+                       "tol": 1e-6, "ranks": per_step(nccl["ranks"]),
+                       "launch_s": nccl_s},
+          "gloo_dp2": {"history": dp2["history"], "rel_err": err_dp2,
+                       "tol": 1e-4, "ranks": per_step(dp2["ranks"])},
+          "gloo_tp2": {"config": "configs/VQ-VAE_rvq.yml",
+                       "history": tp2["history"],
+                       "single_history": single_rvq["history"],
+                       "rel_err": err_tp2, "tol": 1e-4,
+                       "ranks": per_step(tp2["ranks"])},
+          "tp2_tokens": {"windows": SCALE_VAL, "flips": flips,
+                         "stages": rvq.rvq_stages},
+          "gloo_pp2": {"T": T, "B": B, "H": HID, "n_micro": micro,
+                       "max_rel_err": pp_err, "tol": 1e-4,
+                       "ranks": [{"seconds": r["seconds"],
+                                  "clocked_seconds": r["clocked_seconds"],
+                                  "collective_ms": 1e3 * r["collective_s"],
+                                  "collective_calls": r["collective_calls"],
+                                  "hop_ms": 1e3 * r["hop_s"],
+                                  "hop_calls": r["hop_calls"],
+                                  "by_name_ms": {
+                                      n: [1e3 * v[0], v[1]]
+                                      for n, v in r["by_name"].items()}}
+                                 for r in pp["ranks"]]},
+          "gloo_launch_s": gloo_s,
+          "generate_batch_dp1": {"requests_s": SCALE_REQUESTS_S,
+                                 "token_flips": gen_flips,
+                                 "max_abs_err": gen_err},
+          "rank_launches": {
+              "nccl_dp1": [r["launches"] for r in nccl["ranks"]],
+              "gloo_dp2": [r["launches"] for r in dp2["ranks"]],
+              "gloo_tp2": [r["launches"] for r in tp2["ranks"]],
+              "gloo_tp2_tokens": [r["launches"] for r in toks["ranks"]],
+              "gloo_pp2": [r["launches"] for r in pp["ranks"]]},
+          "rank_shapes": {
+              "gloo_dp2": dp2["ranks"][0]["shapes"],
+              "gloo_tp2": tp2["ranks"][0]["shapes"],
+              "gloo_pp2": pp["ranks"][0]["shapes"]},
+          "want": {"b": want_b, "b_rvq": want_rvq}, "card": smi})
+    emit({"phase": "check", "path": "scale_out", "problems": problems})
+    if problems:
+        raise AssertionError(f"scale-out path failed: {problems}")
+    return rows, counts
+
+
 def main() -> int:
     import torch
 
@@ -6406,6 +6971,9 @@ def main() -> int:
         t0 = time.perf_counter()
         misc_rows, misc_counts = misc_train_path(smi, done)
         secs["misc_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scale_rows, scale_counts = scale_out_path(smi)
+    secs["scale_out_s"] = time.perf_counter() - t0
     emit({"phase": "paths", **secs,
           "total_s": time.perf_counter() - _T0})
     for k in kernels:
@@ -6424,11 +6992,14 @@ def main() -> int:
                          for p, c in analysis_counts.items()},
             "train": {p: c[k["name"]] for p, c in train_counts.items()},
             "misc_train": {p: c[k["name"]]
-                           for p, c in misc_counts.items()}}
+                           for p, c in misc_counts.items()},
+            "scale_out": {p: c[k["name"]]
+                          for p, c in scale_counts.items()}}
         shapes = {**policy_rows.get(k["name"], {}),
                   **audio_rows.get(k["name"], {}),
                   **analysis_rows.get(k["name"], {}),
-                  **misc_rows.get(k["name"], {})}
+                  **misc_rows.get(k["name"], {}),
+                  **scale_rows.get(k["name"], {})}
         if shapes:
             k["max_abs_err"] = max(k["max_abs_err"], *(
                 r["max_abs_err"] for r in shapes.values()))

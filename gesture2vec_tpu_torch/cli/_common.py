@@ -11,7 +11,8 @@ chunk length, window length, frame rate and text context.
 generation commands, as `cli/reconstruct` does: the kernel where the
 tokenizer's decoder admits it, else plain PyTorch, chosen from the stated
 reason and logged. `load_bvh_exporter` is the port of its BVH export
-half.
+half. `parse_mesh` reads a `--mesh dp=4,tp=2` flag, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -30,6 +31,21 @@ from gesture2vec_tpu_torch.text.vocab import Vocab, build_vocab
 # the JAX package's Config defaults for the generator fields read here
 _GEN_DEFAULTS = {**T2T_CONFIG_DEFAULTS, "motion_resampling_framerate": 24,
                  "text_context_s": 0.0}
+
+
+def parse_mesh_shape(mesh_spec: Optional[str]) -> Optional[Dict[str, int]]:
+    """'dp=4,tp=2' -> {"dp": 4, "tp": 2} (None passes through)."""
+    if not mesh_spec:
+        return None
+    return {k.strip(): int(v) for k, v in (kv.split("=")
+                                           for kv in mesh_spec.split(","))}
+
+
+def parse_mesh(mesh_spec: Optional[str], device=None):
+    """'dp=4,tp=2' -> a `parallel/mesh.Mesh` on device (None passes
+    through); too few cards raise ValueError."""
+    from gesture2vec_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(parse_mesh_shape(mesh_spec), device)
 
 
 def fused_decoder_policy(seq_decoder, policy: Dict[str, Any]

@@ -15,7 +15,9 @@ It reads the checkpoint files, clip stores, latent banks and
 `data_pipe.json` that either package writes. `--plot-attention PNG`
 (one transcript, a Part d with attention; needs matplotlib) saves the
 first window's attention heatmap from the Part d's eval forward, as JAX
-does.
+does. `--mesh dp=N` (the JAX CLI's flag) checks the mesh against the
+cards and hands it to `GestureGenerator.generate_batch(mesh=)`, which in
+this one process runs the transcripts as one batch (`parallel/mesh`).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("rep_checkpoint")
     parser.add_argument("autoencoder_checkpoint")
     parser.add_argument("--mesh", default=None,
-                        help="not ported yet (the scale-out slice)")
+                        help="shard a multi-transcript batch over a "
+                             "device mesh, e.g. 'dp=2'")
     parser.add_argument("--latent-bank", default=None,
                         help="org_latent_clustering_data.npz "
                              "(required for exemplar mode)")
@@ -103,14 +106,12 @@ def run(args: argparse.Namespace
     """Generates and writes one BVH per transcript; returns (frames,
     tokens, written path) per transcript. Several transcripts run as one
     `generate_batch`, each written to `{stem}_{base}{ext}`."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet: ROADMAP queue A item 5 (scale-out)")
     from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
     if args.plot_attention and not have_matplotlib():
         raise ValueError("--plot-attention needs matplotlib")
     from gesture2vec_tpu_torch.cli._common import (build_generator,
-                                                   load_bvh_exporter)
+                                                   load_bvh_exporter,
+                                                   parse_mesh)
     from gesture2vec_tpu_torch.data.store import ClipStore
     from gesture2vec_tpu_torch.io.subtitles import read_subtitles
 
@@ -134,7 +135,9 @@ def run(args: argparse.Namespace
     durs = [args.duration or (w[-1][2] if w else 6.0) for w in all_words]
     t0 = time.time()
     if len(all_words) > 1:
-        results = gen.generate_batch(all_words, durs)
+        # a dp mesh: in this one process the batch runs whole
+        results = gen.generate_batch(all_words, durs,
+                                     mesh=parse_mesh(args.mesh, gen.device))
         stem, ext = os.path.splitext(args.out)
         paths = [f"{stem}_{os.path.splitext(os.path.basename(t))[0]}"
                  f"{ext or '.bvh'}" for t in args.transcript]

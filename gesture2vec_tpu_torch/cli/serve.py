@@ -55,7 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--request-timeout", type=float, default=120.0,
                         help="seconds a request may wait for generation")
     parser.add_argument("--mesh", default=None,
-                        help="not ported yet (the scale-out slice)")
+                        help="e.g. dp=2, the JAX CLI's flag: checked "
+                             "against the cards; one process runs each "
+                             "fused /generate batch whole")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--temperature", type=float, default=0.0,
                         help="0 = greedy token decode (reference "
@@ -93,16 +95,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet: ROADMAP queue A item 5 (scale-out)")
+    from gesture2vec_tpu_torch.cli._common import (build_generator,
+                                                   load_bvh_exporter,
+                                                   parse_mesh)
     from gesture2vec_tpu_torch.device import resolve_device
 
-    # before any file is read: no card and no --device cpu raises here
+    # before any file is read: no card and no --device cpu raises here,
+    # and so does a mesh the cards cannot hold
     device = resolve_device(args.device)
+    mesh = parse_mesh(args.mesh, device)
 
-    from gesture2vec_tpu_torch.cli._common import (build_generator,
-                                                   load_bvh_exporter)
     from gesture2vec_tpu_torch.data.store import ClipStore
     from gesture2vec_tpu_torch.io.bvh import write_bvh
     from gesture2vec_tpu_torch.serve.server import serve
@@ -129,7 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     httpd = serve(gen, host=args.host, port=args.port,
                   export_bvh=export_bvh, max_batch=args.max_batch,
                   batch_window_s=args.batch_window_ms / 1000.0,
-                  request_timeout_s=args.request_timeout,
+                  mesh=mesh, request_timeout_s=args.request_timeout,
                   stream_batch=args.stream_batch,
                   stream_batch_window_s=args.stream_batch_window_ms
                   / 1000.0)

@@ -41,9 +41,13 @@ place of `--platform`. The loss history goes to
 JAX package's `loss_curves.png` beside it (`mocap/viz.plot_loss_curves`;
 one logged line says when it is left out). `--plot-every N` (part b,
 needs matplotlib and scikit-learn) writes the codebook's t-SNE every N
-epochs, as JAX does. Refused, naming the queue item that ports it
-(5, scale-out): `--mesh`, and a config's `mesh_shape` before any data
-is built.
+epochs, as JAX does. `--mesh dp=2` (or a config's `mesh_shape: {dp:
+2}`) shards the teacher sweeps' rows over the mesh and trains over it
+(`parallel/mesh`): in a plain process the trainer starts the mesh's
+ranks itself (gloo on the CPU, NCCL one card a rank), under `torchrun
+--nproc-per-node N -m gesture2vec_tpu_torch.cli.train --mesh dp=N` every
+rank joins the process group torchrun describes (`parallel/launch.
+torchrun_group`), runs the command in place and rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -93,7 +97,9 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
     parser.add_argument("--resume", default=None, metavar="CKPT",
                         help="checkpoint to resume from (the port's or the "
                              "JAX package's)")
-    parser.add_argument("--mesh", default=None)
+    parser.add_argument("--mesh", default=None,
+                        help="device mesh, e.g. 'dp=4,tp=2' (overrides "
+                             "the config's mesh_shape)")
     parser.add_argument("--plot-every", type=int, default=0,
                         help="part b: write a codebook t-SNE every N "
                              "epochs (needs matplotlib)")
@@ -101,29 +107,45 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP.md "
-                                  "queue A item 5, scale-out)")
     from gesture2vec_tpu_torch.cluster.plots import have_matplotlib
     if args.plot_every and not have_matplotlib():
         parser.error("--plot-every needs matplotlib")
 
     from gesture2vec_tpu_torch.device import resolve_device
-    from gesture2vec_tpu_torch.train.config import load_config, refuse_mesh
-    from gesture2vec_tpu_torch.utils.meters import set_logger
+    from gesture2vec_tpu_torch.parallel.launch import torchrun_group
 
     dev = resolve_device(args.device)
+    with torchrun_group(dev):
+        return _train(args, dev)
+
+
+def _train(args, dev) -> Tuple[Any, dict]:
+    """main's command once the process has its device (and, under
+    torchrun, its process group)."""
+    from gesture2vec_tpu_torch.cli._common import parse_mesh_shape
+    from gesture2vec_tpu_torch.parallel.mesh import is_main, make_mesh
+    from gesture2vec_tpu_torch.train.config import load_config
+    from gesture2vec_tpu_torch.utils.meters import set_logger
+
     cfg = load_config(args.config)
-    refuse_mesh(cfg)
+    if args.mesh:
+        cfg = cfg.replace(mesh_shape=parse_mesh_shape(args.mesh))
+    # the teacher sweeps shard their rows over the trainer's mesh; too
+    # few cards raise here, before any data is read
+    mesh = make_mesh(cfg.mesh_shape, dev)
+    if mesh is not None and mesh.distributed:
+        dev = mesh.device
     if args.rep_checkpoint:
         cfg = cfg.replace(rep_learning_checkpoint=args.rep_checkpoint)
     if args.autoencoder_checkpoint:
         cfg = cfg.replace(autoencoder_checkpoint=args.autoencoder_checkpoint)
     save_dir = args.save_dir or cfg.model_save_path
-    set_logger(save_dir)
-    logging.info("part %s, config %s -> %s on %s", args.part, args.config,
-                 save_dir, dev)
-    cfg, (train, val), kw = build_arrays(cfg, args.part, dev)
+    if is_main(mesh):
+        set_logger(save_dir)
+    logging.info("part %s, config %s -> %s on %s%s", args.part, args.config,
+                 save_dir, dev, f" over mesh {cfg.mesh_shape}" if mesh
+                 else "")
+    cfg, (train, val), kw = build_arrays(cfg, args.part, dev, mesh)
     if args.part in _MISC_PARTS:
         if args.resume:
             logging.info("--resume is ignored for part %s (as in the JAX "
@@ -131,7 +153,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
                          args.part)
         model, hist = _fit_misc(cfg, args.part, train, val, save_dir, dev,
                                 kw)
-        _history(hist, save_dir, cfg.name)
+        if is_main(mesh):
+            _history(hist, save_dir, cfg.name)
         return model, hist
     if args.part == "b":
         kw["plot_every"] = args.plot_every
@@ -148,7 +171,8 @@ def main(argv: Optional[List[str]] = None) -> Tuple[Any, dict]:
             train_text2token as fit
     model, hist = fit(cfg, train, val, save_dir=save_dir,
                       resume_from=args.resume, device=dev, **kw)
-    _history(hist, save_dir, cfg.name)
+    if is_main(mesh):
+        _history(hist, save_dir, cfg.name)
     return model, hist
 
 
@@ -196,7 +220,8 @@ def text_pose_windows(cfg, store, vocab, mean, std) -> dict:
     return {"word_ids": word_ids, "lengths": lengths, "poses": poses}
 
 
-def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
+def build_arrays(cfg, part: str, dev, mesh=None
+                 ) -> Tuple[Any, tuple, dict]:
     """A part's data from the config's stores, as its trainer takes it:
     (the config, for parts b and d with rep_learning_dim read from the
     Part-a checkpoint where it is unset, (train, val), the trainer's
@@ -207,7 +232,8 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
     raw chunks (and the vocabulary's size and state); baseline and gan:
     `text_pose_windows` (and the vocabulary's size and vectors); c2g:
     ((train tokens, train latents), (val tokens, val latents)), the
-    frozen Part-b model's tokens of the frozen DAE's latent windows."""
+    frozen Part-b model's tokens of the frozen DAE's latent windows. The
+    teacher sweeps shard their rows over mesh where one is given."""
     from gesture2vec_tpu_torch.compat.checkpoint import \
         load_checkpoint_and_model
     from gesture2vec_tpu_torch.data.datasets import (all_frames,
@@ -243,7 +269,8 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
             rep_learning_dim=int(dae_payload["config"]["hidden_size"]))
     def latents(store):
         return encode_windows_with_dae(dae, pose_windows(
-            store, cfg.n_poses, cfg.subdivision_stride, mean, std))
+            store, cfg.n_poses, cfg.subdivision_stride, mean, std),
+            mesh=mesh)
 
     if part == "b":
         return cfg, (latents(train_store), latents(val_store)), {}
@@ -258,7 +285,7 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
         arrays = []
         for store in (train_store, val_store):
             lat = latents(store)
-            arrays.append((tokenize_windows(seq, lat)[0], lat))
+            arrays.append((tokenize_windows(seq, lat, mesh=mesh)[0], lat))
         return cfg, tuple(arrays), {}
 
     from gesture2vec_tpu_torch.data.sentence import build_sentence_dataset
@@ -272,7 +299,7 @@ def build_arrays(cfg, part: str, dev) -> Tuple[Any, tuple, dict]:
               stride=cfg.subdivision_stride_sentence, n_frames=cfg.n_poses,
               fps=cfg.motion_resampling_framerate, mean=mean, std=std,
               emit_stage_tokens=cfg.token_stages > 1,
-              text_context_s=cfg.text_context_s)
+              text_context_s=cfg.text_context_s, mesh=mesh)
     both = part == "audio" and cfg.audio_fusion == "both"
     if part == "audio":
         kw.update(include_audio=not both, include_raw_audio=both)

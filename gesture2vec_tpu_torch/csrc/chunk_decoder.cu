@@ -561,12 +561,15 @@ cudaLaunchConfig_t launch_config(int clusters, size_t smem,
   return cfg;
 }
 
-// per storage type (fp32, bf16): the (H, D) prepare() last succeeded for,
-// and the clusters the card holds, under prepare_mutex: a server's
-// threads launch concurrently
+// per device (device_slot) and storage type (fp32, bf16): the (H, D)
+// prepare() last succeeded for, and the clusters the card holds, under
+// prepare_mutex: a server's threads launch concurrently
 std::mutex prepare_mutex;
-int checked_H[2] = {-1, -1}, checked_D[2] = {-1, -1};
-int max_clusters[2] = {0, 0};
+struct Checked {
+  int H[2] = {-1, -1}, D[2] = {-1, -1};
+  int max_clusters[2] = {0, 0};
+};
+Checked checked_on[kMaxDevices];
 
 // Sets the kernels' attributes (dynamic shared memory, the non-portable
 // cluster size) and reads how many 16-block clusters of this shape the
@@ -576,8 +579,11 @@ template <typename Elt>
 cudaError_t prepare(int H, int D, int* clusters) {
   const std::lock_guard<std::mutex> lock(prepare_mutex);
   const int ti = is_f32<Elt>() ? 0 : 1;
-  if (H == checked_H[ti] && D == checked_D[ti]) {
-    *clusters = max_clusters[ti];
+  const int dev = device_slot();
+  Checked unknown;
+  Checked& checked = dev < 0 ? unknown : checked_on[dev];
+  if (H == checked.H[ti] && D == checked.D[ti]) {
+    *clusters = checked.max_clusters[ti];
     return cudaSuccess;
   }
   const size_t smem = smem_bytes(H, D, sizeof(Elt));
@@ -601,9 +607,9 @@ cudaError_t prepare(int H, int D, int* clusters) {
     least = n < least ? n : least;
   }
   if (least <= 0) return cudaErrorInvalidConfiguration;
-  checked_H[ti] = H;
-  checked_D[ti] = D;
-  max_clusters[ti] = least;
+  checked.H[ti] = H;
+  checked.D[ti] = D;
+  checked.max_clusters[ti] = least;
   *clusters = least;
   return cudaSuccess;
 }

@@ -365,10 +365,14 @@ cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
   return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// the H prepare() last succeeded for, per storage type and variant, under
-// prepare_mutex: a server's threads launch concurrently
+// the H prepare() last succeeded for, per device (device_slot), storage
+// type and variant, under prepare_mutex: a server's threads launch
+// concurrently
 std::mutex prepare_mutex;
-int checked_H[2][2] = {{-1, -1}, {-1, -1}};
+struct Checked {
+  int H[2][2] = {{-1, -1}, {-1, -1}};
+};
+Checked checked_on[kMaxDevices];
 
 template <typename Elt>
 __host__ __device__ constexpr int type_index() { return is_f32<Elt>() ? 0 : 1; }
@@ -381,7 +385,10 @@ int launch(const Elt* xp, const Elt* h0, const Elt* whh, const Elt* bhh,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   {
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    int& checked = checked_H[type_index<Elt>()][kGates];
+    const int dev = device_slot();
+    int unknown = -1;
+    int& checked =
+        dev < 0 ? unknown : checked_on[dev].H[type_index<Elt>()][kGates];
     if (H != checked) {
       int n = 0;
       const cudaError_t e = prepare<Elt, kGates>(B, H, st, &n);
@@ -410,7 +417,9 @@ int shape(int B, int H, long long* out) {
     // launch re-prepares for its own H afterwards
     const std::lock_guard<std::mutex> lock(prepare_mutex);
     e = prepare<Elt, false>(B, H, nullptr, &n);
-    checked_H[type_index<Elt>()][0] = e == cudaSuccess ? H : -1;
+    const int dev = device_slot();
+    if (dev >= 0)
+      checked_on[dev].H[type_index<Elt>()][0] = e == cudaSuccess ? H : -1;
   }
   out[0] = R;
   out[1] = C;

@@ -399,9 +399,13 @@ cudaError_t prepare(int B, int H, cudaStream_t stream, int* max_clusters) {
   return *max_clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// the H prepare() last succeeded for, per storage type (fp32, bf16)
+// the H prepare() last succeeded for, per device (device_slot) and
+// storage type (fp32, bf16)
 std::mutex prepare_mutex;
-int checked_H[2] = {-1, -1};
+struct Checked {
+  int H[2] = {-1, -1};
+};
+Checked checked_on[kMaxDevices];
 
 template <typename Elt>
 int launch(const Elt* gates, const Elt* h0, const Elt* whh, const Elt* ys,
@@ -411,7 +415,9 @@ int launch(const Elt* gates, const Elt* h0, const Elt* whh, const Elt* ys,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   {
     const std::lock_guard<std::mutex> lock(prepare_mutex);
-    int& checked = checked_H[is_f32<Elt>() ? 0 : 1];
+    const int dev = device_slot();
+    int unknown = -1;
+    int& checked = dev < 0 ? unknown : checked_on[dev].H[is_f32<Elt>() ? 0 : 1];
     if (H != checked) {
       int n = 0;
       const cudaError_t e = prepare<Elt>(B, H, st, &n);
@@ -439,7 +445,9 @@ int shape(int B, int H, long long* out) {
     // launch re-prepares for its own H afterwards
     const std::lock_guard<std::mutex> lock(prepare_mutex);
     e = prepare<Elt>(B, H, nullptr, &n);
-    checked_H[is_f32<Elt>() ? 0 : 1] = e == cudaSuccess ? H : -1;
+    const int dev = device_slot();
+    if (dev >= 0)
+      checked_on[dev].H[is_f32<Elt>() ? 0 : 1] = e == cudaSuccess ? H : -1;
   }
   out[0] = R;
   out[1] = C;

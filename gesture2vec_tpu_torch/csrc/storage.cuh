@@ -11,6 +11,18 @@
 
 #include <type_traits>
 
+// A host-side cache slot for the device this thread launches on. A
+// kernel's attributes (cudaFuncSetAttribute) and its occupancy hold for one
+// device, so what a source caches after setting them it caches per device:
+// a process may launch on several cards (a mesh's threads, one a card).
+// -1 past kMaxDevices: the caller then sets them at every launch.
+constexpr int kMaxDevices = 16;
+inline int device_slot() {
+  int d = -1;
+  return cudaGetDevice(&d) == cudaSuccess && d >= 0 && d < kMaxDevices ? d
+                                                                       : -1;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);

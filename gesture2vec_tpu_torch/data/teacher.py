@@ -16,20 +16,23 @@ batch at 2 layers.
 (`data/streaming.StreamingWindows`): it runs in the prefetch worker and
 hands the training step device tensors.
 
-Scale-out over several cards (`mesh=` in the JAX package) is not ported
-yet (ROADMAP.md queue A, scale-out).
+With a mesh (`parallel/mesh.make_mesh`, the JAX package's `mesh=`) a
+sweep shards its corpus rows over every axis of the mesh: the batch
+rounds up to a multiple of the mesh's size (as the JAX package's
+`_sweep_setup` does), each superbatch splits into equal row chunks, and
+the outputs are concatenated in row order (`Mesh.map_rows`: ranks run
+their own chunk and gather; a plain process runs the rows whole). The
+sweep is row-wise, so its tokens are the single sweep's and its latents
+equal to rounding.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from gesture2vec_tpu_torch.device import module_device
-
-_MESH = "mesh= is not ported yet (the scale-out slice of the PyTorch port)"
-
 
 def _padded_batches(a: np.ndarray, batch: int):
     """Batches of `batch` rows, the last one zero-padded."""
@@ -41,16 +44,28 @@ def _padded_batches(a: np.ndarray, batch: int):
         yield a[s:s + batch]
 
 
+def _sweep(a: np.ndarray, batch: int, mesh, device: torch.device,
+           fn: Callable[[torch.Tensor], Sequence[torch.Tensor]]
+           ) -> List[np.ndarray]:
+    """fn over the padded batches of a (each row-sharded over the mesh),
+    its outputs concatenated and trimmed to a's rows."""
+    if mesh is not None:
+        split = mesh.row_split()
+        batch = -(-batch // split) * split
+    outs = []
+    for b in _padded_batches(a, batch):
+        x = torch.from_numpy(b).to(device)
+        got = fn(x) if mesh is None else mesh.map_rows(fn, [x])
+        outs.append([o.cpu().numpy() for o in got])
+    return [np.concatenate(col)[:a.shape[0]] for col in zip(*outs)]
+
+
 @torch.inference_mode()
 def encode_frames_with_dae(dae_model, frames: np.ndarray, batch: int = 4096,
                            mesh=None) -> np.ndarray:
     """(N, motion_dim) normalized frames -> (N, latent_dim) DAE latents."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    dev = module_device(dae_model)
-    outs = [dae_model.encode(torch.from_numpy(b).to(dev)).cpu().numpy()
-            for b in _padded_batches(frames, batch)]
-    return np.concatenate(outs, axis=0)[:frames.shape[0]]
+    return _sweep(frames, batch, mesh, module_device(dae_model),
+                  lambda x: (dae_model.encode(x),))[0]
 
 
 def encode_windows_with_dae(dae_model, windows: np.ndarray, batch: int = 256,
@@ -71,21 +86,16 @@ def tokenize_windows(seq_model, latent_windows: np.ndarray, batch: int = 512,
 
     all_stages (residual-VQ tokenizers only): tokens come back (N, S),
     one column per stage, column 0 the pipeline token."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    dev = module_device(seq_model)
-    toks, lats = [], []
-    for b in _padded_batches(latent_windows, batch):
-        hidden = seq_model.encode_hidden(torch.from_numpy(b).to(dev))
+    def fn(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        hidden = seq_model.encode_hidden(x)
         L, B, H = hidden.shape
-        lats.append(hidden.transpose(0, 1).reshape(B, L * H).cpu().numpy())
-        if all_stages:
-            t = seq_model.stage_tokens(hidden)
-        else:
-            t = seq_model.tokens_from_hidden(hidden)
-        toks.append(t.cpu().numpy().astype(np.int32))
-    n = latent_windows.shape[0]
-    return np.concatenate(toks)[:n], np.concatenate(lats)[:n]
+        t = (seq_model.stage_tokens(hidden) if all_stages
+             else seq_model.tokens_from_hidden(hidden))
+        return t.to(torch.int32), hidden.transpose(0, 1).reshape(B, L * H)
+
+    toks, lats = _sweep(latent_windows, batch, mesh,
+                        module_device(seq_model), fn)
+    return toks, lats
 
 
 def window_teacher(dae_model) -> Callable[[np.ndarray], torch.Tensor]:

@@ -52,7 +52,8 @@ Chunk decode (decode mode):
                       longer rollout (one launch).
   chunk_continuity    chunks roll out one after another, each seeded with
                       the previous chunk's last frame: one launch a chunk.
-`generate_batch` runs many transcripts as one batch (no mesh).
+`generate_batch` runs many transcripts as one batch, split over a mesh's
+dp ranks where one is given.
 `ChunkSynthesis` holds what the generator shares with the audio one
 (`infer/audio2gesture.AudioGestureGenerator`).
 """
@@ -455,11 +456,13 @@ class GestureGenerator(ChunkSynthesis):
                        mesh=None) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Many transcripts as one batch: transcripts pad to a common
         window bucket; durations_s is one float or one per transcript.
-        Returns one (motion, tokens) per transcript, as generate gives."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "generate_batch(mesh=...) is not ported yet (the scale-out "
-                "slice of the PyTorch port)")
+        Returns one (motion, tokens) per transcript, as generate gives.
+        mesh (`parallel/mesh.make_mesh` with a "dp" axis) splits the
+        transcripts over dp, the batch padded to a multiple of it with
+        empty transcripts (as the JAX package pads), over the mesh's
+        ranks (a plain process runs them whole: `parallel/mesh`). The
+        transcripts are independent, so each row's answer is the
+        unsharded call's."""
         B = len(transcripts)
         if not isinstance(durations_s, (list, tuple, np.ndarray)):
             durations_s = [durations_s] * B
@@ -468,17 +471,33 @@ class GestureGenerator(ChunkSynthesis):
                              f"transcripts")
         word_ids, lengths, wins = self._windows(transcripts, durations_s)
         generator = self._next_generator()
-        pred = self._predict_windows(
-            word_ids, lengths, self._noise(generator, tuple(word_ids.shape[:2])))
-        tokens_all = pred["tokens"].to(torch.int32).cpu().numpy()
+        noise = self._noise(generator, tuple(word_ids.shape[:2]))
+        rows = [word_ids, lengths] + ([] if noise is None else [noise])
+
+        def run(word_ids, lengths, noise=None):
+            pred = self._predict_windows(word_ids, lengths, noise)
+            if self.mode == "exemplar":
+                return (pred["tokens"],)
+            latents = self._decode_chunks(pred)
+            return pred["tokens"], self.dae_model.decode(
+                latents.flatten(0, 1)).reshape(*latents.shape[:2], -1)
+
+        if mesh is None:
+            out = run(*rows)
+        else:
+            pad = (-B) % mesh.row_split("dp")
+            rows = [torch.cat([r, torch.full((pad,) + r.shape[1:],
+                                             int(i == 1), dtype=r.dtype,
+                                             device=r.device)])
+                    for i, r in enumerate(rows)]   # lengths pad with 1
+            out = [o[:B] for o in mesh.map_rows(run, rows, "dp")]
+        tokens_all = out[0].to(torch.int32).cpu().numpy()
         per = [tokens_all[b, : wins[b] * self.n_steps] for b in range(B)]
         if self.mode == "exemplar":
             frames = self._frames(self._exemplar_decode(self._picks(per)))
             bounds = np.cumsum([0] + [len(t) * self.n_frames for t in per])
             return [(frames[bounds[b]: bounds[b + 1]], per[b])
                     for b in range(B)]
-        latents = self._decode_chunks(pred)
-        frames = self._frames(self.dae_model.decode(
-            latents.flatten(0, 1))).reshape(B, latents.shape[1], -1)
+        frames = self._frames(out[1])
         return [(frames[b, : len(per[b]) * self.n_frames], per[b])
                 for b in range(B)]

@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from gesture2vec_tpu_torch.models.layers import batch_max
 from gesture2vec_tpu_torch.models.seq_ae import DecoderStep
 from gesture2vec_tpu_torch.models.text2token import TextEncoderRNN
 
@@ -30,7 +31,7 @@ from gesture2vec_tpu_torch.models.text2token import TextEncoderRNN
 def batch_mask(tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(S,) bool: the positions below the batch's longest sequence."""
     return torch.arange(tokens.shape[1], device=tokens.device) \
-        < lengths.max()
+        < batch_max(lengths)
 
 
 class Seq2SeqNet(nn.Module):

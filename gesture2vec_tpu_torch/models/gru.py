@@ -175,7 +175,8 @@ class GRU(nn.Module):
                 for n in ("w_ih", "w_hh", "b_ih", "b_hh")))
             h_finals.append(h_last)
             if layer < self.n_layers - 1:
-                outs = dropout(outs, self.dropout_rate, self.training)
+                outs = dropout(outs, self.dropout_rate, self.training,
+                               batch_dim=1)
         return outs, torch.stack(h_finals, dim=0)
 
 
@@ -243,7 +244,8 @@ class BiGRU(nn.Module):
                 h_finals.append(h_last)
             outs = torch.cat(ys, dim=-1)
             if layer < self.n_layers - 1:
-                outs = dropout(outs, self.dropout_rate, self.training)
+                outs = dropout(outs, self.dropout_rate, self.training,
+                               batch_dim=1)
         return outs, torch.stack(h_finals, dim=0)
 
 

@@ -28,6 +28,19 @@ An autoregressive decoder that calls it once a step updates the running
 statistics once a step, as flax's nn.scan carries them. Eval mode reads
 the running statistics, as BatchNorm1d does.
 
+Data parallelism (the dp axis of a mesh, `parallel/mesh`). Inside
+`batch_shard(shard)` a module sees this rank's rows of a global batch
+and computes what the single run computes on all of it: BatchNorm's
+training statistics are sums over the dp group (the fp32 variance still
+two-pass: the sum, then the centred squares), a batch-max attention
+mask reads the global batch's longest sentence (`batch_max`), and
+every draw of the
+dropout generator (`dropout`, `reparam_noise`, `global_draw`) is made at
+the global batch's shape, every rank keeping its rows, so the generator
+stays in step on every rank and the masks are the single run's. A draw
+names its batch dimension (`batch_dim`). Outside the context, or with a
+shard of one rank, nothing changes.
+
 Compute dtype (the JAX package's compute_dtype: bfloat16). Parameters,
 running statistics and gradients stay fp32; a module built with
 `compute_dtype=torch.bfloat16` computes as the flax module with
@@ -53,6 +66,67 @@ Dtype = Optional[torch.dtype]
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar(
     "dropout_generator", default=None)
+_SHARD: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_shard", default=None)
+
+
+@contextlib.contextmanager
+def batch_shard(shard) -> Iterator[None]:
+    """Inside: the batch is this rank's rows of a global batch (see the
+    module note); shard has `rank`, `size` and `sum(x)`, the
+    differentiable sum over the dp group (`parallel/mesh`), or is None."""
+    token = _SHARD.set(shard if shard is not None and shard.size > 1
+                       else None)
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
+def batch_axis(axis) -> contextlib.AbstractContextManager:
+    """`batch_shard` over a mesh's dp axis (a `parallel/mesh.Mesh`; the
+    JAX package's axis_name); None leaves the current shard."""
+    if axis is None:
+        return contextlib.nullcontext()
+    if isinstance(axis, str):
+        raise ValueError(f"axis_name {axis!r}: the port names no axes; pass "
+                         f"the parallel.mesh.Mesh whose dp axis to sum over")
+    return batch_shard(axis.batch_shard())
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the dp ranks under `batch_shard` (x outside)."""
+    shard = _SHARD.get()
+    return x if shard is None else shard.sum(x)
+
+
+def batch_max(x: torch.Tensor) -> torch.Tensor:
+    """x's largest value over the global batch (a batch-max mask's
+    length): over the dp ranks under `batch_shard`."""
+    shard = _SHARD.get()
+    m = x.max()
+    return m if shard is None else shard.max(m)
+
+
+def global_draw(draw, shape, batch_dim: int = 0) -> torch.Tensor:
+    """draw(shape) for the global batch under `batch_shard`, this rank's
+    rows of it; draw(shape) outside."""
+    shard = _SHARD.get()
+    if shard is None:
+        return draw(tuple(shape))
+    shape = list(shape)
+    b = shape[batch_dim]
+    shape[batch_dim] = b * shard.size
+    return draw(tuple(shape)).narrow(batch_dim, shard.rank * b, b)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over dim 0 of the global batch (this rank's rows under
+    `batch_shard`)."""
+    shard = _SHARD.get()
+    if shard is None:
+        return x.mean(dim=0)
+    return shard.sum(x.sum(dim=0)) / (x.shape[0] * shard.size)
 
 
 @contextlib.contextmanager
@@ -66,18 +140,20 @@ def dropout_generator(gen: Optional[torch.Generator]) -> Iterator[None]:
         _GENERATOR.reset(token)
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            batch_dim: int = 0) -> torch.Tensor:
     """flax's nn.Dropout(rate) with the current generator (see the module
-    note)."""
+    note); batch_dim is x's batch dimension."""
     gen = _GENERATOR.get()
     if not training or rate <= 0.0 or gen is None:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     # bf16 values are kept with an fp32 draw (a bf16 uniform is coarse)
-    keep = torch.rand(x.shape, generator=gen, device=x.device,
-                      dtype=torch.float32 if x.dtype == torch.bfloat16
-                      else x.dtype) < 1.0 - rate
+    dt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    keep = global_draw(lambda shape: torch.rand(
+        shape, generator=gen, device=x.device, dtype=dt), x.shape,
+        batch_dim) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
 
 
@@ -87,8 +163,9 @@ def reparam_noise(like: torch.Tensor) -> torch.Tensor:
     gen = _GENERATOR.get()
     if gen is None:
         return torch.zeros_like(like)
-    return torch.randn(like.shape, generator=gen, device=like.device,
-                       dtype=like.dtype)
+    return global_draw(lambda shape: torch.randn(
+        shape, generator=gen, device=like.device, dtype=like.dtype),
+        like.shape)
 
 
 def reparameterize(mean: torch.Tensor, logvar: torch.Tensor,
@@ -148,7 +225,8 @@ class LayerNorm(nn.LayerNorm):
 
 class Embedding(nn.Embedding):
     """nn.Embedding whose rows come out in the compute dtype (flax's Embed
-    with a dtype)."""
+    with a dtype). A table row-sharded over a mesh's tp axis looks its
+    ids up on their shard, summed over tp (`parallel/mesh.TP.lookup`)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  compute_dtype: Dtype = None):
@@ -156,7 +234,9 @@ class Embedding(nn.Embedding):
         self.compute_dtype = compute_dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        out = super().forward(ids)
+        tp = getattr(self.weight, "_tp", None)   # a tp row shard
+        out = super().forward(ids) if tp is None \
+            else tp.lookup(self.weight, ids)
         return out if self.compute_dtype is None \
             else out.to(self.compute_dtype)
 
@@ -180,12 +260,12 @@ class BatchNorm(nn.BatchNorm1d):
     def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
+        mean = batch_mean(x)
         centred = x - mean
         if self.compute_dtype is None:
-            var = (centred * centred).mean(dim=0)
+            var = batch_mean(centred * centred)
         else:
-            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            var = torch.clamp(batch_mean(x * x) - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean.detach())

@@ -467,7 +467,7 @@ class SeqVQAutoencoder(nn.Module):
         decoder-initial hidden (L, B, H)); runs every encoder layer. In
         training the input takes dropout first."""
         xs = dropout(in_poses.transpose(0, 1), self.dropout_rate,
-                     self.training)
+                     self.training, batch_dim=1)
         enc_outs, enc_hidden = self.encoder(xs)
         return enc_outs, enc_hidden[: self.n_layers]
 

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gesture2vec_tpu_torch.models.layers import Dense, Dtype, dropout
+from gesture2vec_tpu_torch.models.layers import (Dense, Dtype, Embedding,
+                                                 dropout)
 
 # flax's WeightNorm epsilon
 WN_EPS = 1e-12
@@ -132,7 +133,7 @@ class TextEncoderTCN(nn.Module):
         self.emb_dropout = emb_dropout
         self.n_layers = n_layers
         self.dtype = dtype
-        self.embedding_table = nn.Embedding(n_words, embed_size)
+        self.embedding_table = Embedding(n_words, embed_size)
         self.tcn = TemporalConvNet(embed_size, [hidden_size] * n_layers,
                                    kernel_size, dropout_rate, dtype)
         self.decoder = Dense(hidden_size, hidden_size, compute_dtype=dtype)

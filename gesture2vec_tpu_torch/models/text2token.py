@@ -51,7 +51,8 @@ from torch import nn
 
 from gesture2vec_tpu_torch.models.gru import GRUCellStack, MaskedBiGRU
 from gesture2vec_tpu_torch.models.layers import (BatchNorm, Dense, Dtype,
-                                                 Embedding, dropout)
+                                                 Embedding, batch_max,
+                                                 dropout)
 from gesture2vec_tpu_torch.models.seq_ae import Attn
 from gesture2vec_tpu_torch.models.tcn import TextEncoderTCN
 
@@ -166,7 +167,7 @@ class TextEncoderRNN(nn.Module):
                  dtype: Dtype = None):
         super().__init__()
         self.hidden_size = hidden_size
-        self.embedding_table = nn.Embedding(n_words, embed_size)
+        self.embedding_table = Embedding(n_words, embed_size)
         self.gru = MaskedBiGRU(embed_size, hidden_size, n_layers,
                                dropout_rate, dtype=dtype)
 
@@ -468,6 +469,6 @@ class Text2Token(nn.Module):
         trimming. decode_kw as in decode_tokens."""
         enc_outs, dec_hidden = self.encode_text(tokens, lengths)
         enc_mask = (torch.arange(tokens.shape[1], device=tokens.device)
-                    < lengths.max())
+                    < batch_max(lengths))
         return self.decode_tokens(enc_outs, dec_hidden, target_tokens,
                                   enc_mask=enc_mask, **decode_kw)

@@ -186,7 +186,7 @@ class _TextEncoder(nn.Module):
         super().__init__()
         self.n_layers = n_layers
         self.dropout_rate = dropout_rate
-        self.embedding_table = nn.Embedding(n_words, word_embed_size)
+        self.embedding_table = Embedding(n_words, word_embed_size)
         self.embed_proj = Dense(word_embed_size, hidden_size,
                                 compute_dtype=dtype)
         add_blocks(self, n_layers, hidden_size, n_heads,

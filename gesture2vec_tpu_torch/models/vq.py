@@ -19,6 +19,17 @@ The losses have the JAX package's training form, whose values are the
 eval values too: q_latent + beta * e_latent with e_latent = mse(sg(q), x)
 and q_latent = mse(q, sg(x)) (sg: detach), and the straight-through
 output x + sg(q - x); the residual stages quantize resid - sg(q).
+
+Under a mesh (`parallel/mesh`) the batch statistics are the global
+batch's: the perplexity's code usage and the EMA update's counts and
+assigned sums are summed over the dp ranks (`models/layers.batch_shard`,
+the JAX package's axis_name psum). A codebook row-sharded over tp
+(`_tp` on the tensor) computes this shard's distances: the hard
+assignments run the VQ-argmin kernel on the shard and take the global
+nearest code over the ranks (`parallel/mesh.TP.argmin`), the rows are
+looked up on their shard and summed over tp, and GS-Soft gathers the
+(N, K) distances for its softmax over all K, as the JAX package's
+partitioner does.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gesture2vec_tpu_torch.models.layers import (batch_axis, batch_mean,
+                                                 batch_sum, global_draw)
 from gesture2vec_tpu_torch.ops.vq_kernel import (codebook_distances,
                                                  vq_argmin, vq_argmin_plain)
 
@@ -45,7 +58,7 @@ class VQOutput(NamedTuple):
 
 
 def perplexity_of(encodings: torch.Tensor) -> torch.Tensor:
-    avg = encodings.mean(dim=0)
+    avg = batch_mean(encodings)
     return torch.exp(-torch.sum(avg * torch.log(avg + 1e-10)))
 
 
@@ -62,6 +75,31 @@ def gssoft_logp(distances: torch.Tensor,
 def gssoft_probs(distances: torch.Tensor,
                  z_logvar: torch.Tensor) -> torch.Tensor:
     return torch.softmax(gssoft_logp(distances, z_logvar), dim=1)
+
+
+def _shard(table: torch.Tensor):
+    """The tp row shard a table carries (None: the whole table)."""
+    return getattr(table, "_tp", None)
+
+
+def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] for global ids, over a tp shard too."""
+    tp = _shard(table)
+    return table[ids] if tp is None else tp.lookup(table, ids)
+
+
+def _codes(table: torch.Tensor) -> int:
+    """The table's number of codes (all shards')."""
+    tp = _shard(table)
+    return table.shape[0] if tp is None else tp.total
+
+
+def _argmin(fn, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The nearest code's global index: fn (the kernel or its plain
+    version) on the table or on its shard."""
+    idx, dmin = fn(x.contiguous(), table.detach().contiguous())
+    tp = _shard(table)
+    return idx if tp is None else tp.argmin(idx, dmin)
 
 
 def _losses(q: torch.Tensor, x: torch.Tensor, beta: float) -> torch.Tensor:
@@ -90,13 +128,27 @@ class VQGSSoft(nn.Module):
         """(N, dim) -> (N, K) log-assignment (before the softmax)."""
         projected = self.mean_layer(flat)
         z_logvar = self.logvar_layer(projected)
-        return gssoft_logp(codebook_distances(projected, self.codebook),
-                           z_logvar)
+        tp = _shard(self.codebook)
+        if tp is None:
+            d = codebook_distances(projected, self.codebook)
+        else:
+            d = tp.gather_columns(codebook_distances(tp.enter(projected),
+                                                     self.codebook))
+        return gssoft_logp(d, z_logvar)
+
+    def mix(self, probs: torch.Tensor) -> torch.Tensor:
+        """probs (N, K) @ codebook, over a tp shard too."""
+        tp = _shard(self.codebook)
+        if tp is None:
+            return torch.matmul(probs, self.codebook)
+        cols = tp.enter(probs)[:, tp.offset:tp.offset
+                               + self.codebook.shape[0]]
+        return tp.sum(torch.matmul(cols, self.codebook))
 
     def forward(self, x: torch.Tensor) -> VQOutput:
         flat = x.reshape(-1, self.dim)
         probs = torch.softmax(self.logp(flat), dim=1)
-        quantized = torch.matmul(probs, self.codebook).reshape(x.shape)
+        quantized = self.mix(probs).reshape(x.shape)
         loss = _losses(quantized, x, self.commitment_cost)
         st = x + (quantized - x).detach()
         return VQOutput(loss, st, perplexity_of(probs), probs)
@@ -132,8 +184,8 @@ class VQResidual(nn.Module):
                                   for s in range(1, self.stages)]
 
     def _argmin(self, x: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
-        fn = vq_argmin if self.use_kernel else vq_argmin_plain
-        return fn(x.contiguous(), cb.contiguous())[0]
+        return _argmin(vq_argmin if self.use_kernel else vq_argmin_plain,
+                       x, cb)
 
     def forward(self, x: torch.Tensor) -> VQOutput:
         flat = x.reshape(-1, self.dim)
@@ -142,12 +194,12 @@ class VQResidual(nn.Module):
         out0 = None
         for s, cb in enumerate(self.codebooks()):
             idx = self._argmin(resid, cb)
-            q = cb[idx]
+            q = _rows(cb, idx)
             loss = loss + _losses(q, resid, self.commitment_cost)
             total_q = total_q + q
             if s == 0:
                 out0 = torch.nn.functional.one_hot(
-                    idx, cb.shape[0]).to(flat.dtype)
+                    idx, _codes(cb)).to(flat.dtype)
             resid = resid - q.detach()
         st = (flat + (total_q - flat).detach()).reshape(x.shape)
         return VQOutput(loss, st, perplexity_of(out0), out0)
@@ -164,16 +216,16 @@ class VQResidual(nn.Module):
         for cb in self.codebooks():
             idx = self._argmin(resid, cb)
             toks.append(idx)
-            resid = resid - cb[idx]
+            resid = resid - _rows(cb, idx)
         return torch.stack(toks, dim=1)
 
     def embed_stage_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(..., S') stage ids -> (..., dim): the sum of the first S'
         stages' codebook rows."""
         cbs = self.codebooks()
-        total = cbs[0][tokens[..., 0]]
+        total = _rows(cbs[0], tokens[..., 0])
         for s in range(1, tokens.shape[-1]):
-            total = total + cbs[s][tokens[..., s]]
+            total = total + _rows(cbs[s], tokens[..., s])
         return total
 
 
@@ -199,10 +251,9 @@ def init_ema_state(num_codes: int, dim: int,
 def _hard_assign(flat: torch.Tensor, codebook: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(indices, one-hot (N, K)) of the nearest codes (first index on
-    ties), through vq_argmin."""
-    idx = vq_argmin(flat.detach().contiguous(),
-                    codebook.detach().contiguous())[0]
-    return idx, F.one_hot(idx, codebook.shape[0]).to(flat.dtype)
+    ties), through vq_argmin (over a tp shard too)."""
+    idx = _argmin(vq_argmin, flat.detach(), codebook)
+    return idx, F.one_hot(idx, _codes(codebook)).to(flat.dtype)
 
 
 def vq_st(x: torch.Tensor, codebook: torch.Tensor,
@@ -220,14 +271,21 @@ def vq_st(x: torch.Tensor, codebook: torch.Tensor,
 @torch.no_grad()
 def _ema_update(state: VQEmaState, flat: torch.Tensor, onehot: torch.Tensor,
                 decay: float, epsilon: float) -> VQEmaState:
-    counts = onehot.sum(dim=0)
-    dw = onehot.t() @ flat
+    """The EMA step; the counts and sums over the global batch. A tp
+    shard keeps cluster_size and ema_w whole (replicated, as the JAX
+    package places them) and its rows of the new codebook."""
+    counts = batch_sum(onehot.sum(dim=0))
+    dw = batch_sum(onehot.t() @ flat)
     cluster_size = state.cluster_size * decay + (1 - decay) * counts
     n = cluster_size.sum()
     cluster_size = (cluster_size + epsilon) \
-        / (n + state.codebook.shape[0] * epsilon) * n
+        / (n + cluster_size.shape[0] * epsilon) * n
     ema_w = state.ema_w * decay + (1 - decay) * dw
-    return VQEmaState(ema_w / cluster_size[:, None], cluster_size, ema_w)
+    codebook = ema_w / cluster_size[:, None]
+    tp = _shard(state.codebook)
+    if tp is not None:
+        codebook = codebook[tp.offset:tp.offset + state.codebook.shape[0]]
+    return VQEmaState(codebook, cluster_size, ema_w)
 
 
 def vq_ema(x: torch.Tensor, state: VQEmaState, *,
@@ -240,17 +298,18 @@ def vq_ema(x: torch.Tensor, state: VQEmaState, *,
     quantized value uses the pre-update codebook. In training the state
     decays towards the batch's counts and assigned-vector sums (fp32),
     cluster_size Laplace-smoothed with epsilon, codebook = ema_w /
-    cluster_size; in eval the state is returned as it is."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the data-parallel psum of the EMA statistics (axis_name) is "
-            "not ported yet (ROADMAP.md queue A item 5, scale-out)")
+    cluster_size; in eval the state is returned as it is. axis_name (a
+    Mesh of `parallel/mesh`, or None) sums the counts and sums over its
+    dp ranks, as the JAX package's psum over the named axis; under a
+    trainer's mesh the batch shard does (`models/layers.batch_shard`)."""
     flat = x.reshape(-1, state.codebook.shape[-1])
     idx, onehot = _hard_assign(flat, state.codebook)
-    quantized = state.codebook[idx].reshape(x.shape)
+    quantized = _rows(state.codebook, idx).reshape(x.shape)
     new_state = state
     if train:
-        new_state = _ema_update(state, flat.detach(), onehot, decay, epsilon)
+        with batch_axis(axis_name):
+            new_state = _ema_update(state, flat.detach(), onehot, decay,
+                                    epsilon)
     loss = commitment_cost * torch.mean((quantized.detach() - x) ** 2)
     st = x + (quantized - x).detach()
     return VQOutput(loss, st, perplexity_of(onehot), onehot), new_state
@@ -301,8 +360,9 @@ def vq_gumbel(x: torch.Tensor, codebook: torch.Tensor, *,
     probs = torch.exp(log_probs)
     if train:
         if gumbel is None:
-            u = torch.rand(d.shape, generator=generator, device=d.device,
-                           dtype=d.dtype)
+            u = global_draw(lambda shape: torch.rand(
+                shape, generator=generator, device=d.device, dtype=d.dtype),
+                d.shape)
             gumbel = -torch.log(-torch.log(u.clamp_min(
                 torch.finfo(d.dtype).tiny)))
         encodings = torch.softmax(-d / temperature + gumbel / temperature,

@@ -77,16 +77,21 @@ class BatchingWorker:
     QueueFullError at once when it is full (the handler answers 429). A
     submit that times out marks its request cancelled, and the collector
     drops it instead of generating for a client that gave up.
+
+    mesh (`parallel/mesh.make_mesh` with a "dp" axis) goes to each fused
+    batch's `GestureGenerator.generate_batch(mesh=)`: in the server's
+    one process the rows run whole on its card (`parallel/mesh`).
     """
 
     LATENCY_WINDOW = 1024   # last-N reservoir for p50/p99
     DEFAULT_MAX_BATCH = 32
 
     def __init__(self, generator, max_batch: int = DEFAULT_MAX_BATCH,
-                 batch_window_s: float = 0.05):
+                 batch_window_s: float = 0.05, mesh=None):
         self.generator = generator
         self.max_batch = max_batch
         self.batch_window_s = batch_window_s
+        self.mesh = mesh
         self.stats = {"requests": 0, "batches": 0, "batched_requests": 0,
                       "cancelled": 0, "rejected": 0, "streams": 0,
                       "stream_windows": 0}
@@ -198,7 +203,7 @@ class BatchingWorker:
                 reqs = list(batch) + [batch[-1]] * (n_pad - len(batch))
                 results = self.generator.generate_batch(
                     [r.words for r in reqs],
-                    [r.duration_s for r in reqs])
+                    [r.duration_s for r in reqs], mesh=self.mesh)
                 for r, res in zip(batch, results):
                     r.result = res
         except Exception as e:  # surface per request, keep serving
@@ -451,6 +456,7 @@ def serve(generator, host: str = "127.0.0.1", port: int = 8008,
           export_bvh: Optional[Callable[[np.ndarray], str]] = None,
           max_batch: int = BatchingWorker.DEFAULT_MAX_BATCH,
           batch_window_s: float = 0.05,
+          mesh=None,
           request_timeout_s: float = 120.0,
           stream_batch: int = 16,
           stream_batch_window_s: float = 0.01) -> ThreadingHTTPServer:
@@ -459,11 +465,12 @@ def serve(generator, host: str = "127.0.0.1", port: int = 8008,
     request worker and the stream batcher). stream_batch caps the
     concurrent /stream window steps run as one batched step (decode
     mode; 1 runs each step alone), stream_batch_window_s bounds how long
-    a due step waits for its peers."""
+    a due step waits for its peers. mesh splits the fused /generate
+    batches over its dp axis (`BatchingWorker`)."""
     # bind first: an EADDRINUSE must not leak a running collector thread
     httpd = _Server((host, port), BaseHTTPRequestHandler)
     httpd.worker = BatchingWorker(generator, max_batch=max_batch,
-                                  batch_window_s=batch_window_s)
+                                  batch_window_s=batch_window_s, mesh=mesh)
     httpd.stream_programs = _StreamPrograms(
         generator, batch_max=stream_batch,
         batch_window_s=stream_batch_window_s)

@@ -14,9 +14,10 @@ package's kind "audio2token" files (optax's state in extra), which
 either package resumes. `compute_dtype: bfloat16` builds the model in
 bf16 (`models/audio2token`): the encoder BiGRU then runs the bf16
 instantiations of both GRU kernels; parameters, Adam's state and
-checkpoints stay fp32.
-
-Refused, naming the ROADMAP.md queue A item that ports it: a mesh (5).
+checkpoints stay fp32. A config's mesh_shape trains over a mesh
+(`parallel/mesh`, its ranks started by `parallel/launch.spmd`): each dp
+rank takes its rows of every global batch; rank 0 writes the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -27,11 +28,12 @@ import torch
 
 from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
                                                    to_jax_variables)
-from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.layers import compute_dtype
 from gesture2vec_tpu_torch.models.audio2token import Audio2Token
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
+from gesture2vec_tpu_torch.parallel.launch import spmd
+from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.losses import stage_ce, token_cross_entropy
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import run_token_training
@@ -106,6 +108,7 @@ def make_eval_step(model: Audio2Token):
     return step
 
 
+@spmd
 def train_audio2token(config: Config, data: Dict[str, np.ndarray],
                       val_data: Dict[str, np.ndarray],
                       save_dir: Optional[str] = None, save_every: int = 20,
@@ -119,8 +122,7 @@ def train_audio2token(config: Config, data: Dict[str, np.ndarray],
     n_words, with the vocabulary's lang_model_state saved for inference,
     for "both"); returns (model, history). Runs on CUDA unless device
     says otherwise."""
-    refuse_mesh(config)
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     seed = max(config.random_seed, 0)
     model = init_audio2token(make_audio2token(config, n_words), seed, dev)
     opt = Adam(model.parameters(), config.learning_rate)
@@ -129,6 +131,7 @@ def train_audio2token(config: Config, data: Dict[str, np.ndarray],
     if resume_from:
         start_epoch, _ = checkpoints.restore_for_resume(model, opt, gen,
                                                         resume_from)
+    pmesh.prepare_state(model, [opt], mesh)
     both = model.fusion == "both"
     audio_key = "wav" if both else "mel"
 
@@ -160,5 +163,5 @@ def train_audio2token(config: Config, data: Dict[str, np.ndarray],
     history = run_token_training(
         config, model, opt, gen, start_epoch, fields, data, val_data,
         TrainStep(model, opt, config.label_smoothing), make_eval_step(model),
-        dev, save, save_every, log_every)
-    return model, history
+        dev, save, save_every, log_every, mesh=mesh)
+    return pmesh.finish(mesh, model, opt), history

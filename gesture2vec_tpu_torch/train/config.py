@@ -209,7 +209,26 @@ def _coerce(key: str, value: Any) -> Any:
         return int(value)
     if key == "autoencoder_vq_commitment_cost":
         return float(value)
+    if key == "mesh_shape" and isinstance(value, str):
+        return _flow_map(value)
     return value
+
+
+def _flow_map(text: str) -> Dict[str, int]:
+    """A YAML flow mapping of axis sizes, `{dp: 4, tp: 2}` (a config's
+    mesh_shape), as PyYAML reads it."""
+    t = text.strip()
+    if not (t.startswith("{") and t.endswith("}")):
+        raise ValueError(f"mesh_shape {text!r} is not a flow mapping like "
+                         f"{{dp: 4, tp: 2}}")
+    out: Dict[str, int] = {}
+    for item in filter(None, (i.strip() for i in t[1:-1].split(","))):
+        k, sep, v = item.partition(":")
+        if not sep or not _INT.match(v.strip()):
+            raise ValueError(f"mesh_shape {text!r}: {item!r} is not "
+                             f"'axis: size'")
+        out[k.strip().strip("'\"")] = _int(v.strip())
+    return out
 
 
 _NULL = {"", "~", "null", "Null", "NULL"}
@@ -335,17 +354,6 @@ def parse_yaml(text: str) -> Dict[str, Any]:
             raise ValueError(f"line {n}: {raw!r}: no space after the colon")
         out[key.strip()] = parse_scalar(value)
     return out
-
-
-MESH_REFUSAL = ("a mesh (mesh_shape) is not ported yet (ROADMAP.md queue A "
-                "item 5, scale-out)")
-
-
-def refuse_mesh(config: Config) -> None:
-    """Refuses config.mesh_shape until the port shards (the JAX trainers
-    build a mesh from it, and raise when the devices are too few)."""
-    if config.mesh_shape:
-        raise NotImplementedError(MESH_REFUSAL)
 
 
 def load_config(path_or_dict, **overrides) -> Config:

@@ -23,7 +23,10 @@ from a torch.Generator on the device seeded with random_seed. The
 training frames may be a streaming source (`data/streaming.StreamingFrames`)
 in place of the array, whose batches are then the source's; both go
 through `utils/prefetch`. A stream refuses vq_tricks (the codebook re-fit
-sweeps the array), as in JAX.
+sweeps the array), as in JAX. A config's mesh_shape trains over a mesh
+(`parallel/mesh`, its ranks started by `parallel/launch.spmd`): each dp
+rank takes its rows of every global batch, the codebook re-fit runs on
+the full codebook and is re-sharded, and rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -40,12 +43,13 @@ from gesture2vec_tpu_torch.compat.from_jax import (ema_state_to_jax,
                                                    flax_init,
                                                    load_ema_state,
                                                    to_jax_variables)
-from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
 from gesture2vec_tpu_torch.models.layers import dropout_generator
 from gesture2vec_tpu_torch.models.vq import VQEmaState
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
+from gesture2vec_tpu_torch.parallel.launch import spmd
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
+from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.losses import mse_loss
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
@@ -148,6 +152,7 @@ def reestimate_codebook(
     model.train(was_training)
 
 
+@spmd
 def train_dae(config: Config, train_frames,
               val_frames: np.ndarray, save_dir: Optional[str] = None,
               save_every: int = 10, log_every: int = 50,
@@ -163,12 +168,11 @@ def train_dae(config: Config, train_frames,
     epoch. vq_tricks (a VQFrame only): see the module note. train_frames
     is an (N, motion_dim) array or a streaming source. Runs on CUDA unless
     device says otherwise."""
-    refuse_mesh(config)
     streaming = hasattr(train_frames, "batches")
     if vq_tricks and streaming:
         raise ValueError("vq_tricks needs the in-RAM frame array (K-Means "
                          "codebook re-estimation sweeps it)")
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     seed = max(config.random_seed, 0)
     model = init_model(make_frame_model(config), seed, dev)
     is_vq = isinstance(model, VQFrame)
@@ -180,12 +184,15 @@ def train_dae(config: Config, train_frames,
             model, opt, gen, resume_from)
         if is_vq and payload["extra"].get("vq_state"):
             load_ema_state(model, payload["extra"]["vq_state"])
+    pmesh.prepare_state(model, [opt], mesh)
     step = TrainStep(model, opt)
     warmup = TrainStep(model, opt, skip_vq=True) if vq_tricks and is_vq \
         else None
     n = len(train_frames) if streaming else train_frames.shape[0]
     bs = config.batch_size
     require_full_batch(n, bs, config.name)
+    if mesh is not None:
+        mesh.check_batch(bs)
     history: Dict[str, list] = {"train_loss": [], "val_loss": []}
     meter = AverageMeter("loss", ":.4f")
     for epoch in range(start_epoch, config.epochs):
@@ -194,8 +201,9 @@ def train_dae(config: Config, train_frames,
             if epoch < vq_start_epoch:
                 step_fn = warmup
             elif epoch % vq_reestimate_every == 0:
-                reestimate_codebook(model, train_frames,
-                                    config.autoencoder_vq_components)
+                with pmesh.gathered(mesh, model):
+                    reestimate_codebook(model, train_frames,
+                                        config.autoencoder_vq_components)
         meter.reset()
         t0 = time.time()
         if streaming:
@@ -206,8 +214,9 @@ def train_dae(config: Config, train_frames,
                       for b in range(n // bs))
         model.train()
         losses = []
-        for b, batch in enumerate(prefetch(source, device=dev)):
-            with dropout_generator(gen):
+        for b, batch in enumerate(prefetch(
+                source, device=dev, place=pmesh.batch_placer(mesh, dev))):
+            with dropout_generator(gen), pmesh.shard_context(mesh):
                 losses.append(step_fn(batch))
             if (b + 1) % log_every == 0:
                 meter.update(float(torch.stack(losses[-log_every:]).mean()),
@@ -221,23 +230,31 @@ def train_dae(config: Config, train_frames,
         if losses and "first_step_loss" not in history:
             history["first_step_loss"] = [float(losses[0])]
         model.eval()
-        val = [float(eval_step(model, to_device(val_frames[s:s + bs], dev)))
-               for s in range(0, val_frames.shape[0] - bs + 1, bs)]
+        val = [float(pmesh.average(mesh, eval_step(model, to_device(
+            pmesh.shard_batch(val_frames[s:s + bs], mesh), dev))))
+            for s in range(0, val_frames.shape[0] - bs + 1, bs)]
         history["val_loss"].append(float(np.mean(val)) if val
                                    else float("nan"))
         logging.info("EP %d done: train %.5f val %.5f", epoch, meter.avg,
                      history["val_loss"][-1])
         if save_dir and ((epoch + 1) % save_every == 0
                          or epoch + 1 == config.epochs):
-            path = checkpoints.checkpoint_filename(
-                save_dir, f"{config.name}_H{config.hidden_size}", epoch + 1)
-            v = to_jax_variables(model)
-            extra = {"batch_stats": v["batch_stats"],
-                     **checkpoints.resume_extra(model, opt, gen, config)}
-            if is_vq:
-                extra["vq_state"] = ema_state_to_jax(model)
-            checkpoints.save_checkpoint(
-                path, config=config, epoch=epoch + 1, params=v["params"],
-                pose_dim=config.input_motion_dim, extra=extra, kind="DAE")
-            logging.info("saved checkpoint %s", path)
-    return model, history
+            with pmesh.gathered(mesh, model, opt):
+                if pmesh.is_main(mesh):
+                    _save(config, model, opt, gen, save_dir, epoch + 1)
+    return pmesh.finish(mesh, model, opt), history
+
+
+def _save(config: Config, model: nn.Module, opt: Adam,
+          gen: torch.Generator, save_dir: str, epoch1: int) -> None:
+    path = checkpoints.checkpoint_filename(
+        save_dir, f"{config.name}_H{config.hidden_size}", epoch1)
+    v = to_jax_variables(model)
+    extra = {"batch_stats": v["batch_stats"],
+             **checkpoints.resume_extra(model, opt, gen, config)}
+    if isinstance(model, VQFrame):
+        extra["vq_state"] = ema_state_to_jax(model)
+    checkpoints.save_checkpoint(
+        path, config=config, epoch=epoch1, params=v["params"],
+        pose_dim=config.input_motion_dim, extra=extra, kind="DAE")
+    logging.info("saved checkpoint %s", path)

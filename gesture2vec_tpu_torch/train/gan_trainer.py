@@ -34,7 +34,11 @@ D's in the generator's update, which no gradient reaches) and 138 of the
 gate-saving variant, each with its backward launch (the generator's 4,
 11 D updates of 2 forwards x 6, D's pose GRU in the generator's update);
 the decoder's attention runs plain PyTorch. The models are fp32 whatever
-the config's compute_dtype says, as in JAX.
+the config's compute_dtype says, as in JAX. A config's mesh_shape trains
+over a mesh (`parallel/mesh`, its ranks started by
+`parallel/launch.spmd`): each dp rank takes its rows of every global
+batch and of its noise, the word tables are row-sharded over tp, rank 0
+writes the checkpoint.
 """
 from __future__ import annotations
 
@@ -48,11 +52,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from gesture2vec_tpu_torch.compat.from_jax import to_jax_variables
-from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.gan import T2GDiscriminator, T2GGenerator
 from gesture2vec_tpu_torch.models.layers import dropout_generator
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
+from gesture2vec_tpu_torch.parallel.launch import spmd
+from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.misc_trainers import init_misc
 from gesture2vec_tpu_torch.train.optim import Adam
 from gesture2vec_tpu_torch.train.token_loop import to_device
@@ -201,6 +206,7 @@ def init_gan(g: T2GGenerator, d: T2GDiscriminator, seed: int,
             init_misc(d, seed + 2, device, embedding_weights))
 
 
+@spmd
 def train_gan(config: Config, data: Dict[str, np.ndarray], n_words: int,
               embedding_weights: Optional[np.ndarray] = None,
               save_dir: Optional[str] = None,
@@ -212,8 +218,7 @@ def train_gan(config: Config, data: Dict[str, np.ndarray], n_words: int,
     epochs' mean g_loss, d_real and d_fake, and the first step's D loss
     d_real + d_fake, first_step_d_loss). Runs on CUDA unless device says
     otherwise."""
-    refuse_mesh(config)
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     seed = max(config.random_seed, 0)
     pose_dim = data["poses"].shape[-1]
     g, d = init_gan(*build_gan(config, n_words, pose_dim), seed, dev,
@@ -223,6 +228,8 @@ def train_gan(config: Config, data: Dict[str, np.ndarray], n_words: int,
                    Adam(d.parameters(), config.learning_rate,
                         clip_norm=None),
                    keep_unrolled=config.gan_keep_unrolled)
+    pmesh.prepare_state(g, [step.g_opt], mesh)
+    pmesh.prepare_state(d, [step.d_opt], mesh)
     drop = torch.Generator(device=dev).manual_seed(seed)
     noise_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     bs = config.batch_size
@@ -230,6 +237,8 @@ def train_gan(config: Config, data: Dict[str, np.ndarray], n_words: int,
     if n < bs:
         raise ValueError(f"GAN training needs at least one full batch "
                          f"({n} windows < batch_size {bs})")
+    if mesh is not None:
+        mesh.check_batch(bs)
     fields = ("word_ids", "lengths", "poses")
     history: Dict[str, list] = {"g_loss": [], "d_real": [], "d_fake": []}
     meter = AverageMeter("g_loss", ":.4f")
@@ -238,14 +247,14 @@ def train_gan(config: Config, data: Dict[str, np.ndarray], n_words: int,
         meter.reset()
         metrics: List[Dict[str, torch.Tensor]] = []
         for s in range(0, n - bs + 1, bs):
-            batch = [to_device(data[f][perm[s:s + bs]], dev)
-                     for f in fields]
-            noise = torch.randn((bs, config.noise_dim), generator=noise_gen,
-                                device=dev)
-            with dropout_generator(drop):
-                metrics.append(step(*batch, noise))
+            take = pmesh.shard_batch(perm[s:s + bs], mesh)
+            batch = [to_device(data[f][take], dev) for f in fields]
+            noise = pmesh.shard_batch(torch.randn(
+                (bs, config.noise_dim), generator=noise_gen, device=dev), mesh)
+            with dropout_generator(drop), pmesh.shard_context(mesh):
+                metrics.append(pmesh.average(mesh, step(*batch, noise)))
         means = {k: float(torch.stack([m[k] for m in metrics]).mean())
-                 for k in history}
+                 for k in ("g_loss", "d_real", "d_fake")}
         for k, v in means.items():
             history[k].append(v)
         if "first_step_d_loss" not in history:
@@ -254,7 +263,9 @@ def train_gan(config: Config, data: Dict[str, np.ndarray], n_words: int,
         meter.avg = means["g_loss"]
         logging.info("EP %d done: g %.4f d_real %.4f d_fake %.4f", epoch,
                      meter.avg, means["d_real"], means["d_fake"])
-    if save_dir:
+    pmesh.finish(mesh, g, step.g_opt)
+    pmesh.finish(mesh, d, step.d_opt)
+    if save_dir and pmesh.is_main(mesh):
         path = checkpoints.checkpoint_filename(save_dir, config.name,
                                                config.epochs)
         gv = to_jax_variables(g)

@@ -17,7 +17,11 @@ its backward kernel (2 layers x 2 directions: 4 of each a step), its
 attention decoder plain PyTorch; c2g's pre_gru runs them at T = 1 (2 a
 step) and its validation rollout the chunk-decoder kernel
 (`models/c2g`). Both build their models in fp32 whatever the config's
-compute_dtype says, as the JAX trainers do.
+compute_dtype says, as the JAX trainers do. A config's mesh_shape trains
+over a mesh (`parallel/mesh`, its ranks started by
+`parallel/launch.spmd`): each dp rank takes its rows of every global
+batch, the baseline's word table is row-sharded over tp, rank 0 writes
+the checkpoint.
 """
 from __future__ import annotations
 
@@ -30,12 +34,13 @@ import torch
 
 from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
                                                    to_jax_variables)
-from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.baseline import Seq2SeqNet
 from gesture2vec_tpu_torch.models.c2g import Cluster2Gesture
 from gesture2vec_tpu_torch.models.layers import dropout_generator
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
+from gesture2vec_tpu_torch.parallel.launch import spmd
+from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.losses import custom_loss
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import (require_full_batch,
@@ -102,13 +107,17 @@ def c2g_eval_step(config: Config, model: Cluster2Gesture, ids,
 def _loop(config: Config, model: torch.nn.Module, step: Step,
           eval_step: Callable, arrays: Tuple[np.ndarray, ...],
           val_arrays: Tuple[np.ndarray, ...], device: torch.device,
-          save_fn: Callable[[int], None], log_every: int = 50
-          ) -> Dict[str, list]:
+          save_fn: Callable[[int], None], log_every: int = 50,
+          mesh: Optional[pmesh.Mesh] = None) -> Dict[str, list]:
     """The JAX package's `_loop`: epochs of shuffled full batches, the
-    epoch's mean loss, validation, the save at the last epoch."""
+    epoch's mean loss, validation, the save at the last epoch (each dp
+    rank on its rows of the global batches under a mesh)."""
     seed = max(config.random_seed, 0)
     gen = torch.Generator(device=device).manual_seed(seed)
     bs, n = config.batch_size, arrays[0].shape[0]
+    pmesh.prepare_state(model, [step.opt], mesh)
+    if mesh is not None:
+        mesh.check_batch(bs)
     history: Dict[str, list] = {"train_loss": [], "val_loss": []}
     meter = AverageMeter("loss", ":.4f")
     for epoch in range(config.epochs):
@@ -118,9 +127,9 @@ def _loop(config: Config, model: torch.nn.Module, step: Step,
         model.train()
         losses = []
         for b in range(n // bs):
-            take = perm[b * bs:(b + 1) * bs]
+            take = pmesh.shard_batch(perm[b * bs:(b + 1) * bs], mesh)
             batch = tuple(to_device(a[take], device) for a in arrays)
-            with dropout_generator(gen):
+            with dropout_generator(gen), pmesh.shard_context(mesh):
                 losses.append(step(*batch))
             if (b + 1) % log_every == 0:
                 meter.update(float(torch.stack(losses[-log_every:]).mean()),
@@ -134,14 +143,19 @@ def _loop(config: Config, model: torch.nn.Module, step: Step,
             history["first_step_loss"] = [float(losses[0])]
         model.eval()
         m = val_arrays[0].shape[0]
-        val = [float(eval_step(config, model, *(
-            to_device(a[s:s + bs], device) for a in val_arrays)))
+        val = [float(pmesh.average(mesh, eval_step(config, model, *(
+            to_device(pmesh.shard_batch(a[s:s + bs], mesh), device)
+            for a in val_arrays))))
             for s in range(0, m - bs + 1, bs)]
         history["val_loss"].append(float(np.mean(val)) if val
                                    else float("nan"))
         logging.info("EP %d done: train %.5f val %.5f", epoch, meter.avg,
                      history["val_loss"][-1])
-        save_fn(epoch)
+        if epoch + 1 == config.epochs:
+            with pmesh.gathered(mesh, model):
+                if pmesh.is_main(mesh):
+                    save_fn(epoch)
+    pmesh.finish(mesh, model, step.opt)
     return history
 
 
@@ -173,6 +187,7 @@ def make_baseline(config: Config, n_words: int,
                       word_embed_size=config.wordembed_dim)
 
 
+@spmd
 def train_baseline(config: Config, data: Dict[str, np.ndarray],
                    val_data: Dict[str, np.ndarray], n_words: int,
                    embedding_weights: Optional[np.ndarray] = None,
@@ -181,10 +196,9 @@ def train_baseline(config: Config, data: Dict[str, np.ndarray],
                    ) -> Tuple[Seq2SeqNet, Dict[str, list]]:
     """data: {word_ids (N, S), lengths (N,), poses (N, T, D)}; returns
     (model, history). Runs on CUDA unless device says otherwise."""
-    refuse_mesh(config)
     require_full_batch(data["word_ids"].shape[0], config.batch_size,
                        config.name)
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     pose_dim = data["poses"].shape[-1]
     model = init_misc(make_baseline(config, n_words, pose_dim),
                       max(config.random_seed, 0), dev, embedding_weights)
@@ -195,7 +209,7 @@ def train_baseline(config: Config, data: Dict[str, np.ndarray],
                     tuple(data[f] for f in fields),
                     tuple(val_data[f] for f in fields), dev,
                     _saver(config, model, save_dir, pose_dim, "baseline",
-                           {"n_words": n_words}), log_every)
+                           {"n_words": n_words}), log_every, mesh)
     return model, history
 
 
@@ -209,6 +223,7 @@ def make_c2g(config: Config, output_size: int) -> Cluster2Gesture:
                            dropout_rate=config.dropout_prob)
 
 
+@spmd
 def train_c2g(config: Config, cluster_ids: np.ndarray,
               target_latents: np.ndarray, val_ids: np.ndarray,
               val_latents: np.ndarray, save_dir: Optional[str] = None,
@@ -217,10 +232,9 @@ def train_c2g(config: Config, cluster_ids: np.ndarray,
               ) -> Tuple[Cluster2Gesture, Dict[str, list]]:
     """cluster_ids (N,), target_latents (N, n_poses, rep_dim); returns
     (model, history). Runs on CUDA unless device says otherwise."""
-    refuse_mesh(config)
     require_full_batch(cluster_ids.shape[0], config.batch_size,
                        config.name)
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     out_dim = target_latents.shape[-1]
     model = init_misc(make_c2g(config, out_dim), max(config.random_seed, 0),
                       dev)
@@ -229,5 +243,5 @@ def train_c2g(config: Config, cluster_ids: np.ndarray,
     history = _loop(config, model, step, c2g_eval_step,
                     (cluster_ids, target_latents), (val_ids, val_latents),
                     dev, _saver(config, model, save_dir, out_dim, "c2g", {}),
-                    log_every)
+                    log_every, mesh)
     return model, history

@@ -10,6 +10,12 @@ step -lr * mu_hat / (sqrt(nu_hat) + eps) with mu_hat = mu / (1 -
 b1^count), nu_hat = nu / (1 - b2^count). The state (count, mu, nu) maps
 onto optax's state dict ({"0": {}, "1": {"0": {"count", "mu", "nu"},
 "1": {}}}) through the models' JAX layouts (`compat/from_jax`).
+
+Under a mesh (`mesh`, set by `parallel/mesh.prepare_state`) the step
+first averages the gradients over the dp ranks, and the clip's global
+norm counts every replicated parameter once and every tp shard once
+(`parallel/mesh.Mesh.global_norm`); a shard's moments stay with it.
+`Step` returns the loss averaged over dp, the global batch's.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ class Adam:
         self.lr, self.clip_norm = learning_rate, clip_norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
+        self.mesh = None
         self.mu: List[torch.Tensor] = [torch.zeros_like(p)
                                        for p in self.params]
         self.nu: List[torch.Tensor] = [torch.zeros_like(p)
@@ -51,8 +58,13 @@ class Adam:
         """One update from the parameters' .grad; returns the global
         gradient norm (before clipping)."""
         g = self.grads()
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(g)))
+        if self.mesh is not None:
+            g = self.mesh.dp_mean_grads(g)
+        if self.mesh is not None and self.mesh.tp > 1:
+            norm = self.mesh.global_norm(self.params, g)
+        else:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(g)))
         if self.clip_norm is not None:
             # optax: keep when norm < clip, else (g / norm) * clip
             scale = torch.where(norm < self.clip_norm, norm.new_ones(()),
@@ -90,6 +102,8 @@ class Step:
         out = self.loss(*batch)
         (out[0] if isinstance(out, tuple) else out).backward()
         self.opt.step()
+        if self.opt.mesh is not None:
+            return self.opt.mesh.dp_average(out)
         if isinstance(out, tuple):
             return tuple(t.detach() for t in out)
         return out.detach()

@@ -38,7 +38,12 @@ use_similarity (pair sampling indexes the array) and trains without the
 residual-VQ re-fit (it sweeps the array), as in JAX. `plot_every` N
 writes the codebook's t-SNE (`cluster/plots.plot_codebook_tsne`,
 matplotlib and scikit-learn) every N epochs into the save dir, as the
-JAX trainer does.
+JAX trainer does. A config's mesh_shape trains over a mesh
+(`parallel/mesh`, its ranks started by `parallel/launch.spmd`): each dp
+rank takes its rows of every global batch, the codebooks are
+row-sharded over tp (the residual re-fit runs on the full codebooks and
+is re-sharded), rank 0 writes the files; the similarity step stays
+refused there, with the JAX package's message.
 """
 from __future__ import annotations
 
@@ -54,14 +59,15 @@ from gesture2vec_tpu_torch.cluster.kmeans import lloyd, plusplus_init
 from gesture2vec_tpu_torch.compat.from_jax import to_jax_variables
 from gesture2vec_tpu_torch.data.similarity import (read_gesture_labels,
                                                    sample_pairs)
-from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.models.layers import (compute_dtype,
                                                  dropout_generator)
 from gesture2vec_tpu_torch.models.seq_ae import (SeqVQAutoencoder,
                                                  _flatten_hidden)
 from gesture2vec_tpu_torch.ops.vq_kernel import vq_argmin
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
+from gesture2vec_tpu_torch.parallel.launch import spmd
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
+from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.dae_trainer import init_model
 from gesture2vec_tpu_torch.train.losses import (custom_loss, kld_loss,
                                                 kld_loss_standard)
@@ -224,6 +230,7 @@ def reestimate_rvq_codebooks(
     model.train(was_training)
 
 
+@spmd
 def train_seq_ae(config: Config, train_windows,
                  val_windows: np.ndarray, save_dir: Optional[str] = None,
                  save_every: int = 20, log_every: int = 50,
@@ -240,12 +247,11 @@ def train_seq_ae(config: Config, train_windows,
     labels trains the plain step). plot_every N (with a save_dir and a
     quantizer) writes codebook_tsne_ep{epoch:03d}.png every N epochs.
     Runs on CUDA unless device says otherwise."""
-    refuse_mesh(config)
     streaming = hasattr(train_windows, "batches")
     if streaming and config.use_similarity:
         raise ValueError("use_similarity needs the in-RAM window array "
                          "(pair sampling indexes it)")
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     seed = max(config.random_seed, 0)
     model = init_model(make_seq_ae(config), seed, dev)
     if not streaming and train_windows.shape[-1] != model.rep_dim:
@@ -270,8 +276,13 @@ def train_seq_ae(config: Config, train_windows,
     if resume_from:
         start_epoch, _ = checkpoints.restore_for_resume(model, opt, gen,
                                                         resume_from)
+    pmesh.prepare_state(model, [opt], mesh)
     pairs = None
     if config.use_similarity and config.similarity_labels:
+        if mesh is not None:
+            raise ValueError("use_similarity training is single-device "
+                             "(the reference has no distributed variant); "
+                             "unset mesh_shape")
         pairs = read_gesture_labels(config.similarity_labels)
         logging.info("similarity-supervised: %d labelled pairs from %s",
                      len(pairs), config.similarity_labels)
@@ -280,6 +291,8 @@ def train_seq_ae(config: Config, train_windows,
     n = len(train_windows) if streaming else train_windows.shape[0]
     bs = config.batch_size
     require_full_batch(n, bs, config.name)
+    if mesh is not None:
+        mesh.check_batch(bs)
     history: Dict[str, list] = {"train_loss": [], "val_loss": [],
                                 "perplexity": []}
     meter = AverageMeter("loss", ":.4f")
@@ -288,9 +301,10 @@ def train_seq_ae(config: Config, train_windows,
                  and config.autoencoder_vq_variant == "rvq" else 0)
     for epoch in range(start_epoch, config.epochs):
         if rvq_every and epoch and epoch % rvq_every == 0:
-            reestimate_rvq_codebooks(model, train_windows,
-                                     config.autoencoder_vq_components,
-                                     config.rvq_stages)
+            with pmesh.gathered(mesh, model):
+                reestimate_rvq_codebooks(model, train_windows,
+                                         config.autoencoder_vq_components,
+                                         config.rvq_stages)
         meter.reset()
         t0 = time.time()
         if streaming:
@@ -301,14 +315,15 @@ def train_seq_ae(config: Config, train_windows,
                       for b in range(n // bs))
         model.train()
         losses, perps = [], []
-        for b, windows in enumerate(prefetch(source, device=dev)):
+        for b, windows in enumerate(prefetch(
+                source, device=dev, place=pmesh.batch_placer(mesh, dev))):
             batch = (windows,)
             if pairs is not None:
                 pa, pb, pl = sample_pairs(pairs, 3, np.random.default_rng(
                     seed + epoch * 65536 + b), n)
                 batch += tuple(to_device(a, dev) for a in (
                     train_windows[pa], train_windows[pb], pl))
-            with dropout_generator(gen):
+            with dropout_generator(gen), pmesh.shard_context(mesh):
                 loss, perp = step(*batch, float(epoch))[:2]
             losses.append(loss)
             perps.append(perp)
@@ -326,33 +341,44 @@ def train_seq_ae(config: Config, train_windows,
         history["perplexity"].append(float(torch.stack(perps).mean())
                                      if perps else float("nan"))
         model.eval()
-        val = [float(eval_step(config, model,
-                               to_device(val_windows[s:s + bs], dev)))
-               for s in range(0, val_windows.shape[0] - bs + 1, bs)]
+        val = [float(pmesh.average(mesh, eval_step(config, model, to_device(
+            pmesh.shard_batch(val_windows[s:s + bs], mesh), dev))))
+            for s in range(0, val_windows.shape[0] - bs + 1, bs)]
         history["val_loss"].append(float(np.mean(val)) if val
                                    else float("nan"))
         logging.info("EP %d done: train %.5f val %.5f perp %.1f", epoch,
                      meter.avg, history["val_loss"][-1],
                      history["perplexity"][-1])
-        if plot_every and save_dir and model.use_vq \
-                and (epoch + 1) % plot_every == 0:
-            from gesture2vec_tpu_torch.cluster.plots import \
-                plot_codebook_tsne
-            plot_codebook_tsne(
-                model.vq_layer.codebook.detach().cpu().numpy(),
-                os.path.join(save_dir,
-                             f"codebook_tsne_ep{epoch + 1:03d}.png"),
-                title=f"{config.name} codebook ep{epoch + 1}")
-        if save_dir and ((epoch + 1) % save_every == 0
-                         or epoch + 1 == config.epochs):
-            path = checkpoints.checkpoint_filename(save_dir, config.name,
-                                                   epoch + 1)
-            v = to_jax_variables(model)
-            checkpoints.save_checkpoint(
-                path, config=config, epoch=epoch + 1, params=v["params"],
-                pose_dim=model.rep_dim,
-                extra={"batch_stats": v["batch_stats"], "parity": False,
-                       **checkpoints.resume_extra(model, opt, gen, config)},
-                kind="autoencoder_vq" if model.use_vq else "autoencoder")
-            logging.info("saved checkpoint %s", path)
-    return model, history
+        plot = plot_every and save_dir and model.use_vq \
+            and (epoch + 1) % plot_every == 0
+        save = save_dir and ((epoch + 1) % save_every == 0
+                             or epoch + 1 == config.epochs)
+        if not (plot or save):
+            continue
+        with pmesh.gathered(mesh, model, opt):
+            if not pmesh.is_main(mesh):
+                continue
+            if plot:
+                from gesture2vec_tpu_torch.cluster.plots import \
+                    plot_codebook_tsne
+                plot_codebook_tsne(
+                    model.vq_layer.codebook.detach().cpu().numpy(),
+                    os.path.join(save_dir,
+                                 f"codebook_tsne_ep{epoch + 1:03d}.png"),
+                    title=f"{config.name} codebook ep{epoch + 1}")
+            if save:
+                _save(config, model, opt, gen, save_dir, epoch + 1)
+    return pmesh.finish(mesh, model, opt), history
+
+
+def _save(config: Config, model: SeqVQAutoencoder, opt: Adam,
+          gen: torch.Generator, save_dir: str, epoch1: int) -> None:
+    path = checkpoints.checkpoint_filename(save_dir, config.name, epoch1)
+    v = to_jax_variables(model)
+    checkpoints.save_checkpoint(
+        path, config=config, epoch=epoch1, params=v["params"],
+        pose_dim=model.rep_dim,
+        extra={"batch_stats": v["batch_stats"], "parity": False,
+               **checkpoints.resume_extra(model, opt, gen, config)},
+        kind="autoencoder_vq" if model.use_vq else "autoencoder")
+    logging.info("saved checkpoint %s", path)

@@ -26,6 +26,12 @@ trainer's generator, and the CE against the ground-truth codes.
 alike, as JAX builds both with the compute dtype: on the card the GRU
 text encoder runs the bf16 GRU kernels; the logits, the CE, parameters,
 Adam's state and checkpoints stay fp32.
+
+A config's mesh_shape trains over a mesh (`parallel/mesh`, its ranks
+started by `parallel/launch.spmd`): each dp rank takes its rows of every
+global batch (the feedback step's Gumbel noise drawn at the global
+batch's shape), the word table is row-sharded over tp, rank 0 writes the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -36,12 +42,13 @@ import torch
 
 from gesture2vec_tpu_torch.compat.from_jax import (flax_init,
                                                    to_jax_variables)
-from gesture2vec_tpu_torch.device import resolve_device
-from gesture2vec_tpu_torch.models.layers import compute_dtype
+from gesture2vec_tpu_torch.models.layers import compute_dtype, global_draw
 from gesture2vec_tpu_torch.models.text2token import Text2Token, gumbel_noise
 from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.train import checkpoints
-from gesture2vec_tpu_torch.train.config import Config, refuse_mesh
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
+from gesture2vec_tpu_torch.parallel.launch import spmd
+from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.losses import stage_ce, token_cross_entropy
 from gesture2vec_tpu_torch.train.optim import Adam, Step
 from gesture2vec_tpu_torch.train.token_loop import run_token_training
@@ -140,9 +147,10 @@ class FeedbackTrainStep(TrainStep):
         kw = {}
         if self.temperature > 0.0:
             if gumbel is None:
-                gumbel = gumbel_noise((targets.shape[0], m.n_steps - 1,
-                                       m.token_stages, m.n_tokens),
-                                      self.generator)
+                gumbel = global_draw(
+                    lambda shape: gumbel_noise(shape, self.generator),
+                    (targets.shape[0], m.n_steps - 1, m.token_stages,
+                     m.n_tokens))
             kw = {"temperature": self.temperature,
                   "gumbel": gumbel.to(targets.device)}
         was = m.training
@@ -167,6 +175,7 @@ def make_eval_step(model: Part):
     return step
 
 
+@spmd
 def train_text2token(config: Config, data: Dict[str, np.ndarray],
                      val_data: Dict[str, np.ndarray], n_words: int,
                      embedding_weights: Optional[np.ndarray] = None,
@@ -177,8 +186,7 @@ def train_text2token(config: Config, data: Dict[str, np.ndarray],
                      ) -> Tuple[Part, Dict[str, list]]:
     """The Part-d loop over build_sentence_dataset's arrays; returns
     (model, history). Runs on CUDA unless device says otherwise."""
-    refuse_mesh(config)
-    dev = resolve_device(device)
+    mesh, dev = pmesh.trainer_mesh(config.mesh_shape, device)
     seed = max(config.random_seed, 0)
     model = init_text2token(make_text2token(config, n_words), seed, dev,
                             embedding_weights)
@@ -188,6 +196,7 @@ def train_text2token(config: Config, data: Dict[str, np.ndarray],
     if resume_from:
         start_epoch, _ = checkpoints.restore_for_resume(model, opt, gen,
                                                         resume_from)
+    pmesh.prepare_state(model, [opt], mesh)
 
     def save(epoch1: int, tag: Optional[str] = None) -> None:
         if not save_dir:
@@ -220,5 +229,5 @@ def train_text2token(config: Config, data: Dict[str, np.ndarray],
         config, model, opt, gen, start_epoch, fields, data, val_data,
         TrainStep(model, opt, config.label_smoothing), make_eval_step(model),
         dev, save, save_every, log_every, train_step_late=late,
-        late_from_epoch=late_from)
-    return model, history
+        late_from_epoch=late_from, mesh=mesh)
+    return pmesh.finish(mesh, model, opt), history

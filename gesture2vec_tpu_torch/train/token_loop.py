@@ -8,7 +8,10 @@ snapshots the best-validation-loss state, saves it under the "best" tag
 and returns it instead of the final epoch's. A second step
 (`train_step_late`, the feedback-matched finetune) takes over from epoch
 `late_from_epoch` on, a run resumed inside that phase included; the
-switch is logged once a run.
+switch is logged once a run. Under a mesh (`parallel/mesh`) each dp rank
+takes its rows of every global batch, the losses and accuracies are the
+global batch's, and rank 0 writes the checkpoints (the tables gathered
+over tp).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from gesture2vec_tpu_torch.models.layers import dropout_generator
+from gesture2vec_tpu_torch.parallel import mesh as pmesh
 from gesture2vec_tpu_torch.train.config import Config
 from gesture2vec_tpu_torch.train.optim import Adam
 from gesture2vec_tpu_torch.utils.meters import AverageMeter
@@ -74,7 +78,8 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
                        save_checkpoint: Callable[..., None],
                        save_every: int, log_every: int,
                        train_step_late: Optional[Callable] = None,
-                       late_from_epoch: Optional[int] = None
+                       late_from_epoch: Optional[int] = None,
+                       mesh: Optional[pmesh.Mesh] = None
                        ) -> Dict[str, List[float]]:
     """train_step(*batch) -> loss tensor (one optimizer step), and
     train_step_late the same from epoch late_from_epoch on;
@@ -84,6 +89,14 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
     seed = max(config.random_seed, 0)
     n, bs = data[fields[0]].shape[0], config.batch_size
     require_full_batch(n, bs, config.name)
+    if mesh is not None:
+        mesh.check_batch(bs)
+
+    def save(epoch1: int, tag: Optional[str] = None) -> None:
+        with pmesh.gathered(mesh, model, opt):
+            if pmesh.is_main(mesh):
+                save_checkpoint(epoch1, tag=tag)
+
     history: Dict[str, List[float]] = {"train_loss": [], "val_loss": [],
                                        "val_acc": []}
     meter = AverageMeter("loss", ":.4f")
@@ -105,8 +118,8 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
         losses = []
         model.train()
         for b in range(n // bs):
-            take = perm[b * bs:(b + 1) * bs]
-            with dropout_generator(generator):
+            take = pmesh.shard_batch(perm[b * bs:(b + 1) * bs], mesh)
+            with dropout_generator(generator), pmesh.shard_context(mesh):
                 loss = step_fn(*(to_device(data[f][take], device)
                                  for f in fields))
             losses.append(loss)
@@ -126,8 +139,9 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
         vl, va = [], []
         m = val_data[fields[0]].shape[0]
         for s in range(0, m - bs + 1, bs):
-            loss, acc, _ = eval_step(*(to_device(val_data[f][s:s + bs],
-                                                 device) for f in fields))
+            loss, acc = pmesh.average(mesh, eval_step(*(to_device(
+                pmesh.shard_batch(val_data[f][s:s + bs], mesh), device)
+                for f in fields))[:2])
             vl.append(float(loss))
             va.append(float(acc))
         history["val_loss"].append(float(np.mean(vl)) if vl
@@ -142,13 +156,13 @@ def run_token_training(config: Config, model: torch.nn.Module, opt: Adam,
             best_loss, best_epoch = vloss, epoch
             best = snapshot(model, opt, generator)
         if (epoch + 1) % save_every == 0 or epoch + 1 == config.epochs:
-            save_checkpoint(epoch + 1)
+            save(epoch + 1)
 
     if keep_best and best is not None:
         history["best_epoch"] = [best_epoch]
         history["best_val_loss"] = [best_loss]
         restore(model, opt, generator, copy.deepcopy(best))
-        save_checkpoint(best_epoch + 1, tag="best")
+        save(best_epoch + 1, tag="best")
         logging.info("keep_best: returning epoch %d (val %.4f) instead of "
                      "the final epoch", best_epoch, best_loss)
     return history

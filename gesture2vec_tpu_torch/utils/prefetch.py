@@ -47,13 +47,11 @@ def prefetch(batches: Iterable[Any], device: Union[str, torch.device],
              depth: int = 2, place: Any = None) -> Iterator[Any]:
     """Yield the batches of an iterable, each prepared and moved to the
     device by a worker thread up to depth batches ahead. `place` (the JAX
-    package's mesh placement) is refused: the mesh is ROADMAP.md queue A
-    item 5."""
-    if place is not None:
-        raise NotImplementedError("prefetch(place=...), the mesh placement,"
-                                  " is not ported yet (ROADMAP.md queue A "
-                                  "item 5, scale-out)")
+    package's mesh placement, `parallel/mesh.batch_placer`) takes a host
+    batch to the device in place of `place_on`: under a mesh, this
+    rank's rows of it."""
     dev = torch.device(device)
+    place = place or (lambda b: place_on(b, dev))
     q: "queue.Queue[Any]" = queue.Queue(maxsize=depth)
     err: list = []
     stop = threading.Event()
@@ -61,7 +59,7 @@ def prefetch(batches: Iterable[Any], device: Union[str, torch.device],
     def worker():
         try:
             for b in batches:
-                b = place_on(b, dev)
+                b = place(b)
                 while not stop.is_set():
                     try:
                         q.put(b, timeout=0.5)

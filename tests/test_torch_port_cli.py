@@ -190,9 +190,9 @@ def files(ingested):
     return out
 
 
-def _jax_reference(files, transcripts, mode, policy):
+def _jax_reference(files, transcripts, mode, policy, mesh=None):
     """(frames, tokens, BVH text) per transcript through the JAX
-    package's own inference functions."""
+    package's own inference functions (a batch over mesh where given)."""
     from gesture2vec_tpu.cli._common import build_generator as jax_build
     from gesture2vec_tpu.cli._common import \
         load_bvh_exporter as jax_exporter
@@ -208,7 +208,7 @@ def _jax_reference(files, transcripts, mode, policy):
     to_bvh = jax_exporter("trinity", files["pipeline"])
     words = [read_subtitles(t) for t in transcripts]
     durs = [w[-1][2] for w in words]
-    results = (gen.generate_batch(words, durs) if len(words) > 1
+    results = (gen.generate_batch(words, durs, mesh=mesh) if len(words) > 1
                else [gen.generate(words[0], durs[0])])
     return [(np.asarray(f), np.asarray(t),
              jax_write_bvh(to_bvh(np.asarray(f)))) for f, t in results]
@@ -278,17 +278,30 @@ def test_infer_cli_matches_jax(case, files, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mesh", "dp=2"],
                                   ["--plot-attention", "attn.png"]])
-def test_infer_refuses_unported_flags(flag):
-    """--mesh is refused with its queue item; --plot-attention is ported
-    (tests/test_torch_port_analysis.py): it passes the refusals and the
-    command fails only at the missing files."""
+def test_infer_refuses_unported_flags(flag, files, tmp_path):
+    """Both flags, once refused, are ported. `g2v-infer --mesh dp=2
+    --device cpu` on two transcripts splits the batch over dp: the JAX
+    command's tokens (its generate_batch over a dp=2 mesh) and frames
+    within ATOL. --plot-attention (tests/test_torch_port_analysis.py)
+    passes the option checks and the command fails only at the missing
+    files."""
+    if flag[0] == "--mesh":
+        from gesture2vec_tpu.parallel.mesh import make_mesh
+
+        argv = [files["t2t"], *files["transcripts"], files["dae"],
+                files["vq"], "--store", files["store"], "--pipeline",
+                files["pipeline"], "--mode", "decode", "--out",
+                str(tmp_path / "gen.bvh"), "--device", "cpu", *flag]
+        got = p_infer.main(argv)
+        want = _jax_reference(files, files["transcripts"], "decode", {},
+                              mesh=make_mesh({"dp": 2}))
+        assert len(got) == len(want) == 2
+        for (frames, tokens, _), (w_frames, w_tokens, _) in zip(got, want):
+            np.testing.assert_array_equal(tokens, w_tokens)
+            np.testing.assert_allclose(frames, w_frames, rtol=0, atol=ATOL)
+        return
     argv = ["t2t.bin", "a.json", "dae.bin", "vq.bin", "--store", "store",
             "--pipeline", "pipe.json", "--device", "cpu", *flag]
-    if flag[0] == "--mesh":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item"):
-            p_infer.main(argv)
-        return
     with pytest.raises(FileNotFoundError):
         p_infer.main(argv)
 

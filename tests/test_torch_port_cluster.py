@@ -444,7 +444,11 @@ def test_unported_options_raise(corpus, tmp_path):
     # test_torch_port_train_misc.py); a kind outside it is refused
     with pytest.raises(KeyError, match="unknown checkpoint kind"):
         load_checkpoint_and_model(corpus["dae"], "no_such_kind", "cpu")
+    # the sweep over a mesh (3 frames over sp=2: padded, split, trimmed)
+    # is the sweep without one
+    from gesture2vec_tpu_torch.parallel.mesh import make_mesh
     dae, _ = load_checkpoint_and_model(corpus["dae"], "DAE", "cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        encode_frames_with_dae(dae, np.zeros((3, DIM), np.float32),
-                               mesh=object())
+    np.testing.assert_allclose(
+        encode_frames_with_dae(dae, frames[:3], mesh=make_mesh({"sp": 2},
+                                                               "cpu")),
+        encode_frames_with_dae(dae, frames[:3]), rtol=0, atol=1e-6)

@@ -148,9 +148,18 @@ def test_entry_point_needs_cuda_unless_cpu(jax_gen, monkeypatch):
 
 @pytest.mark.parametrize("case", ["generate_batch_mesh"])
 def test_still_unported_raise(jax_gen, case):
-    """What a later slice ports: generate_batch over a mesh."""
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        _port(jax_gen).generate_batch([_words(3.0)], 3.0, mesh=object())
+    """generate_batch over a mesh, once refused, is ported: one
+    transcript over dp=2 (padded to 2) gives the unsharded call's tokens
+    and frames (tests/test_torch_port_mesh_infer.py holds it against
+    JAX's)."""
+    from gesture2vec_tpu_torch.parallel.mesh import make_mesh
+
+    gen = _port(jax_gen)
+    (f, t), = gen.generate_batch([_words(3.0)], 3.0,
+                                 mesh=make_mesh({"dp": 2}, "cpu"))
+    (wf, wt), = gen.generate_batch([_words(3.0)], 3.0)
+    np.testing.assert_array_equal(t, wt)
+    np.testing.assert_allclose(f, wf, atol=ATOL)
 
 
 @pytest.mark.parametrize("case", ["t2t_arch_transformer",

@@ -282,7 +282,7 @@ def _shared_masks(monkeypatch, seed):
                            inputs, ordered=True)
         return inputs * keep / (1.0 - self.rate)
 
-    def port_dropout(x, rate, training):
+    def port_dropout(x, rate, training, batch_dim=0):
         if not training or rate <= 0.0:
             return x
         return x * torch.from_numpy(port_s.keep(tuple(x.shape), rate)) \

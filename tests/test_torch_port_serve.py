@@ -486,8 +486,14 @@ def test_serve_cli_refuses_mesh_and_needs_a_card(monkeypatch, tmp_path):
 
     args = ["t2t.bin", "dae.bin", "vq.bin", "--store", str(tmp_path),
             "--pipeline", "pipe.json"]
-    with pytest.raises(NotImplementedError, match="--mesh"):
+    # --mesh, once refused, is read: the command fails only at the empty
+    # store, and a mesh the cards cannot hold raises before any file
+    with pytest.raises(FileNotFoundError):
         cli.main(args + ["--mesh", "dp=2", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        cli.main(args + ["--mesh", "dp=2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(args)

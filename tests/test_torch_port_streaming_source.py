@@ -254,8 +254,12 @@ def test_prefetch_keeps_order_and_places_batches():
     # tuples of arrays and tensors keep their structure
     pair = next(prefetch(iter([(batches[5], torch.ones(2))]), "cpu"))
     assert isinstance(pair, tuple) and pair[0].dtype == torch.int64
-    with pytest.raises(NotImplementedError, match="item 5"):
-        next(prefetch(iter(batches), "cpu", place=lambda b: b))
+    # place (the mesh placement, once refused) takes each host batch in
+    # place of the default copy
+    placed = list(prefetch(iter(batches[:5]), "cpu",
+                           place=lambda b: torch.from_numpy(b[:1] * 2)))
+    assert [tuple(b.shape) for b in placed] == [(1, 3)] * 5
+    assert [float(b[0, 0]) for b in placed] == [0, 2, 4, 6, 8]
 
 
 def test_prefetch_raises_the_workers_exception():

@@ -33,6 +33,8 @@ outside `models/layers.dropout_generator`.
 import glob
 import json
 import os
+import subprocess
+import sys
 
 import flax.linen as fnn
 import jax
@@ -718,24 +720,62 @@ def test_port_resume_continues_the_run(trained, tmp_path):
         2 * (frames.shape[0] // 32)
 
 
-def test_refused_options_name_their_queue_items(tmp_path):
-    """--mesh and a config's mesh_shape (item 5) are refused, the latter
-    before any data is built; decoder attention and --plot-every are
-    ported (tests/test_torch_port_reconstruct.py,
+def test_refused_options_name_their_queue_items(trained, tmp_path):
+    """A config's mesh_shape and --mesh, once refused, train over the
+    mesh: part a on the tiny store with `mesh_shape: {dp: 2}` in the YAML,
+    and with `--mesh dp=2` over the plain YAML, each through cli/train
+    (the trainer starts its 2 gloo ranks), and `--mesh dp=2` under
+    `torchrun --nproc-per-node 2` (each process joins torchrun's gloo
+    group and trains in place), give the single run's history within
+    1e-4, and the meshed run's checkpoint is the single run's file (the
+    same format; parameters within 1e-5). Decoder attention
+    and --plot-every are ported (tests/test_torch_port_reconstruct.py,
     tests/test_torch_port_analysis.py), and so are the parts baseline,
     c2g and gan (tests/test_torch_port_train_misc.py)."""
     from gesture2vec_tpu_torch.cli import train as ptrain
+    from gesture2vec_tpu_torch.compat.checkpoint import \
+        load_checkpoint_and_model
+
     assert pseq.make_seq_ae(load_config(
         {**VQ_CFG, "autoencoder_att": True})).decoder.use_attention
+    root = trained["root"]
     meshed = tmp_path / "mesh.yml"
-    _write_yaml(meshed, {**DAE_CFG, "mesh_shape": "{dp: 2}",
-                         "train_data_path": str(tmp_path / "absent")})
-    for argv, item in ((["-c", str(meshed), "--part", "a", "--device",
-                         "cpu"], "item 5"),
-                       (["-c", "x.yml", "--part", "a", "--mesh", "dp=2"],
-                        "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            ptrain.main(argv)
+    with open(root / "dae.yml") as f:
+        meshed.write_text(f.read() + "mesh_shape: {dp: 2}\n")
+    want = trained["a"][1]
+    runs = {"yaml": ["-c", str(meshed)],
+            "flag": ["-c", str(root / "dae.yml"), "--mesh", "dp=2"]}
+    runs["torchrun"] = runs["flag"]
+    for name, argv in runs.items():
+        save = tmp_path / name
+        argv = argv + ["--part", "a", "--device", "cpu", "--save-dir",
+                       str(save)]
+        if name == "torchrun":
+            env = {**os.environ, "OMP_NUM_THREADS": "1",
+                   "PYTHONPATH": str(REPO)}
+            subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "2", "-m",
+                 "gesture2vec_tpu_torch.cli.train", *argv], check=True,
+                env=env, cwd=str(tmp_path), timeout=300)
+            hist = json.loads((save / "loss_history.json").read_text())
+        else:
+            model, hist = ptrain.main(argv)
+        for key in want:
+            np.testing.assert_allclose(hist[key], want[key], rtol=1e-4,
+                                       err_msg=f"{name} {key}")
+        got, payload = load_checkpoint_and_model(
+            str(save / "dae_H8_checkpoint_002.bin"), "DAE", "cpu")
+        ref, ref_payload = load_checkpoint_and_model(
+            str(root / "out/dae/dae_H8_checkpoint_002.bin"), "DAE", "cpu")
+        assert payload["epoch"] == ref_payload["epoch"] == 2
+        assert sorted(payload["extra"]) == sorted(ref_payload["extra"])
+        for (k, a), (_, b) in zip(got.state_dict().items(),
+                                  ref.state_dict().items()):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+        assert json.loads((save / "loss_history.json").read_text()) \
+            == hist
 
 
 def test_keep_best_saves_and_returns_the_best_epoch(tmp_path):

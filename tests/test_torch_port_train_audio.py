@@ -19,7 +19,8 @@ patched to the identity; the port trains outside
 - The command: the port's `--part audio` (both fusions) on JAX-written
   DAE and tokenizer checkpoints, its loss falling; its checkpoint and a
   JAX-trained one each resumed by both packages, the next step equal.
-- The refusals: `compute_dtype: bfloat16` (item 3.7), a mesh (item 5).
+- A mesh (dp=2, gloo ranks on the CPU) against the single run; the
+  refusal of a "both" model without n_words.
 """
 import glob
 import os
@@ -364,9 +365,22 @@ def test_audio_command_trains_and_resumes_across_packages(
 
 
 def test_refusals_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pa2t.train_audio2token(load_config({**a2t_raw(),
-                                            "mesh_shape": {"dp": 2}}),
-                               {}, {}, device="cpu")
+    """mesh_shape, once refused, trains: the text+audio model over dp=2
+    (2 gloo ranks, dropout 0.2 drawn at the global batch's shape, its
+    BatchNorms on the global batch) has the single run's history within
+    1e-4. A "both" model without n_words is refused."""
+    rows = [_batch("both", 1, seed) for seed in (3, 4)]
+    data = {k: np.concatenate([r[i] for r in rows])
+            for i, k in enumerate(("word_ids", "wav", "tokens"))}
+    val = {k: v[:BS] for k, v in data.items()}
+    raw = {**a2t_raw("both"), "epochs": 2}
+    _, want = pa2t.train_audio2token(load_config(raw), data, val,
+                                     n_words=N_WORDS, device="cpu")
+    _, got = pa2t.train_audio2token(
+        load_config({**raw, "mesh_shape": {"dp": 2}}), data, val,
+        n_words=N_WORDS, device="cpu")
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                   err_msg=key)
     with pytest.raises(ValueError, match="n_words"):
         pa2t.make_audio2token(load_config(a2t_raw("both")))

@@ -203,8 +203,19 @@ def test_vq_gumbel_matches_jax(train):
 
 
 def test_vq_ema_refuses_the_psum():
+    """The psum, once refused, is ported: axis_name takes a
+    parallel.mesh.Mesh (its dp ranks' sums, tests/test_torch_port_mesh.py);
+    a plain process's mesh gives the update without one, and a JAX-style
+    axis name string raises."""
+    from gesture2vec_tpu_torch.parallel.mesh import make_mesh
+
     state = pvq.init_ema_state(CODES, LATENT, torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    x = torch.randn(6, LATENT, generator=torch.Generator().manual_seed(1))
+    _, want = pvq.vq_ema(x, state)
+    _, got = pvq.vq_ema(x, state, axis_name=make_mesh({"dp": 2}, "cpu"))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="names no axes"):
         pvq.vq_ema(torch.zeros(2, LATENT), state, axis_name="dp")
 
 

@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package: training the baseline, c2g and the
-unrolled GAN (`g2v-train --part baseline|c2g|gan`), and the trainers'
-refusal of a mesh.
+unrolled GAN (`g2v-train --part baseline|c2g|gan`), and every trainer
+over a mesh.
 
 Small widths (hidden 16, 2 layers, 8 word slots, 10 frames, pose 12,
 batches of 6), inputs from numpy seeds, weights from the JAX trainers'
@@ -19,7 +19,8 @@ the CPU.
   the histories within 1e-4.
 - The command on a tiny store (`--device cpu`): the three parts train,
   and the JAX package loads each checkpoint to the port's outputs.
-- C.4: every trainer refuses `mesh_shape`, naming queue A item 5.
+- Every trainer over dp=2 (gloo ranks on the CPU) against its single
+  run.
 """
 import json
 
@@ -520,37 +521,68 @@ def test_port_checkpoint_loads_in_jax(trained, part):
                                atol=1e-5)
 
 
-# -- C.4: a mesh is refused -------------------------------------------------
-def _refusing(trainer):
-    """A call of each trainer on data it never reaches."""
+# -- every trainer over a mesh --------------------------------------------
+MESH_CFG = {**CFG, "rep_learning_dim": 8, "input_motion_dim": D,
+            "sentence_frame_length": 4 * T, "autoencoder_vq": True}
+TRAINERS = ["dae", "seq_ae", "text2token", "baseline", "c2g", "gan"]
+
+
+def _mesh_job(trainer, mesh_shape=None):
+    """(fn, args, kwargs) of a 2-epoch run of each trainer at this file's
+    widths, dropout 0.1, over mesh_shape."""
     from gesture2vec_tpu_torch.train import dae_trainer as pdae
     from gesture2vec_tpu_torch.train import seq_ae_trainer as pseq
     from gesture2vec_tpu_torch.train import text2token_trainer as pt2t
 
-    cfg = load_config({**STEP_CFG, "mesh_shape": {"dp": 2}})
-    frames = np.zeros((64, 135), np.float32)
-    windows = np.zeros((16, T, 8), np.float32)
-    text = _text_pose(1, 16)
-    ids, lat = _clusters(1, 16)
-    return {"dae": lambda: pdae.train_dae(cfg, frames, frames,
-                                          device="cpu"),
-            "seq_ae": lambda: pseq.train_seq_ae(cfg, windows, windows,
-                                                device="cpu"),
-            "text2token": lambda: pt2t.train_text2token(
-                cfg, {}, {}, NWORDS, device="cpu"),
-            "baseline": lambda: pmisc.train_baseline(cfg, text, text, NWORDS,
-                                                     device="cpu"),
-            "c2g": lambda: pmisc.train_c2g(cfg, ids, lat, ids, lat,
-                                           device="cpu"),
-            "gan": lambda: pgan.train_gan(cfg, text, NWORDS,
-                                          device="cpu")}[trainer]
+    cfg = load_config({**MESH_CFG, "mesh_shape": mesh_shape})
+    rng = np.random.default_rng(11)
+    frames = rng.normal(size=(48, D)).astype(np.float32)
+    windows = rng.normal(size=(24, T, 8)).astype(np.float32)
+    text = _text_pose(12, 24)
+    t2t = {"word_ids": text["word_ids"], "lengths": text["lengths"],
+           "tokens": rng.integers(0, NCL, (24, 4)).astype(np.int32)}
+    ids, lat = _clusters(13, 24)
+    cpu = {"device": "cpu"}
+    return {"dae": (pdae.train_dae, (cfg, frames, frames[:12]), cpu),
+            "seq_ae": (pseq.train_seq_ae, (cfg, windows, windows[:12]),
+                       cpu),
+            "text2token": (pt2t.train_text2token,
+                           (cfg, t2t, {k: v[:12] for k, v in t2t.items()},
+                            NWORDS), cpu),
+            "baseline": (pmisc.train_baseline,
+                         (cfg, text, {k: v[:12] for k, v in text.items()},
+                          NWORDS), cpu),
+            "c2g": (pmisc.train_c2g, (cfg, ids, lat, ids[:12], lat[:12]),
+                    cpu),
+            "gan": (pgan.train_gan, (cfg, text, NWORDS), cpu)}[trainer]
 
 
-@pytest.mark.parametrize("trainer", ["dae", "seq_ae", "text2token",
-                                     "baseline", "c2g", "gan"])
-def test_trainers_refuse_mesh_shape(trainer):
-    """mesh_shape {dp: 2}: each trainer raises NotImplementedError naming
-    queue A item 5 before it builds anything (the JAX trainers shard
-    over it, or raise without the devices)."""
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        _refusing(trainer)()
+@pytest.fixture(scope="module")
+def dp2_runs():
+    """Rank 0's (model, history) of every trainer over dp=2, from one
+    launch of 2 gloo ranks."""
+    from gesture2vec_tpu_torch.parallel import launch
+
+    got = launch.run(launch.call_all, ([_mesh_job(t, {"dp": 2})
+                                         for t in TRAINERS],),
+                     world_size=2, device="cpu")
+    return dict(zip(TRAINERS, got))
+
+
+@pytest.mark.parametrize("trainer", TRAINERS)
+def test_trainers_refuse_mesh_shape(trainer, dp2_runs):
+    """mesh_shape {dp: 2}, once refused, now trains: each trainer's dp=2
+    run (its ranks started by the trainer's own launch, dropout 0.1
+    drawn at the global batch's shape) has the single run's history
+    within 1e-4 (baseline's and c2g's val_loss, which reads the pre-BN
+    bias whose gradient is rounding, within 1e-3; see
+    tests/test_torch_port_mesh.py)."""
+    fn, args, kw = _mesh_job(trainer)
+    _, want = fn(*args, **kw)
+    _, got = dp2_runs[trainer]
+    assert sorted(got) == sorted(want)
+    for key in want:
+        rtol = 1e-3 if key == "val_loss" and trainer in ("baseline",
+                                                         "c2g") else 1e-4
+        np.testing.assert_allclose(got[key], want[key], rtol=rtol,
+                                   err_msg=key)

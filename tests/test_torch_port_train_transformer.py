@@ -76,7 +76,7 @@ def _fixed_jax_dropout(monkeypatch):
 def _fixed_port_dropout(monkeypatch):
     """The port's dropout as the fixed mask wherever a training module
     applies it."""
-    def fixed(x, rate, training):
+    def fixed(x, rate, training, batch_dim=0):
         if not training or rate <= 0.0:
             return x
         return x * torch.from_numpy(_fixed_mask(x.shape[-1]))

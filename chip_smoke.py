@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives fifteen paths of the port, each with every kernel launch
+It drives sixteen paths of the port, each with every kernel launch
 counter set to 0 just before and read just after. Phases, each printing one
 JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -341,6 +341,37 @@ staged through pinned host memory):
            ranks' shapes (GRU at B=64 and 128, also against cuDNN, VQ
            argmin on (128, 256) and (64, 512), the chunk decoder at
            B=64) against their plain versions;
+The tools path (`python -m gesture2vec_tpu_torch.cli.tools`, over the train
+path's and the misc path's checkpoints, each stage timed by
+utils/profiling.StageTimer):
+  main     the train path's DAE, GS-Soft tokenizer and GRU-encoder Part d
+           written as reference .pt payloads ({args, epoch, pose_dim,
+           gen_dict}, tests/torch_reference_layout.py) and brought back by
+           `import-checkpoint` (every tree and header bit for bit); then
+           `g2v-infer --mode decode` at 60 s over the imported files and
+           over the originals (the same tokens and frames, 1 chunk-decoder
+           and 4 gru_sequence launches each) and over the imported files
+           with --device cpu (tokens identical or a counted near-tie,
+           frames within 1e-4); the validation store's windows through
+           the imported DAE and tokenizer, card against CPU (differing
+           tokens only at near-ties of the plain log-assignment; 2
+           gru_sequence launches per 512 windows, no vq_argmin: GS-Soft
+           tokens are the soft assignment's argmax); `baseline-infer` on
+           a 12 s transcript (4 gru_sequence launches a window) and
+           `c2g-samples` over 32 clusters x 4 samples (1 chunk-decoder
+           launch at B=128, 19 steps; 2 gru_sequence for pre_gru), each
+           card against --device cpu within 1e-4; one torch.profiler trace
+           (utils/profiling.trace) of a 6 s decode request, which must
+           name the chunk-decoder kernel (launched through ctypes) and
+           the annotated stage; `unityfy` and `human-study` on the host
+           over the phase's own 2-file corpus;
+  mfu      the train path's steps/s of a, b_gssoft, d_tcn, d_gru and
+           d_recipe as model FLOPs utilization: 3x the analytic forward a
+           step (utils/flops), against the card's bf16 tensor-core and
+           fp32 CUDA-core peaks;
+  timing   the StageTimer's report;
+  check    every launch count as derived, every kernel shape compared in
+           an earlier phase;
 then the kernels line (each kernel's launches on its first path, on the
 later paths and its times at the new shapes), the nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. Any failed phase exits non-zero; without
@@ -360,6 +391,10 @@ import time
 import traceback
 
 import numpy as np
+
+from gesture2vec_tpu_torch.utils.flops import (H100_PEAK_BF16,
+                                               H100_PEAK_BYTES_S,
+                                               H100_PEAK_FP32)
 
 # kernel vs plain and fused vs module rollout: fp32 sums in another
 # order, carried through 20 recurrent steps
@@ -387,10 +422,11 @@ DECODER_EDGE_BATCHES = tuple(sorted({7, 8, 9, 128, *KERNEL_BATCHES}))
 TRAIN_VAL_DECODE = (128, N_FRAMES - 1)
 DECODER_SHAPES = tuple((B, N_FRAMES) for B in KERNEL_BATCHES) + (
     TRAIN_VAL_DECODE,)
-# published H100 SXM peaks: fp32 outside the tensor cores, HBM3; bf16
-# on the tensor cores (dense), the card's rate for bf16 operands
-PEAK_FP32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
-PEAK_BF16_FLOPS = 989e12
+# published H100 SXM peaks (utils/flops): fp32 outside the tensor cores,
+# HBM3; bf16 on the tensor cores (dense), the card's rate for bf16
+# operands
+PEAK_FP32_FLOPS, PEAK_BYTES_S = H100_PEAK_FP32, H100_PEAK_BYTES_S
+PEAK_BF16_FLOPS = H100_PEAK_BF16
 
 # Part c: the Trinity Speech-Gesture corpus as GENEA 2020 used it, 244
 # minutes at 20 fps, as 24 clips; 2 more clips validate
@@ -5214,6 +5250,8 @@ def misc_train_path(smi: str, done: dict) -> tuple:
                                                          n_words))
             emit(row)
             runs[run] = row
+        # the tools path reads the baseline's and c2g's checkpoints
+        done["misc_ckpts"] = dict(files)
 
         # -- generation over the trained checkpoints ------------------------
         store = ClipStore(stores[0])
@@ -5339,6 +5377,434 @@ def misc_train_path(smi: str, done: dict) -> tuple:
     if problems:
         raise AssertionError(f"misc_train check failed: {problems}")
     return rows, counts
+
+# -- the tools path: cli/tools, the reference importer, FLOPs, profiling --
+# (run, checkpoint kind) written as reference .pt payloads and imported
+TOOLS_IMPORTS = (("a", "DAE"), ("b_gssoft", "autoencoder_vq"),
+                 ("d_gru", "text2embedding"))
+# g2v-infer --mode decode over the imported files (the cli path's middle
+# request), baseline-infer's transcript (14 windows of 20 frames at
+# stride 16), and c2g-samples' clusters x samples: one rollout of 128
+# rows, the chunk decoder's (128, 19) that the misc path compared
+TOOLS_DECODE_S, TOOLS_BASELINE_S, TOOLS_C2G = 60.0, 12.0, (32, 4)
+# the phase's own corpus (make_dataset's data_pipe.json exports the BVH
+# files; its transcripts and motion feed unityfy and human-study): 2
+# Trinity-layout files of 12 s at 60 fps
+TOOLS_CORPUS = (2, 720)
+# the runs whose train-path steps/s give an MFU: 3x the analytic forward
+# a step (utils/flops), against the card's bf16 and fp32 peaks
+TOOLS_MFU_RUNS = ("a", "b_gssoft", "d_tcn", "d_gru", "d_recipe")
+# the profiled decode request
+TOOLS_TRACE_S = 6.0
+
+
+def write_reference_checkpoint(path: str, payload: dict, kind: str,
+                               layout) -> None:
+    """A checkpoint payload (`compat/checkpoint.load_checkpoint`'s) as
+    the reference trainer's .pt file: {args (argparse.Namespace with the
+    reference's key names), epoch, pose_dim, gen_dict (the state dict in
+    the reference's layout: tests/torch_reference_layout.py, the inverse
+    of compat/torch_import's converters)}."""
+    import torch
+
+    params = payload["params"]
+    stats = payload["extra"].get("batch_stats", {})
+    n_layers = int(payload["config"].get("n_layers", 2))
+    sd = {"DAE": lambda: layout.dae_sd(params),
+          "autoencoder_vq": lambda: layout.seq_ae_sd(params, stats,
+                                                     n_layers),
+          "text2embedding": lambda: layout.text2token_sd(params, stats,
+                                                         n_layers)}[kind]()
+    torch.save(layout.reference_payload(
+        sd, layout.reference_args(payload["config"]),
+        epoch=int(payload["epoch"]), pose_dim=int(payload["pose_dim"])),
+        path)
+
+
+def tree_leaves(tree, prefix=()) -> dict:
+    """{path: leaf} of a nested dict."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(tree_leaves(v, prefix + (k,)))
+    return out
+
+
+def same_bits(a: dict, b: dict) -> list:
+    """The paths whose leaves differ in dtype, shape or bits (or exist on
+    one side only)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    bad = sorted("/".join(p) for p in set(la) ^ set(lb))
+    for p in set(la) & set(lb):
+        x, y = np.asarray(la[p]), np.asarray(lb[p])
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                x.tobytes() != y.tobytes():
+            bad.append("/".join(p))
+    return sorted(bad)
+
+
+def mfu_forward_flops(run: str, cfg, batch: int) -> float:
+    """The analytic forward FLOPs (utils/flops) of a train-path run's
+    model at its config's widths: Part a's DAE, Part b's tokenizer, Part
+    d's TCN / GRU model or the recipe's transformer over the sentence
+    dataset's 48 word slots."""
+    from gesture2vec_tpu_torch.utils import flops
+
+    if run.startswith("a"):
+        return flops.dae_forward_flops(batch, cfg.input_motion_dim,
+                                       cfg.hidden_size)
+    if run.startswith("b"):
+        return flops.seq_ae_forward_flops(
+            batch, cfg.n_poses, cfg.rep_learning_dim, cfg.hidden_size,
+            cfg.n_layers, cfg.autoencoder_vq_components,
+            "transformer" if cfg.extras.get("seq_arch") == "transformer"
+            else "bigru")
+    kw = dict(max_words=MAXW, embed=cfg.wordembed_dim,
+              hidden=cfg.hidden_size, n_layers=cfg.n_layers,
+              n_steps=cfg.sentence_frame_length // cfg.n_poses,
+              codes=cfg.autoencoder_vq_components)
+    if cfg.extras.get("t2t_arch") == "transformer":
+        return flops.transformer_t2t_forward_flops(batch, **kw)
+    return flops.text2token_forward_flops(
+        batch, encoder=cfg.extras.get("text_encoder", "tcn"), **kw)
+
+
+def tools_path(smi: str, done: dict) -> dict:
+    """`python -m gesture2vec_tpu_torch.cli.tools` and its modules over the
+    train path's and the misc path's checkpoints (`done`), each stage
+    timed by `utils/profiling.StageTimer`: the train path's DAE, GS-Soft
+    tokenizer and GRU-encoder Part d written as reference .pt payloads
+    and brought back by `import-checkpoint` (every tree bit for bit),
+    `g2v-infer --mode decode` over the imported and the original files on
+    the card and over the imported ones on the CPU, the validation store's
+    windows through the imported tokenizer card against CPU,
+    `baseline-infer` and `c2g-samples` card against CPU, `unityfy` and
+    `human-study` over the phase's own corpus, the MFU of the train
+    path's steps (`utils/flops`), and one profiler trace of a decode
+    request, which must name the chunk-decoder kernel. Returns {run: the
+    launches on the card}."""
+    import glob
+
+    import torch
+
+    from gesture2vec_tpu_torch.cli import infer as cli_infer
+    from gesture2vec_tpu_torch.cli import make_dataset, tools
+    from gesture2vec_tpu_torch.cli._common import build_generator
+    from gesture2vec_tpu_torch.compat.checkpoint import (
+        load_checkpoint, load_checkpoint_and_model)
+    from gesture2vec_tpu_torch.compat.torch_import import merge_params
+    from gesture2vec_tpu_torch.data.datasets import pose_windows
+    from gesture2vec_tpu_torch.data.store import ClipStore
+    from gesture2vec_tpu_torch.data.teacher import (encode_windows_with_dae,
+                                                    tokenize_windows)
+    from gesture2vec_tpu_torch.infer import exporter
+    from gesture2vec_tpu_torch.train.config import load_config
+    from gesture2vec_tpu_torch.utils import flops
+    from gesture2vec_tpu_torch.utils.profiling import (StageTimer, annotate,
+                                                       trace)
+
+    layout = repo_test_module("torch_reference_layout")
+    root, stores, ckpts = done["root"], done["stores"], done["ckpts"]
+    misc = done["misc_ckpts"]
+    tdir = os.path.join(root, "tools")
+    os.makedirs(tdir, exist_ok=True)
+    timer = StageTimer(sync=True)
+    counts, problems = {}, []
+
+    # -- the phase's corpus: data_pipe.json, transcripts, motion ---------
+    with timer.stage("make_dataset"):
+        repo_test_module("fixtures")
+        n_files, n_src = TOOLS_CORPUS
+        corpus = repo_test_module("corpus").make_corpus(
+            os.path.join(tdir, "corpus"), n_files=n_files, n_frames=n_src,
+            fps=60, with_audio=False)
+        make_dataset.main([corpus, "--out", os.path.join(tdir, "ingested"),
+                           "--no-audio"])
+    pipe = os.path.join(tdir, "ingested", "data_pipe.json")
+
+    with kernel_shapes() as shapes:
+        # -- 1. the round trip through the reference layout --------------
+        imported, trees = {}, {}
+        for run, kind in TOOLS_IMPORTS:
+            src = load_checkpoint(ckpts[run])
+            pt = os.path.join(tdir, f"{run}.pt")
+            imported[run] = os.path.join(tdir, f"{run}_imported.bin")
+            with timer.stage("import_checkpoint"):
+                write_reference_checkpoint(pt, src, kind, layout)
+                tools.main(["import-checkpoint", pt, imported[run],
+                            "--kind", kind])
+            got = load_checkpoint(imported[run])
+            # leaves the reference has no counterpart of, kept from the
+            # source by merge_params
+            unmatched = sorted("/".join(p) for p in set(tree_leaves(
+                src["params"])) - set(tree_leaves(got["params"])))
+            merged = merge_params(src["params"], got["params"])
+            trees[run] = {
+                "kind": kind, "pt_bytes": os.path.getsize(pt),
+                "leaves": len(tree_leaves(got["params"])),
+                "unmatched_leaves": unmatched,
+                "params_differing": same_bits(merged, src["params"]),
+                "batch_stats_differing": same_bits(
+                    got["extra"].get("batch_stats", {}),
+                    src["extra"].get("batch_stats", {})),
+                "header": [got["kind"], got["epoch"], got["pose_dim"]],
+                "source_header": [kind, src["epoch"], src["pose_dim"]],
+                "n_words": [got["extra"].get("n_words"),
+                            src["extra"].get("n_words")]}
+            t = trees[run]
+            if t["params_differing"] or t["batch_stats_differing"] or \
+                    t["header"] != t["source_header"] or \
+                    t["n_words"][0] != t["n_words"][1] or unmatched:
+                problems.append(f"import {run}: {t}")
+        emit({"phase": "main", "path": "tools", "run": "import_checkpoint",
+              "command": "python -m gesture2vec_tpu_torch.cli.tools "
+                         "import-checkpoint ref.pt out.bin --kind KIND",
+              "imports": trees, "card": smi})
+
+        # g2v-infer over the imported files and the originals
+        transcript = write_transcript(os.path.join(tdir, "t60.json"),
+                                      TOOLS_DECODE_S, 5)
+
+        def g2v_infer(files, dev, name):
+            argv = [files["d_gru"], transcript, files["a"],
+                    files["b_gssoft"], "--store", stores[0], "--pipeline",
+                    pipe, "--mode", "decode", "--out",
+                    os.path.join(tdir, name + ".bvh"), "--device", dev]
+            reset_launches()
+            with timer.stage("g2v_infer_" + name):
+                (frames, toks, _), = cli_infer.main(argv)
+            counts["g2v_infer_" + name] = read_launches()
+            return frames, toks
+
+        n_win = int(np.ceil(TOOLS_DECODE_S / (SENT_LEN / FPS)))
+        imp = g2v_infer(imported, "cuda", "imported")
+        orig = g2v_infer(ckpts, "cuda", "original")
+        imp_cpu = g2v_infer(imported, "cpu", "imported_cpu")
+        cmp = compare_runs(imp, imp_cpu, lambda: token_margins(
+            build_generator(imported["d_gru"], imported["a"],
+                            imported["b_gssoft"], ClipStore(stores[0]),
+                            mode="decode", device="cpu", seed=0)[0],
+            [TOOLS_DECODE_S], 5)[TOOLS_DECODE_S])
+        decode = {"windows": n_win, "frames": list(imp[0].shape),
+                  "finite": bool(np.isfinite(imp[0]).all()),
+                  "imported_vs_original_tokens_identical": bool(
+                      np.array_equal(imp[1], orig[1])),
+                  "imported_vs_original_max_abs_err": float(np.abs(
+                      imp[0] - orig[0]).max()),
+                  "card_vs_cpu": cmp}
+        # a decode request of any length: one chunk-decoder rollout and
+        # the GRU text encoder's two bidirectional layers (the traced
+        # request below too)
+        want = {"chunk_decoder": 1, "gru_sequence": 4,
+                "gru_sequence_backward": 0, "vq_argmin": 0}
+        emit({"phase": "main", "path": "tools", "run": "g2v_infer_decode",
+              "seconds": TOOLS_DECODE_S, **decode, "want_launches": want,
+              "launches": {k: counts["g2v_infer_" + k] for k in (
+                  "imported", "original")}, "tol": TOL, "card": smi})
+        if imp[0].shape != (n_win * SENT_LEN, DIM) or not decode["finite"] \
+                or not decode["imported_vs_original_tokens_identical"] \
+                or not decode["imported_vs_original_max_abs_err"] <= TOL \
+                or not cmp["ok"]:
+            problems.append(f"g2v-infer over the imported files: {decode}")
+        for name in ("imported", "original"):
+            if counts["g2v_infer_" + name] != want:
+                problems.append(f"g2v-infer {name}: launches "
+                                f"{counts['g2v_infer_' + name]}, want "
+                                f"{want}")
+
+        # the validation store's windows through the imported tokenizer
+        b_cfg = load_config(load_checkpoint(ckpts["b_gssoft"])["config"])
+        train_store = ClipStore(stores[0])
+        wins = pose_windows(ClipStore(stores[1]), b_cfg.n_poses,
+                            b_cfg.subdivision_stride, train_store.pose_mean,
+                            train_store.pose_std)
+        tok = {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            dae, _ = load_checkpoint_and_model(imported["a"], "DAE", dev)
+            seq, _ = load_checkpoint_and_model(imported["b_gssoft"],
+                                               "autoencoder_vq", dev)
+            reset_launches()
+            with timer.stage("tokenize_" + side):
+                lat = encode_windows_with_dae(dae, wins)
+                tok[side] = (*tokenize_windows(seq, lat), lat)
+            counts.setdefault("tokenize", read_launches())
+        (t_card, s_card, _), (t_cpu, s_cpu, l_cpu) = tok["card"], tok["cpu"]
+        with torch.inference_mode():
+            hid_cpu = seq.encode_hidden(torch.from_numpy(l_cpu))
+        differ, ties = gssoft_near_ties(seq, hid_cpu, t_card, t_cpu)
+        batches = -(-len(wins) // 512)
+        tokenize = {"windows": len(wins), "batches": batches,
+                    "tokens_differing": differ, "near_ties": ties,
+                    "tie_margin": GSSOFT_TIE,
+                    "distinct_tokens": int(len(np.unique(t_card))),
+                    "seq_latents_max_abs_err": float(np.abs(
+                        s_card - s_cpu).max()),
+                    "launches": counts["tokenize"],
+                    "want_launches": {"chunk_decoder": 0,
+                                      "gru_sequence": 2 * batches,
+                                      "gru_sequence_backward": 0,
+                                      "vq_argmin": 0}}
+        emit({"phase": "main", "path": "tools", "run": "imported_tokenizer",
+              **tokenize, "tol": TOL, "card": smi})
+        if differ != ties or not tokenize["seq_latents_max_abs_err"] <= TOL \
+                or tokenize["launches"] != tokenize["want_launches"]:
+            problems.append(f"imported tokenizer: {tokenize}")
+
+        # -- 2. baseline-infer and c2g-samples, card against CPU ------------
+        seen, real = [], exporter.frames_to_bvh
+
+        def recording(frames, fe, path=None):
+            seen.append(np.array(frames))
+            return real(frames, fe, path=path)
+
+        bt = write_transcript(os.path.join(tdir, "t12.json"),
+                              TOOLS_BASELINE_S, 6)
+        n_clusters, per = TOOLS_C2G
+        runs = {"baseline_infer": lambda side, dev: [
+                    "baseline-infer", misc["baseline"], bt, "--store",
+                    stores[0], "--pipeline", pipe, "--out",
+                    os.path.join(tdir, f"baseline_{side}.bvh"), "--device",
+                    dev],
+                "c2g_samples": lambda side, dev: [
+                    "c2g-samples", misc["c2g"], ckpts["a"], "--store",
+                    stores[0], "--pipeline", pipe, "--out",
+                    os.path.join(tdir, f"c2g_{side}"), "--clusters",
+                    str(n_clusters), "--per-cluster", str(per), "--device",
+                    dev]}
+        n_windows = len(range(0, int(TOOLS_BASELINE_S * FPS) - N_FRAMES + 1,
+                              N_FRAMES - 4))
+        wants = {"baseline_infer": {"chunk_decoder": 0,
+                                    "gru_sequence": 4 * n_windows,
+                                    "gru_sequence_backward": 0,
+                                    "vq_argmin": 0},
+                 "c2g_samples": {"chunk_decoder": 1, "gru_sequence": 2,
+                                 "gru_sequence_backward": 0,
+                                 "vq_argmin": 0}}
+        exporter.frames_to_bvh = recording
+        try:
+            for name, argv in runs.items():
+                out = {}
+                for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+                    seen.clear()
+                    reset_launches()
+                    with timer.stage(f"{name}_{side}"):
+                        ret = tools.main(argv(side, dev))
+                    counts.setdefault(name, read_launches())
+                    out[side] = (ret, np.stack(seen))
+                (r_card, f_card), (r_cpu, f_cpu) = out["card"], out["cpu"]
+                row = {"returned": [r_card if np.isscalar(r_card) else
+                                    list(r_card.shape),
+                                    r_cpu if np.isscalar(r_cpu) else
+                                    list(r_cpu.shape)],
+                       "exported": list(f_card.shape),
+                       "finite": bool(np.isfinite(f_card).all()),
+                       "max_abs_err_vs_cpu": float(np.abs(
+                           f_card - f_cpu).max()),
+                       "tol": TOL * max(1.0, float(np.abs(f_cpu).max())),
+                       "launches": counts[name], "want_launches": wants[name]}
+                if name == "baseline_infer":
+                    row["windows"] = n_windows
+                else:
+                    row["files"] = len(glob.glob(os.path.join(
+                        tdir, "c2g_card", "*", "*.bvh")))
+                emit({"phase": "main", "path": "tools", "run": name, **row,
+                      "card": smi})
+                if not row["finite"] or f_card.shape != f_cpu.shape or \
+                        not row["max_abs_err_vs_cpu"] <= row["tol"] or \
+                        row["launches"] != row["want_launches"] or \
+                        row.get("files", n_clusters * per) != \
+                        n_clusters * per:
+                    problems.append(f"{name}: {row}")
+        finally:
+            exporter.frames_to_bvh = real
+
+        # -- 5. one profiler trace of a decode request ---------------------
+        gen, _ = build_generator(imported["d_gru"], imported["a"],
+                                 imported["b_gssoft"], train_store,
+                                 mode="decode", device="cuda")
+        gen.generate(words(TOOLS_TRACE_S, 7), TOOLS_TRACE_S)
+        log_dir = os.path.join(tdir, "trace")
+        reset_launches()
+        with timer.stage("traced_decode"):
+            with trace(log_dir):
+                with annotate("g2v_decode_request"):
+                    gen.generate(words(TOOLS_TRACE_S, 7), TOOLS_TRACE_S)
+                torch.cuda.synchronize()
+        counts["traced_decode"] = read_launches()
+        files = glob.glob(os.path.join(log_dir, "*.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        traced = {"files": [os.path.basename(f) for f in files],
+                  "bytes": len(text),
+                  "names_chunk_decode_kernel": "chunk_decode_kernel" in text,
+                  "names_gru_sequence_kernel": "gru_sequence_kernel" in text,
+                  "names_annotation": "g2v_decode_request" in text,
+                  "launches": counts["traced_decode"], "want_launches": want}
+        emit({"phase": "main", "path": "tools", "run": "trace", **traced,
+              "card": smi})
+        if len(files) != 1 or not traced["names_chunk_decode_kernel"] or \
+                not traced["names_gru_sequence_kernel"] or \
+                not traced["names_annotation"] or \
+                traced["launches"] != want:
+            problems.append(f"trace: {traced}")
+
+    # -- 3. unityfy and human-study on the host ----------------------------
+    with timer.stage("unityfy"):
+        unity = tools.main(["unityfy", os.path.join(corpus, "Transcripts"),
+                            "--out", os.path.join(tdir, "unity")])
+    motion = sorted(glob.glob(os.path.join(corpus, "Motion", "*.bvh")))[0]
+    with timer.stage("human_study"):
+        study = tools.main([
+            "human-study", motion, os.path.join(
+                corpus, "Transcripts", os.path.basename(motion)[:-4]
+                + ".json"), "--out", os.path.join(tdir, "study")])
+    host = {"unityfy_files": len(unity), "human_study_clips": len(study),
+            "human_study_files": len(os.listdir(os.path.join(tdir,
+                                                             "study")))}
+    emit({"phase": "main", "path": "tools", "run": "host_tools", **host,
+          "card": smi})
+    want_clips = int(n_src / 60 // 6)
+    if host != {"unityfy_files": n_files, "human_study_clips": want_clips,
+                "human_study_files": 2 * want_clips}:
+        problems.append(f"host tools: {host}")
+
+    # -- 4. MFU of the train path's steps ---------------------------------
+    mfu = {}
+    for run in TOOLS_MFU_RUNS:
+        row = done["runs"][run]
+        cfg = load_config(load_checkpoint(ckpts[run])["config"])
+        fwd = mfu_forward_flops(run, cfg, row["batch"])
+        secs = 1.0 / row["steps_per_s"]
+        mfu[run] = {"batch": row["batch"], "forward_flops": fwd,
+                    "step_flops": 3 * fwd, "steps_per_s": row["steps_per_s"],
+                    "mfu_bf16": flops.mfu(3 * fwd, secs),
+                    "mfu_fp32": flops.mfu(3 * fwd, secs,
+                                          flops.H100_PEAK_FP32)}
+    emit({"phase": "mfu", "path": "tools", "runs": mfu,
+          "peaks": {"bf16": flops.H100_PEAK_BF16,
+                    "fp32": flops.H100_PEAK_FP32},
+          "step_flops": "3x the analytic forward (utils/flops)",
+          "card": smi})
+
+    # -- check ---------------------------------------------------------------
+    compared = compared_shapes()
+    compared["gru_sequence"] |= {(T, B, HID) for T, B in MISC_GRU_SHAPES}
+    compared["chunk_decoder"] |= set(MISC_DECODER_SHAPES)
+    for name, counter in shapes.items():
+        missing = sorted(set(counter) - compared[name])
+        if missing:
+            problems.append(f"{name}: shapes {missing} not compared with "
+                            f"the plain version")
+    emit({"phase": "timing", "path": "tools", "stages": timer.report()
+          .splitlines(), "stages_s": timer.totals, "card": smi})
+    emit({"phase": "check", "path": "tools", "launches": counts,
+          "kernel_shapes": {name: [[list(k), v] for k, v in sorted(
+              c.items())] for name, c in shapes.items()},
+          "tol": TOL, "problems": problems})
+    if problems:
+        raise AssertionError(f"tools check failed: {problems}")
+    return counts
+
 
 def tf_part_c_path(smi: str, tmp: str, files: dict) -> dict:
     """The Part-c sweep with `seq_arch: transformer` tokenizers written as
@@ -6971,6 +7437,9 @@ def main() -> int:
         t0 = time.perf_counter()
         misc_rows, misc_counts = misc_train_path(smi, done)
         secs["misc_train_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools_counts = tools_path(smi, done)
+        secs["tools_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scale_rows, scale_counts = scale_out_path(smi)
     secs["scale_out_s"] = time.perf_counter() - t0
@@ -6993,6 +7462,7 @@ def main() -> int:
             "train": {p: c[k["name"]] for p, c in train_counts.items()},
             "misc_train": {p: c[k["name"]]
                            for p, c in misc_counts.items()},
+            "tools": {p: c[k["name"]] for p, c in tools_counts.items()},
             "scale_out": {p: c[k["name"]]
                           for p, c in scale_counts.items()}}
         shapes = {**policy_rows.get(k["name"], {}),

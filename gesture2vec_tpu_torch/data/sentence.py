@@ -6,9 +6,8 @@ the frozen Part-a DAE and Part-b tokenizer (`data/teacher.py`); for the
 audio Part d also each window's audio, at the sample its first frame's
 position in the clip gives (zeros where a clip has none, zero-padded
 past its end): one-second mel chunks (`include_audio`) or one-second raw
-chunks (`include_raw_audio`). The sentence embeddings of the JAX
-package's `sentence_embedding` argument are not ported (ROADMAP.md
-queue A item 6).
+chunks (`include_raw_audio`); and each window's sentence embedding
+from a `text/sentence_embedding` provider (`sentence_embedding`).
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
                            include_audio: bool = False,
                            include_raw_audio: bool = False,
                            audio_sr: int = 16000,
+                           sentence_embedding=None,
                            mesh=None, emit_stage_tokens: bool = False,
                            text_context_s: float = 0.0
                            ) -> Dict[str, np.ndarray]:
@@ -41,7 +41,10 @@ def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
     "stage_tokens" (N, n_steps, S) when emit_stage_tokens (a
     residual-VQ tokenizer; "tokens" is its column 0), "mel" (N, seconds,
     128, frames) when include_audio and "wav" (N, seconds, audio_sr) when
-    include_raw_audio, seconds = sentence_frame_length // fps."""
+    include_raw_audio, seconds = sentence_frame_length // fps, and
+    "sentence_emb" (N, dim) float32 when a sentence_embedding provider is
+    given (the reference's GPT3_Embedding batch slot): the provider's
+    `embed_batch` of each window's words joined by spaces."""
     mean = store.pose_mean if mean is None else mean
     std = store.pose_std if std is None else std
     wins = sentence_windows(store, sentence_frame_length, stride, fps,
@@ -73,6 +76,10 @@ def build_sentence_dataset(store, vocab, *, dae_model, seq_model,
         out["tokens"] = out["stage_tokens"][:, :, 0]
     else:
         out["tokens"] = tokens.reshape(N, n_steps).astype(np.int32)
+    if sentence_embedding is not None:
+        sentences = [" ".join(t[0] for t in w["words"]) for w in wins]
+        out["sentence_emb"] = sentence_embedding.embed_batch(
+            sentences).astype(np.float32)
     if include_audio or include_raw_audio:
         need = sentence_frame_length // fps * audio_sr
         segs = []

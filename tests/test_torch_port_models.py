@@ -222,7 +222,9 @@ def test_port_imports_nothing_of_jax():
             "train/misc_trainers.py", "train/gan_trainer.py",
             "infer/baseline_infer.py", "parallel/mesh.py",
             "parallel/launch.py", "parallel/pipeline.py",
-            "parallel/dryrun.py"} <= names
+            "parallel/dryrun.py", "cli/tools.py", "compat/torch_import.py",
+            "text/sentence_embedding.py", "utils/profiling.py",
+            "utils/flops.py"} <= names
     bad = [(str(f.relative_to(root)), m) for f in files
            for m in _imported_roots(f) if m in _BANNED]
     assert bad == []

@@ -56,6 +56,8 @@ Chunk decode (decode mode):
 dp ranks where one is given.
 `ChunkSynthesis` holds what the generator shares with the audio one
 (`infer/audio2gesture.AudioGestureGenerator`).
+Each stage of a call is a span, g2v.gen.*, and the rollout counts its
+chunks, gen.chunks_rolled and gen.chunks_real (`utils/profiling`).
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ from gesture2vec_tpu_torch.models.transformer import TransformerText2Token
 from gesture2vec_tpu_torch.ops.decoder_kernel import (fold_decoder_step,
                                                       fused_chunk_decode)
 from gesture2vec_tpu_torch.text.vocab import Vocab
+from gesture2vec_tpu_torch.utils.profiling import annotate, count
 
 
 # the decode outputs a request reads, each (windows, ...)
@@ -206,13 +209,14 @@ class ChunkSynthesis:
         n_pre = self.token_model.n_pre
         per_window = []
         for w in range(W):
-            res = self._decode_windows(
-                enc_outs[:, :, w], dec_hidden[:, :, w], seed, mask_of(w),
-                None if gumbel is None else gumbel[:, w])
-            per_window.append(res)
-            seed = torch.zeros_like(seed)
-            if n_pre:
-                seed[:, :n_pre] = res["tokens"][:, -n_pre:]
+            with annotate("gen.token_window"):
+                res = self._decode_windows(
+                    enc_outs[:, :, w], dec_hidden[:, :, w], seed,
+                    mask_of(w), None if gumbel is None else gumbel[:, w])
+                per_window.append(res)
+                seed = torch.zeros_like(seed)
+                if n_pre:
+                    seed[:, :n_pre] = res["tokens"][:, -n_pre:]
         return {k: torch.stack([r[k] for r in per_window], dim=1)
                 for k in per_window[0] if k in _PER_WINDOW}, seed
 
@@ -263,42 +267,47 @@ class ChunkSynthesis:
         seeds each row's first chunk (zeros when None), and the carry for
         a next call is the last latent frame, latents[:, -1]. overlap
         (default decode_overlap) is the crossfade's frames."""
-        seq, Fr = self.seq_decoder, self.n_frames
-        B, N = pred["tokens"].shape
+        with annotate("gen.rollout"):
+            seq, Fr = self.seq_decoder, self.n_frames
+            B, N = pred["tokens"].shape
+            count("gen.chunks_rolled", B * N)
 
-        def flat(key):
-            return None if key not in pred else pred[key].flatten(0, 1)
+            def flat(key):
+                return None if key not in pred else pred[key].flatten(0, 1)
 
-        hidden = seq.token_hidden(flat("tokens"), flat("stage"),
-                                  flat("probs"), flat("stage_probs"))
-        D = seq.rep_dim
-        if self.chunk_continuity:
-            hidden = hidden.reshape(hidden.shape[0], B, N, -1)
-            if prev is None:
-                prev = torch.zeros((B, D), dtype=torch.float32,
-                                   device=self.device)
-            chunks = []
-            for i in range(N):
-                out = self._rollout(prev, hidden[:, :, i], Fr)
-                prev = out[:, -1]
-                chunks.append(out)
-            return torch.stack(chunks, dim=1).reshape(B, N * Fr, D)
-        b = int(self.decode_overlap if overlap is None else overlap)
-        seed = torch.zeros((B * N, D), dtype=torch.float32,
-                           device=self.device)
-        out = self._rollout(seed, hidden, Fr + b)
-        if not b:
-            return out.reshape(B, N * Fr, D)
-        out = out.reshape(B, N, Fr + b, D)
-        main = out[:, :, :Fr].clone()
-        w = ((torch.arange(b, dtype=torch.float32, device=self.device) + 1.0)
-             / (b + 1.0))[:, None]
-        main[:, 1:, :b] = (1 - w) * out[:, :-1, Fr:] + w * out[:, 1:, :b]
-        return main.reshape(B, N * Fr, D)
+            hidden = seq.token_hidden(flat("tokens"), flat("stage"),
+                                      flat("probs"), flat("stage_probs"))
+            D = seq.rep_dim
+            if self.chunk_continuity:
+                hidden = hidden.reshape(hidden.shape[0], B, N, -1)
+                if prev is None:
+                    prev = torch.zeros((B, D), dtype=torch.float32,
+                                       device=self.device)
+                chunks = []
+                for i in range(N):
+                    out = self._rollout(prev, hidden[:, :, i], Fr)
+                    prev = out[:, -1]
+                    chunks.append(out)
+                return torch.stack(chunks, dim=1).reshape(B, N * Fr, D)
+            b = int(self.decode_overlap if overlap is None else overlap)
+            seed = torch.zeros((B * N, D), dtype=torch.float32,
+                               device=self.device)
+            out = self._rollout(seed, hidden, Fr + b)
+            if not b:
+                return out.reshape(B, N * Fr, D)
+            out = out.reshape(B, N, Fr + b, D)
+            main = out[:, :, :Fr].clone()
+            w = ((torch.arange(b, dtype=torch.float32, device=self.device)
+                  + 1.0) / (b + 1.0))[:, None]
+            main[:, 1:, :b] = ((1 - w) * out[:, :-1, Fr:]
+                               + w * out[:, 1:, :b])
+            return main.reshape(B, N * Fr, D)
 
     def _frames(self, frames: torch.Tensor) -> np.ndarray:
-        return unnormalize(frames.cpu().numpy(), self.pose_mean,
-                           self.pose_std)
+        with annotate("gen.frames_to_host"):
+            host = frames.cpu().numpy()
+        with annotate("gen.unnormalize"):
+            return unnormalize(host, self.pose_mean, self.pose_std)
 
     def _picks(self, tokens: Sequence[np.ndarray]) -> np.ndarray:
         """Exemplar picks for each transcript's tokens: one vectorised
@@ -377,26 +386,30 @@ class GestureGenerator(ChunkSynthesis):
         window_carry says: a streamed window continues its transcript."""
         t2t, n_steps = self.t2t_model, self.n_steps
         B, W, S = word_ids.shape
-        enc_outs, dec_hidden = t2t.encode_text(word_ids.reshape(B * W, S),
-                                               lengths.reshape(B * W))
+        with annotate("gen.encode"):
+            enc_outs, dec_hidden = t2t.encode_text(
+                word_ids.reshape(B * W, S), lengths.reshape(B * W))
         positions = torch.arange(S, device=self.device)
         next_seed = None
-        if not self.window_carry and seed is None:
-            longest = (lengths if t2t.per_sentence_mask else
-                       lengths.max(dim=1, keepdim=True).values.expand(B, W))
-            mask = positions[None, :] < longest.reshape(B * W, 1)
-            seed = torch.zeros((B * W, n_steps), dtype=torch.long,
-                               device=self.device)
-            res = self._decode_windows(
-                enc_outs, dec_hidden, seed, mask,
-                None if gumbel is None else gumbel.flatten(0, 1))
-            res = {k: v.reshape(B, W, *v.shape[1:]) for k, v in res.items()
-                   if k in _PER_WINDOW}
-        else:
-            res, next_seed = self._decode_carried(
-                enc_outs.reshape(S, B, W, -1),
-                dec_hidden.reshape(dec_hidden.shape[0], B, W, -1), seed,
-                lambda w: positions[None, :] < lengths[:, w, None], gumbel)
+        with annotate("gen.token_loop"):
+            if not self.window_carry and seed is None:
+                longest = (lengths if t2t.per_sentence_mask else
+                           lengths.max(dim=1, keepdim=True).values
+                           .expand(B, W))
+                mask = positions[None, :] < longest.reshape(B * W, 1)
+                seed = torch.zeros((B * W, n_steps), dtype=torch.long,
+                                   device=self.device)
+                res = self._decode_windows(
+                    enc_outs, dec_hidden, seed, mask,
+                    None if gumbel is None else gumbel.flatten(0, 1))
+                res = {k: v.reshape(B, W, *v.shape[1:])
+                       for k, v in res.items() if k in _PER_WINDOW}
+            else:
+                res, next_seed = self._decode_carried(
+                    enc_outs.reshape(S, B, W, -1),
+                    dec_hidden.reshape(dec_hidden.shape[0], B, W, -1), seed,
+                    lambda w: positions[None, :] < lengths[:, w, None],
+                    gumbel)
         out = self._token_outputs(res)
         if next_seed is not None:
             out["next_seed"] = next_seed
@@ -409,17 +422,19 @@ class GestureGenerator(ChunkSynthesis):
         the bucketed window count W of the longest transcript, and each
         transcript's real window count. Padded windows hold no words and
         generate throwaway frames."""
-        unit = self.sentence_frame_length / self.fps
-        wins = [max(int(np.ceil(d / unit)), 1) for d in durations_s]
-        n_padded = bucket_windows(max(wins))
-        word_ids = np.zeros((len(wins), n_padded, self.max_words), np.int64)
-        lengths = np.ones((len(wins), n_padded), np.int64)
-        for b, words in enumerate(transcripts):
-            for w in range(wins[b]):
-                word_ids[b, w], lengths[b, w] = self._window_word_ids(
-                    words, w * unit, (w + 1) * unit)
-        return (torch.from_numpy(word_ids).to(self.device),
-                torch.from_numpy(lengths).to(self.device), wins)
+        with annotate("gen.windows"):
+            unit = self.sentence_frame_length / self.fps
+            wins = [max(int(np.ceil(d / unit)), 1) for d in durations_s]
+            n_padded = bucket_windows(max(wins))
+            word_ids = np.zeros((len(wins), n_padded, self.max_words),
+                                np.int64)
+            lengths = np.ones((len(wins), n_padded), np.int64)
+            for b, words in enumerate(transcripts):
+                for w in range(wins[b]):
+                    word_ids[b, w], lengths[b, w] = self._window_word_ids(
+                        words, w * unit, (w + 1) * unit)
+            return (torch.from_numpy(word_ids).to(self.device),
+                    torch.from_numpy(lengths).to(self.device), wins)
 
     def window_inputs(self, words: List[List], duration_s: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -434,22 +449,29 @@ class GestureGenerator(ChunkSynthesis):
         """words: [[word, start_s, end_s], ...]. Returns (motion
         (n_windows * sentence_frame_length, pose_dim) unnormalized,
         tokens (n_windows * n_steps,) int32)."""
-        word_ids, lengths, n_windows = self.window_inputs(words, duration_s)
-        generator = self._next_generator()
-        pred = self._predict_windows(
-            word_ids[None], lengths[None],
-            self._noise(generator, (1, word_ids.shape[0])))
-        n_tok = n_windows * self.n_steps
-        tokens = pred["tokens"][0, :n_tok].to(torch.int32).cpu().numpy()
-        if self.mode == "exemplar":
-            picks = self._picks([tokens])
-            return self._frames(self._exemplar_decode(picks)), tokens
-        if self.chunk_continuity:
-            # a chunk depends only on the chunks before it: roll out the
-            # real ones alone
-            pred = {k: v[:, :n_tok] for k, v in pred.items()}
-        latents = self._decode_chunks(pred)[0, : n_tok * self.n_frames]
-        return self._frames(self.dae_model.decode(latents)), tokens
+        with annotate("gen.call"):
+            word_ids, lengths, n_windows = self.window_inputs(words,
+                                                              duration_s)
+            generator = self._next_generator()
+            pred = self._predict_windows(
+                word_ids[None], lengths[None],
+                self._noise(generator, (1, word_ids.shape[0])))
+            n_tok = n_windows * self.n_steps
+            with annotate("gen.tokens_to_host"):
+                tokens = pred["tokens"][0, :n_tok].to(
+                    torch.int32).cpu().numpy()
+            if self.mode == "exemplar":
+                picks = self._picks([tokens])
+                return self._frames(self._exemplar_decode(picks)), tokens
+            if self.chunk_continuity:
+                # a chunk depends only on the chunks before it: roll out
+                # the real ones alone
+                pred = {k: v[:, :n_tok] for k, v in pred.items()}
+            latents = self._decode_chunks(pred)[0, : n_tok * self.n_frames]
+            with annotate("gen.dae"):
+                frames = self.dae_model.decode(latents)
+            count("gen.chunks_real", n_tok)
+            return self._frames(frames), tokens
 
     @torch.inference_mode()
     def generate_batch(self, transcripts: List[List[List]], durations_s,
@@ -463,41 +485,45 @@ class GestureGenerator(ChunkSynthesis):
         ranks (a plain process runs them whole: `parallel/mesh`). The
         transcripts are independent, so each row's answer is the
         unsharded call's."""
-        B = len(transcripts)
-        if not isinstance(durations_s, (list, tuple, np.ndarray)):
-            durations_s = [durations_s] * B
-        if len(durations_s) != B:
-            raise ValueError(f"{len(durations_s)} durations for {B} "
-                             f"transcripts")
-        word_ids, lengths, wins = self._windows(transcripts, durations_s)
-        generator = self._next_generator()
-        noise = self._noise(generator, tuple(word_ids.shape[:2]))
-        rows = [word_ids, lengths] + ([] if noise is None else [noise])
+        with annotate("gen.call"):
+            B = len(transcripts)
+            if not isinstance(durations_s, (list, tuple, np.ndarray)):
+                durations_s = [durations_s] * B
+            if len(durations_s) != B:
+                raise ValueError(f"{len(durations_s)} durations for {B} "
+                                 f"transcripts")
+            word_ids, lengths, wins = self._windows(transcripts, durations_s)
+            generator = self._next_generator()
+            noise = self._noise(generator, tuple(word_ids.shape[:2]))
+            rows = [word_ids, lengths] + ([] if noise is None else [noise])
 
-        def run(word_ids, lengths, noise=None):
-            pred = self._predict_windows(word_ids, lengths, noise)
+            def run(word_ids, lengths, noise=None):
+                pred = self._predict_windows(word_ids, lengths, noise)
+                if self.mode == "exemplar":
+                    return (pred["tokens"],)
+                latents = self._decode_chunks(pred)
+                with annotate("gen.dae"):
+                    frames = self.dae_model.decode(latents.flatten(0, 1))
+                return pred["tokens"], frames.reshape(*latents.shape[:2], -1)
+
+            if mesh is None:
+                out = run(*rows)
+            else:
+                pad = (-B) % mesh.row_split("dp")
+                rows = [torch.cat([r, torch.full((pad,) + r.shape[1:],
+                                                 int(i == 1), dtype=r.dtype,
+                                                 device=r.device)])
+                        for i, r in enumerate(rows)]   # lengths pad with 1
+                out = [o[:B] for o in mesh.map_rows(run, rows, "dp")]
+            with annotate("gen.tokens_to_host"):
+                tokens_all = out[0].to(torch.int32).cpu().numpy()
+            per = [tokens_all[b, : wins[b] * self.n_steps] for b in range(B)]
             if self.mode == "exemplar":
-                return (pred["tokens"],)
-            latents = self._decode_chunks(pred)
-            return pred["tokens"], self.dae_model.decode(
-                latents.flatten(0, 1)).reshape(*latents.shape[:2], -1)
-
-        if mesh is None:
-            out = run(*rows)
-        else:
-            pad = (-B) % mesh.row_split("dp")
-            rows = [torch.cat([r, torch.full((pad,) + r.shape[1:],
-                                             int(i == 1), dtype=r.dtype,
-                                             device=r.device)])
-                    for i, r in enumerate(rows)]   # lengths pad with 1
-            out = [o[:B] for o in mesh.map_rows(run, rows, "dp")]
-        tokens_all = out[0].to(torch.int32).cpu().numpy()
-        per = [tokens_all[b, : wins[b] * self.n_steps] for b in range(B)]
-        if self.mode == "exemplar":
-            frames = self._frames(self._exemplar_decode(self._picks(per)))
-            bounds = np.cumsum([0] + [len(t) * self.n_frames for t in per])
-            return [(frames[bounds[b]: bounds[b + 1]], per[b])
+                frames = self._frames(self._exemplar_decode(self._picks(per)))
+                bounds = np.cumsum([0] + [len(t) * self.n_frames for t in per])
+                return [(frames[bounds[b]: bounds[b + 1]], per[b])
+                        for b in range(B)]
+            count("gen.chunks_real", sum(len(t) for t in per))
+            frames = self._frames(out[1])
+            return [(frames[b, : len(per[b]) * self.n_frames], per[b])
                     for b in range(B)]
-        frames = self._frames(out[1])
-        return [(frames[b, : len(per[b]) * self.n_frames], per[b])
-                for b in range(B)]

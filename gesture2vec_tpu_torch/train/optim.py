@@ -15,13 +15,17 @@ Under a mesh (`mesh`, set by `parallel/mesh.prepare_state`) the step
 first averages the gradients over the dp ranks, and the clip's global
 norm counts every replicated parameter once and every tp shard once
 (`parallel/mesh.Mesh.global_norm`); a shard's moments stay with it.
-`Step` returns the loss averaged over dp, the global batch's.
+`Step` returns the loss averaged over dp, the global batch's. A step is
+the span g2v.step, its phases g2v.step.forward, .backward and .optim
+(`utils/profiling.annotate`).
 """
 from __future__ import annotations
 
 from typing import Iterable, List, Optional, Tuple, Union
 
 import torch
+
+from gesture2vec_tpu_torch.utils.profiling import annotate
 
 
 class Adam:
@@ -98,12 +102,16 @@ class Step:
 
     def __call__(self, *batch) -> Union[torch.Tensor, Tuple[torch.Tensor,
                                                             ...]]:
-        self.opt.zero_grad()
-        out = self.loss(*batch)
-        (out[0] if isinstance(out, tuple) else out).backward()
-        self.opt.step()
-        if self.opt.mesh is not None:
-            return self.opt.mesh.dp_average(out)
-        if isinstance(out, tuple):
-            return tuple(t.detach() for t in out)
-        return out.detach()
+        with annotate("step"):
+            self.opt.zero_grad()
+            with annotate("step.forward"):
+                out = self.loss(*batch)
+            with annotate("step.backward"):
+                (out[0] if isinstance(out, tuple) else out).backward()
+            with annotate("step.optim"):
+                self.opt.step()
+            if self.opt.mesh is not None:
+                return self.opt.mesh.dp_average(out)
+            if isinstance(out, tuple):
+                return tuple(t.detach() for t in out)
+            return out.detach()

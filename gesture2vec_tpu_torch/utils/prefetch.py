@@ -14,7 +14,8 @@ is a context variable of the training thread (`models/layers`).
 
 The worker checks a stop event between puts, so a consumer that stops
 early (an exception mid-epoch, a generator dropped) releases the thread;
-an exception in the worker is raised in the consumer.
+an exception in the worker is raised in the consumer. The consumer's
+wait for a batch is the span g2v.feed.wait (`utils/profiling.annotate`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from gesture2vec_tpu_torch.train.token_loop import to_device
+from gesture2vec_tpu_torch.utils.profiling import annotate
 
 _SENTINEL = object()
 
@@ -82,7 +84,8 @@ def prefetch(batches: Iterable[Any], device: Union[str, torch.device],
     t.start()
     try:
         while True:
-            item = q.get()
+            with annotate("feed.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]

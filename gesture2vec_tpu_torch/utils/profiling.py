@@ -9,19 +9,63 @@
                    `torch.profiler.tensorboard_trace_handler` names it).
   StageTimer     - named wall-clock stages with device sync, for
                    pipeline-level breakdowns (ingest/teacher/train/infer).
-  annotate(name) - torch.profiler.record_function, so custom stages show
-                   up inside the trace.
+  annotate(name) - a span: while a profiler is on, a
+                   torch.profiler.record_function named "g2v.<name>", so
+                   the stage shows up inside the trace on the profiler's
+                   clock, nested under the spans open on the calling
+                   thread; the span is also kept in `spans()`. With no
+                   profiler on it is one shared null context (well under
+                   a microsecond).
+  spans()        - the spans closed while a profiler was on, oldest first,
+                   each (name, start_ns, end_ns) on the host's wall clock
+                   (`time.time_ns`, the clock torch.profiler converts its
+                   events to), the last SPAN_LOG of them: an in-process
+                   reader lays them against a profiler's device events.
+  count(name, n) - adds n to a counter; counters() returns a copy of them
+                   all. Counters always count.
+
+The program's spans, on the calling thread:
+  g2v.gen.call            generate_batch / generate, the whole call
+    g2v.gen.windows       the host's word windowing and the H2D copy
+    g2v.gen.encode        the text encoder over every window
+    g2v.gen.token_loop    the token decode (window by window, or one shot)
+      g2v.gen.token_window  one window of the carried decode
+    g2v.gen.tokens_to_host  the tokens' copy to the host
+    g2v.gen.rollout       the chunk decoder's rollout (`_decode_chunks`)
+    g2v.gen.dae           the DAE's decode of the latents
+    g2v.gen.frames_to_host  the frames' copy to the host
+    g2v.gen.unnormalize   the host's unnormalise of the frames
+  g2v.step                a trainer's `train/optim.Step` call
+    g2v.step.forward / g2v.step.backward / g2v.step.optim
+  g2v.feed.wait           `utils/prefetch`: the consumer waiting for a batch
+The counters (decode mode): gen.chunks_rolled, the chunks each rollout
+rolls out (B x N, padding included), and gen.chunks_real, the chunks whose
+frames generate_batch and generate return (the audio generator's and the
+streaming steps' rollouts count as rolled only).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
 import os
 import socket
+import threading
 import time
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+
+SPAN_PREFIX = "g2v."
+# spans kept for spans(): some 200 calls of 32 transcripts up to 30 min
+# long (~315 spans each), or 13,000 train steps (5 each)
+SPAN_LOG = 65536
+
+_OFF = contextlib.nullcontext()
+_spans: "collections.deque[Tuple[str, int, int]]" = collections.deque(
+    maxlen=SPAN_LOG)
+_counts: Dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -40,8 +84,46 @@ def trace(log_dir: str) -> Iterator[None]:
     logging.info("profiler trace written to %s", path)
 
 
-def annotate(name: str) -> torch.profiler.record_function:
-    return torch.profiler.record_function(name)
+class _Span:
+    """record_function("g2v.<name>") that also keeps its interval."""
+
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = SPAN_PREFIX + name
+        self._rf = torch.profiler.record_function(self.name)
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.time_ns()
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rf.__exit__(*exc)
+        _spans.append((self.name, self._t0, time.time_ns()))
+        return False
+
+
+def annotate(name: str):
+    """The span "g2v.<name>" while a profiler is on, else a null
+    context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def spans() -> List[Tuple[str, int, int]]:
+    return list(_spans)
+
+
+def count(name: str, n: int = 1) -> None:
+    with _count_lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    with _count_lock:
+        return dict(_counts)
 
 
 def _cuda_devices(obj: Any, found: set) -> set:

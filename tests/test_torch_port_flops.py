@@ -232,7 +232,8 @@ def test_stage_timer_synchronises_where_cuda_is_used(monkeypatch):
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     """trace(dir) on the CPU writes one Chrome trace into dir, and an
-    annotate()d stage shows up in it by name."""
+    annotate()d stage shows up in it by name, under the port's g2v.
+    prefix."""
     log_dir = str(tmp_path / "prof")
     with profiling.trace(log_dir):
         with profiling.annotate("g2v_stage"):
@@ -243,5 +244,5 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(os.path.join(log_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
-    assert "g2v_stage" in names
+    assert "g2v.g2v_stage" in names
     assert any("mm" in str(n) for n in names)

@@ -141,8 +141,7 @@ class AudioGestureGenerator(ChunkSynthesis):
         teacher seed, gumbel (1, W, ...)."""
         enc_outs, dec_hidden = self.a2t_model.encode_audio(enc_in)
         res, next_seed = self._decode_carried(
-            enc_outs[:, None], dec_hidden[:, None], seed, lambda w: None,
-            gumbel)
+            enc_outs[:, None], dec_hidden[:, None], seed, None, gumbel)
         return {**self._token_outputs(res), "next_seed": next_seed}
 
     def _motion(self, pred: Dict[str, torch.Tensor]) -> np.ndarray:

@@ -20,7 +20,9 @@ Token decode:
                       teacher prefix is the previous window's last n_pre
                       tokens (the model's n_pre: n_pre_poses, clamped to
                       >= 1 by the transformer), and its attention mask is
-                      its own length.
+                      its own length. On the card a window's decode is
+                      captured once as a CUDA graph and replayed window
+                      after window (`_decode_carried`).
   window_carry=False  all windows decode in one batch from zero seeds,
                       with the batch-max attention mask, or each window's
                       own for a model with per_sentence_mask (the
@@ -57,10 +59,14 @@ dp ranks where one is given.
 `ChunkSynthesis` holds what the generator shares with the audio one
 (`infer/audio2gesture.AudioGestureGenerator`).
 Each stage of a call is a span, g2v.gen.*, and the rollout counts its
-chunks, gen.chunks_rolled and gen.chunks_real (`utils/profiling`).
+chunks, gen.chunks_rolled and gen.chunks_real, and the carried decode its
+windows, gen.token_windows, gen.token_graph_replays and
+gen.token_graph_captures (`utils/profiling`).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -83,6 +89,11 @@ from gesture2vec_tpu_torch.utils.profiling import annotate, count
 
 # the decode outputs a request reads, each (windows, ...)
 _PER_WINDOW = ("tokens", "logits", "stage_tokens", "stage_logits")
+# CUDA graphs of a carried window a generator keeps, one a row count (its
+# shape and policy are otherwise fixed): a server's fused batches pad to
+# powers of two up to its max_batch, 32 by default, and single requests run
+# at one row, six row counts in all (`serve/server.BatchingWorker._bucket`)
+_TOKEN_GRAPHS = 8
 
 
 def bucket_windows(n_windows: int) -> int:
@@ -126,6 +137,7 @@ class ChunkSynthesis:
         self._sampling = self.temperature > 0.0 or \
             self.stage0_temperature > 0.0
         self._beam = int(self.beam_width) if self.beam_width > 1 else 0
+        self._token_graphs = collections.OrderedDict()
         soft = float(self.soft_decode)
         if self._beam and self._sampling:
             raise ValueError("beam_width>1 and temperature>0 are "
@@ -190,35 +202,131 @@ class ChunkSynthesis:
             top_k=self.top_k, stage0_temperature=self.stage0_temperature,
             gumbel=gumbel)
 
+    def _token_window(self, bufs: Dict[str, torch.Tensor]) -> None:
+        """One window of the carried decode on its staged buffers: reads
+        "enc_outs" (S, B, H), "dec_hidden" (L, B, H), "seed" (B,
+        n_steps), and "mask" (B, S) and "gumbel" (B, ...) where present;
+        puts the decode outputs of `_PER_WINDOW` in bufs under their
+        names and writes the next window's seed, the last n_pre tokens,
+        over "seed" in place. It runs eagerly, or is what a token graph
+        captured (`_token_graph`)."""
+        res = self._decode_windows(bufs["enc_outs"], bufs["dec_hidden"],
+                                   bufs["seed"], bufs.get("mask"),
+                                   bufs.get("gumbel"))
+        bufs.update((k, v) for k, v in res.items() if k in _PER_WINDOW)
+        n_pre = self.token_model.n_pre
+        seed = bufs["seed"]
+        seed.zero_()
+        if n_pre:
+            seed[:, :n_pre] = res["tokens"][:, -n_pre:]
+
+    def _token_graph_ok(self, enc_outs: torch.Tensor, W: int) -> bool:
+        """Whether the carried decode replays a CUDA graph of its window:
+        on the card, a model in eval mode without autograd, greedy or
+        sampled from given noise (not beam search), and two windows or
+        more, so that the capture pays back."""
+        return (enc_outs.is_cuda and W >= 2 and not self._beam
+                and not self.token_model.training
+                and not torch.is_grad_enabled())
+
+    def _token_graph(self, first: Dict[str, torch.Tensor],
+                     seed: torch.Tensor
+                     ) -> Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]:
+        """The CUDA graph of `_token_window` and its static buffers for
+        the shapes and the policy of `first` (a first window's inputs)
+        and `seed`: from the generator's cache (at most `_TOKEN_GRAPHS`,
+        the least recently used dropped first), else warmed up on a side
+        stream over the first window and captured, on the card of the
+        inputs, which is the current one (`_decode_carried`)."""
+        # buffers made under inference mode cannot be written outside it
+        key = (torch.is_inference_mode_enabled(), float(self.temperature),
+               int(self.top_k), float(self.stage0_temperature),
+               tuple(seed.shape), seed.device) + tuple(
+                   (k, tuple(v.shape), v.dtype) for k, v in sorted(
+                       first.items()))
+        graphs = self._token_graphs
+        if key in graphs:
+            graphs.move_to_end(key)
+            return graphs[key]
+        bufs = {k: v.clone() for k, v in first.items()}
+        bufs["seed"] = seed.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._token_window(dict(bufs))
+        torch.cuda.current_stream().wait_stream(side)
+        bufs["seed"].copy_(seed)                 # the warm-up carried it
+        graph = torch.cuda.CUDAGraph()
+        # the side stream, not torch.cuda.graph's own, which stays on the
+        # card it was first made on
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self._token_window(bufs)
+        count("gen.token_graph_captures")
+        if len(graphs) >= _TOKEN_GRAPHS:
+            # no replay of the graph dropped may still be running
+            torch.cuda.current_stream().synchronize()
+            graphs.popitem(last=False)
+        graphs[key] = graph, bufs
+        return graph, bufs
+
     def _decode_carried(self, enc_outs: torch.Tensor,
                         dec_hidden: torch.Tensor,
-                        seed: Optional[torch.Tensor], mask_of,
+                        seed: Optional[torch.Tensor],
+                        masks: Optional[torch.Tensor],
                         gumbel: Optional[torch.Tensor]
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """B rows of W windows decoded window after window, each window
         of all rows as one batch: enc_outs (S, B, W, H), dec_hidden (L,
         B, W, H), seed (B, n_steps) the first window's teacher seed (zeros
-        when None), mask_of(w) window w's attention mask (None: every
-        position), gumbel (B, W, ...) or None. Each window's seed is the
-        last n_pre tokens of the one before. Returns (the decode outputs
-        stacked (B, W, ...), the seed of a next window)."""
+        when None), masks (B, W, S) each window's attention mask (None:
+        every position), gumbel (B, W, ...) or None. Each window's seed is
+        the last n_pre tokens of the one before. Every window is staged
+        into one set of buffers and runs `_token_window` on them: where
+        `_token_graph_ok` holds, as the replay of its CUDA graph, else
+        eagerly. Returns (the decode outputs stacked (B, W, ...), copied
+        out of the buffers, and the seed of a next window)."""
         B, W = enc_outs.shape[1:3]
         if seed is None:
             seed = torch.zeros((B, self.n_steps), dtype=torch.long,
                                device=self.device)
-        n_pre = self.token_model.n_pre
-        per_window = []
-        for w in range(W):
-            with annotate("gen.token_window"):
-                res = self._decode_windows(
-                    enc_outs[:, :, w], dec_hidden[:, :, w], seed,
-                    mask_of(w), None if gumbel is None else gumbel[:, w])
-                per_window.append(res)
-                seed = torch.zeros_like(seed)
-                if n_pre:
-                    seed[:, :n_pre] = res["tokens"][:, -n_pre:]
-        return {k: torch.stack([r[k] for r in per_window], dim=1)
-                for k in per_window[0] if k in _PER_WINDOW}, seed
+        # each input with its windows leading
+        per = {"enc_outs": enc_outs.movedim(2, 0),
+               "dec_hidden": dec_hidden.movedim(2, 0),
+               "mask": None if masks is None else masks.movedim(1, 0),
+               "gumbel": None if gumbel is None else gumbel.movedim(1, 0)}
+        per = {k: v for k, v in per.items() if v is not None}
+        graph = None
+        # the capture and the replays run on the inputs' card, which need
+        # not be the current one
+        with (torch.cuda.device(enc_outs.device) if enc_outs.is_cuda
+              else contextlib.nullcontext()):
+            if self._token_graph_ok(enc_outs, W):
+                graph, bufs = self._token_graph({k: v[0] for k, v in
+                                                 per.items()}, seed)
+                bufs["seed"].copy_(seed)
+            else:
+                bufs = {k: torch.empty_like(v[0]) for k, v in per.items()}
+                bufs["seed"] = seed.clone()
+            count("gen.token_windows", W)
+            outs = None
+            for w in range(W):
+                with annotate("gen.token_window"):
+                    for k, v in per.items():
+                        bufs[k].copy_(v[w])
+                    if graph is None:
+                        self._token_window(bufs)
+                    else:
+                        graph.replay()
+                    if outs is None:
+                        outs = {k: bufs[k].new_empty((B, W,
+                                                      *bufs[k].shape[1:]))
+                                for k in _PER_WINDOW if k in bufs}
+                    for k, o in outs.items():
+                        o[:, w].copy_(bufs[k])
+            if graph is not None:
+                count("gen.token_graph_replays", W)
+            return outs, bufs["seed"].clone()
 
     def _token_outputs(self, res: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
@@ -408,8 +516,7 @@ class GestureGenerator(ChunkSynthesis):
                 res, next_seed = self._decode_carried(
                     enc_outs.reshape(S, B, W, -1),
                     dec_hidden.reshape(dec_hidden.shape[0], B, W, -1), seed,
-                    lambda w: positions[None, :] < lengths[:, w, None],
-                    gumbel)
+                    positions < lengths[:, :, None], gumbel)
         out = self._token_outputs(res)
         if next_seed is not None:
             out["next_seed"] = next_seed

@@ -59,9 +59,11 @@ dp ranks where one is given.
 `ChunkSynthesis` holds what the generator shares with the audio one
 (`infer/audio2gesture.AudioGestureGenerator`).
 Each stage of a call is a span, g2v.gen.*, and the rollout counts its
-chunks, gen.chunks_rolled and gen.chunks_real, and the carried decode its
+chunks, gen.chunks_rolled and gen.chunks_real, the carried decode its
 windows, gen.token_windows, gen.token_graph_replays and
-gen.token_graph_captures (`utils/profiling`).
+gen.token_graph_captures, and every token decode the decoder positions
+it computes and reads, gen.token_positions_computed and
+gen.token_positions_read (`utils/profiling`).
 """
 from __future__ import annotations
 
@@ -186,12 +188,23 @@ class ChunkSynthesis:
     def _noise(self, generator: Optional[torch.Generator],
                windows: Tuple[int, int]) -> Optional[torch.Tensor]:
         """Gumbel noise (B, W, n_steps - 1, token_stages, K) drawn on the
-        host, then moved to the device."""
+        host, then moved to the device (span gen.noise)."""
         if generator is None:
             return None
         t2t = self.token_model
         shape = (*windows, self.n_steps - 1, t2t.token_stages, t2t.n_tokens)
-        return gumbel_noise(shape, generator).to(self.device)
+        with annotate("gen.noise"):
+            return gumbel_noise(shape, generator).to(self.device)
+
+    def _count_positions(self, rows: int) -> None:
+        """Counts the decoder positions of `rows` window rows' token
+        decode (the token model's `decode_positions` a row, times the beam
+        width): gen.token_positions_computed, those the decoder computes,
+        and gen.token_positions_read, those the choices read."""
+        computed, read = self.token_model.decode_positions
+        rows *= max(self._beam, 1)
+        count("gen.token_positions_computed", computed * rows)
+        count("gen.token_positions_read", read * rows)
 
     def _decode_windows(self, enc_outs, dec_hidden, seed, mask, gumbel):
         if self._beam:
@@ -309,6 +322,7 @@ class ChunkSynthesis:
                 bufs = {k: torch.empty_like(v[0]) for k, v in per.items()}
                 bufs["seed"] = seed.clone()
             count("gen.token_windows", W)
+            self._count_positions(B * W)
             outs = None
             for w in range(W):
                 with annotate("gen.token_window"):
@@ -507,6 +521,7 @@ class GestureGenerator(ChunkSynthesis):
                 mask = positions[None, :] < longest.reshape(B * W, 1)
                 seed = torch.zeros((B * W, n_steps), dtype=torch.long,
                                    device=self.device)
+                self._count_positions(B * W)
                 res = self._decode_windows(
                     enc_outs, dec_hidden, seed, mask,
                     None if gumbel is None else gumbel.flatten(0, 1))

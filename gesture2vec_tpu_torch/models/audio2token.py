@@ -81,6 +81,13 @@ class Audio2Token(nn.Module):
         tokens of a window seed the next one."""
         return self.n_pre_poses
 
+    @property
+    def decode_positions(self) -> Tuple[int, int]:
+        """(positions the decoder computes, positions the choices read) in
+        one row of a window's eval decode: one GRU step a token, each
+        read."""
+        return self.n_steps - 1, self.n_steps - 1
+
     def set_use_kernels(self, on: bool) -> "Audio2Token":
         """Route the encoder BiGRU's recurrences through the Hopper kernel
         (True, the default) or its plain version."""

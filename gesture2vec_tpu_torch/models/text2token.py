@@ -430,6 +430,13 @@ class Text2Token(nn.Module):
     def use_attention(self) -> bool:
         return self.decoder_step.use_attention
 
+    @property
+    def decode_positions(self) -> Tuple[int, int]:
+        """(positions the decoder computes, positions the choices read) in
+        one row of a window's eval decode: one GRU step a token, each
+        read."""
+        return self.n_steps - 1, self.n_steps - 1
+
     def set_use_kernels(self, on: bool) -> "Text2Token":
         """Route the GRU text encoder's recurrences through the Hopper
         kernel (True, the default) or its plain version."""

@@ -305,6 +305,14 @@ class TransformerText2Token(nn.Module):
         seed the next one (window_carry)."""
         return max(1, min(self.n_pre_poses, self.n_steps))
 
+    @property
+    def decode_positions(self) -> Tuple[int, int]:
+        """(positions the decoder computes, positions the choices read) in
+        one row of a window's eval decode: each of the n_steps - 1 steps
+        re-runs the whole (n_steps - 1)-slot buffer and reads one slot."""
+        steps = self.n_steps - 1
+        return steps * steps, steps
+
     def set_use_kernels(self, on: bool) -> "TransformerText2Token":
         """No kernel runs on this model's path: nothing to route."""
         return self

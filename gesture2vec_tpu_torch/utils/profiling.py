@@ -27,6 +27,8 @@
 The program's spans, on the calling thread:
   g2v.gen.call            generate_batch / generate, the whole call
     g2v.gen.windows       the host's word windowing and the H2D copy
+    g2v.gen.noise         a sampled decode's Gumbel noise, drawn on the
+                          host and copied to the device
     g2v.gen.encode        the text encoder over every window
     g2v.gen.token_loop    the token decode (window by window, or one shot)
       g2v.gen.token_window  one window of the carried decode
@@ -41,7 +43,11 @@ The program's spans, on the calling thread:
 The counters (decode mode): gen.chunks_rolled, the chunks each rollout
 rolls out (B x N, padding included), and gen.chunks_real, the chunks whose
 frames generate_batch and generate return (the audio generator's and the
-streaming steps' rollouts count as rolled only).
+streaming steps' rollouts count as rolled only). Every token decode:
+gen.token_positions_computed, the decoder positions it computes, and
+gen.token_positions_read, those its choices read (25 and 5 a row of a
+window for the transformer, which re-runs its 5-slot buffer a token; 5
+and 5 for the GRU decoders).
 """
 from __future__ import annotations
 

@@ -300,4 +300,4 @@ def test_the_token_graph_share_entry():
     assert entry == {"name": "infer.token_graph_share", "unit": "%",
                      "better": "higher", "source": "program_counter",
                      "layer": "infer", "moves": "frames_per_s",
-                     "workloads": ["gen_batch.paper"]}
+                     "workloads": ["gen_batch.paper", "gen_batch.recipe"]}

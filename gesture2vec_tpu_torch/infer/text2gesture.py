@@ -59,7 +59,9 @@ dp ranks where one is given.
 `ChunkSynthesis` holds what the generator shares with the audio one
 (`infer/audio2gesture.AudioGestureGenerator`).
 Each stage of a call is a span, g2v.gen.*, and the rollout counts its
-chunks, gen.chunks_rolled and gen.chunks_real, the carried decode its
+chunks, gen.chunks_rolled and gen.chunks_real, the copy to the host its
+frames and the call those it returns, gen.frames_copied and
+gen.frames_returned, the carried decode its
 windows, gen.token_windows, gen.token_graph_replays and
 gen.token_graph_captures, and every token decode the decoder positions
 it computes and reads, gen.token_positions_computed and
@@ -76,7 +78,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gesture2vec_tpu_torch.data.datasets import unnormalize
+from gesture2vec_tpu_torch.data.datasets import STD_CLIP
 from gesture2vec_tpu_torch.device import resolve_device
 from gesture2vec_tpu_torch.infer.exemplar import ExemplarBank
 from gesture2vec_tpu_torch.models.dae import DAE, VAEFrame, VQFrame
@@ -161,6 +163,13 @@ class ChunkSynthesis:
                              f"but the tokenizer has {seq.stages}")
         for m in (t2t, seq, self.dae_model):
             m.to(self.device).eval()
+        # `data/datasets.unnormalize`'s statistics on the device, each in
+        # its own dtype so that the frames promote as numpy promotes them
+        self._pose_scale = torch.tensor(
+            np.atleast_1d(np.clip(self.pose_std, a_min=STD_CLIP, a_max=None)),
+            device=self.device)
+        self._pose_shift = torch.tensor(np.atleast_1d(self.pose_mean),
+                                        device=self.device)
         if self.use_fused_decoder:
             reason = seq.kernel_reason()
             if reason:
@@ -425,11 +434,26 @@ class ChunkSynthesis:
                                + w * out[:, 1:, :b])
             return main.reshape(B, N * Fr, D)
 
-    def _frames(self, frames: torch.Tensor) -> np.ndarray:
-        with annotate("gen.frames_to_host"):
-            host = frames.cpu().numpy()
+    def _frames(self, frames: torch.Tensor,
+                rows: Optional[Sequence[int]] = None) -> np.ndarray:
+        """Frames (..., pose_dim) on the device -> unnormalised on the
+        host, bitwise `unnormalize(frames.cpu().numpy(), pose_mean,
+        pose_std)`. rows, a real frame count for each row of frames
+        (B, T, pose_dim), keeps the first rows[b] frames of row b alone:
+        (sum(rows), pose_dim), row after row. From a card the frames land
+        in pinned memory, a block of the caching host allocator's each
+        call, so the arrays a caller keeps are never written again."""
         with annotate("gen.unnormalize"):
-            return unnormalize(host, self.pose_mean, self.pose_std)
+            if rows is not None:
+                frames = torch.cat([f[:n] for f, n in zip(frames, rows)])
+            # a product, then a sum, rounded each as numpy rounds them
+            frames = frames * self._pose_scale + self._pose_shift
+        with annotate("gen.frames_to_host"):
+            if frames.is_cuda:
+                frames = torch.empty(frames.shape, dtype=frames.dtype,
+                                     pin_memory=True).copy_(frames)
+            count("gen.frames_copied", frames.numel() // frames.shape[-1])
+            return frames.numpy()
 
     def _picks(self, tokens: Sequence[np.ndarray]) -> np.ndarray:
         """Exemplar picks for each transcript's tokens: one vectorised
@@ -583,17 +607,19 @@ class GestureGenerator(ChunkSynthesis):
                 tokens = pred["tokens"][0, :n_tok].to(
                     torch.int32).cpu().numpy()
             if self.mode == "exemplar":
-                picks = self._picks([tokens])
-                return self._frames(self._exemplar_decode(picks)), tokens
-            if self.chunk_continuity:
-                # a chunk depends only on the chunks before it: roll out
-                # the real ones alone
-                pred = {k: v[:, :n_tok] for k, v in pred.items()}
-            latents = self._decode_chunks(pred)[0, : n_tok * self.n_frames]
-            with annotate("gen.dae"):
-                frames = self.dae_model.decode(latents)
-            count("gen.chunks_real", n_tok)
-            return self._frames(frames), tokens
+                frames = self._exemplar_decode(self._picks([tokens]))
+            else:
+                if self.chunk_continuity:
+                    # a chunk depends only on the chunks before it: roll
+                    # out the real ones alone
+                    pred = {k: v[:, :n_tok] for k, v in pred.items()}
+                latents = self._decode_chunks(pred)[0, : n_tok * self.n_frames]
+                with annotate("gen.dae"):
+                    frames = self.dae_model.decode(latents)
+                count("gen.chunks_real", n_tok)
+            motion = self._frames(frames)
+            count("gen.frames_returned", len(motion))
+            return motion, tokens
 
     @torch.inference_mode()
     def generate_batch(self, transcripts: List[List[List]], durations_s,
@@ -640,12 +666,13 @@ class GestureGenerator(ChunkSynthesis):
             with annotate("gen.tokens_to_host"):
                 tokens_all = out[0].to(torch.int32).cpu().numpy()
             per = [tokens_all[b, : wins[b] * self.n_steps] for b in range(B)]
+            lens = [len(t) * self.n_frames for t in per]
             if self.mode == "exemplar":
                 frames = self._frames(self._exemplar_decode(self._picks(per)))
-                bounds = np.cumsum([0] + [len(t) * self.n_frames for t in per])
-                return [(frames[bounds[b]: bounds[b + 1]], per[b])
-                        for b in range(B)]
-            count("gen.chunks_real", sum(len(t) for t in per))
-            frames = self._frames(out[1])
-            return [(frames[b, : len(per[b]) * self.n_frames], per[b])
+            else:
+                count("gen.chunks_real", sum(len(t) for t in per))
+                frames = self._frames(out[1], lens)
+            count("gen.frames_returned", len(frames))
+            bounds = np.cumsum([0] + lens)
+            return [(frames[bounds[b]: bounds[b + 1]], per[b])
                     for b in range(B)]

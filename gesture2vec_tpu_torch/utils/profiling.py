@@ -35,15 +35,19 @@ The program's spans, on the calling thread:
     g2v.gen.tokens_to_host  the tokens' copy to the host
     g2v.gen.rollout       the chunk decoder's rollout (`_decode_chunks`)
     g2v.gen.dae           the DAE's decode of the latents
-    g2v.gen.frames_to_host  the frames' copy to the host
-    g2v.gen.unnormalize   the host's unnormalise of the frames
+    g2v.gen.unnormalize   the gather of each row's real frames and their
+                          unnormalise, on the device
+    g2v.gen.frames_to_host  their copy to the host (pinned from a card)
   g2v.step                a trainer's `train/optim.Step` call
     g2v.step.forward / g2v.step.backward / g2v.step.optim
   g2v.feed.wait           `utils/prefetch`: the consumer waiting for a batch
 The counters (decode mode): gen.chunks_rolled, the chunks each rollout
 rolls out (B x N, padding included), and gen.chunks_real, the chunks whose
 frames generate_batch and generate return (the audio generator's and the
-streaming steps' rollouts count as rolled only). Every token decode:
+streaming steps' rollouts count as rolled only). Every copy of frames to
+the host: gen.frames_copied, the frames (rows of pose_dim) it moves;
+generate_batch and generate: gen.frames_returned, the frames they return.
+Every token decode:
 gen.token_positions_computed, the decoder positions it computes, and
 gen.token_positions_read, those its choices read (25 and 5 a row of a
 window for the transformer, which re-runs its 5-slot buffer a token; 5

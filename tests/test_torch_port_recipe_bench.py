@@ -317,7 +317,7 @@ def test_the_new_benchmark_entries_resolve():
         "infer.frames_to_host.idle_ms_per_call",
         "infer.unnormalize.idle_ms_per_call", "infer.chunk_yield",
         "infer.token_graph_share", "infer.token_decoder_yield",
-        "infer.noise.idle_ms_per_call"}
+        "infer.noise.idle_ms_per_call", "infer.host_copy_yield"}
     for name in names:
         assert registry.metric(name).NAME == name
 
